@@ -1,0 +1,78 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel source ``csrc/<name>.cu`` exposes a plain C interface and is
+compiled by ``nvcc`` into ``build/lib<name>-<hash>.so`` beside the package
+sources (a directory ``.gitignore`` lists), at first use, then loaded with
+``ctypes``.  The file name carries a hash of the source and the flags, so a
+changed source never loads a stale library.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCE_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+
+# Hopper only: sm_90a.  No --use_fast_math (region IV of the Voigt
+# evaluator needs accurate expf/sincosf).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: dict = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: on PATH, else under PyTorch's CUDA home."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or CUDA_HOME set)")
+
+
+def library_path(name: str) -> Path:
+    src = (SOURCE_DIR / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
+    library path and the compiler's output (ptxas register and spill
+    report; empty when the library was already built)."""
+    lib = library_path(name)
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE_DIR / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)   # atomic: no process loads a half-written file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use in this process."""
+    if name not in _LOADED:
+        path, _ = build(name)
+        _LOADED[name] = ctypes.CDLL(str(path))
+    return _LOADED[name]

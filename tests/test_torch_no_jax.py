@@ -1,0 +1,53 @@
+"""The port runs where JAX is not installed: every module of
+spectrobot_tpu_torch (and chip_smoke.py) imports, and the tiny forward runs
+on CPU through ``python -m spectrobot_tpu_torch``, in a fresh interpreter
+that holds no jax."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from test_torch_cli import TINY_TOML
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, runpy, sys
+if {block}:
+    sys.modules["jax"] = None        # any import of jax now raises
+import spectrobot_tpu_torch
+for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
+                               "spectrobot_tpu_torch."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+import chip_smoke
+sys.argv = ["spectrobot_tpu_torch", "forward", {toml!r}, "--device", "cpu",
+            "-o", "run.output_dir=" + {out!r}]
+try:
+    runpy.run_module("spectrobot_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+loaded = [k for k, v in sys.modules.items()
+          if (k == "jax" or k.startswith("jax.")) and v is not None]
+assert not loaded, loaded
+if not {block}:
+    assert "jax" not in sys.modules
+print("NO_JAX_OK")
+"""
+
+
+@pytest.mark.parametrize("block", [True, False])
+def test_port_runs_without_jax(tmp_path, block):
+    toml = tmp_path / "tiny.toml"
+    toml.write_text(TINY_TOML)
+    out = tmp_path / "out"
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT.format(block=block, toml=str(toml),
+                                             out=str(out))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "NO_JAX_OK" in proc.stdout
+    assert (out / "forward.npz").exists()
