@@ -6,17 +6,26 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: the opacity kernel from spectrobot_tpu_torch/csrc (nvcc);
-  3. K1 against its plain PyTorch version on the card, in float32: the
-     forward's own limb and nadir inputs (examples/mars_limb.toml) and the
-     reference bench's production scale (2048 random lines, 8192 points,
-     20 rays, 32 levels), with and without the chi wing factor; all four
-     Voigt tiers must occur;
-  4. main path: the CLI forward of examples/mars_limb.toml through the
-     kernel (its launch count must rise), radiances checked, then the same
-     scene through the plain version;
-  5. timings with CUDA events (median of 5 after a warm-up) and the warm
-     forward wall time.
+  2. build: both kernels from spectrobot_tpu_torch/csrc (one nvcc each,
+     started together), with their ptxas reports;
+  3. K1 (the line sum) against its plain PyTorch version on the card, in
+     float32: the forward's own limb and nadir inputs
+     (examples/mars_limb.toml) and the reference bench's production scale
+     (2048 random lines, 8192 points, 20 rays, 32 levels), with and without
+     the chi wing factor; all four Voigt tiers must occur;
+  4. K2 (the basis contraction) against its plain version at the same
+     inputs with 66 random nonzero coefficient rows (33 Jacobian columns x 2
+     depths); all four tiers must occur;
+  5. main path, forward: the CLI forward of examples/mars_limb.toml through
+     K1 (its launch count must rise), radiances checked, then the same scene
+     through the plain version;
+  6. main path, retrieve: the CLI temperature retrieval of the same scene
+     (self-test observations) through K1 and K2; K2 must launch once per
+     Jacobian, the fit converge with chi2 falling, and the Jacobian at the
+     prior through the kernels agree with the plain engine's;
+  7. timings with CUDA events (median of 5 after a warm-up): each kernel
+     against its plain version, the warm forward, one warm Jacobian, and
+     the retrieval's wall time and per-iteration median.
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -31,6 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -38,18 +48,27 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(REPO, "examples", "mars_limb.toml")
-KERNEL_SOURCE = "spectrobot_tpu_torch/csrc/opacity_batch.cu"
-REPLACES = "spectrobot_tpu/ops/pallas_opacity.py:451"
-# Kernel vs plain budget (the reference's Pallas parity budget,
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "opacity_batch": ("spectrobot_tpu_torch/csrc/opacity_batch.cu",
+                      "spectrobot_tpu/ops/pallas_opacity.py:451"),
+    "basis_batch": ("spectrobot_tpu_torch/csrc/basis_batch.cu",
+                    "spectrobot_tpu/ops/pallas_opacity.py:751"),
+}
+# K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
 RTOL, ATOL_REL = 3e-5, 1e-6
+# K2 vs plain, and the kernel Jacobian vs the plain one: max |err| <=
+# K2_REL max|ref| (the reference's basis-kernel and Jacobian parity,
+# tests/test_pallas_jacobian.py:124,182).
+K2_REL = 1e-5
+K2_COLUMNS = 33            # Jacobian columns of the slice (R = 66 rows)
 PLAIN_STATES = 64          # live states the plain version checks at scale
 
 
 class K1Case(NamedTuple):
     name: str
     nu: torch.Tensor        # [P] offset grid
-    nu0: torch.Tensor       # [L] unshifted line centers (offsets)
+    windows: object         # the scene's window table (cuda_opacity.Windows)
     nu_c: torch.Tensor      # [B, L]
     sx: torch.Tensor
     y: torch.Tensor
@@ -62,9 +81,23 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke failed: {what}")
 
 
-def _prologue(lines, cg):
-    from spectrobot_tpu_torch.forward.limb import _tau_prologue
-    return [a.float().contiguous() for a in _tau_prologue(lines, cg)]
+def line_sum_inputs(run) -> tuple:
+    """The line sum's inputs as a forward gives them to K1: ``run(engine)``
+    drives the forward on an engine that records them and returns zeros.
+    Returns (nu_off, windows, nu_c, sx, y, amps), states float32."""
+    from spectrobot_tpu_torch.ops.opacity import Engine
+
+    seen = []
+
+    def record(nu, windows, nu_c, sx, y, amps, **kw):
+        seen.append((nu, windows) + tuple(
+            a.detach().float().contiguous() for a in (nu_c, sx, y, amps)))
+        return torch.zeros(amps.shape[:-1] + nu.shape, dtype=nu.dtype,
+                           device=nu.device)
+
+    run(Engine("record", record, None))
+    (inputs,) = seen
+    return inputs
 
 
 def _chi(nu_c, seed):
@@ -75,13 +108,14 @@ def _chi(nu_c, seed):
 
 def k1_cases(device, *, n_points=None, bench_lines=2048, bench_points=8192,
              bench_rays=20):
-    """The kernel inputs of phase 3 (smaller sizes for a CPU rehearsal)."""
+    """The kernel inputs of phases 3 and 4, as the port's forward gives them
+    to K1 (smaller sizes for a CPU rehearsal)."""
     from spectrobot_tpu_torch import cli
     from spectrobot_tpu_torch.data.atmosphere import (
         MARS, mars_standard_atmosphere)
     from spectrobot_tpu_torch.data.lines import random_lines
-    from spectrobot_tpu_torch.forward.geometry import limb_path_cg
     from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    from spectrobot_tpu_torch.retrieval.state import build_forward, make_state
 
     grid = {} if n_points is None else {"grid.n_points": str(n_points)}
     for mode, extra in (("limb", {}),
@@ -89,12 +123,10 @@ def k1_cases(device, *, n_points=None, bench_lines=2048, bench_points=8192,
                                    "geometry.sec_theta": "1.0,1.5,2.0"})):
         cfg = cli.load_config(SCENE, {**grid, **extra})
         scene = cli.build_scene(cfg, device)
-        cg, _ = cli.path_cg(cfg, scene)
-        nc, sx, y, amps = _prologue(scene.lines, cg)
-        base = (scene.nu_off, scene.lines.nu0, nc, sx, y, amps)
+        base = line_sum_inputs(lambda e: cli.run_forward(cfg, scene, e))
         if mode == "limb":
             yield K1Case("limb", *base, None)
-        yield K1Case(f"{mode}+chi", *base, _chi(nc, 7))
+        yield K1Case(f"{mode}+chi", *base, _chi(base[2], 7))
 
     # The reference bench's production scale (bench.py:bench_fused_pallas).
     ll = random_lines(bench_lines, 600.0, 750.0, seed=3)
@@ -102,14 +134,34 @@ def k1_cases(device, *, n_points=None, bench_lines=2048, bench_points=8192,
                                     device=device)
     atm = mars_standard_atmosphere(n_lev=32, z_top=80e3, device=device)
     nu64 = np.linspace(600.0, 750.0, bench_points)
-    nu_off = torch.as_tensor(nu64 - float(dl.nu_ref), dtype=torch.float32,
-                             device=device)
-    heights = torch.as_tensor(np.linspace(5e3, 70e3, bench_rays),
-                              dtype=torch.float32, device=device)
-    cg = limb_path_cg(atm, ["CO2"], heights, MARS, 4)
-    nc, sx, y, amps = _prologue(dl, cg)
-    yield K1Case("bench", nu_off, dl.nu0, nc, sx, y, amps, None)
-    yield K1Case("bench+chi", nu_off, dl.nu0, nc, sx, y, amps, _chi(nc, 8))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    fwd = lambda e: build_forward(
+        atm, dl, f32(nu64), ["CO2"], MARS,
+        tangent_heights_m=f32(np.linspace(5e3, 70e3, bench_rays)), n_sub=4,
+        nu_off=f32(nu64 - float(dl.nu_ref)), engine=e)
+    base = line_sum_inputs(
+        lambda e: fwd(e)(make_state(atm, [], retrieve_temperature=False)))
+    yield K1Case("bench", *base, None)
+    yield K1Case("bench+chi", *base, _chi(base[2], 8))
+
+
+def coefficient_rows(case: K1Case, n_t: int, seed: int):
+    """K2's rows for ``n_t`` random tangents of the case's line states (the
+    line sum's tangent coefficients, ops.opacity.basis_coefficients, folded
+    as its vmap rule folds them: [B, 2 n_t, L]).  Every row is nonzero,
+    also C2 (the Kx row), which a temperature-only Jacobian leaves 0."""
+    from spectrobot_tpu_torch.ops.opacity import basis_coefficients
+
+    g = torch.Generator(device=case.nu_c.device).manual_seed(seed)
+    B, L = case.nu_c.shape
+    rnd = lambda *shape: torch.randn((n_t,) + shape, generator=g,
+                                     device=case.nu_c.device)
+    C = basis_coefficients(case.sx, case.amps, rnd(B, L) * 1e-3,
+                           rnd(B, L) * case.sx * 1e-2,
+                           rnd(B, L) * case.y * 1e-2,
+                           rnd(B, 2, L) * case.amps * 1e-2)
+    return [c.transpose(0, 1).reshape(B, 2 * n_t, L).contiguous()
+            for c in C]
 
 
 def _states_checked(case: K1Case) -> torch.Tensor:
@@ -125,18 +177,22 @@ def _states_checked(case: K1Case) -> torch.Tensor:
                                 device=live.device)]
 
 
+def _sub(a, idx):
+    return None if a is None else a[idx].contiguous()
+
+
 def compare_k1(case: K1Case) -> dict:
     from spectrobot_tpu_torch.ops.cuda_opacity import (
         accumulate_batch, accumulate_batch_plain)
 
-    got = accumulate_batch(case.nu, case.nu0, case.nu_c, case.sx, case.y,
-                           case.amps, chi_b=case.chi_b)
+    got = accumulate_batch(case.nu, case.windows, case.nu_c, case.sx,
+                           case.y, case.amps, chi_b=case.chi_b)
     torch.cuda.synchronize()
     idx = _states_checked(case)
-    sub = lambda a: None if a is None else a[idx].contiguous()
-    ref = accumulate_batch_plain(case.nu, sub(case.nu_c), sub(case.sx),
-                                 sub(case.y), sub(case.amps),
-                                 chi_b=sub(case.chi_b))
+    ref = accumulate_batch_plain(case.nu, _sub(case.nu_c, idx),
+                                 _sub(case.sx, idx), _sub(case.y, idx),
+                                 _sub(case.amps, idx),
+                                 chi_b=_sub(case.chi_b, idx))
     got = got[idx]
     check(bool(torch.isfinite(got).all()), f"{case.name}: non-finite K1")
     err = (got - ref).abs()
@@ -156,11 +212,31 @@ def compare_k1(case: K1Case) -> dict:
     return row
 
 
-def plain_accumulate(nu_grid, nu0_host, *args, **kw):
-    """The plain line sum behind the kernel wrapper's signature (it needs
-    no window table, so the unshifted centers go unused)."""
-    from spectrobot_tpu_torch.ops.cuda_opacity import accumulate_batch_plain
-    return accumulate_batch_plain(nu_grid, *args, **kw)
+def compare_k2(case: K1Case, C) -> dict:
+    from spectrobot_tpu_torch.ops.cuda_basis import (
+        basis_contract_batch, basis_contract_batch_plain)
+
+    got = basis_contract_batch(case.nu, case.windows, case.nu_c, case.sx,
+                               case.y, *C, chi_b=case.chi_b)
+    torch.cuda.synchronize()
+    idx = _states_checked(case)
+    ref = basis_contract_batch_plain(
+        case.nu, _sub(case.nu_c, idx), _sub(case.sx, idx), _sub(case.y, idx),
+        *(_sub(c, idx) for c in C), chi_b=_sub(case.chi_b, idx))
+    got = got[idx]
+    check(bool(torch.isfinite(got).all()), f"{case.name}: non-finite K2")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    row = {"case": case.name, "states": int(case.nu_c.shape[0]),
+           "checked": int(idx.numel()), "lines": int(case.nu_c.shape[1]),
+           "points": int(case.nu.shape[0]), "rows": int(C[0].shape[1]),
+           "max_abs_err": err, "max_ref": scale,
+           "budget": f"{K2_REL:g}*max|ref|",
+           "err_over_budget": err / (K2_REL * scale)}
+    print(f"K2 vs plain: {json.dumps(row)}")
+    check(err <= K2_REL * scale, f"{case.name}: K2 disagrees with the plain "
+                                 f"version ({err:.3g} of max {scale:.3g})")
+    return row
 
 
 def cuda_ms(fn, n: int = 5) -> float:
@@ -179,6 +255,23 @@ def cuda_ms(fn, n: int = 5) -> float:
     return float(np.median(times))
 
 
+def build_kernels() -> None:
+    """Both kernels from the checkout's sources, one nvcc each, in
+    parallel; prints each build's time and ptxas report."""
+    from spectrobot_tpu_torch.kernels import build
+
+    def one(name):
+        t0 = time.time()
+        path, log = build.build(name)
+        return name, path, log, time.time() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for name, path, log, secs in pool.map(one, KERNELS):
+            print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s")
+            for line in log.splitlines():
+                print(f"  nvcc {name}: {line}")
+
+
 def main() -> int:
     # Phase 1: environment.
     if not torch.cuda.is_available():
@@ -187,7 +280,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from spectrobot_tpu_torch import cli
-    from spectrobot_tpu_torch.kernels import build
+    from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_opacity as co
 
     dev = torch.device("cuda")
@@ -201,38 +294,50 @@ def main() -> int:
     print(f"card: {card}")
 
     # Phase 2: build from the checkout's sources.
-    t0 = time.time()
-    lib_path, log = build.build("opacity_batch")
-    build_s = time.time() - t0
-    print(f"build: {os.path.relpath(lib_path, REPO)} in {build_s:.2f} s")
-    for line in log.splitlines():
-        print(f"  nvcc: {line}")
+    build_kernels()
     co._library()
+    cb._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
     rows = {}
     cases = {}
     for case in k1_cases(dev):
-        counts = co.tier_counts(case.nu, case.nu0, case.nu_c, case.sx,
-                                case.y, case.amps)
+        counts = co.tier_counts(case.windows, case.nu_c, case.sx, case.y,
+                                case.amps)
         print(f"tiers {case.name}: {json.dumps(counts)}")
         for k, v in counts.items():
             tiers[k] += v
         rows[case.name] = compare_k1(case)
         cases[case.name] = case
     check(all(v > 0 for v in tiers.values()),
-          f"not every Voigt tier was exercised: {tiers}")
+          f"not every Voigt tier was exercised by K1: {tiers}")
 
-    # Phase 4: the main path, through the CLI.
+    # Phase 4: K2 against the plain version (its tiers are K1's on the
+    # same line states: the rows are amps-scaled, so the same states live).
+    rows2, coeffs = {}, {}
+    tiers2 = {name: 0 for name in co.TIERS}
+    for seed, name in enumerate(("limb", "nadir+chi", "bench")):
+        case = cases[name]
+        coeffs[name] = coefficient_rows(case, K2_COLUMNS, seed)
+        for k, v in co.tier_counts(case.windows, case.nu_c, case.sx,
+                                   case.y, case.amps).items():
+            tiers2[k] += v
+        rows2[name] = compare_k2(case, coeffs[name])
+    print(f"K2 tiers over its cases: {json.dumps(tiers2)}")
+    check(all(v > 0 for v in tiers2.values()),
+          f"not every Voigt tier was exercised by K2: {tiers2}")
+
+    # Phase 5: the main path, forward, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
-        co.LAUNCHES = 0
+        co.LAUNCHES = cb.LAUNCHES = 0
         cli.main(["forward", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
-        launches = co.LAUNCHES
+        fwd_launches = (co.LAUNCHES, cb.LAUNCHES)
         with np.load(os.path.join(tmp, "forward.npz")) as out:
             I, chans = out["values"], out["nu"]
-    check(launches > 0, "the CLI forward never launched the kernel")
+    print(f"forward launches: K1 {fwd_launches[0]}, K2 {fwd_launches[1]}")
+    check(fwd_launches[0] > 0, "the CLI forward never launched K1")
     check(I.shape == (20, 96), f"radiance shape {I.shape} != (20, 96)")
     check(bool(np.isfinite(I).all() and (I >= 0).all()),
           "radiances not finite and non-negative")
@@ -242,7 +347,7 @@ def main() -> int:
           "band radiance does not fall with tangent height")
     cfg = cli.load_config(SCENE)
     scene = cli.build_scene(cfg, dev)
-    I_plain = cli.run_forward(cfg, scene, plain_accumulate)
+    I_plain = cli.run_forward(cfg, scene, cb.PLAIN)
     I_plain = I_plain.cpu().numpy()
     fwd_err = float(np.abs(I - I_plain).max())
     print(f"forward kernel vs plain: max |err| {fwd_err:.3e}, "
@@ -250,34 +355,115 @@ def main() -> int:
     np.testing.assert_allclose(I, I_plain, rtol=1e-4,
                                atol=1e-5 * np.abs(I_plain).max())
 
-    # Phase 5: timings.
+    # Phase 6: the main path, retrieve, through the CLI.
+    with tempfile.TemporaryDirectory() as tmp:
+        co.LAUNCHES = cb.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli.main(["retrieve", SCENE, "-o", f"run.output_dir={tmp}",
+                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        ret_wall = time.perf_counter() - t0
+        ret_launches = (co.LAUNCHES, cb.LAUNCHES)
+        with np.load(os.path.join(tmp, "retrieval.npz")) as out:
+            res = {k: out[k] for k in out.files}
+        with open(os.path.join(tmp, "run.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+    n_iter, chi2 = int(res["n_iter"]), float(res["chi2"])
+    iters = [r for r in log if "chi2" in r]
+    n_y = int(res["y_obs"].size)
+    print(f"retrieve launches: K1 {ret_launches[0]}, K2 {ret_launches[1]} "
+          f"({n_iter} LM iterations)")
+    print(f"retrieve: converged {bool(res['converged'])} "
+          f"({res['stop_reason']}), chi2 {iters[0]['chi2']:.6g} at the "
+          f"prior -> {chi2:.6g} over {n_y} measurements, "
+          f"{res['x'].size} parameters")
+    check(ret_launches[0] > 0, "the CLI retrieve never launched K1")
+    check(ret_launches[1] == n_iter + 1,
+          f"K2 launched {ret_launches[1]} times for {n_iter + 1} Jacobians")
+    check(bool(res["converged"]), "the retrieval did not converge")
+    check(chi2 < iters[0]["chi2"], "chi2 did not fall")
+    check(all(bool(np.isfinite(v).all()) for v in res.values()
+              if v.dtype.kind == "f"), "retrieval.npz holds non-finite values")
+
+    # The Jacobian at the prior, through the kernels and the plain engine.
+    prob = {e.name: cli.retrieval_problem(cfg, scene, e)
+            for e in (cb.KERNELS, cb.PLAIN)}
+    n_x = int(prob["kernels"].x0.shape[0])
+    jac = {name: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0])
+           for name, p in prob.items()}
+    x0 = prob["kernels"].x0
+    torch.cuda.reset_peak_memory_stats()
+    J = jac["kernels"](x0)
+    torch.cuda.synchronize()
+    jac_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    J_plain = jac["plain"](x0)
+    jac_err = float((J - J_plain).abs().max())
+    jac_max = float(J_plain.abs().max())
+    print(f"Jacobian {tuple(J.shape)} kernels vs plain: max |err| "
+          f"{jac_err:.3e} of max |K| {jac_max:.3e} "
+          f"({jac_err / jac_max:.3e}); peak device memory {jac_peak_gb:.2f} GB")
+    check(bool(torch.isfinite(J).all()), "non-finite Jacobian")
+    check(jac_err <= K2_REL * jac_max,
+          "the kernel Jacobian disagrees with the plain one")
+
+    # Phase 7: timings.
     def k1(case, fn):
-        return lambda: fn(case.nu, case.nu0, case.nu_c, case.sx, case.y,
-                          case.amps, chi_b=case.chi_b)
+        return lambda: fn(case.nu, case.windows, case.nu_c, case.sx,
+                          case.y, case.amps, chi_b=case.chi_b)
+
+    def k2(case, fn):
+        return lambda: fn(case.nu, case.windows, case.nu_c, case.sx,
+                          case.y, *coeffs[case.name], chi_b=case.chi_b)
 
     times = {}
     for name in ("limb", "bench"):
         c = cases[name]
-        times[name] = (cuda_ms(k1(c, co.accumulate_batch)),
-                       cuda_ms(k1(c, plain_accumulate)))
-        print(f"time {name} [{card}]: K1 {times[name][0]:.3f} ms, plain "
-              f"{times[name][1]:.3f} ms ({c.nu_c.shape[0]} states x "
-              f"{c.nu_c.shape[1]} lines x {c.nu.shape[0]} points)")
+        times["K1", name] = (cuda_ms(k1(c, co.accumulate_batch)),
+                             cuda_ms(k1(c, cb.PLAIN.accumulate)))
+        print(f"time K1 {name} [{card}]: kernel {times['K1', name][0]:.3f} "
+              f"ms, plain {times['K1', name][1]:.3f} ms "
+              f"({c.nu_c.shape[0]} states x {c.nu_c.shape[1]} lines x "
+              f"{c.nu.shape[0]} points)")
+    c = cases["limb"]
+    times["K2", "limb"] = (cuda_ms(k2(c, cb.basis_contract_batch)),
+                           cuda_ms(k2(c, cb.PLAIN.contract)))
+    print(f"time K2 limb [{card}]: kernel {times['K2', 'limb'][0]:.3f} ms, "
+          f"plain {times['K2', 'limb'][1]:.3f} ms ({c.nu_c.shape[0]} states "
+          f"x {c.nu_c.shape[1]} lines x {c.nu.shape[0]} points x "
+          f"{2 * K2_COLUMNS} rows)")
+    c = cases["bench"]
+    k2_bench = cuda_ms(k2(c, cb.basis_contract_batch))
+    print(f"time K2 bench [{card}]: kernel {k2_bench:.3f} ms "
+          f"({c.nu_c.shape[0]} states x {c.nu_c.shape[1]} lines x "
+          f"{c.nu.shape[0]} points x {2 * K2_COLUMNS} rows)")
     walls = []
     for _ in range(4):
         t0 = time.perf_counter()
-        cli.run_forward(cfg, scene, co.accumulate_batch)
+        cli.run_forward(cfg, scene, cb.KERNELS)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"warm forward wall [{card}]: {1e3 * np.median(walls[1:]):.2f} ms "
           f"(median of 3 after a warm-up; examples/mars_limb.toml)")
+    fwd_ms = cuda_ms(lambda: prob["kernels"].fwd_flat(x0))
+    jac_ms = cuda_ms(lambda: jac["kernels"](x0))
+    print(f"time warm forward [{card}]: {fwd_ms:.2f} ms; warm Jacobian "
+          f"({n_x} columns): {jac_ms:.2f} ms (examples/mars_limb.toml, "
+          f"the retrieval's flat forward)")
+    it_walls = [r["wall_s"] for r in iters]
+    print(f"time retrieve [{card}]: {ret_wall:.2f} s wall ({n_iter} LM "
+          f"iterations, first call of the process), per-iteration median "
+          f"{1e3 * np.median(it_walls):.2f} ms")
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "opacity_batch", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": rows["limb"]["max_abs_err"],
-        "ms": times["limb"][0], "plain_ms": times["limb"][1]}]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches,
+         "max_abs_err": row["max_abs_err"], "ms": t[0], "plain_ms": t[1]}
+        for name, launches, row, t in (
+            ("opacity_batch", ret_launches[0], rows["limb"],
+             times["K1", "limb"]),
+            ("basis_batch", ret_launches[1], rows2["limb"],
+             times["K2", "limb"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

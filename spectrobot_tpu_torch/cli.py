@@ -1,19 +1,23 @@
 """Command-line entry point of the port:
 
-    python -m spectrobot_tpu_torch forward cfg.toml [-o section.key=value ...]
-                                              [--device {cuda,cpu}]
+    python -m spectrobot_tpu_torch forward  cfg.toml [-o section.key=value ...]
+                                               [--device {cuda,cpu}]
+    python -m spectrobot_tpu_torch retrieve cfg.toml [...]
     python -m spectrobot_tpu_torch info
 
 It reads the reference's TOML schema (``spectrobot_tpu.config``) and writes
-``run.output_dir/forward.npz`` in the reference's layout.  The forward is the
-single-device line-by-line limb/nadir path in local thermodynamic
-equilibrium; every configuration feature outside it raises
+``run.output_dir/forward.npz``, or ``retrieval.npz`` and ``run.jsonl``, in
+the reference's layout.  The forward is the single-device line-by-line
+limb/nadir path in local thermodynamic equilibrium; ``retrieve`` fits it to
+observations with forward-mode Jacobians and the Levenberg-Marquardt
+optimal-estimation loop.  Every configuration feature outside that raises
 ``NotImplementedError`` naming its key.
 
-Engine rule: on CUDA the opacity line sum runs in the CUDA kernel
-(``compute.use_pallas = true`` with ``compute.variant = "humlicek4"`` in
-float32); on the CPU its plain PyTorch version runs.  ``--device cuda``
-without a GPU raises; nothing falls back to the CPU.
+Engine rule: on CUDA the opacity line sum runs in the CUDA kernels (K1 for
+the primal, K2 for the Jacobian; ``compute.use_pallas = true`` with
+``compute.variant = "humlicek4"`` in float32); on the CPU their plain
+PyTorch versions run.  ``--device cuda`` without a GPU raises; nothing falls
+back to the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import json
 import os
 import sys
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,12 +35,14 @@ import torch
 from spectrobot_tpu.config import Config, load_config
 from spectrobot_tpu_torch.data import atmosphere as atm_mod
 from spectrobot_tpu_torch.data.lines import configured_lines
-from spectrobot_tpu_torch.forward.geometry import limb_path_cg, nadir_path_cg
-from spectrobot_tpu_torch.forward.limb import layer_tau_kernel, radiance_from_tau
-from spectrobot_tpu_torch.ops.cuda_opacity import (
-    accumulate_batch, accumulate_batch_plain)
-from spectrobot_tpu_torch.ops.ils import apply_ils, ils_matrix
+from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
+from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
+from spectrobot_tpu_torch.ops.ils import ils_matrix
+from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+from spectrobot_tpu_torch.retrieval.state import (
+    NodeBasis, build_forward, flatten_state, jacobian_fwd_chunked,
+    make_state)
 from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
 # Where each unported feature will come from (ROADMAP.md, Queue 1).
@@ -83,22 +89,20 @@ def check_ported(cfg) -> None:
                           _LATER_PHYSICS + ", 2-D atmospheres")
 
 
-def select_accumulate(cfg, device: torch.device):
-    """The engine rule: the opacity line sum, checked against the
-    configuration on CUDA.  :func:`accumulate_batch` itself sends CPU
-    tensors to its plain version, in any dtype."""
-    if device.type == "cpu":
-        return accumulate_batch
-    if not cfg.compute.use_pallas:
+def select_engine(cfg, device: torch.device) -> Engine:
+    """The engine rule: the line sum's kernels (K1 and K2), checked against
+    the configuration on CUDA.  Their wrappers themselves send CPU tensors
+    to the plain versions, in any dtype."""
+    if device.type != "cpu" and not cfg.compute.use_pallas:
         raise NotImplementedError(
-            "compute.use_pallas = false on CUDA: the CUDA opacity kernel is "
-            "the port's only CUDA engine (set compute.use_pallas = true, or "
-            "run the plain version with --device cpu)")
-    if cfg.compute.dtype != "float32":
+            "compute.use_pallas = false on CUDA: the CUDA opacity kernels "
+            "are the port's only CUDA engine (set compute.use_pallas = "
+            "true, or run the plain versions with --device cpu)")
+    if device.type != "cpu" and cfg.compute.dtype != "float32":
         raise NotImplementedError(
             f"compute.dtype = {cfg.compute.dtype!r} on CUDA: the CUDA "
-            f"opacity kernel is float32 (run float64 with --device cpu)")
-    return accumulate_batch
+            f"opacity kernels are float32 (run float64 with --device cpu)")
+    return KERNELS
 
 
 def _build_atmosphere(cfg, device):
@@ -124,6 +128,7 @@ class Scene(NamedTuple):
     nu_off: torch.Tensor       # [P] grid - lines.nu_ref, staged from f64
     W: object                  # [n_chan, P] ILS matrix or None
     chans: np.ndarray          # output axis (channels, or the fine grid)
+    windows: Windows           # the kernels' window table, built once
 
 
 def build_scene(cfg, device: torch.device) -> Scene:
@@ -159,37 +164,46 @@ def build_scene(cfg, device: torch.device) -> Scene:
         # Built on the compute-dtype grid, as the reference builds it.
         W = torch.as_tensor(ils_matrix(nu.cpu().numpy(), chans, ins.fwhm_cm1,
                                        ins.shape), dtype=dtype, device=device)
-    return Scene(planet, atm, dl, species_names, nu, nu_off, W, chans)
+    windows = line_windows(nu_off, dl.nu0,
+                           cutoff_cm1=cfg.compute.cutoff_cm1)
+    return Scene(planet, atm, dl, species_names, nu, nu_off, W, chans,
+                 windows)
 
 
-def path_cg(cfg, scene: Scene):
-    """The configured rays' Curtis-Godson states, and the surface
-    temperature (None for limb rays)."""
+def n_rays(cfg) -> int:
     g = cfg.geometry
+    return len(g.tangent_heights_km if g.mode == "limb" else g.sec_theta)
+
+
+def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS):
+    """F: state -> y (``retrieval.state.build_forward``) of the configured
+    rays over ``atm`` (default: the scene's), the line sum on ``engine``."""
+    g = cfg.geometry
+    atm = scene.atm if atm is None else atm
     dtype, device = scene.nu.dtype, scene.nu.device
+    rays = {}
     if g.mode == "limb":
-        h_t = torch.as_tensor(np.asarray(g.tangent_heights_km, float) * 1e3,
-                              dtype=dtype, device=device)
-        return limb_path_cg(scene.atm, scene.species_names, h_t,
-                            scene.planet, g.n_sub), None
-    sec = torch.as_tensor(g.sec_theta, dtype=dtype, device=device)
-    return (nadir_path_cg(scene.atm, scene.species_names, sec, g.n_sub),
-            g.t_surface)
+        rays["tangent_heights_m"] = torch.as_tensor(
+            np.asarray(g.tangent_heights_km, float) * 1e3, dtype=dtype,
+            device=device)
+    else:
+        rays["sec_theta"] = torch.as_tensor(g.sec_theta, dtype=dtype,
+                                            device=device)
+        rays["T_surface"] = g.t_surface
+    return build_forward(atm, scene.lines, scene.nu, scene.species_names,
+                         scene.planet, emissivity=g.emissivity,
+                         ils_W=scene.W, n_sub=g.n_sub,
+                         cutoff_cm1=cfg.compute.cutoff_cm1,
+                         nu_off=scene.nu_off, engine=engine,
+                         windows=scene.windows, **rays)
 
 
-def run_forward(cfg, scene: Scene, accumulate) -> torch.Tensor:
+def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:
     """Radiances of the configured rays ([R, n_chan] with the instrument,
-    else [R, P]), with ``accumulate`` as the opacity line sum."""
-    cg, t_surf = path_cg(cfg, scene)
-    dtau, dtau_em = layer_tau_kernel(scene.nu_off, scene.lines, cg,
-                                     cutoff_cm1=cfg.compute.cutoff_cm1,
-                                     accumulate=accumulate)
-    I = radiance_from_tau(scene.nu.to(dtau.dtype), cg, dtau, dtau_em,
-                          T_surface=t_surf,
-                          emissivity=cfg.geometry.emissivity)
-    if scene.W is not None:
-        I = apply_ils(I, scene.W)
-    return I
+    else [R, P]), with the line sum on ``engine``."""
+    fwd = scene_forward(cfg, scene, engine=engine)
+    return fwd(make_state(scene.atm, [], retrieve_temperature=False)
+               ).reshape(n_rays(cfg), -1)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -200,10 +214,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def cmd_forward(cfg, device: torch.device) -> dict:
-    accumulate = select_accumulate(cfg, device)
+    engine = select_engine(cfg, device)
     scene = build_scene(cfg, device)
     t0 = time.time()
-    I = run_forward(cfg, scene, accumulate)
+    I = run_forward(cfg, scene, engine)
     I = I.cpu().numpy()                 # waits for the device
     wall = time.time() - t0
 
@@ -222,12 +236,249 @@ def cmd_forward(cfg, device: torch.device) -> dict:
             "device": str(device)}
 
 
+def _check_obs_consistency(cfg, obs, chans, n_chan):
+    """A loaded observation must match the configured geometry and channel
+    grid: a silent mismatch would fit real data with the wrong forward
+    model, so every discrepancy names the config key to fix."""
+    if cfg.geometry.mode == "limb":
+        got = (None if obs.tangent_heights_m is None
+               else np.asarray(obs.tangent_heights_m) / 1e3)
+        want = np.asarray(cfg.geometry.tangent_heights_km, dtype=float)
+        what = "geometry.tangent_heights_km"
+    else:
+        got = None if obs.sec_theta is None else np.asarray(obs.sec_theta)
+        want = np.asarray(cfg.geometry.sec_theta, dtype=float)
+        what = "geometry.sec_theta"
+    if got is not None and (got.shape != want.shape
+                            or not np.allclose(got, want, rtol=1e-6)):
+        raise ValueError(
+            f"observation file {cfg.retrieval.obs_path!r} has "
+            f"{what.split('.')[1]} {np.round(got, 3).tolist()} but the "
+            f"config requests {want.tolist()}: set {what} to match the "
+            f"file (the forward model is built from the config)")
+    if obs.n_chan != n_chan or not np.allclose(
+            np.asarray(obs.nu_channels), np.asarray(chans), rtol=0, atol=1e-6):
+        raise ValueError(
+            f"observation file {cfg.retrieval.obs_path!r} has {obs.n_chan} "
+            f"channels on [{float(obs.nu_channels[0]):.3f}, "
+            f"{float(obs.nu_channels[-1]):.3f}] cm-1 but the configured "
+            f"instrument produces {n_chan} on [{float(chans[0]):.3f}, "
+            f"{float(chans[-1]):.3f}]: adjust instrument.n_channels / "
+            f"chan_min / chan_max (or grid.*) to match the file")
+
+
+def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int):
+    """The Jacobian callable, with the reference's memory guard: the
+    unchunked ``torch.func.jacfwd`` carries an (n_x x n_y)-sized tangent
+    batch through the line sum; above ~8 GB of float32 tangents (or when
+    retrieval.jac_chunk > 0) :func:`jacobian_fwd_chunked` bounds it."""
+    chunk = cfg.retrieval.jac_chunk
+    if chunk == 0:
+        est_bytes = 4.0 * n_x * n_rays(cfg) * (cfg.scene.n_levels - 1) * n_fine
+        chunk = 16 if est_bytes > 8e9 else None
+    if chunk:
+        print(f"jacobian: chunked forward-mode ({chunk} tangent columns)",
+              file=sys.stderr)
+        return lambda x: jacobian_fwd_chunked(fwd_flat, x, chunk=int(chunk))
+    return torch.func.jacfwd(fwd_flat)
+
+
+def _node_basis(cfg, atm):
+    """The configured coarse retrieval grid (retrieval.node_alt_km or
+    retrieval.n_nodes), or None to retrieve at every model level."""
+    r = cfg.retrieval
+    if r.node_alt_km:
+        # TOML float lists and "-o retrieval.node_alt_km=[a,b]" strings.
+        node_km = [float(str(v).strip("[] ")) for v in r.node_alt_km]
+        return NodeBasis(atm.z.cpu().numpy(),
+                         np.asarray(node_km, np.float64) * 1e3)
+    if r.n_nodes:
+        if r.n_nodes < 2:
+            raise ValueError(
+                f"retrieval.n_nodes ({r.n_nodes}) must be >= 2 (or 0 to "
+                f"retrieve at every model level)")
+        return NodeBasis.uniform(atm, r.n_nodes)
+    return None
+
+
+class RetrievalProblem(NamedTuple):
+    atm: atm_mod.Atmosphere    # the prior atmosphere, in the compute dtype
+    nb: Optional[NodeBasis]    # the coarse node grid, or None
+    init: object               # atmosphere -> state (levels or nodes)
+    x0: torch.Tensor           # the flat prior state
+    fwd_flat: object           # F: flat state -> y [n_ray * n_chan]
+
+
+def retrieval_problem(cfg, scene: Scene,
+                      engine: Engine = KERNELS) -> RetrievalProblem:
+    """The configured retrieval's state at the prior and its flat forward
+    model, with the line sum on ``engine``.  The scene's atmosphere is cast
+    to the compute dtype (float32 on the card, where the line sum and its
+    tangent run in K1 and K2)."""
+    atm = scene.atm.to(scene.nu.dtype)
+    retrieve_vmr = list(cfg.retrieval.retrieve_vmr)
+    ret_T = cfg.retrieval.retrieve_temperature
+    if not ret_T and not retrieve_vmr:
+        raise ValueError("nothing to retrieve: enable "
+                         "retrieval.retrieve_temperature or list species in "
+                         "retrieval.retrieve_vmr")
+    nb = _node_basis(cfg, atm)
+    if nb is None:
+        init = lambda a: make_state(a, retrieve_vmr,
+                                    retrieve_temperature=ret_T)
+        expand = lambda s: s
+    else:
+        init = lambda a: nb.init_state(a, retrieve_vmr,
+                                       retrieve_temperature=ret_T)
+        expand = nb.expand
+    x0, unravel = flatten_state(init(atm))
+    fwd = scene_forward(cfg, scene, atm, engine)
+    return RetrievalProblem(atm, nb, init, x0,
+                            lambda x: fwd(expand(unravel(x))))
+
+
+def cmd_retrieve(cfg, device: torch.device) -> dict:
+    """Fit the configured forward to observations: ``retrieval.obs_path``,
+    else a self-test truth that perturbs every retrieved quantity.  Writes
+    retrieval.npz and run.jsonl.
+
+    Dtypes: the state, the forward and the Jacobian run in the compute
+    dtype (:func:`retrieval_problem`), the LM algebra in float64 on the
+    host."""
+    from spectrobot_tpu.retrieval.obs import Observation
+    from spectrobot_tpu.utils.checkpoint import Checkpointer
+    from spectrobot_tpu.utils.runlog import RunLogger
+    from spectrobot_tpu_torch.retrieval.oe import OEConfig, retrieve
+
+    engine = select_engine(cfg, device)
+    scene = build_scene(cfg, device)
+    dtype = scene.nu.dtype
+    atm, nb, init, x0, fwd_flat = retrieval_problem(cfg, scene, engine)
+    retrieve_vmr = list(cfg.retrieval.retrieve_vmr)
+    ret_T = cfg.retrieval.retrieve_temperature
+    if nb is not None:
+        print(f"retrieving on {nb.n_nodes} altitude nodes "
+              f"({nb.z_nodes[0] / 1e3:.1f}-{nb.z_nodes[-1] / 1e3:.1f} km) "
+              f"mapped to {atm.n_lev} levels", file=sys.stderr)
+    n_fine = int(scene.nu.shape[0])
+    jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine)
+
+    # Prior blocks in the flat order: "T", then the VMR profiles by sorted
+    # species name, each one profile of the parameter basis.
+    n_lev = atm.n_lev
+    n_par = nb.n_nodes if nb is not None else n_lev
+    blocks = ([np.full(n_par, cfg.retrieval.sigma_T ** 2)] if ret_T else [])
+    blocks += [np.full(n_par, cfg.retrieval.sigma_lnvmr ** 2)
+               for _ in sorted(retrieve_vmr)]
+    S_a = np.diag(np.concatenate(blocks))
+
+    n_chan = scene.W.shape[0] if scene.W is not None else n_fine
+    chans = scene.chans
+    if cfg.retrieval.obs_path:
+        obs = Observation.load(cfg.retrieval.obs_path)
+        _check_obs_consistency(cfg, obs, chans, n_chan)
+    else:
+        # Self-test: observations from a truth that perturbs every
+        # retrieved quantity.
+        atm_true = atm
+        if ret_T:
+            atm_true = atm_true.with_temperature(atm.T + torch.as_tensor(
+                5.0 * np.sin(np.linspace(0, 3, n_lev)), dtype=dtype,
+                device=device))
+        for s in retrieve_vmr:
+            atm_true = atm_true.with_vmr(s, atm.vmr[s] * torch.as_tensor(
+                np.exp(0.3 * np.sin(np.linspace(0.5, 2.5, n_lev))),
+                dtype=dtype, device=device))
+        x_true, _ = flatten_state(init(atm_true))
+        y_clean = fwd_flat(x_true).cpu().numpy()
+        noise = cfg.instrument.noise or 0.005 * float(y_clean.max())
+        obs = Observation.synthesize(y_clean.reshape(n_rays(cfg), n_chan),
+                                     chans, noise, seed=0)
+    if cfg.retrieval.windows:
+        obs = obs.with_windows(cfg.retrieval.windows)
+    y_obs, noise_flat = obs.flattened()
+
+    os.makedirs(cfg.run.output_dir, exist_ok=True)
+    log_path = cfg.run.log_file or os.path.join(cfg.run.output_dir,
+                                                "run.jsonl")
+    ck_dir = cfg.run.checkpoint_dir or os.path.join(cfg.run.output_dir, "ck")
+    state_check = None
+    if ret_T:
+        from spectrobot_tpu.data import tips
+
+        def state_check(x, _lo=float(tips.T_GRID[0]),
+                        _hi=float(tips.T_GRID[-1])):
+            # The T block leads the flat state; a node basis expands
+            # convexly, so node bounds bound the level profile too.
+            T = np.asarray(x[:n_par])
+            if T.min() < _lo or T.max() > _hi:
+                return (f"retrieved temperature "
+                        f"[{T.min():.0f}, {T.max():.0f}] K left the "
+                        f"partition-sum table range [{_lo:.0f}, {_hi:.0f}] K"
+                        f": Q(T) is clamped there; tighten the prior "
+                        f"(retrieval.sigma_T) or check the observations")
+            return None
+
+    res = retrieve(
+        fwd_flat, jac, y_obs, x0, x0, S_a, noise_flat,
+        OEConfig(max_iter=cfg.retrieval.max_iter,
+                 lm_lambda0=cfg.retrieval.lm_lambda0,
+                 chi2_rel_tol=cfg.retrieval.chi2_rel_tol),
+        logger=RunLogger(log_path, echo=True),
+        checkpointer=Checkpointer(ck_dir), state_check=state_check)
+
+    # The fitted spectrum at the solution (one more forward).
+    y_fit = fwd_flat(torch.as_tensor(res.x, dtype=dtype, device=device))
+    y_fit = y_fit.cpu().numpy().reshape(-1, n_chan)
+    out_path = os.path.join(cfg.run.output_dir, "retrieval.npz")
+    radiance_spectrum(np.asarray(chans, np.float64), y_fit).save_npz(
+        out_path, x=res.x, S_hat=res.S_hat, A_kernel=res.A_kernel,
+        chi2=res.chi2, n_iter=res.n_iter, converged=res.converged,
+        stop_reason=np.asarray(res.stop_reason),
+        y_fit=y_fit,                               # compat alias of values
+        y_obs=np.asarray(y_obs).reshape(-1, n_chan),
+        noise=np.asarray(noise_flat).reshape(-1, n_chan),
+        channels_cm1=np.asarray(chans))            # compat alias of nu
+    try:
+        from spectrobot_tpu.utils.plots import (
+            plot_averaging_kernels, plot_fit, plot_retrieval)
+        plot_fit(os.path.join(cfg.run.output_dir, "fit.png"),
+                 np.asarray(chans), np.asarray(y_obs).reshape(-1, n_chan),
+                 y_fit, np.asarray(noise_flat).reshape(-1, n_chan))
+        z_m = atm.z.cpu().numpy() if nb is None else nb.z_nodes
+        if ret_T:
+            sig = np.sqrt(np.maximum(np.diag(res.S_hat)[:n_par], 0.0))
+            plot_retrieval(
+                os.path.join(cfg.run.output_dir, "retrieval_T.png"),
+                z_m, res.x[:n_par], x0.cpu().numpy()[:n_par], T_sigma=sig)
+        plot_averaging_kernels(
+            os.path.join(cfg.run.output_dir, "averaging_kernels.png"),
+            z_m, res.A_kernel, min(n_par, res.A_kernel.shape[0]))
+    except Exception as e:  # plotting must never fail a retrieval
+        print(f"plotting skipped: {e}", file=sys.stderr)
+    if res.converged:
+        status = f"converged ({res.stop_reason})"
+    elif res.stop_reason == "max_iter":
+        improving = bool(res.history and res.history[-1].get("accepted"))
+        status = ("hit retrieval.max_iter with chi2 still improving — raise "
+                  "max_iter to converge" if improving
+                  else "hit retrieval.max_iter")
+    else:
+        status = ("LM stalled (lambda exceeded lambda_max — no damping "
+                  "produced an acceptable step)")
+    print(f"retrieve: {status}; n_iter={res.n_iter} "
+          f"chi2={res.chi2:.4g} -> {out_path}", file=sys.stderr)
+    return {"converged": bool(res.converged), "stop_reason": res.stop_reason,
+            "status": status, "n_iter": res.n_iter,
+            "chi2": float(res.chi2), "output": out_path}
+
+
 def cmd_info() -> dict:
     cuda = torch.cuda.is_available()
     devices = ([torch.cuda.get_device_name(i)
                 for i in range(torch.cuda.device_count())] if cuda else [])
-    engine = (select_accumulate(Config(), torch.device("cuda")).__name__
-              if cuda else accumulate_batch_plain.__name__)
+    engine = (select_engine(Config(), torch.device("cuda")).name
+              if cuda else PLAIN.name)
     return {"version": __import__("spectrobot_tpu_torch").__version__,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "devices": devices, "default_engine": engine}
@@ -252,14 +503,10 @@ def main(argv=None) -> int:
     if args.cmd == "info":
         print(json.dumps(cmd_info(), indent=2))
         return 0
-    if args.cmd == "retrieve":
-        raise NotImplementedError(
-            "the retrieve command is not ported to spectrobot_tpu_torch yet "
-            "(ROADMAP Queue 1 items 2-3: Jacobian, then the LM retrieval)")
-
     overrides = dict(ov.partition("=")[::2] for ov in args.override)
     cfg = load_config(args.config, overrides)
-    result = cmd_forward(cfg, resolve_device(args.device))
+    cmd = cmd_forward if args.cmd == "forward" else cmd_retrieve
+    result = cmd(cfg, resolve_device(args.device))
     print(json.dumps(result))
     return 0
 

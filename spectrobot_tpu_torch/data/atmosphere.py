@@ -65,6 +65,28 @@ class Atmosphere:
     def n_lev(self) -> int:
         return int(self.z.shape[0])
 
+    def with_temperature(self, T_new: torch.Tensor) -> "Atmosphere":
+        """Replace T and rehydrate the density at fixed pressure (ideal
+        gas), as the retrieval perturbs the temperature profile.
+
+        Computed as (p/T)/k_B, not p/(k_B T): forward-mode AD of a division
+        squares its denominator, and (k_B T)^2 ~ 1e-41 underflows float32;
+        T carries the tangents, so the tangent-bearing denominator must stay
+        in normal range."""
+        n_new = (self.p / T_new) * (1.0 / K_BOLTZ)
+        return dataclasses.replace(self, T=T_new, n=n_new)
+
+    def with_vmr(self, name: str, vmr_new: torch.Tensor) -> "Atmosphere":
+        vmr = dict(self.vmr)
+        vmr[name] = vmr_new
+        return dataclasses.replace(self, vmr=vmr)
+
+    def to(self, dtype: torch.dtype) -> "Atmosphere":
+        """The same profiles in ``dtype`` (the retrieval's compute dtype)."""
+        return Atmosphere(z=self.z.to(dtype), p=self.p.to(dtype),
+                          T=self.T.to(dtype), n=self.n.to(dtype),
+                          vmr={k: v.to(dtype) for k, v in self.vmr.items()})
+
     def interp_T(self, z_q: torch.Tensor) -> torch.Tensor:
         return interp(z_q, self.z, self.T)
 

@@ -17,8 +17,10 @@ import torch
 
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.forward.rt import layer_path_radiance
-from spectrobot_tpu_torch.ops.cuda_opacity import accumulate_batch
-from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
+from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
+from spectrobot_tpu_torch.ops.cuda_opacity import Windows
+from spectrobot_tpu_torch.ops.opacity import (
+    Engine, LineSumOp, line_kernel_inputs)
 from spectrobot_tpu_torch.ops.planck import planck_nu
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 
@@ -44,23 +46,27 @@ def _tau_prologue(lines: DeviceLines, cg: PathCG):
 
 
 def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
-                     *, cutoff_cm1: Optional[float] = 25.0,
-                     accumulate=accumulate_batch):
+                     windows: Windows, *,
+                     cutoff_cm1: Optional[float] = 25.0,
+                     engine: Engine = KERNELS):
     """One batched line sum over the whole (ray x layer) batch (the
-    counterpart of the reference's ``layer_tau_pallas``).
+    counterpart of the reference's ``layer_tau_pallas``), differentiable in
+    forward mode (``ops.opacity.LineSumOp``: under ``torch.func.jacfwd`` one
+    K1 and one K2 call for the whole Jacobian).
 
     ``nu_off``: the grid in offset coordinates (nu - lines.nu_ref), staged
     from float64 by the caller.  The kernel inputs are cast to its dtype.
-    ``accumulate``: :func:`~spectrobot_tpu_torch.ops.cuda_opacity.
-    accumulate_batch` (the kernel on CUDA tensors) or its plain version.
+    ``engine``: ``ops.cuda_basis.KERNELS`` (the kernels on CUDA tensors) or
+    ``PLAIN`` (their plain versions).  ``windows``: the scene's window table
+    (``ops.cuda_opacity.line_windows`` of ``nu_off`` and ``lines.nu0``).
     Returns (dtau, dtau_em), each [R, NL, P].
     """
     R, NL, _ = cg.u.shape
     dt = nu_off.dtype
     nu_c, sx, y, amps = (a.to(dt).contiguous()
                          for a in _tau_prologue(lines, cg))
-    out = accumulate(nu_off, lines.nu0, nu_c, sx, y, amps,
-                     cutoff_cm1=cutoff_cm1)            # [B, 2, P]
+    op = LineSumOp(engine, windows, cutoff_cm1)
+    out = op(nu_off, nu_c, sx, y, amps)                # [B, 2, P]
     out = out.reshape(R, NL, 2, nu_off.shape[0])
     return out[:, :, 0, :], out[:, :, 1, :]
 

@@ -15,6 +15,7 @@ import torch
 from spectrobot_tpu_torch.data.atmosphere import Atmosphere
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
+from spectrobot_tpu_torch.retrieval.state import NodeBasis, flatten_state
 
 _INDEX_FIELDS = ("species_idx", "level_upper", "level_lower", "seg_layer")
 
@@ -54,3 +55,28 @@ def atmosphere_from_numpy(d: dict, *, device) -> Atmosphere:
     """Atmosphere from {"z", "p", "T", "n": arrays, "vmr": {name: array}}."""
     return Atmosphere.from_numpy(d["z"], d["p"], d["T"], d["n"], d["vmr"],
                                  device=device)
+
+
+def state_from_numpy(flat, template: dict) -> dict:
+    """The port's retrieval state holding the reference's flat state vector
+    ``flat`` (``ravel_pytree`` order, the same as
+    ``retrieval.state.flatten_state``), with the structure, dtype and device
+    of the port's state ``template``."""
+    x0, unravel = flatten_state(template)
+    flat = np.asarray(flat)
+    if flat.shape != tuple(x0.shape):
+        raise ValueError(f"flat state has shape {flat.shape}, the template "
+                         f"{tuple(x0.shape)}")
+    return unravel(torch.as_tensor(flat, dtype=x0.dtype, device=x0.device))
+
+
+def node_basis_from_numpy(M, z_lev, z_nodes) -> NodeBasis:
+    """The port's NodeBasis carrying the reference's node -> level matrix
+    ``M`` [n_lev, n_nodes] exactly, on the same altitude grids."""
+    nb = NodeBasis(z_lev, z_nodes)
+    M = np.asarray(M, np.float64)
+    if M.shape != nb.M.shape:
+        raise ValueError(f"M has shape {M.shape}, the grids give "
+                         f"{nb.M.shape}")
+    nb.M = M.copy()
+    return nb

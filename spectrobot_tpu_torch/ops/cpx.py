@@ -12,6 +12,10 @@ import torch
 C = Tuple  # (re, im)
 
 
+def cadd(a: C, b: C) -> C:
+    return (a[0] + b[0], a[1] + b[1])
+
+
 def csub(a: C, b: C) -> C:
     return (a[0] - b[0], a[1] - b[1])
 

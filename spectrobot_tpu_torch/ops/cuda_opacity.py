@@ -28,6 +28,7 @@ tensor always launches the kernel, and a build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -126,18 +127,83 @@ def _host32(a) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
-def tier_counts(nu_grid, nu0_host, nu_c, scale_x, y, amps, *,
-                cutoff_cm1: Optional[float] = 25.0) -> dict:
-    """How many (live state, tile, sub-block) triples the kernel evaluates
-    in each tier, reckoned on the host from the same padded inputs, window
-    tables and float32 bound as :func:`accumulate_batch`.  Arguments as
-    there (tensors or arrays).  Returns {tier name: count}."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class Windows:
+    """A scene's padded grid and ragged line-block windows on its device,
+    built once by :func:`line_windows` and read by both kernels (K1 and
+    K2), so no call copies the grid or the centers to the host.  A plain
+    class, not a tuple, so ``torch.func`` passes it through untouched."""
+    nu_pad: torch.Tensor       # [Pp] float32 grid, padded 1e6 cm-1 beyond
+    far: float                 # center given to padded lines
+    starts: torch.Tensor       # [n_tiles] int32 first line block per tile
+    counts: torch.Tensor       # [n_tiles] int32 line blocks per tile
+    n_points: int              # P
+    n_lines: int               # L
+    cutoff_cm1: Optional[float]
+
+
+def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
+                 device=None) -> Windows:
+    """The :class:`Windows` of a grid (offset coordinates, tensor or array)
+    and its UNSHIFTED line centers (offsets, ascending), on ``device``
+    (default: the grid's)."""
     nu, nu0 = _host32(nu_grid), _host32(nu0_host)
+    if nu0.ndim != 1 or np.any(np.diff(nu0) < 0):
+        raise ValueError("nu0_host must be the unshifted line centers in "
+                         "ascending order (the windows assume it)")
+    if device is None:
+        device = (nu_grid.device if isinstance(nu_grid, torch.Tensor)
+                  else torch.device("cpu"))
+    nu_pad, _, far, starts, counts = _padded_windows(nu, nu0, TILE_P,
+                                                     BLOCK_L, cutoff_cm1)
+    on = lambda a: torch.as_tensor(a, device=device)
+    return Windows(on(nu_pad), float(far), on(starts), on(counts), len(nu),
+                   len(nu0), cutoff_cm1)
+
+
+def check_windows(nu_grid: torch.Tensor, windows, n_lines: int,
+                  cutoff_cm1: Optional[float]) -> None:
+    """Raise unless ``windows`` is the :class:`Windows` of this kernel call:
+    built for this grid, ``n_lines`` lines and this cutoff, on the grid's
+    device."""
+    w = windows
+    if not isinstance(w, Windows):
+        raise TypeError(f"windows must be the scene's Windows "
+                        f"(line_windows), got {type(w).__name__}")
+    if (w.n_points, w.n_lines) != (nu_grid.shape[0], n_lines):
+        raise ValueError(f"windows built for {w.n_lines} lines and "
+                         f"{w.n_points} points, call has {n_lines} lines and "
+                         f"{nu_grid.shape[0]} points")
+    if w.cutoff_cm1 != cutoff_cm1:
+        raise ValueError(f"windows built for cutoff {w.cutoff_cm1}, call "
+                         f"asks for {cutoff_cm1}")
+    if w.nu_pad.device != nu_grid.device:
+        raise ValueError(f"windows are on {w.nu_pad.device}, nu_grid on "
+                         f"{nu_grid.device}")
+
+
+def pad_lines(a: torch.Tensor, Lp: int, fill: float) -> torch.Tensor:
+    """Pad the line axis (last) of ``a`` to ``Lp`` with ``fill``, as one
+    contiguous float32 tensor (no copy when nothing is to be done)."""
+    L = a.shape[-1]
+    a = a.to(torch.float32)
+    if Lp != L:
+        a = torch.nn.functional.pad(a, (0, Lp - L), value=fill)
+    return a.contiguous()
+
+
+def tier_counts(windows: Windows, nu_c, scale_x, y, amps) -> dict:
+    """How many (live state, tile, sub-block) triples the kernels (K1 and
+    K2) evaluate in each tier, reckoned on the host from the same window
+    table, padding and float32 bound as the kernels.  ``windows``: the
+    call's :class:`Windows`; the line states as the kernel wrappers take
+    them (tensors or arrays).  Returns {tier name: count}."""
+    w = windows
+    nu_pad = _host32(w.nu_pad)
+    starts, counts = w.starts.cpu().numpy(), w.counts.cpu().numpy()
     nc, sx, yy, am = (_host32(a) for a in (nu_c, scale_x, y, amps))
     B, L = nc.shape
-    nu_pad, nu0_pad, far, starts, counts = _padded_windows(
-        nu, nu0, TILE_P, BLOCK_L, cutoff_cm1)
-    Lp = len(nu0_pad)
+    Lp = _round_up(max(L, BLOCK_L), BLOCK_L)
     n_tiles, n_sub = len(nu_pad) // TILE_P, Lp // SUB_L
 
     def sub_blocks(a, fill):
@@ -145,7 +211,7 @@ def tier_counts(nu_grid, nu0_host, nu_c, scale_x, y, amps, *,
         out[:, :L] = a
         return out.reshape(B, n_sub, SUB_L)
 
-    ncs = sub_blocks(nc, far)
+    ncs = sub_blocks(nc, np.float32(w.far))
     c_min, c_max = ncs.min(-1)[:, None, :], ncs.max(-1)[:, None, :]
     sx_min = sub_blocks(sx, 1e6).min(-1)[:, None, :]
     y_min = sub_blocks(yy, 1e6).min(-1)[:, None, :]
@@ -245,7 +311,8 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def accumulate_batch(nu_grid: torch.Tensor, nu0_host, nu_c: torch.Tensor,
+def accumulate_batch(nu_grid: torch.Tensor, windows: Windows,
+                     nu_c: torch.Tensor,
                      scale_x: torch.Tensor, y: torch.Tensor,
                      amps: torch.Tensor, *,
                      cutoff_cm1: Optional[float] = 25.0,
@@ -256,10 +323,10 @@ def accumulate_batch(nu_grid: torch.Tensor, nu0_host, nu_c: torch.Tensor,
     device -> [B, 2, P].  CUDA tensors must be float32 (the kernel's
     dtype); CPU tensors go to :func:`accumulate_batch_plain` in any dtype.
 
-    ``nu0_host`` [L]: the UNSHIFTED line centers (offsets, sorted), from
-    which the per-tile windows are built once, widened by
-    ``SHIFT_MARGIN_CM1`` to cover any pressure shift; the per-pair
-    |dnu| <= cutoff mask keeps the result exact.
+    ``windows``: the scene's :class:`Windows` (:func:`line_windows`, built
+    once from the unshifted centers and widened by ``SHIFT_MARGIN_CM1`` to
+    cover any pressure shift; the per-pair |dnu| <= cutoff mask keeps the
+    result exact).  The plain version needs none.
     """
     global LAUNCHES
     on_cpu = nu_grid.device.type == "cpu"
@@ -269,41 +336,27 @@ def accumulate_batch(nu_grid: torch.Tensor, nu0_host, nu_c: torch.Tensor,
                                       cutoff_cm1=cutoff_cm1, chi_b=chi_b)
     if nu_grid.device.type != "cuda":
         raise ValueError(f"no opacity kernel for device {nu_grid.device}")
+    B, L = nu_c.shape
+    P = nu_grid.shape[0]
+    check_windows(nu_grid, windows, L, cutoff_cm1)
+    win = windows
     lib = _library()
 
     dev = nu_grid.device
-    B, L = nu_c.shape
-    P = nu_grid.shape[0]
-    nu0 = _host32(nu0_host)
-    if nu0.shape != (L,) or np.any(np.diff(nu0) < 0):
-        raise ValueError(f"nu0_host must be the {L} unshifted line centers "
-                         f"in ascending order (the windows assume it)")
-    nu_pad, nu0_pad, far, starts, counts = _padded_windows(
-        _host32(nu_grid), nu0, TILE_P, BLOCK_L, cutoff_cm1)
-    Pp, Lp = len(nu_pad), len(nu0_pad)
-
-    def padl(a, fill):
-        out = torch.full((B, Lp), float(fill), dtype=torch.float32,
-                         device=dev)
-        out[:, :L] = a
-        return out
-
-    nu_d = torch.as_tensor(nu_pad, device=dev)
-    nuc_d, sx_d, y_d = padl(nu_c, far), padl(scale_x, 1e6), padl(y, 1e6)
-    chi_d = None if chi_b is None else padl(chi_b, 0.0)
-    amps_d = torch.zeros((B, 2, Lp), dtype=torch.float32, device=dev)
-    amps_d[:, :, :L] = amps
+    Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
+    nuc_d = pad_lines(nu_c, Lp, win.far)
+    sx_d, y_d = pad_lines(scale_x, Lp, 1e6), pad_lines(y, Lp, 1e6)
+    chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
+    amps_d = pad_lines(amps, Lp, 0.0)
     active = (amps != 0).reshape(B, -1).any(dim=1).to(torch.int32)
-    starts_d = torch.as_tensor(starts, device=dev)
-    counts_d = torch.as_tensor(counts, device=dev)
     out = torch.empty((B, 2, Pp), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.opacity_batch_launch(
-            nu_d.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
+            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
             y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
-            amps_d.data_ptr(), starts_d.data_ptr(), counts_d.data_ptr(),
+            amps_d.data_ptr(), win.starts.data_ptr(), win.counts.data_ptr(),
             active.data_ptr(), out.data_ptr(), B, Pp, Lp, cut, stream)
         LAUNCHES += 1
     if rc != 0:

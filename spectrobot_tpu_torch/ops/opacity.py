@@ -13,7 +13,8 @@ call):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -22,7 +23,7 @@ from spectrobot_tpu_torch.ops.strengths import (
     DeviceLines, doppler_hwhm, line_strength, lorentz_hwhm,
     pressure_shifted_center,
 )
-from spectrobot_tpu_torch.ops.voigt import wofz_humlicek4
+from spectrobot_tpu_torch.ops.voigt import wofz_humlicek4, wofz_humlicek4_grad
 
 # Sub-Lorentzian wing factor chi(|dnu|) = exp(-chi_b max(|dnu| - 3, 0))
 # (the reference's ops.chi.CHI_DELTA1).
@@ -87,3 +88,186 @@ def accumulate_plain(nu_grid: torch.Tensor, kl: KernelLines, *,
                         amps[..., sl], None if chi_b is None else
                         chi_b[..., sl], cutoff_cm1=cutoff_cm1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Analytic tangent of the line sum
+# ---------------------------------------------------------------------------
+#
+# The tangent of out[o, p] = sum_i amps[o, i] K(x_ip, y_i), with
+# x_ip = sx_i (nu_p - nu_c_i), decomposes over four tangent-independent
+# per-pair basis functions {K, Kx = dK/dx, xKx = x dK/dx, Ky = dK/dy}:
+#
+#     d out = [d_amps] K + [-amps sx d_nu_c] Kx + [amps d_sx / sx] xKx
+#           + [amps d_y] Ky
+#
+# so under torch.func.jacfwd the basis is evaluated once and every Jacobian
+# column is a contraction against it.  The partials come from the
+# closed-form derivative of the w4 approximant (voigt.wofz_humlicek4_grad),
+# which is per-pair stable in float32; chi scales all four basis values and
+# is constant in the tangent (the reference's frozen-chi convention).
+
+
+def _basis(nu_grid, nc, s, yy, cb=None, *, cutoff_cm1):
+    """The basis (K, Kx, xKx, Ky) of lines [..., c] at every point of
+    ``nu_grid`` [P] -> four [..., c, P] tensors."""
+    dnu = nu_grid - nc.unsqueeze(-1)
+    x = s.unsqueeze(-1) * dnu
+    wr, _, kx, ky = wofz_humlicek4_grad(
+        x, torch.broadcast_to(yy.unsqueeze(-1), x.shape))
+    if cb is not None:
+        ch = torch.exp(-cb.unsqueeze(-1) * torch.clamp(
+            torch.abs(dnu) - CHI_DELTA1, min=0.0))
+        wr, kx, ky = wr * ch, kx * ch, ky * ch
+    if cutoff_cm1 is not None:
+        m = (torch.abs(dnu) <= cutoff_cm1).to(x.dtype)
+        wr, kx, ky = wr * m, kx * m, ky * m
+    return wr, kx, x * kx, ky
+
+
+def basis_coefficients(sx, amps, d_nu_c, d_sx, d_y, d_amps):
+    """The coefficient rows (C1, C2, C3, C4) [..., n_out, L] of the basis
+    for one tangent (per-line tangents [..., L], amps [..., n_out, L])."""
+    return (d_amps, amps * (-sx * d_nu_c).unsqueeze(-2),
+            amps * (d_sx / sx).unsqueeze(-2), amps * d_y.unsqueeze(-2))
+
+
+def _tangent_via_basis(nu_grid, nu_c, sx, y, amps, d_nu_c, d_sx, d_y,
+                       d_amps, chb=None, *, chunk: int = 256,
+                       cutoff_cm1: Optional[float] = 25.0):
+    """Plain tangent of the line sum for one tangent vector, any dtype:
+    lines [..., L], amps [..., n_out, L] -> [..., n_out, P].  A tangent
+    given as None is zero."""
+    zero = lambda d, a: torch.zeros_like(a) if d is None else d
+    C = basis_coefficients(sx, amps, zero(d_nu_c, nu_c), zero(d_sx, sx),
+                           zero(d_y, y), zero(d_amps, amps))
+    out = torch.zeros(amps.shape[:-1] + nu_grid.shape, dtype=nu_grid.dtype,
+                      device=nu_grid.device)
+    for lo in range(0, amps.shape[-1], chunk):
+        sl = slice(lo, lo + chunk)
+        basis = _basis(nu_grid, nu_c[..., sl], sx[..., sl], y[..., sl],
+                       None if chb is None else chb[..., sl],
+                       cutoff_cm1=cutoff_cm1)
+        for c, b in zip(C, basis):
+            out += torch.matmul(c[..., sl], b)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The differentiable line sum
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Engine:
+    """The two batched primitives a differentiable line sum runs on:
+
+    accumulate(nu_grid, windows, nu_c, sx, y, amps, *, cutoff_cm1, chi_b)
+        -> [B, 2, P]
+    contract(nu_grid, windows, nu_c, sx, y, C1, C2, C3, C4, active, *,
+             cutoff_cm1, chi_b) -> [B, R, P]
+
+    (``ops.cuda_basis.KERNELS``: K1 and K2; ``ops.cuda_basis.PLAIN``: their
+    plain PyTorch versions)."""
+    name: str
+    accumulate: Callable
+    contract: Callable
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LineSumOp:
+    """The batched line sum of one scene with analytic forward-mode
+    derivatives: ``op(nu_grid, nu_c, sx, y, amps, chi_b=None)`` -> [B, 2, P]
+    for states [B, L], amps [B, 2, L].
+
+    The primal is one ``engine.accumulate`` call.  Under ``torch.func.jvp``
+    the tangent is one ``engine.contract`` call on the coefficient rows of
+    :func:`basis_coefficients`; under ``torch.func.jacfwd`` (a vmap over
+    tangents) :class:`BasisContract` folds every column into the rows, so a
+    Jacobian costs one accumulate and one contract call.  ``windows``: the
+    scene's window table (``ops.cuda_opacity.Windows``).  Not a tuple, so
+    ``torch.func`` hands it to the Functions untouched."""
+    engine: Engine
+    windows: object
+    cutoff_cm1: Optional[float] = 25.0
+
+    def __call__(self, nu_grid, nu_c, sx, y, amps, chi_b=None):
+        return LineSum.apply(nu_grid, nu_c, sx, y, amps, chi_b, self)
+
+
+class LineSum(torch.autograd.Function):
+    """Primal through ``op.engine.accumulate``, tangent through
+    :class:`BasisContract` (the counterpart of the reference's
+    ``make_accumulate_op(engine='pallas', mode='fwd')``).  Chi is constant
+    in the tangent; the grid has none."""
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, amps, chi_b, op):
+        return op.engine.accumulate(nu_grid, op.windows, nu_c, sx, y, amps,
+                                    cutoff_cm1=op.cutoff_cm1, chi_b=chi_b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        nu_grid, nu_c, sx, y, amps, chi_b, op = inputs
+        ctx.save_for_forward(nu_grid, nu_c, sx, y, amps, chi_b)
+        ctx.op = op
+
+    @staticmethod
+    def jvp(ctx, _d_nu, d_nu_c, d_sx, d_y, d_amps, _d_chi, _d_op):
+        nu_grid, nu_c, sx, y, amps, chi_b = ctx.saved_tensors
+        zero = lambda d, a: torch.zeros_like(a) if d is None else d
+        C1, C2, C3, C4 = basis_coefficients(
+            sx, amps, zero(d_nu_c, nu_c), zero(d_sx, sx), zero(d_y, y),
+            zero(d_amps, amps))
+        # A sufficient statistic of a live state: C2..C4 are amps-scaled.
+        active = (amps != 0).flatten(1).any(1) | (C1 != 0).flatten(1).any(1)
+        return BasisContract.apply(nu_grid, nu_c, sx, y, C1, C2, C3, C4,
+                                   active, chi_b, ctx.op)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise NotImplementedError(
+            "the line sum is batched over states explicitly; vmap over its "
+            "primal inputs (a structural batch) has no counterpart in the "
+            "port, only the tangent batch of torch.func.jacfwd does")
+
+
+class BasisContract(torch.autograd.Function):
+    """One ``op.engine.contract`` call: [B, R, P] from coefficient rows
+    [B, R, L].  Its vmap rule takes the tangent batch of
+    ``torch.func.jacfwd`` (only the rows and ``active`` batched), folds it
+    into the rows ([n_t, B, R, L] -> [B, n_t*R, L]), makes one call and
+    unfolds the result (the reference's ``tanB_rule``)."""
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, C1, C2, C3, C4, active, chi_b, op):
+        return op.engine.contract(nu_grid, op.windows, nu_c, sx, y, C1, C2,
+                                  C3, C4, active, cutoff_cm1=op.cutoff_cm1,
+                                  chi_b=chi_b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, nu_grid, nu_c, sx, y, C1, C2, C3, C4, active,
+             chi_b, op):
+        if any(d is not None for d in in_dims[:4] + in_dims[9:10]):
+            raise NotImplementedError(
+                "BasisContract folds only a tangent batch (the coefficient "
+                "rows); the grid and the line states must be unbatched")
+        n_t = info.batch_size
+        B, R, L = C1.shape[-3:]
+
+        def fold(C, d):          # [n_t, B, R, L] -> [B, n_t * R, L]
+            C = (C.expand(n_t, B, R, L) if d is None
+                 else C.movedim(d, 0))
+            return C.transpose(0, 1).reshape(B, n_t * R, L).contiguous()
+
+        if in_dims[8] is not None:
+            active = active.movedim(in_dims[8], 0).any(0)
+        out = BasisContract.apply(
+            nu_grid, nu_c, sx, y, *(fold(C, d) for C, d in
+                                    zip((C1, C2, C3, C4), in_dims[4:8])),
+            active, chi_b, op)
+        return out.reshape(B, n_t, R, -1).transpose(0, 1), 0

@@ -1,0 +1,251 @@
+"""Retrieval state vector and forward-model builder (port of
+``spectrobot_tpu.retrieval.state``).
+
+The state is a dict ``{"T": [n_lev], "T_surface": [], "ln_vmr": {species:
+[n_lev]}}`` flattened in the reference's ``ravel_pytree`` order ("T", then
+"T_surface", then "ln_vmr" by sorted species), so one flat vector means the
+same thing in both packages.  The forward model is one function state -> y
+(concatenated channel radiances over all rays), differentiable in forward
+mode: :func:`jacobian_fwd` is ``torch.func.jacfwd``, whose tangent batch the
+line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spectrobot_tpu_torch.data.atmosphere import Atmosphere, Planet
+from spectrobot_tpu_torch.forward.geometry import limb_path_cg, nadir_path_cg
+from spectrobot_tpu_torch.forward.limb import (
+    layer_tau_kernel, radiance_from_tau)
+from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
+from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
+from spectrobot_tpu_torch.ops.ils import apply_ils
+from spectrobot_tpu_torch.ops.opacity import Engine
+from spectrobot_tpu_torch.ops.strengths import DeviceLines
+
+
+def make_state(atm: Atmosphere, retrieve_vmr: Sequence[str],
+               T_surface: Optional[float] = None,
+               retrieve_temperature: bool = True) -> Dict:
+    """Initial state from an atmosphere: its T profile (unless
+    ``retrieve_temperature=False``) and the log-VMR profiles of the
+    retrieved species (log keeps VMRs positive under LM steps).  Pass
+    ``T_surface`` to also retrieve the surface temperature (nadir)."""
+    state: Dict = {"ln_vmr": {s: torch.log(atm.vmr[s])
+                              for s in retrieve_vmr}}
+    if retrieve_temperature:
+        state["T"] = atm.T
+    if T_surface is not None:
+        state["T_surface"] = torch.as_tensor(T_surface, dtype=atm.T.dtype,
+                                             device=atm.T.device)
+    return state
+
+
+def apply_state(atm: Atmosphere, state: Dict) -> Atmosphere:
+    out = atm.with_temperature(state["T"]) if "T" in state else atm
+    for s, lv in state["ln_vmr"].items():
+        out = out.with_vmr(s, torch.exp(lv))
+    return out  # (surface parameters are consumed by the forward)
+
+
+def node_level_matrix(z_lev: np.ndarray, z_nodes: np.ndarray) -> np.ndarray:
+    """[n_lev, n_nodes] piecewise-linear interpolation matrix: profile at
+    the model levels = M @ profile at the retrieval nodes (hat functions,
+    constant extrapolation beyond the end nodes: ``np.interp`` as a
+    matrix)."""
+    z_lev = np.asarray(z_lev, np.float64)
+    z_nodes = np.asarray(z_nodes, np.float64)
+    if z_nodes.ndim != 1 or len(z_nodes) < 2:
+        raise ValueError("need at least 2 retrieval nodes")
+    if not np.all(np.diff(z_nodes) > 0):
+        raise ValueError("retrieval node altitudes must be strictly "
+                         "increasing")
+    n_lev, n_nodes = len(z_lev), len(z_nodes)
+    M = np.zeros((n_lev, n_nodes))
+    j = np.clip(np.searchsorted(z_nodes, z_lev, side="right") - 1, 0,
+                n_nodes - 2)
+    t = np.clip((z_lev - z_nodes[j]) / (z_nodes[j + 1] - z_nodes[j]),
+                0.0, 1.0)
+    M[np.arange(n_lev), j] = 1.0 - t
+    M[np.arange(n_lev), j + 1] += t
+    return M
+
+
+class NodeBasis:
+    """Linear node -> level map for a retrieval on a coarse altitude grid.
+
+    ``expand(state)`` maps a node-space state (profiles of length n_nodes)
+    to the level-space state the forward consumes; T_surface passes
+    through.  Compose as ``forward(expand(state))``.
+    """
+
+    def __init__(self, z_lev, z_nodes):
+        self.z_lev = np.asarray(z_lev, np.float64)
+        self.z_nodes = np.asarray(z_nodes, np.float64)
+        # Host float64 master copy, cast to the state's dtype at expand.
+        self.M = node_level_matrix(self.z_lev, self.z_nodes)
+        self.n_nodes = int(self.M.shape[1])
+
+    @classmethod
+    def uniform(cls, atm: Atmosphere, n_nodes: int) -> "NodeBasis":
+        z = atm.z.detach().cpu().numpy().astype(np.float64)
+        return cls(z, np.linspace(z[0], z[-1], int(n_nodes)))
+
+    def init_state(self, atm: Atmosphere, retrieve_vmr: Sequence[str],
+                   T_surface: Optional[float] = None,
+                   retrieve_temperature: bool = True) -> Dict:
+        """Node-space initial state: the atmosphere's profiles sampled at
+        the node altitudes."""
+        state: Dict = {"ln_vmr": {s: self.project(torch.log(atm.vmr[s]))
+                                  for s in retrieve_vmr}}
+        if retrieve_temperature:
+            state["T"] = self.project(atm.T)
+        if T_surface is not None:
+            state["T_surface"] = torch.as_tensor(
+                T_surface, dtype=atm.T.dtype, device=atm.T.device)
+        return state
+
+    def project(self, profile_lev: torch.Tensor) -> torch.Tensor:
+        """Level profile -> node values (sampled at the node altitudes)."""
+        v = np.interp(self.z_nodes, self.z_lev,
+                      profile_lev.detach().cpu().numpy().astype(np.float64))
+        return torch.as_tensor(v, dtype=profile_lev.dtype,
+                               device=profile_lev.device)
+
+    def expand(self, state: Dict) -> Dict:
+        def up(v):
+            return torch.as_tensor(self.M, dtype=v.dtype,
+                                   device=v.device) @ v
+        out: Dict = {"ln_vmr": {s: up(v) for s, v in state["ln_vmr"].items()}}
+        if "T" in state:
+            out["T"] = up(state["T"])
+        if "T_surface" in state:
+            out["T_surface"] = state["T_surface"]
+        return out
+
+
+def build_forward(
+    base_atm: Atmosphere,
+    lines: DeviceLines,
+    nu_grid: torch.Tensor,
+    species: Sequence[str],
+    planet: Planet,
+    tangent_heights_m: Optional[torch.Tensor] = None,
+    sec_theta: Optional[torch.Tensor] = None,
+    T_surface: Optional[float] = None,
+    emissivity: float = 1.0,
+    ils_W: Optional[torch.Tensor] = None,
+    n_sub: int = 4,
+    *,
+    cutoff_cm1: Optional[float] = 25.0,
+    nu_off: Optional[torch.Tensor] = None,
+    engine: Engine = KERNELS,
+    windows=None,
+) -> Callable[[Dict], torch.Tensor]:
+    """Build F: state -> y (the port's counterpart of the reference's
+    ``build_forward`` on its single-device line-by-line path).
+
+    Limb mode when ``tangent_heights_m`` is given (deep space behind), nadir
+    when ``sec_theta`` is (grey surface at ``T_surface``, or the state's
+    "T_surface").  ``ils_W`` maps the fine grid to instrument channels.
+    ``nu_off``: the grid in offset coordinates (default: staged from
+    float64 here); ``windows``: the scene's window table (default: built
+    once here).  ``engine``: ``ops.cuda_basis.KERNELS`` or ``PLAIN``.
+    Output y is flattened [n_ray * n_chan].
+    """
+    if nu_off is None:
+        nu_off = torch.as_tensor(
+            nu_grid.detach().cpu().double().numpy()
+            - float(lines.nu_ref), dtype=nu_grid.dtype,
+            device=nu_grid.device)
+    if windows is None:
+        windows = line_windows(nu_off, lines.nu0, cutoff_cm1=cutoff_cm1)
+
+    def forward(state: Dict) -> torch.Tensor:
+        atm = apply_state(base_atm, state)
+        if tangent_heights_m is not None:
+            cg = limb_path_cg(atm, species, tangent_heights_m, planet, n_sub)
+            ts = None
+        else:
+            cg = nadir_path_cg(atm, species, sec_theta, n_sub)
+            ts = state.get("T_surface", T_surface)
+        dtau, dtau_em = layer_tau_kernel(nu_off, lines, cg, windows,
+                                         cutoff_cm1=cutoff_cm1,
+                                         engine=engine)
+        I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
+                              T_surface=ts, emissivity=emissivity)
+        if ils_W is not None:
+            I = apply_ils(I, ils_W)
+        return I.reshape(-1)
+
+    return forward
+
+
+def flatten_state(state: Dict) -> Tuple[torch.Tensor, Callable]:
+    """state <-> flat vector, in the reference's ``ravel_pytree`` order
+    (dict keys sorted: "T", "T_surface", "ln_vmr"; species sorted)."""
+    keys = [(k,) for k in sorted(state) if k != "ln_vmr"]
+    keys += [("ln_vmr", s) for s in sorted(state.get("ln_vmr", {}))]
+
+    def leaf(k):
+        return state[k[0]] if len(k) == 1 else state[k[0]][k[1]]
+
+    leaves = [leaf(k) for k in keys]
+    shapes = [tuple(v.shape) for v in leaves]
+    sizes = [int(np.prod(s)) for s in shapes]
+    flat = (torch.cat([v.reshape(-1) for v in leaves]) if leaves
+            else torch.zeros(0))
+
+    def unravel(x: torch.Tensor) -> Dict:
+        out: Dict = {"ln_vmr": {}}
+        for k, shape, part in zip(keys, shapes, torch.split(x, sizes)):
+            if len(k) == 1:
+                out[k[0]] = part.reshape(shape)
+            else:
+                out["ln_vmr"][k[1]] = part.reshape(shape)
+        return out
+
+    return flat, unravel
+
+
+def jacobian_fwd(forward_flat: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Analytic Jacobian K [n_y, n_x] by forward-mode AD."""
+    return torch.func.jacfwd(forward_flat)(x)
+
+
+def jacobian_fwd_chunked(forward_flat: Callable, x: torch.Tensor,
+                         chunk: int = 16) -> torch.Tensor:
+    """The Jacobian in tangent chunks: a vmap of ``torch.func.jvp`` over
+    ``chunk`` columns of the identity at a time, which bounds the live
+    tangent batch (``torch.func.jacfwd`` has no chunk size).  Same result
+    as :func:`jacobian_fwd`."""
+    eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def one(v):
+        return torch.func.jvp(forward_flat, (x,), (v,))[1]
+
+    cols = [torch.func.vmap(one)(eye[s:s + chunk])
+            for s in range(0, x.shape[0], chunk)]
+    return torch.cat(cols, dim=0).T
+
+
+def jacobian_fd(forward_flat: Callable, x: torch.Tensor,
+                eps: float = 1e-3) -> np.ndarray:
+    """Central finite-difference Jacobian (the reference's config-4
+    cross-check harness); eps is scaled per parameter by max(|x_i|, 1)."""
+    x_host = x.detach().cpu().numpy()
+    dev = lambda v: torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    cols = []
+    for i in range(x_host.shape[0]):
+        h = eps * max(abs(float(x_host[i])), 1.0)
+        xp = x_host.copy()
+        xp[i] += h
+        xm = x_host.copy()
+        xm[i] -= h
+        cols.append((forward_flat(dev(xp)) - forward_flat(dev(xm)))
+                    .detach().cpu().numpy().astype(np.float64) / (2 * h))
+    return np.stack(cols, axis=1)

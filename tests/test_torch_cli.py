@@ -1,15 +1,22 @@
-"""The whole forward slice: ``python -m spectrobot_tpu_torch forward`` on a
-tiny scene (CPU, the plain line sum) against the JAX CLI's forward on the
-same TOML, compared through forward.npz."""
+"""The whole CLI: ``python -m spectrobot_tpu_torch forward`` and
+``retrieve`` on a tiny scene (CPU, the plain line sum and its tangent)
+against the JAX CLI on the same TOML, compared through forward.npz and
+retrieval.npz."""
 
+import json
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from spectrobot_tpu.config import load_config
 from spectrobot_tpu.spectra import Spectrum
 from spectrobot_tpu_torch import cli
+
+# These tests run tiny tensors: torch's intra-op threads would only
+# contend (and spin-wait) with the other test workers for the cores.
+torch.set_num_threads(1)
 
 TINY_TOML = """\
 [grid]
@@ -93,29 +100,90 @@ def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
     assert not os.path.exists(os.path.join(tmp_path, "forward.npz"))
 
 
-def test_retrieve_not_ported(tiny_toml):
-    with pytest.raises(NotImplementedError, match="retrieve"):
-        cli.main(["retrieve", tiny_toml, "--device", "cpu"])
+def _jax_retrieve(toml, overrides, out_dir, x64=True):
+    import jax
+
+    from spectrobot_tpu.cli import cmd_retrieve
+    cfg = load_config(toml, {**overrides, "run.output_dir": str(out_dir)})
+    # The reference's float32 CLI runs with x64 off, as on its chip.
+    with jax.enable_x64(x64):
+        result = cmd_retrieve(cfg)
+    return result, np.load(result["output"])
+
+
+def _torch_retrieve(toml, overrides, out_dir, capsys):
+    argv = ["retrieve", toml, "--device", "cpu", "-o",
+            f"run.output_dir={out_dir}"]
+    for k, v in overrides.items():
+        argv += ["-o", f"{k}={v}"]
+    capsys.readouterr()
+    assert cli.main(argv) == 0
+    out, err = capsys.readouterr()
+    result = json.loads(out.strip().splitlines()[-1])
+    status = [ln for ln in err.splitlines() if ln.startswith("retrieve: ")]
+    return result, np.load(os.path.join(out_dir, "retrieval.npz")), status
+
+
+def test_retrieve_matches_jax_cli_f64(tiny_toml, tmp_path, capsys):
+    """``retrieve`` is ported: the self-test retrieval of the tiny scene in
+    float64 (plain line sum and its analytic tangent) takes the reference
+    CLI's LM path, and retrieval.npz holds the same keys and values."""
+    ov = {"compute.dtype": "float64"}
+    ref_res, ref = _jax_retrieve(tiny_toml, ov, tmp_path / "jax")
+    got_res, got, status = _torch_retrieve(tiny_toml, ov, tmp_path / "torch",
+                                           capsys)
+    assert sorted(got.files) == sorted(ref.files)
+    for key in ("n_iter", "converged", "stop_reason"):
+        assert got[key] == ref[key], key
+    assert got_res == {**ref_res, "output": got_res["output"],
+                       "chi2": got_res["chi2"]}
+    assert got_res["converged"] and got_res["n_iter"] >= 2
+    np.testing.assert_allclose(got["chi2"], ref["chi2"], rtol=1e-6)
+    np.testing.assert_allclose(got["x"], ref["x"], rtol=1e-6)
+    for key in ("y_obs", "noise", "nu", "channels_cm1"):
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-12)
+    for key in ("values", "S_hat", "A_kernel"):
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-5,
+                                   atol=1e-8 * np.abs(ref[key]).max())
+    assert status == [f"retrieve: {got_res['status']}; "
+                      f"n_iter={got_res['n_iter']} chi2="
+                      f"{got_res['chi2']:.4g} -> {got_res['output']}"]
+    log = [json.loads(ln) for ln in
+           open(os.path.join(tmp_path / "torch", "run.jsonl"))]
+    assert [r["iteration"] for r in log] == list(range(int(got["n_iter"])))
+
+
+def test_retrieve_float32_matches_jax_cli(tiny_toml, tmp_path, capsys):
+    """The float32 CLI retrieval (the card's dtype, LM algebra in float64):
+    both packages converge to within a tenth of the posterior sigma."""
+    ov = {"compute.dtype": "float32"}
+    _, ref = _jax_retrieve(tiny_toml, ov, tmp_path / "jax", x64=False)
+    res, got, _ = _torch_retrieve(tiny_toml, ov, tmp_path / "torch", capsys)
+    assert res["converged"] and bool(ref["converged"])
+    assert np.isfinite(got["values"]).all() and np.isfinite(got["x"]).all()
+    sigma = np.sqrt(np.diag(ref["S_hat"]))
+    assert np.max(np.abs(got["x"] - ref["x"]) / sigma) <= 0.1
 
 
 def test_cuda_device_rule(tiny_toml):
     """--device cuda never falls back: without a GPU it raises; the engine
     rule on CUDA takes only the float32 kernel configuration, while on the
-    CPU the same wrapper runs its plain version in any configuration."""
+    CPU the same wrappers run their plain versions in any configuration."""
     import torch
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cfg = load_config(tiny_toml)
-    assert cli.select_accumulate(cfg, cuda) is cli.accumulate_batch
+    assert cli.select_engine(cfg, cuda) is cli.KERNELS
     for override in ({}, {"compute.use_pallas": "false"},
                      {"compute.dtype": "float64"}):
-        assert cli.select_accumulate(load_config(tiny_toml, override),
-                                     cpu) is cli.accumulate_batch
+        assert cli.select_engine(load_config(tiny_toml, override),
+                                 cpu) is cli.KERNELS
     for override, key in (({"compute.use_pallas": "false"},
                            "compute.use_pallas"),
                           ({"compute.dtype": "float64"}, "compute.dtype")):
         with pytest.raises(NotImplementedError, match=key):
-            cli.select_accumulate(load_config(tiny_toml, override), cuda)
+            cli.select_engine(load_config(tiny_toml, override), cuda)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            cli.main(["forward", tiny_toml])
+        for cmd in ("forward", "retrieve"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cli.main([cmd, tiny_toml])

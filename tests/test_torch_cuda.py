@@ -1,10 +1,11 @@
-"""The CUDA opacity kernel on the card (marker ``cuda``; skips without a GPU
-and nvcc).  Run on the card with ``python -m pytest -m cuda tests/``."""
+"""The CUDA kernels (K1 and K2) on the card (marker ``cuda``; skips without
+a GPU and nvcc).  Run on the card with ``python -m pytest -m cuda tests/``."""
 
 import numpy as np
 import pytest
 import torch
 
+from spectrobot_tpu_torch.ops import cuda_basis as cb
 from spectrobot_tpu_torch.ops import cuda_opacity as co
 
 pytestmark = pytest.mark.cuda
@@ -39,7 +40,8 @@ def test_kernel_matches_plain(cuda, with_chi, cutoff):
     nu, nu0, nc, sx, y, amps, chi = _inputs(cuda)
     chi = chi if with_chi else None
     before = co.LAUNCHES
-    got = co.accumulate_batch(nu, nu0, nc, sx, y, amps, cutoff_cm1=cutoff,
+    win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
+    got = co.accumulate_batch(nu, win, nc, sx, y, amps, cutoff_cm1=cutoff,
                               chi_b=chi)
     torch.cuda.synchronize()
     assert co.LAUNCHES == before + 1
@@ -52,7 +54,8 @@ def test_kernel_matches_plain(cuda, with_chi, cutoff):
 
 
 def test_kernel_is_deterministic(cuda):
-    args = _inputs(cuda)[:6]
+    nu, nu0, *args = _inputs(cuda)[:6]
+    args = [nu, co.line_windows(nu, nu0), *args]
     a = co.accumulate_batch(*args)
     b = co.accumulate_batch(*args)
     assert torch.equal(a, b)
@@ -60,9 +63,120 @@ def test_kernel_is_deterministic(cuda):
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
     nu, nu0, nc, sx, y, amps, _ = _inputs(cuda)
+    win = co.line_windows(nu, nu0)
     with pytest.raises(ValueError, match="cpu"):
-        co.accumulate_batch(nu, nu0, nc.cpu(), sx, y, amps)
+        co.accumulate_batch(nu, win, nc.cpu(), sx, y, amps)
     with pytest.raises(ValueError, match="ascending"):
-        co.accumulate_batch(nu, nu0[::-1].copy(), nc, sx, y, amps)
-    with pytest.raises(ValueError, match="ascending"):
-        co.accumulate_batch(nu, nu0[:-1], nc, sx, y, amps)
+        co.line_windows(nu, nu0[::-1].copy())
+    with pytest.raises(ValueError, match="lines"):
+        co.accumulate_batch(nu, co.line_windows(nu, nu0[:-1]), nc, sx, y,
+                            amps)
+    with pytest.raises(TypeError, match="Windows"):
+        co.accumulate_batch(nu, nu0, nc, sx, y, amps)
+
+
+# ---------------------------------------------------------------------------
+# K2: the basis contraction (csrc/basis_batch.cu)
+# ---------------------------------------------------------------------------
+
+
+def _basis_inputs(device, n_rows=10, seed=1, **kw):
+    """K1's random states plus random coefficient rows scaled by the
+    amplitudes (so the dead state stays dead and C2, the Kx row, is
+    exercised, which a temperature-only Jacobian never fills)."""
+    nu, nu0, nc, sx, y, amps, chi = _inputs(device, seed=seed, **kw)
+    rng = np.random.default_rng(seed + 100)
+    scale = amps[:, :1].cpu().numpy()
+    C = [torch.as_tensor(
+        (rng.normal(size=(nc.shape[0], n_rows, nc.shape[1])) * scale)
+        .astype(np.float32), device=device) for _ in range(4)]
+    return nu, nu0, nc, sx, y, C, chi
+
+
+@pytest.mark.parametrize("with_chi", [False, True])
+@pytest.mark.parametrize("cutoff", [25.0, None])
+def test_basis_kernel_matches_plain(cuda, with_chi, cutoff):
+    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda)
+    chi = chi if with_chi else None
+    before = cb.LAUNCHES
+    win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
+    got = cb.basis_contract_batch(nu, win, nc, sx, y, *C, cutoff_cm1=cutoff,
+                                  chi_b=chi)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    ref = cb.basis_contract_batch_plain(nu, nc, sx, y, *C, cutoff_cm1=cutoff,
+                                        chi_b=chi)
+    assert got.shape == ref.shape == (nc.shape[0], 10, nu.shape[0])
+    assert torch.all(got[2] == 0)            # the dead state
+    # The reference's basis-kernel parity (tests/test_pallas_jacobian.py).
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_basis_kernel_takes_the_scene_windows(cuda):
+    nu, nu0, nc, sx, y, C, _ = _basis_inputs(cuda)
+    a = cb.basis_contract_batch(nu, co.line_windows(nu, nu0), nc, sx, y, *C)
+    b = cb.basis_contract_batch(nu, co.line_windows(nu, nu0), nc, sx, y, *C)
+    assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="Windows"):
+        cb.basis_contract_batch(nu, nu0, nc, sx, y, *C)
+    with pytest.raises(ValueError, match="cutoff"):
+        cb.basis_contract_batch(nu, co.line_windows(nu, nu0, cutoff_cm1=None),
+                                nc, sx, y, *C)
+    with pytest.raises(ValueError, match="windows are on"):
+        cb.basis_contract_batch(nu, co.line_windows(nu.cpu(), nu0), nc, sx,
+                                y, *C)
+
+
+def test_basis_kernel_is_deterministic(cuda):
+    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda)
+    win = co.line_windows(nu, nu0)
+    a = cb.basis_contract_batch(nu, win, nc, sx, y, *C, chi_b=chi)
+    b = cb.basis_contract_batch(nu, win, nc, sx, y, *C, chi_b=chi)
+    assert torch.equal(a, b)
+
+
+def test_basis_kernel_rejects_what_it_does_not_take(cuda):
+    nu, nu0, nc, sx, y, C, _ = _basis_inputs(cuda)
+    win = co.line_windows(nu, nu0)
+    with pytest.raises(ValueError, match="cpu"):
+        cb.basis_contract_batch(nu, win, nc, sx.cpu(), y, *C)
+    with pytest.raises(TypeError, match="float32"):
+        cb.basis_contract_batch(nu, win, nc, sx, y, C[0].double(), *C[1:])
+    big = [c[:, :1].expand(-1, cb.MAX_ROWS + 1, -1).contiguous() for c in C]
+    with pytest.raises(ValueError, match="rows"):
+        cb.basis_contract_batch(nu, win, nc, sx, y, *big)
+    before = cb.LAUNCHES
+    rows = [c[:, :1].expand(-1, cb.MAX_ROWS, -1).contiguous() for c in C]
+    out = cb.basis_contract_batch(nu, win, nc, sx, y, *rows)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1 and out.shape[1] == cb.MAX_ROWS
+    assert torch.equal(out[:, 0], out[:, -1])
+
+
+def test_jacobian_through_the_kernels_matches_plain(cuda):
+    """torch.func.jacfwd of a small limb forward on the card: one K1 and one
+    K2 launch, and the plain engine's Jacobian within 1e-5 max|J|."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    cfg = cli.load_config(None, {
+        "grid.nu_min": "660.0", "grid.nu_max": "674.0",
+        "grid.n_points": "512", "scene.n_levels": "9",
+        "geometry.tangent_heights_km": "8.0,25.0,40.0",
+        "geometry.n_sub": "2", "instrument.enabled": "true",
+        "instrument.n_channels": "32", "compute.dtype": "float32"})
+    scene = cli.build_scene(cfg, cuda)
+    atm = scene.atm.to(torch.float32)       # as cmd_retrieve casts it
+    x0, unravel = flatten_state(make_state(atm, []))
+    jac = {}
+    for engine in (cb.KERNELS, cb.PLAIN):
+        fwd = cli.scene_forward(cfg, scene, atm, engine)
+        k1, k2 = co.LAUNCHES, cb.LAUNCHES
+        jac[engine.name] = torch.func.jacfwd(lambda x: fwd(unravel(x)))(x0)
+        torch.cuda.synchronize()
+        launched = (co.LAUNCHES - k1, cb.LAUNCHES - k2)
+        assert launched == ((1, 1) if engine is cb.KERNELS else (0, 0))
+    J, J_plain = jac["kernels"], jac["plain"]
+    assert J.shape == (3 * 32, 9) and bool(torch.isfinite(J).all())
+    assert float((J - J_plain).abs().max()) <= 1e-5 * float(
+        J_plain.abs().max())

@@ -112,8 +112,10 @@ def test_layer_tau_kernel_matches_pallas_interpret():
     tl = interop.device_lines_from_numpy(_numpy(dl), device=CPU)
     tcg = interop.path_cg_from_numpy(_numpy(cg), device=CPU)
     before = co.LAUNCHES
-    got = tlimb.layer_tau_kernel(torch.tensor(np.asarray(nu_off)), tl,
-                                 tcg, cutoff_cm1=25.0)
+    t_nu_off = torch.tensor(np.asarray(nu_off))
+    got = tlimb.layer_tau_kernel(t_nu_off, tl, tcg,
+                                 co.line_windows(t_nu_off, tl.nu0),
+                                 cutoff_cm1=25.0)
     assert co.LAUNCHES == before
     for r, g in zip(ref, got):
         r = np.asarray(r)

@@ -1,7 +1,7 @@
 """The port runs where JAX is not installed: every module of
-spectrobot_tpu_torch (and chip_smoke.py) imports, and the tiny forward runs
-on CPU through ``python -m spectrobot_tpu_torch``, in a fresh interpreter
-that holds no jax."""
+spectrobot_tpu_torch (and chip_smoke.py) imports, and the tiny forward and
+retrieval run on CPU through ``python -m spectrobot_tpu_torch``, in a fresh
+interpreter that holds no jax."""
 
 import os
 import subprocess
@@ -23,12 +23,13 @@ for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 import chip_smoke
-sys.argv = ["spectrobot_tpu_torch", "forward", {toml!r}, "--device", "cpu",
-            "-o", "run.output_dir=" + {out!r}]
-try:
-    runpy.run_module("spectrobot_tpu_torch", run_name="__main__")
-except SystemExit as e:
-    assert e.code == 0, e.code
+for cmd in ("forward", "retrieve"):
+    sys.argv = ["spectrobot_tpu_torch", cmd, {toml!r}, "--device", "cpu",
+                "-o", "run.output_dir=" + {out!r}, "-o", "retrieval.max_iter=2"]
+    try:
+        runpy.run_module("spectrobot_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
 loaded = [k for k, v in sys.modules.items()
           if (k == "jax" or k.startswith("jax.")) and v is not None]
 assert not loaded, loaded
@@ -43,7 +44,9 @@ def test_port_runs_without_jax(tmp_path, block):
     toml = tmp_path / "tiny.toml"
     toml.write_text(TINY_TOML)
     out = tmp_path / "out"
-    env = {**os.environ, "PYTHONPATH": REPO}
+    # One intra-op thread: the tiny run would only contend with the other
+    # test workers for the cores.
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT.format(block=block, toml=str(toml),
                                              out=str(out))],
@@ -51,3 +54,4 @@ def test_port_runs_without_jax(tmp_path, block):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NO_JAX_OK" in proc.stdout
     assert (out / "forward.npz").exists()
+    assert (out / "retrieval.npz").exists() and (out / "run.jsonl").exists()

@@ -95,7 +95,8 @@ def test_accumulate_batch_cpu_matches_pallas_interpret(with_chi):
     before = co.LAUNCHES
     t = torch.as_tensor
     got = co.accumulate_batch(
-        t(nu), nu0, t(nc), t(sx), t(y), t(amps), cutoff_cm1=25.0,
+        t(nu), co.line_windows(t(nu), nu0), t(nc), t(sx), t(y), t(amps),
+        cutoff_cm1=25.0,
         chi_b=None if chi is None else t(chi))
     assert co.LAUNCHES == before        # CPU tensors never launch
     assert got.dtype == torch.float32 and got.shape == ref.shape
@@ -112,7 +113,7 @@ def test_accumulate_batch_rejects_what_the_kernel_does_not_take():
     nu, nu0, nc, sx, y, amps, _ = _batch_inputs(n_states=2, n_lines=8,
                                                 n_points=16)
     t = torch.as_tensor
-    args = [t(nu), nu0, t(nc), t(sx), t(y), t(amps)]
+    args = [t(nu), co.line_windows(t(nu), nu0), t(nc), t(sx), t(y), t(amps)]
     with pytest.raises(ValueError, match="shape"):
         co.accumulate_batch(*args[:5], t(amps)[:, :1].contiguous())
     kernel_args = [args[0], *args[2:], None]
@@ -141,7 +142,6 @@ def test_tier_counts_all_four_tiers_on_smoke_inputs():
     for case in chip_smoke.k1_cases(torch.device("cpu"), n_points=2048,
                                     bench_rays=3):
         for name, n in co.tier_counts(
-                case.nu, case.nu0, case.nu_c, case.sx, case.y,
-                case.amps).items():
+                case.windows, case.nu_c, case.sx, case.y, case.amps).items():
             seen[name] += n
     assert all(n > 0 for n in seen.values()), seen

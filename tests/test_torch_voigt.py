@@ -65,3 +65,51 @@ def test_humlicek4_f32(with_region4):
     assert got.dtype == torch.float32 and ref.dtype == np.float32
     m = ref > 1e-12
     np.testing.assert_allclose(got.numpy()[m], ref[m], rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_region4", [True, False])
+def test_humlicek4_grad_f64(with_region4):
+    """The closed-form w4 derivative against the reference's, float64, in
+    each region's own sample set."""
+    x, y = _grid()
+    regions = _regions(x, y)
+    if not with_region4:
+        keep = ~regions[4]
+        x, y = x[keep], y[keep]
+        regions = _regions(x, y)
+    ref = [np.asarray(r) for r in jvoigt.wofz_humlicek4_grad(
+        jnp.asarray(x), jnp.asarray(y), with_region4=with_region4)]
+    got = [g.numpy() for g in tvoigt.wofz_humlicek4_grad(
+        torch.as_tensor(x), torch.as_tensor(y), with_region4=with_region4)]
+    for k, m in regions.items():
+        if not m.any():
+            continue
+        for r, g in zip(ref, got):
+            np.testing.assert_allclose(g[m], r[m], rtol=1e-12,
+                                       atol=1e-300, err_msg=f"region {k}")
+
+
+def test_humlicek4_grad_f32():
+    """float32 partials within 1e-5 of the largest reference value of each
+    region's sample set (the derivative spans many decades there)."""
+    x, y = _grid()
+    x32, y32 = x.astype(np.float32), y.astype(np.float32)
+    ref = [np.asarray(r) for r in jvoigt.wofz_humlicek4_grad(
+        jnp.asarray(x32), jnp.asarray(y32))]
+    got = tvoigt.wofz_humlicek4_grad(torch.as_tensor(x32),
+                                     torch.as_tensor(y32))
+    assert all(g.dtype == torch.float32 for g in got)
+    for k, m in _regions(x, y).items():
+        for r, g in zip(ref, got):
+            scale = np.abs(r[m]).max()
+            assert np.max(np.abs(g.numpy()[m] - r[m])) <= 1e-5 * scale, k
+
+
+def test_humlicek4_grad_primal_is_w4():
+    """The gradient's (wr, wi) are the primal evaluator's values."""
+    x, y = _grid()
+    w = tvoigt.wofz_humlicek4(torch.as_tensor(x), torch.as_tensor(y))
+    g = tvoigt.wofz_humlicek4_grad(torch.as_tensor(x), torch.as_tensor(y))
+    for a, b in zip(w, g[:2]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-14,
+                                   atol=1e-300)
