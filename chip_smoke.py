@@ -6,8 +6,8 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: both kernels from spectrobot_tpu_torch/csrc (one nvcc each,
-     started together), with their ptxas reports;
+  2. build: the three kernels from spectrobot_tpu_torch/csrc (one nvcc
+     each, started together), with their ptxas reports;
   3. K1 (the line sum) against its plain PyTorch version on the card, in
      float32: the forward's own limb and nadir inputs
      (examples/mars_limb.toml) and the reference bench's production scale
@@ -16,6 +16,11 @@ Phases, each of which raises (non-zero exit) on failure:
   4. K2 (the basis contraction) against its plain version at the same
      inputs with 66 random nonzero coefficient rows (33 Jacobian columns x 2
      depths); all four tiers must occur;
+  4b. K5 (the transposed basis contraction) against its plain version at
+     the same inputs with random cotangent rows: R = 2 (a gradient) on the
+     limb, nadir + chi and bench cases, R = 66 (a folded jacrev) on the
+     limb; all four tiers must occur; and the adjoint identity
+     <ct, K2(C)> = sum_k <C_k, K5(ct)_k> on the limb case;
   5. main path, forward: the CLI forward of examples/mars_limb.toml through
      K1 (its launch count must rise), radiances checked, then the same scene
      through the plain version;
@@ -23,9 +28,18 @@ Phases, each of which raises (non-zero exit) on failure:
      (self-test observations) through K1 and K2; K2 must launch once per
      Jacobian, the fit converge with chi2 falling, and the Jacobian at the
      prior through the kernels agree with the plain engine's;
+  6b. main path, reverse mode: the gradient of the retrieval cost
+     1/2 |(y - y_obs) / sigma|^2 at the prior through
+     retrieval_problem(analytic_jvp='rev'): one K1 and one K5 launch, equal
+     to J^T dL/dy from the K1/K2 Jacobian and to the plain engine's
+     reverse gradient; then the adjoint tool (spectrobot_tpu_torch.adjoint)
+     at its defaults;
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
-     against its plain version, the warm forward, one warm Jacobian, and
-     the retrieval's wall time and per-iteration median.
+     against its plain version, the warm forward, one warm Jacobian, one
+     warm reverse gradient, and the retrieval's wall time and
+     per-iteration median; each kernel's bound (the larger of its bytes
+     over the memory rate and its flops over the FP32 rate, counted from
+     this run's inputs).
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -35,6 +49,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,6 +68,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                       "spectrobot_tpu/ops/pallas_opacity.py:451"),
     "basis_batch": ("spectrobot_tpu_torch/csrc/basis_batch.cu",
                     "spectrobot_tpu/ops/pallas_opacity.py:751"),
+    "basis_transpose": ("spectrobot_tpu_torch/csrc/basis_transpose.cu",
+                        "spectrobot_tpu/ops/pallas_opacity.py:1023"),
 }
 # K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
@@ -63,6 +80,26 @@ RTOL, ATOL_REL = 3e-5, 1e-6
 K2_REL = 1e-5
 K2_COLUMNS = 33            # Jacobian columns of the slice (R = 66 rows)
 PLAIN_STATES = 64          # live states the plain version checks at scale
+# The adjoint identity <ct, K2(C)> = sum_k <C_k, K5(ct)_k> holds to float32
+# roundoff: |lhs - rhs| <= ADJ_REL x the larger sum of absolute products.
+ADJ_REL = 1e-5
+# The reverse gradient of the retrieval cost against J^T dL/dy and against
+# the plain engine's: rtol, and atol as a share of max |g|.
+GRAD_RTOL, GRAD_ATOL_REL = 2e-5, 1e-5
+# The bound of a kernel: the flops its inputs need over the H100's
+# 67 TFLOP/s FP32 rate, or its bytes over 3.35 TB/s (NVIDIA's SXM data
+# sheet), whichever is larger.  Flops: every (point, line) pair within the
+# cutoff of a live state evaluates the one Humlicek region its (x, y) lies
+# in; a region's cost is the step between consecutive tiers of the
+# reference's per-pair audit (bench.py:335-336, TIER_FLOPS = far 14, mid
+# 55, near3 165, near4 300 and TIER_FLOPS_GRAD = 30, 80, 360, 550, one
+# transcendental = 8 flops; each tier adds one region to the branchless
+# evaluation); plus 4 pipeline flops a pair (dnu, x, broadcast, mask) and
+# 2 per FMA of the contraction.
+REGIONS = ("I", "II", "III", "IV")
+REGION_FLOPS = dict(zip(REGIONS, (14.0, 41.0, 110.0, 135.0)))
+REGION_FLOPS_GRAD = dict(zip(REGIONS, (30.0, 50.0, 280.0, 190.0)))
+FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 
 
 class K1Case(NamedTuple):
@@ -239,6 +276,107 @@ def compare_k2(case: K1Case, C) -> dict:
     return row
 
 
+def cotangent_rows(case: K1Case, R: int, seed: int) -> torch.Tensor:
+    """Random cotangent rows [B, R, P] for K5 on the case's device: every
+    state live, also those whose amplitudes are zero (their amplitude
+    cotangent is not zero)."""
+    g = torch.Generator(device=case.nu.device).manual_seed(seed)
+    return torch.randn((case.nu_c.shape[0], R, case.nu.shape[0]),
+                       generator=g, device=case.nu.device)
+
+
+def compare_k5(case: K1Case, ct: torch.Tensor) -> dict:
+    from spectrobot_tpu_torch.ops.cuda_transpose import (
+        basis_transpose_batch, basis_transpose_batch_plain)
+
+    got = basis_transpose_batch(case.nu, case.windows, case.nu_c, case.sx,
+                                case.y, ct, chi_b=case.chi_b)
+    torch.cuda.synchronize()
+    idx = _states_checked(case)
+    ref = basis_transpose_batch_plain(
+        case.nu, _sub(case.nu_c, idx), _sub(case.sx, idx), _sub(case.y, idx),
+        ct[idx].contiguous(), chi_b=_sub(case.chi_b, idx))
+    errs, scales = [], []
+    for g, r in zip(got, ref):
+        g = g[idx]
+        check(bool(torch.isfinite(g).all()), f"{case.name}: non-finite K5")
+        errs.append(float((g - r).abs().max()))
+        scales.append(float(r.abs().max()))
+    row = {"case": case.name, "states": int(case.nu_c.shape[0]),
+           "checked": int(idx.numel()), "lines": int(case.nu_c.shape[1]),
+           "points": int(case.nu.shape[0]), "rows": int(ct.shape[1]),
+           "max_abs_err": max(errs),
+           "outputs": {k: {"max_abs_err": e, "max_ref": m}
+                       for k, e, m in zip(("K", "Kx", "xKx", "Ky"), errs,
+                                          scales)},
+           "budget": f"{K2_REL:g}*max|ref| per output",
+           "err_over_budget": max(e / (K2_REL * m)
+                                  for e, m in zip(errs, scales))}
+    print(f"K5 vs plain: {json.dumps(row)}")
+    check(row["err_over_budget"] <= 1.0,
+          f"{case.name} (R = {ct.shape[1]}): K5 disagrees with the plain "
+          f"version ({row['err_over_budget']:.3g} x the budget)")
+    return row
+
+
+def adjoint_identity(case: K1Case, C, ct: torch.Tensor) -> float:
+    """<ct, K2(C)> against sum_k <C_k, K5(ct)_k> through the kernels, in
+    float64 from their float32 outputs.  Returns |lhs - rhs| over the
+    bound."""
+    from spectrobot_tpu_torch.ops.cuda_basis import basis_contract_batch
+    from spectrobot_tpu_torch.ops.cuda_transpose import basis_transpose_batch
+
+    out = basis_contract_batch(case.nu, case.windows, case.nu_c, case.sx,
+                               case.y, *C, chi_b=case.chi_b).double()
+    Ab = basis_transpose_batch(case.nu, case.windows, case.nu_c, case.sx,
+                               case.y, ct, chi_b=case.chi_b)
+    ct = ct.double()
+    lhs = float(torch.sum(ct * out))
+    terms = [c.double() * a.double() for c, a in zip(C, Ab)]
+    rhs = sum(float(torch.sum(t)) for t in terms)
+    scale = max(float(torch.sum((ct * out).abs())),
+                sum(float(torch.sum(t.abs())) for t in terms))
+    ratio = abs(lhs - rhs) / (ADJ_REL * scale)
+    print(f"adjoint identity ({case.name}, R = {ct.shape[1]}): <ct, K2(C)> "
+          f"{lhs:.9e}, sum_k <C_k, K5(ct)_k> {rhs:.9e}, |diff| "
+          f"{abs(lhs - rhs):.3e}; bound {ADJ_REL:g} x {scale:.6e} (the "
+          f"larger sum of absolute products); diff / bound {ratio:.3e}")
+    check(ratio <= 1.0, "K5 is not the adjoint of K2")
+    return ratio
+
+
+def region_counts(case: K1Case, live: torch.Tensor) -> dict:
+    """The (point, line) pairs within the cutoff of the ``live`` states [B]
+    of the case, by the Humlicek region their (x, y) lies in (s = |x| + y:
+    I s >= 15, II s >= 5.5, IV y < 0.195 |x| - 0.176, else III), counted on
+    the card."""
+    cut = math.inf if case.windows.cutoff_cm1 is None \
+        else case.windows.cutoff_cm1
+    n = torch.zeros(4, dtype=torch.int64, device=case.nu.device)
+    for g in torch.nonzero(live)[:, 0].split(8):
+        dnu = case.nu[None, None, :] - case.nu_c[g][:, :, None]
+        x = dnu * case.sx[g][:, :, None]
+        y = case.y[g][:, :, None].expand_as(x)
+        s_ = x.abs() + y
+        inside = dnu.abs() <= cut
+        r1, r2 = s_ >= 15.0, (s_ >= 5.5) & (s_ < 15.0)
+        r4 = (s_ < 5.5) & (y < 0.195 * x.abs() - 0.176)
+        r3 = (s_ < 5.5) & ~r4
+        n += torch.stack([(r & inside).sum() for r in (r1, r2, r3, r4)])
+    return dict(zip(REGIONS, (int(v) for v in n.cpu())))
+
+
+def bound_ms(pairs: dict, flops: dict, per_pair: float,
+             n_bytes: float) -> tuple:
+    """(bound in ms, what bounds it): the larger of the pairs' flops (by
+    region, plus ``per_pair`` flops each) over the FP32 rate and ``n_bytes``
+    over the memory rate."""
+    ops = sum(n * (flops[r] + per_pair) for r, n in pairs.items())
+    t_ops, t_bytes = ops / FP32_FLOPS, n_bytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def cuda_ms(fn, n: int = 5) -> float:
     """Median device time of ``fn`` over n runs after one warm-up [ms]."""
     fn()
@@ -256,7 +394,7 @@ def cuda_ms(fn, n: int = 5) -> float:
 
 
 def build_kernels() -> None:
-    """Both kernels from the checkout's sources, one nvcc each, in
+    """The kernels from the checkout's sources, one nvcc each, in
     parallel; prints each build's time and ptxas report."""
     from spectrobot_tpu_torch.kernels import build
 
@@ -279,9 +417,10 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch import adjoint, cli
     from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_opacity as co
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -297,6 +436,7 @@ def main() -> int:
     build_kernels()
     co._library()
     cb._library()
+    ctr._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -328,15 +468,35 @@ def main() -> int:
     check(all(v > 0 for v in tiers2.values()),
           f"not every Voigt tier was exercised by K2: {tiers2}")
 
+    # Phase 4b: K5 against the plain version (random cotangent rows: every
+    # state live), the folded R = 66 case, and the adjoint identity.
+    rows5, cots = {}, {}
+    tiers5 = {name: 0 for name in co.TIERS}
+    for seed, (name, R) in enumerate((("limb", 2), ("nadir+chi", 2),
+                                      ("bench", 2), ("limb", 66))):
+        case = cases[name]
+        ct = cots[name, R] = cotangent_rows(case, R, 100 + seed)
+        live = (ct != 0).flatten(1).any(1)[:, None]
+        for k, v in co.tier_counts(case.windows, case.nu_c, case.sx, case.y,
+                                   live).items():
+            tiers5[k] += v
+        rows5[name, R] = compare_k5(case, ct)
+    print(f"K5 tiers over its cases: {json.dumps(tiers5)}")
+    check(all(v > 0 for v in tiers5.values()),
+          f"not every Voigt tier was exercised by K5: {tiers5}")
+    adj_ratio = adjoint_identity(cases["limb"], coeffs["limb"],
+                                 cots["limb", 66])
+
     # Phase 5: the main path, forward, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
-        co.LAUNCHES = cb.LAUNCHES = 0
+        co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = 0
         cli.main(["forward", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
-        fwd_launches = (co.LAUNCHES, cb.LAUNCHES)
+        fwd_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
         with np.load(os.path.join(tmp, "forward.npz")) as out:
             I, chans = out["values"], out["nu"]
-    print(f"forward launches: K1 {fwd_launches[0]}, K2 {fwd_launches[1]}")
+    print(f"forward launches: K1 {fwd_launches[0]}, K2 {fwd_launches[1]}, "
+          f"K5 {fwd_launches[2]}")
     check(fwd_launches[0] > 0, "the CLI forward never launched K1")
     check(I.shape == (20, 96), f"radiance shape {I.shape} != (20, 96)")
     check(bool(np.isfinite(I).all() and (I >= 0).all()),
@@ -357,13 +517,13 @@ def main() -> int:
 
     # Phase 6: the main path, retrieve, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
-        co.LAUNCHES = cb.LAUNCHES = 0
+        co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = 0
         t0 = time.perf_counter()
         cli.main(["retrieve", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
         torch.cuda.synchronize()
         ret_wall = time.perf_counter() - t0
-        ret_launches = (co.LAUNCHES, cb.LAUNCHES)
+        ret_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
         with np.load(os.path.join(tmp, "retrieval.npz")) as out:
             res = {k: out[k] for k in out.files}
         with open(os.path.join(tmp, "run.jsonl")) as f:
@@ -371,8 +531,8 @@ def main() -> int:
     n_iter, chi2 = int(res["n_iter"]), float(res["chi2"])
     iters = [r for r in log if "chi2" in r]
     n_y = int(res["y_obs"].size)
-    print(f"retrieve launches: K1 {ret_launches[0]}, K2 {ret_launches[1]} "
-          f"({n_iter} LM iterations)")
+    print(f"retrieve launches: K1 {ret_launches[0]}, K2 {ret_launches[1]}, "
+          f"K5 {ret_launches[2]} ({n_iter} LM iterations)")
     print(f"retrieve: converged {bool(res['converged'])} "
           f"({res['stop_reason']}), chi2 {iters[0]['chi2']:.6g} at the "
           f"prior -> {chi2:.6g} over {n_y} measurements, "
@@ -406,6 +566,71 @@ def main() -> int:
     check(jac_err <= K2_REL * jac_max,
           "the kernel Jacobian disagrees with the plain one")
 
+    # Phase 6b: the main path in reverse mode, the gradient of the
+    # retrieval cost at the prior (the retrieve's observations and noise).
+    y_obs = torch.as_tensor(res["y_obs"].reshape(-1), dtype=torch.float32,
+                            device=dev)
+    sigma = torch.as_tensor(res["noise"].reshape(-1), dtype=torch.float32,
+                            device=dev)
+    rev = {e.name: cli.retrieval_problem(cfg, scene, e, analytic_jvp="rev")
+           for e in (cb.KERNELS, cb.PLAIN)}
+
+    def cost_grad(p):
+        x = p.x0.detach().clone().requires_grad_()
+        r = (p.fwd_flat(x) - y_obs) / sigma
+        return torch.autograd.grad(0.5 * torch.sum(r * r), x)[0]
+
+    co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = 0
+    g_rev = cost_grad(rev["kernels"])
+    torch.cuda.synchronize()
+    grad_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
+    g_plain = cost_grad(rev["plain"])
+    y0 = prob["kernels"].fwd_flat(x0)
+    g_jac = J.T @ ((y0 - y_obs) / sigma ** 2)
+    g_max = float(g_jac.abs().max())
+    errs = {}
+    for name, ref in (("J^T dL/dy", g_jac), ("plain reverse", g_plain)):
+        err = (g_rev - ref).abs()
+        errs[name] = float(err.max())
+        ok = bool(torch.all(err <= GRAD_RTOL * ref.abs()
+                            + GRAD_ATOL_REL * g_max))
+        print(f"reverse gradient vs {name}: max |err| {errs[name]:.3e} of "
+              f"max |g| {g_max:.3e} (budget {GRAD_RTOL:g}*|ref| + "
+              f"{GRAD_ATOL_REL:g}*max|g|): {'ok' if ok else 'FAILED'}")
+        check(ok, f"the reverse gradient disagrees with {name}")
+    print(f"reverse gradient launches: K1 {grad_launches[0]}, K2 "
+          f"{grad_launches[1]}, K5 {grad_launches[2]} ({n_x} parameters)")
+    check(grad_launches == (1, 0, 1),
+          f"the reverse gradient launched (K1, K2, K5) = {grad_launches}, "
+          f"not (1, 0, 1)")
+    check(bool(torch.isfinite(g_rev).all()), "non-finite reverse gradient")
+    # Which states K5 evaluates on this path: those with nonzero cotangent
+    # rows (an engine that records them; its launches are not counted).
+    from spectrobot_tpu_torch.ops.opacity import Engine
+
+    seen = {}
+
+    def record(nu, windows, nu_c, sx, y, ct, **kw):
+        seen["live"] = ct.flatten(1).ne(0).any(1)
+        return ctr.basis_transpose_batch(nu, windows, nu_c, sx, y, ct, **kw)
+
+    cost_grad(cli.retrieval_problem(
+        cfg, scene, Engine("record", cb.KERNELS.accumulate, cb.KERNELS.contract,
+                           record, ctr.MAX_ROWS), analytic_jvp="rev"))
+    amps_dead = ~cases["limb"].amps.flatten(1).ne(0).any(1)
+    print(f"reverse gradient: K5 cotangent rows nonzero in "
+          f"{int(seen['live'].sum())} of {seen['live'].numel()} states, "
+          f"{int((seen['live'] & amps_dead).sum())} of them with zero "
+          f"amplitudes ({int(amps_dead.sum())} zero-amplitude states)")
+
+    # The adjoint tool at its defaults.
+    adj = adjoint.run(dev)
+    check(all(bool(np.isfinite(leg["grad"]).all())
+              for leg in adj["legs"].values()), "adjoint: non-finite grad")
+    check(adj["max_rel_grad_diff"] <= 1e-4,
+          f"adjoint: analytic and plain-AD gradients differ by "
+          f"{adj['max_rel_grad_diff']:.3e} of max |g|")
+
     # Phase 7: timings.
     def k1(case, fn):
         return lambda: fn(case.nu, case.windows, case.nu_c, case.sx,
@@ -436,6 +661,21 @@ def main() -> int:
     print(f"time K2 bench [{card}]: kernel {k2_bench:.3f} ms "
           f"({c.nu_c.shape[0]} states x {c.nu_c.shape[1]} lines x "
           f"{c.nu.shape[0]} points x {2 * K2_COLUMNS} rows)")
+    def k5(case, fn, R):
+        return lambda: fn(case.nu, case.windows, case.nu_c, case.sx, case.y,
+                          cots[case.name, R], chi_b=case.chi_b)
+
+    c = cases["limb"]
+    times["K5", "limb"] = (cuda_ms(k5(c, ctr.basis_transpose_batch, 2)),
+                           cuda_ms(k5(c, cb.PLAIN.transpose, 2)))
+    k5_66 = cuda_ms(k5(c, ctr.basis_transpose_batch, 66))
+    k5_bench = cuda_ms(k5(cases["bench"], ctr.basis_transpose_batch, 2))
+    print(f"time K5 limb [{card}]: kernel {times['K5', 'limb'][0]:.3f} ms, "
+          f"plain {times['K5', 'limb'][1]:.3f} ms ({c.nu_c.shape[0]} states "
+          f"x {c.nu_c.shape[1]} lines x {c.nu.shape[0]} points x 2 rows); "
+          f"R = 66: {k5_66:.3f} ms; bench (R = 2, "
+          f"{cases['bench'].nu_c.shape[0]} states x "
+          f"{cases['bench'].nu_c.shape[1]} lines): {k5_bench:.3f} ms")
     walls = []
     for _ in range(4):
         t0 = time.perf_counter()
@@ -449,21 +689,51 @@ def main() -> int:
     print(f"time warm forward [{card}]: {fwd_ms:.2f} ms; warm Jacobian "
           f"({n_x} columns): {jac_ms:.2f} ms (examples/mars_limb.toml, "
           f"the retrieval's flat forward)")
+    grad_ms = cuda_ms(lambda: cost_grad(rev["kernels"]))
+    print(f"time warm reverse gradient [{card}]: {grad_ms:.2f} ms (the "
+          f"retrieval cost over {n_x} parameters, one K1 and one K5 call)")
     it_walls = [r["wall_s"] for r in iters]
     print(f"time retrieve [{card}]: {ret_wall:.2f} s wall ({n_iter} LM "
           f"iterations, first call of the process), per-iteration median "
           f"{1e3 * np.median(it_walls):.2f} ms")
 
+    # Each kernel's bound at its timed limb inputs: K1 and K2 over the
+    # amplitude-live states, K5 over the cotangent-live ones (all of them).
+    c = cases["limb"]
+    B, L, P = c.nu_c.shape[0], c.nu_c.shape[1], c.nu.shape[0]
+    lines_in = 4.0 * (P + 3 * B * L)                 # nu; nu_c, sx, y
+    amps_live = c.amps.flatten(1).ne(0).any(1)
+    k1_pairs = region_counts(c, amps_live)
+    k5_pairs = region_counts(c, cots["limb", 2].flatten(1).ne(0).any(1))
+    R2 = 2 * K2_COLUMNS
+    bounds = {
+        "opacity_batch": bound_ms(k1_pairs, REGION_FLOPS, 4.0 + 2 * 2,
+                                  lines_in + 4.0 * (2 * B * L + 2 * B * P)),
+        "basis_batch": bound_ms(k1_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R2,
+                                lines_in + 4.0 * (4 * B * R2 * L
+                                                  + B * R2 * P)),
+        "basis_transpose": bound_ms(k5_pairs, REGION_FLOPS_GRAD,
+                                    4.0 + 8 * 2,
+                                    lines_in + 4.0 * (B * 2 * P
+                                                      + 4 * B * 2 * L)),
+    }
+    print(f"in-cutoff pairs by region (limb): K1/K2 {json.dumps(k1_pairs)}, "
+          f"K5 {json.dumps(k5_pairs)}; bounds [ms]: "
+          f"{json.dumps({k: v[0] for k, v in bounds.items()})}")
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches,
-         "max_abs_err": row["max_abs_err"], "ms": t[0], "plain_ms": t[1]}
+         "max_abs_err": row["max_abs_err"], "ms": t[0], "plain_ms": t[1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
         for name, launches, row, t in (
             ("opacity_batch", ret_launches[0], rows["limb"],
              times["K1", "limb"]),
             ("basis_batch", ret_launches[1], rows2["limb"],
-             times["K2", "limb"]))]}))
+             times["K2", "limb"]),
+            ("basis_transpose", grad_launches[2], rows5["limb", 2],
+             times["K5", "limb"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,16 @@
 """Where the time goes on the card: a host/device breakdown of the
-retrieval's warm forward and warm Jacobian at the prior of a configured
-scene (``cli.retrieval_problem``, ``cli.make_jacobian``).
+retrieval's warm forward, warm Jacobian and warm reverse gradient at the
+prior of a configured scene (``cli.retrieval_problem``,
+``cli.make_jacobian``).
 
     python -m spectrobot_tpu_torch.breakdown [cfg.toml]
 
-Default scene: ``examples/mars_limb.toml``.  It prints the card's name and
-power limit (as nvidia-smi gives them), then one JSON object for each of
-the two calls:
+Default scene: ``examples/mars_limb.toml``.  The reverse gradient is that of
+the retrieval cost 1/2 |(y - y_obs) / sigma|^2 with respect to the flat
+state through ``retrieval_problem(analytic_jvp='rev')`` (K1 and K5), with
+y_obs = 1.01 y(x0) and sigma = 0.005 max y(x0) (the self-test retrieval's
+default noise).  It prints the card's name and power limit (as nvidia-smi
+gives them), then one JSON object for each of the three calls:
 
 - ``wall_ms``: host wall time of one call, ending in a device synchronise,
   over 20 unprofiled calls after a warm-up (median and quartiles);
@@ -134,6 +138,7 @@ def main(argv=None) -> int:
     engine = cli.select_engine(cfg, device)
     scene = cli.build_scene(cfg, device)
     prob = cli.retrieval_problem(cfg, scene, engine)
+    rev = cli.retrieval_problem(cfg, scene, engine, analytic_jvp="rev")
     n_x = int(prob.x0.shape[0])
     jac = cli.make_jacobian(cfg, prob.fwd_flat, n_x, int(scene.nu.shape[0]))
     card = subprocess.run(
@@ -141,8 +146,17 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"breakdown: {args.config}, {n_x} state parameters, card: {card}")
+    y0 = prob.fwd_flat(prob.x0).detach()
+    y_obs, sigma = 1.01 * y0, 0.005 * float(y0.max())
+
+    def gradient():
+        x = rev.x0.detach().clone().requires_grad_()
+        r = (rev.fwd_flat(x) - y_obs) / sigma
+        return torch.autograd.grad(0.5 * torch.sum(r * r), x)[0]
+
     for name, fn in (("forward", lambda: prob.fwd_flat(prob.x0)),
-                     ("jacobian", lambda: jac(prob.x0))):
+                     ("jacobian", lambda: jac(prob.x0)),
+                     ("gradient", gradient)):
         print(json.dumps({"call": name, **measure(fn)}))
     return 0
 

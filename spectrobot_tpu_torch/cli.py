@@ -5,7 +5,8 @@
     python -m spectrobot_tpu_torch retrieve cfg.toml [...]
     python -m spectrobot_tpu_torch info
 
-It reads the reference's TOML schema (``spectrobot_tpu.config``) and writes
+It reads the reference's TOML schema (the port's copy of its
+``config`` module, :mod:`spectrobot_tpu_torch.config`) and writes
 ``run.output_dir/forward.npz``, or ``retrieval.npz`` and ``run.jsonl``, in
 the reference's layout.  The forward is the single-device line-by-line
 limb/nadir path in local thermodynamic equilibrium; ``retrieve`` fits it to
@@ -32,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from spectrobot_tpu.config import Config, load_config
+from spectrobot_tpu_torch.config import Config, load_config
 from spectrobot_tpu_torch.data import atmosphere as atm_mod
 from spectrobot_tpu_torch.data.lines import configured_lines
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
@@ -133,7 +134,7 @@ class Scene(NamedTuple):
 
 def build_scene(cfg, device: torch.device) -> Scene:
     """Config -> the forward's inputs on ``device``."""
-    from spectrobot_tpu.data.molparams import MOLECULES, molecule_by_name
+    from spectrobot_tpu_torch.data.molparams import MOLECULES, molecule_by_name
 
     check_ported(cfg)
     dtype = torch.float64 if cfg.compute.dtype == "float64" else torch.float32
@@ -175,9 +176,12 @@ def n_rays(cfg) -> int:
     return len(g.tangent_heights_km if g.mode == "limb" else g.sec_theta)
 
 
-def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS):
+def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
+                  analytic_jvp=True):
     """F: state -> y (``retrieval.state.build_forward``) of the configured
-    rays over ``atm`` (default: the scene's), the line sum on ``engine``."""
+    rays over ``atm`` (default: the scene's), the line sum on ``engine``,
+    differentiable as ``analytic_jvp`` says (True: forward mode, 'rev':
+    reverse mode, False: plain autograd)."""
     g = cfg.geometry
     atm = scene.atm if atm is None else atm
     dtype, device = scene.nu.dtype, scene.nu.device
@@ -195,7 +199,8 @@ def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS):
                          ils_W=scene.W, n_sub=g.n_sub,
                          cutoff_cm1=cfg.compute.cutoff_cm1,
                          nu_off=scene.nu_off, engine=engine,
-                         windows=scene.windows, **rays)
+                         windows=scene.windows, analytic_jvp=analytic_jvp,
+                         **rays)
 
 
 def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:
@@ -309,12 +314,14 @@ class RetrievalProblem(NamedTuple):
     fwd_flat: object           # F: flat state -> y [n_ray * n_chan]
 
 
-def retrieval_problem(cfg, scene: Scene,
-                      engine: Engine = KERNELS) -> RetrievalProblem:
+def retrieval_problem(cfg, scene: Scene, engine: Engine = KERNELS,
+                      analytic_jvp=True) -> RetrievalProblem:
     """The configured retrieval's state at the prior and its flat forward
-    model, with the line sum on ``engine``.  The scene's atmosphere is cast
-    to the compute dtype (float32 on the card, where the line sum and its
-    tangent run in K1 and K2)."""
+    model, with the line sum on ``engine``, differentiable as
+    ``analytic_jvp`` says (True: the Jacobian by ``torch.func.jacfwd``,
+    'rev': the gradient of a cost by ``torch.autograd.grad``).  The scene's
+    atmosphere is cast to the compute dtype (float32 on the card, where the
+    line sum and its derivatives run in K1, K2 and K5)."""
     atm = scene.atm.to(scene.nu.dtype)
     retrieve_vmr = list(cfg.retrieval.retrieve_vmr)
     ret_T = cfg.retrieval.retrieve_temperature
@@ -332,7 +339,7 @@ def retrieval_problem(cfg, scene: Scene,
                                        retrieve_temperature=ret_T)
         expand = nb.expand
     x0, unravel = flatten_state(init(atm))
-    fwd = scene_forward(cfg, scene, atm, engine)
+    fwd = scene_forward(cfg, scene, atm, engine, analytic_jvp)
     return RetrievalProblem(atm, nb, init, x0,
                             lambda x: fwd(expand(unravel(x))))
 
@@ -345,9 +352,9 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
     Dtypes: the state, the forward and the Jacobian run in the compute
     dtype (:func:`retrieval_problem`), the LM algebra in float64 on the
     host."""
-    from spectrobot_tpu.retrieval.obs import Observation
-    from spectrobot_tpu.utils.checkpoint import Checkpointer
-    from spectrobot_tpu.utils.runlog import RunLogger
+    from spectrobot_tpu_torch.retrieval.obs import Observation
+    from spectrobot_tpu_torch.utils.checkpoint import Checkpointer
+    from spectrobot_tpu_torch.utils.runlog import RunLogger
     from spectrobot_tpu_torch.retrieval.oe import OEConfig, retrieve
 
     engine = select_engine(cfg, device)
@@ -404,7 +411,7 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
     ck_dir = cfg.run.checkpoint_dir or os.path.join(cfg.run.output_dir, "ck")
     state_check = None
     if ret_T:
-        from spectrobot_tpu.data import tips
+        from spectrobot_tpu_torch.data import tips
 
         def state_check(x, _lo=float(tips.T_GRID[0]),
                         _hi=float(tips.T_GRID[-1])):
@@ -440,7 +447,7 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
         noise=np.asarray(noise_flat).reshape(-1, n_chan),
         channels_cm1=np.asarray(chans))            # compat alias of nu
     try:
-        from spectrobot_tpu.utils.plots import (
+        from spectrobot_tpu_torch.utils.plots import (
             plot_averaging_kernels, plot_fit, plot_retrieval)
         plot_fit(os.path.join(cfg.run.output_dir, "fit.png"),
                  np.asarray(chans), np.asarray(y_obs).reshape(-1, n_chan),

@@ -14,7 +14,9 @@
 // constant in the tangent (frozen-chi convention).  Each tier evaluates the
 // closed-form derivative of the formula its primal uses (the regions of
 // Humlicek's w4), so the Jacobian is the derivative of the forward kernel
-// (csrc/opacity_batch.cu), tier by tier.
+// (csrc/opacity_batch.cu), tier by tier.  The per-pair basis and the tier
+// decision live in voigt_basis.cuh, shared with the transpose (K5,
+// basis_transpose.cu).
 //
 // What bounds it: FP32 work on the CUDA cores.  Per live (point, line) pair
 // the basis costs roughly 2.5x the forward's Voigt evaluation (far ~30
@@ -49,11 +51,10 @@
 
 #include <cuda_runtime.h>
 
+#include "voigt_basis.cuh"
+
 namespace {
 
-constexpr int TILE_P = 128;    // grid points per block = threads per block
-constexpr int BLOCK_L = 128;   // lines staged per window block
-constexpr int SUB_L = 32;      // lines per tier decision = one warp
 constexpr int GROUP = 4;       // lines whose basis is held in registers
 constexpr int N_SUB = BLOCK_L / SUB_L;
 constexpr int N_WARP = TILE_P / 32;
@@ -69,148 +70,6 @@ constexpr int ROW_BYTES = (TILE_P + 4 * SUB_L) * 4;
 constexpr int SMEM_LIMIT = 232448;
 constexpr int STATIC_RESERVE = 4096;
 constexpr int MAX_ROWS = (SMEM_LIMIT - STATIC_RESERVE) / ROW_BYTES;
-
-constexpr float INV_SQRT_PI = 0.56418958354775628f;
-constexpr float A2 = 1.410474f;
-constexpr float CHI_DELTA1 = 3.0f;
-constexpr float Y4_MIN = 0.9f;
-
-enum Tier { FAR = 0, MID = 1, NEAR3 = 2, NEAR4 = 3 };
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Complex arithmetic on (re, im) pairs, as ops/cpx.py.
-struct cf {
-  float r, i;
-};
-
-__device__ __forceinline__ cf cmul(cf a, cf b) {
-  return {a.r * b.r - a.i * b.i, a.r * b.i + a.i * b.r};
-}
-
-__device__ __forceinline__ cf csub(cf a, cf b) { return {a.r - b.r, a.i - b.i}; }
-
-__device__ __forceinline__ cf cscale(float s, cf a) { return {s * a.r, s * a.i}; }
-
-// 1/b staged as conj(b) * (1/|b|^2): the largest intermediate is |b|^2.
-__device__ __forceinline__ cf cinv(cf b) {
-  const float inv = 1.0f / (b.r * b.r + b.i * b.i);
-  return {b.r * inv, -b.i * inv};
-}
-
-// Horner evaluation at complex z of a polynomial with real coefficients
-// (highest degree first).
-template <int N>
-__device__ __forceinline__ cf cpoly(const float (&c)[N], cf z) {
-  cf p = {c[0], 0.0f};
-#pragma unroll
-  for (int k = 1; k < N; ++k) {
-    const float r = p.r * z.r - p.i * z.i + c[k];
-    p.i = p.r * z.i + p.i * z.r;
-    p.r = r;
-  }
-  return p;
-}
-
-// Coefficients (highest degree first) of w4 regions III and IV and of their
-// derivative polynomials.
-__device__ __forceinline__ void region3(cf t, float& K, cf& g) {
-  const float N3[5] = {0.5642236f, 3.778987f, 11.96482f, 20.20933f, 16.4955f};
-  const float D3[6] = {1.0f, 6.699398f, 21.69274f, 39.27121f, 38.82363f,
-                       16.4955f};
-  const float dN3[4] = {4.0f * 0.5642236f, 3.0f * 3.778987f,
-                        2.0f * 11.96482f, 20.20933f};
-  const float dD3[5] = {5.0f * 1.0f, 4.0f * 6.699398f, 3.0f * 21.69274f,
-                        2.0f * 39.27121f, 38.82363f};
-  const cf invD = cinv(cpoly(D3, t));
-  const cf w = cmul(cpoly(N3, t), invD);
-  g = csub(cmul(cpoly(dN3, t), invD), cmul(w, cmul(cpoly(dD3, t), invD)));
-  K = w.r;
-}
-
-__device__ __forceinline__ void region4(cf t, float& K, cf& g) {
-  const float P4[7] = {0.56419f, -1.320522f, 35.76683f, -219.0313f,
-                       1540.787f, -3321.9905f, 36183.31f};
-  const float Q4[8] = {-1.0f, 1.841439f, -61.57037f, 364.2191f,
-                       -2186.181f, 9022.228f, -24322.84f, 32066.6f};
-  const float dP4[6] = {6.0f * 0.56419f, 5.0f * -1.320522f,
-                        4.0f * 35.76683f, 3.0f * -219.0313f,
-                        2.0f * 1540.787f, -3321.9905f};
-  const float dQ4[7] = {7.0f * -1.0f, 6.0f * 1.841439f, 5.0f * -61.57037f,
-                        4.0f * 364.2191f, 3.0f * -2186.181f,
-                        2.0f * 9022.228f, -24322.84f};
-  const cf u = cmul(t, t);
-  const cf invQ = cinv(cpoly(Q4, u));
-  const cf F = cmul(cpoly(P4, u), invQ);
-  float sn, cs;
-  sincosf(u.i, &sn, &cs);
-  const float ex = expf(u.r);
-  const cf eu = {ex * cs, ex * sn};
-  const cf w = csub(eu, cmul(t, F));
-  const cf dF = csub(cmul(cpoly(dP4, u), invQ),
-                     cmul(F, cmul(cpoly(dQ4, u), invQ)));
-  const cf tu = cmul(t, eu);
-  const cf udF = cmul(u, dF);
-  g = {2.0f * tu.r - (F.r + 2.0f * udF.r), 2.0f * tu.i - (F.i + 2.0f * udF.i)};
-  K = w.r;
-}
-
-// Region I (s >= 15): f = c t / (0.5 + u), f' = c (0.5 - u) / (0.5 + u)^2.
-__device__ __forceinline__ void region1(float x, float y, float& K, cf& g) {
-  const float ur = y * y - x * x;
-  const float ui = -2.0f * x * y;
-  const cf den = {0.5f + ur, ui};
-  const cf inv = cinv(den);
-  K = INV_SQRT_PI * y * (0.5f + y * y + x * x) /
-      (den.r * den.r + den.i * den.i);
-  g = cmul(cscale(INV_SQRT_PI, cf{0.5f - ur, -ui}), cmul(inv, inv));
-}
-
-// Region II (s >= 5.5): f = t (a + c u) / D, D = 0.75 + u (3 + u);
-// f' = Nd(u) / D^2.
-__device__ __forceinline__ void region2(float x, float y, float& K, cf& g) {
-  const float ND2[4] = {-INV_SQRT_PI, 3.0f * (INV_SQRT_PI - A2),
-                        2.25f * INV_SQRT_PI - 3.0f * A2, 0.75f * A2};
-  const cf u = {y * y - x * x, -2.0f * x * y};
-  const cf den = {0.75f + (u.r * (3.0f + u.r) - u.i * u.i),
-                  u.r * u.i + u.i * (3.0f + u.r)};
-  const cf inv = cinv(den);
-  const cf num = cmul(cf{y, -x}, cf{A2 + INV_SQRT_PI * u.r, INV_SQRT_PI * u.i});
-  K = cmul(num, inv).r;
-  g = cmul(cmul(cpoly(ND2, u), inv), inv);
-}
-
-// K and f' of one pair with the regions its tier allows; dK/dx = Im f',
-// dK/dy = Re f'.
-template <int TIER>
-__device__ __forceinline__ void basis_pair(float x, float y, float& K,
-                                           float& kx, float& ky) {
-  cf g;
-  const float s = fabsf(x) + y;
-  if (TIER == FAR || s >= 15.0f) {
-    region1(x, y, K, g);
-  } else if (TIER == MID || s >= 5.5f) {
-    region2(x, y, K, g);
-  } else if (TIER == NEAR4 && y < 0.195f * fabsf(x) - 0.176f) {
-    region4(cf{y, -x}, K, g);
-  } else {
-    region3(cf{y, -x}, K, g);
-  }
-  kx = g.i;
-  ky = g.r;
-}
 
 struct Staged {
   float nuc[BLOCK_L];
@@ -234,25 +93,9 @@ __device__ __forceinline__ void contract_sub(const Staged& s, int base,
 #pragma unroll
     for (int j = 0; j < GROUP; ++j) {
       const int i = base + g + j;
-      const float dnu = nu_p - s.nuc[i];
-      b[0][j] = b[1][j] = b[2][j] = b[3][j] = 0.0f;
-      if (fabsf(dnu) <= cutoff) {
-        const float x = dnu * s.sx[i];
-        float K, kx, ky;
-        basis_pair<TIER>(x, s.y[i], K, kx, ky);
-        if (HAS_CHI) {
-          const float ch = expf(-s.chi[i] * fmaxf(fabsf(dnu) - CHI_DELTA1,
-                                                  0.0f));
-          K *= ch;
-          kx *= ch;
-          ky *= ch;
-        }
-        b[0][j] = K;
-        b[1][j] = kx;
-        b[2][j] = x * kx;
-        b[3][j] = ky;
-        any = true;
-      }
+      any |= pair_basis<TIER, HAS_CHI>(nu_p - s.nuc[i], s.sx[i], s.y[i],
+                                       HAS_CHI ? s.chi[i] : 0.0f, cutoff,
+                                       b[0][j], b[1][j], b[2][j], b[3][j]);
     }
     if (!any) continue;        // every term would add an exact zero
 #pragma unroll 2
@@ -349,16 +192,9 @@ basis_batch_kernel(const float* __restrict__ nu,
     // its tier (the decision of csrc/opacity_batch.cu).
     const float c_min = warp_min(c), c_max = warp_max(c);
     const float sx_min = warp_min(sxv), y_min = warp_min(yy);
-    if (lane == 0) {
-      const float gap = fmaxf(fmaxf(c_min - tile_hi, tile_lo - c_max), 0.0f);
-      // __fmul_rn keeps the product out of an FMA, so the host's
-      // tier_counts reproduces the decision exactly.
-      const float s_min = __fmul_rn(gap, sx_min) + y_min;
-      s_tier[warp] = s_min >= 15.0f  ? FAR
-                     : s_min >= 5.5f ? MID
-                     : y_min >= Y4_MIN ? NEAR3
-                                       : NEAR4;
-    }
+    if (lane == 0)
+      s_tier[warp] = sub_block_tier(c_min, c_max, sx_min, y_min, tile_lo,
+                                    tile_hi);
 #pragma unroll 1
     for (int sb = 0; sb < N_SUB; ++sb) {
       __syncthreads();         // c_s free, s and s_tier written

@@ -14,7 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from spectrobot_tpu.constants import AMU, K_BOLTZ
+from spectrobot_tpu_torch.constants import AMU, K_BOLTZ
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,13 @@
-"""Line lists of the port's scenes, made by the reference's jax-free host
-modules (``spectrobot_tpu.data``): the list a TOML configuration names, and
-the random band of the reference's throughput bench."""
+"""Line lists of the port's scenes, made by the port's copies of the
+reference's host modules (``data.synth``, ``data.hitran``): the list a TOML
+configuration names, and the random band of the reference's throughput
+bench."""
 
 from __future__ import annotations
 
-from spectrobot_tpu.data import synth
-from spectrobot_tpu.data.hitran import LineList, parse_par_file
-from spectrobot_tpu.data.synth import random_lines
+from spectrobot_tpu_torch.data import synth
+from spectrobot_tpu_torch.data.hitran import LineList, parse_par_file
+from spectrobot_tpu_torch.data.synth import random_lines
 
 __all__ = ["configured_lines", "random_lines"]
 

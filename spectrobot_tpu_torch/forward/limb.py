@@ -1,7 +1,9 @@
 """Multi-layer limb/nadir forward model (port of the single-device kernel
 path of ``spectrobot_tpu.forward.limb``): Curtis-Godson states -> one
 batched opacity line sum over every (ray, layer) state -> source assembly
--> segment RT.
+-> segment RT.  The public ``layer_optics``, ``limb_radiance`` and
+``nadir_radiance`` take the reference's ``analytic_jvp`` switch: analytic
+forward mode (K1 + K2), analytic reverse mode (K1 + K5) or plain autograd.
 
 Only local thermodynamic equilibrium is ported: both per-line amplitude
 weights are 1 (the reference's ``data.nlte.weights_for_layer`` without a
@@ -18,9 +20,9 @@ import torch
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.forward.rt import layer_path_radiance
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
-from spectrobot_tpu_torch.ops.cuda_opacity import Windows
+from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.opacity import (
-    Engine, LineSumOp, line_kernel_inputs)
+    Engine, LineSumOp, ad_mode, line_kernel_inputs, line_sum_plain_ad)
 from spectrobot_tpu_torch.ops.planck import planck_nu
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 
@@ -48,11 +50,20 @@ def _tau_prologue(lines: DeviceLines, cg: PathCG):
 def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
                      windows: Windows, *,
                      cutoff_cm1: Optional[float] = 25.0,
-                     engine: Engine = KERNELS):
+                     engine: Engine = KERNELS, analytic_jvp=True,
+                     chunk: int = 256, remat: bool = False):
     """One batched line sum over the whole (ray x layer) batch (the
-    counterpart of the reference's ``layer_tau_pallas``), differentiable in
-    forward mode (``ops.opacity.LineSumOp``: under ``torch.func.jacfwd`` one
-    K1 and one K2 call for the whole Jacobian).
+    counterpart of the reference's ``layer_tau_pallas``), differentiable
+    as ``analytic_jvp`` says (``ops.opacity.ad_mode``):
+
+    - True/'fwd': forward mode (``ops.opacity.LineSumOp``: under
+      ``torch.func.jacfwd`` one K1 and one K2 call for the whole Jacobian);
+    - 'rev': reverse mode (one K1 call, and one K5 call per gradient, or
+      per ``torch.func.jacrev`` while the folded rows fit one call);
+    - False: plain autograd through the plain line sum in ``chunk``-line
+      slabs on any device (``ops.opacity.line_sum_plain_ad``; ``remat``
+      recomputes each slab in the backward pass).  ``engine`` and
+      ``windows`` are not used.
 
     ``nu_off``: the grid in offset coordinates (nu - lines.nu_ref), staged
     from float64 by the caller.  The kernel inputs are cast to its dtype.
@@ -65,8 +76,13 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     dt = nu_off.dtype
     nu_c, sx, y, amps = (a.to(dt).contiguous()
                          for a in _tau_prologue(lines, cg))
-    op = LineSumOp(engine, windows, cutoff_cm1)
-    out = op(nu_off, nu_c, sx, y, amps)                # [B, 2, P]
+    mode = ad_mode(analytic_jvp)
+    if mode is None:
+        out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chunk=chunk,
+                                cutoff_cm1=cutoff_cm1, remat=remat)
+    else:
+        out = LineSumOp(engine, windows, cutoff_cm1, mode)(
+            nu_off, nu_c, sx, y, amps)                 # [B, 2, P]
     out = out.reshape(R, NL, 2, nu_off.shape[0])
     return out[:, :, 0, :], out[:, :, 1, :]
 
@@ -127,3 +143,47 @@ def radiance_from_tau(nu_grid, cg: PathCG, dtau, dtau_em, T_surface=None,
     return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em,
                                  I_background=I_bg, is_limb=False,
                                  emissivity=emissivity)
+
+
+def _depths(nu_grid, lines: DeviceLines, cg: PathCG, *,
+            nu_off: Optional[torch.Tensor] = None, windows=None,
+            cutoff_cm1: Optional[float] = 25.0, analytic_jvp=True, **kw):
+    """(dtau, dtau_em) of the public entry points: ``nu_off`` defaults to
+    ``nu_grid - lines.nu_ref`` and ``windows`` to the table of ``nu_off``
+    and ``lines.nu0`` (built on the host; pass the scene's to avoid it)."""
+    if nu_off is None:
+        nu_off = nu_grid - float(lines.nu_ref)
+    if windows is None and ad_mode(analytic_jvp) is not None:
+        windows = line_windows(nu_off, lines.nu0, cutoff_cm1=cutoff_cm1)
+    return layer_tau_kernel(nu_off, lines, cg, windows,
+                            cutoff_cm1=cutoff_cm1, analytic_jvp=analytic_jvp,
+                            **kw)
+
+
+def layer_optics(nu_grid, lines: DeviceLines, cg: PathCG,
+                 **kw) -> LayerOptics:
+    """Per-(ray, layer) optical depth and source spectra [R, NL, P] (the
+    reference's ``layer_optics``, LTE).  Keywords: those of
+    :func:`layer_tau_kernel` (``analytic_jvp``, ``engine``, ``cutoff_cm1``,
+    ``chunk``, ``remat``) and ``nu_off``, ``windows`` (defaults from the
+    grid and the lines)."""
+    dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
+    return optics_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em)
+
+
+def limb_radiance(nu_grid, lines: DeviceLines, cg: PathCG,
+                  **kw) -> torch.Tensor:
+    """Limb scan radiances [R, P], deep space behind (the reference's
+    ``limb_radiance``, LTE).  Keywords as :func:`layer_optics`."""
+    dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
+    return radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em)
+
+
+def nadir_radiance(nu_grid, lines: DeviceLines, cg: PathCG, T_surface,
+                   emissivity: float = 1.0, **kw) -> torch.Tensor:
+    """Nadir radiances [R, P] over a grey surface at ``T_surface``, with the
+    reflected downwelling for emissivity < 1 (the reference's
+    ``nadir_radiance``, LTE).  Keywords as :func:`layer_optics`."""
+    dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
+    return radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
+                             T_surface=T_surface, emissivity=emissivity)

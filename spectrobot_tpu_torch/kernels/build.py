@@ -3,8 +3,9 @@
 Each kernel source ``csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` into ``build/lib<name>-<hash>.so`` beside the package
 sources (a directory ``.gitignore`` lists), at first use, then loaded with
-``ctypes``.  The file name carries a hash of the source and the flags, so a
-changed source never loads a stale library.  Nothing here runs at import.
+``ctypes``.  The file name carries a hash of the source, the shared headers
+``csrc/*.cuh`` and the flags, so a changed source or header never loads a
+stale library.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -42,9 +43,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SOURCE_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, of every shared header ``csrc/*.cuh`` (a source may include
+    any of them) and of the flags."""
+    h = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

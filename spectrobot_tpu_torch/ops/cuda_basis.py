@@ -1,6 +1,7 @@
 """Batched basis contraction on the card: the wrapper of the hand-written
 CUDA kernel ``csrc/basis_batch.cu``, its plain PyTorch version, and the two
-engines of the differentiable line sum.
+engines of the differentiable line sum (K1, K2 and K5, or their plain
+versions).
 
 The kernel replaces the TPU kernel
 ``spectrobot_tpu/ops/pallas_opacity.py:_basis_batch_kernel`` (K2), reached
@@ -37,6 +38,9 @@ import torch
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, _round_up,
     accumulate_batch, accumulate_batch_plain, check_windows, pad_lines)
+from spectrobot_tpu_torch.ops.cuda_transpose import (
+    MAX_ROWS as TRANSPOSE_ROWS, basis_transpose_batch,
+    basis_transpose_batch_plain)
 from spectrobot_tpu_torch.ops.opacity import Engine, _basis
 
 # The most coefficient rows one kernel call takes: the Hopper block's
@@ -224,8 +228,13 @@ def _plain_contract(nu_grid, windows, nu_c, sx, y, C1, C2, C3, C4,
                                       **kw)
 
 
-# The line sum's engines (ops.opacity.LineSumOp): the two kernels (their
+def _plain_transpose(nu_grid, windows, *args, **kw):
+    return basis_transpose_batch_plain(nu_grid, *args, **kw)
+
+
+# The line sum's engines (ops.opacity.LineSumOp): the three kernels (their
 # plain versions on CPU tensors), and the plain versions on any device, which
 # needs no window table (the reference for the kernels on the card).
-KERNELS = Engine("kernels", accumulate_batch, basis_contract_batch)
-PLAIN = Engine("plain", _plain_accumulate, _plain_contract)
+KERNELS = Engine("kernels", accumulate_batch, basis_contract_batch,
+                 basis_transpose_batch, TRANSPOSE_ROWS)
+PLAIN = Engine("plain", _plain_accumulate, _plain_contract, _plain_transpose)

@@ -85,12 +85,37 @@ def _block_windows(nu_host: np.ndarray, nuc_host: np.ndarray, tile_p: int,
     return starts, counts
 
 
+def _tile_windows(nu_host: np.ndarray, nuc_host: np.ndarray, tile_p: int,
+                  block_l: int, cutoff: Optional[float]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Transpose of :func:`_block_windows`: for each LINE BLOCK, the
+    [start, count) of nu TILES it can reach given the wing cutoff.  A copy
+    of ``spectrobot_tpu.ops.pallas_opacity._tile_windows``; it visits the
+    same (tile, block) pairs as :func:`_block_windows`."""
+    n_tiles = len(nu_host) // tile_p
+    n_blocks = len(nuc_host) // block_l
+    if cutoff is None:
+        return (np.zeros(n_blocks, dtype=np.int32),
+                np.full(n_blocks, n_tiles, dtype=np.int32))
+    blk_min = nuc_host.reshape(n_blocks, block_l).min(axis=1)
+    blk_max = nuc_host.reshape(n_blocks, block_l).max(axis=1)
+    tile_lo = nu_host.reshape(n_tiles, tile_p).min(axis=1)
+    tile_hi = nu_host.reshape(n_tiles, tile_p).max(axis=1)
+    starts = np.searchsorted(tile_hi, blk_min - cutoff, side="left")
+    ends = np.searchsorted(tile_lo, blk_max + cutoff, side="right")
+    starts = np.minimum(starts, n_tiles).astype(np.int32)
+    counts = np.maximum(ends - starts, 0).astype(np.int32)
+    return starts, counts
+
+
 def _padded_windows(nu_host: np.ndarray, nu0_host: np.ndarray, tile_p: int,
                     block_l: int, cutoff_cm1: Optional[float]):
     """Pad the grid and the unshifted centers as the reference pads them
     (grid points past the end 1e6 cm-1 beyond it, padded lines 1e7 cm-1
     beyond the last line) and build the windows over them, widened by
-    ``SHIFT_MARGIN_CM1``.  Returns (nu_pad, nu0_pad, far, starts, counts)."""
+    ``SHIFT_MARGIN_CM1``: the line blocks of each tile (K1, K2) and the
+    tiles of each line block (K5).  Returns (nu_pad, nu0_pad, far, starts,
+    counts, starts_T, counts_T)."""
     P, L = len(nu_host), len(nu0_host)
     nu_pad = np.full(_round_up(max(P, tile_p), tile_p),
                      (nu_host.max() if P else 0.0) + 1e6, np.float32)
@@ -101,7 +126,9 @@ def _padded_windows(nu_host: np.ndarray, nu0_host: np.ndarray, tile_p: int,
     win_cut = None if cutoff_cm1 is None else cutoff_cm1 + SHIFT_MARGIN_CM1
     starts, counts = _block_windows(nu_pad, nu0_pad, tile_p, block_l,
                                     win_cut)
-    return nu_pad, nu0_pad, far, starts, counts
+    starts_T, counts_T = _tile_windows(nu_pad, nu0_pad, tile_p, block_l,
+                                       win_cut)
+    return nu_pad, nu0_pad, far, starts, counts, starts_T, counts_T
 
 
 def static_windows(nu_host: np.ndarray, nu0_host: np.ndarray, *,
@@ -114,11 +141,28 @@ def static_windows(nu_host: np.ndarray, nu0_host: np.ndarray, *,
 
     Returns (starts [n_tiles] int32, counts [n_tiles] int32, max_blocks).
     """
-    *_, starts, counts = _padded_windows(
+    starts, counts = _padded_windows(
         np.asarray(nu_host, np.float32), np.asarray(nu0_host, np.float32),
-        tile_p, block_l, cutoff_cm1)
+        tile_p, block_l, cutoff_cm1)[3:5]
     max_blocks = max(int(counts.max()) if counts.size else 1, 1)
     return starts, counts, max_blocks
+
+
+def static_windows_T(nu_host: np.ndarray, nu0_host: np.ndarray, *,
+                     tile_p: int = TILE_P, block_l: int = BLOCK_L,
+                     cutoff_cm1: Optional[float] = 25.0):
+    """Per-BLOCK tile windows for the transpose kernel (K5), with the
+    padding and margin of :func:`static_windows`.  A copy of
+    ``spectrobot_tpu.ops.pallas_opacity.static_windows_T`` at its default
+    shift margin.
+
+    Returns (starts [n_blocks] int32, counts [n_blocks] int32, max_tiles).
+    """
+    starts, counts = _padded_windows(
+        np.asarray(nu_host, np.float32), np.asarray(nu0_host, np.float32),
+        tile_p, block_l, cutoff_cm1)[5:]
+    max_tiles = max(int(counts.max()) if counts.size else 1, 1)
+    return starts, counts, max_tiles
 
 
 def _host32(a) -> np.ndarray:
@@ -129,14 +173,17 @@ def _host32(a) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Windows:
-    """A scene's padded grid and ragged line-block windows on its device,
-    built once by :func:`line_windows` and read by both kernels (K1 and
-    K2), so no call copies the grid or the centers to the host.  A plain
-    class, not a tuple, so ``torch.func`` passes it through untouched."""
+    """A scene's padded grid and ragged windows on its device, built once by
+    :func:`line_windows` and read by the kernels (K1 and K2 the line blocks
+    of each tile, K5 the tiles of each line block: the same pairs), so no
+    call copies the grid or the centers to the host.  A plain class, not a
+    tuple, so ``torch.func`` passes it through untouched."""
     nu_pad: torch.Tensor       # [Pp] float32 grid, padded 1e6 cm-1 beyond
     far: float                 # center given to padded lines
     starts: torch.Tensor       # [n_tiles] int32 first line block per tile
     counts: torch.Tensor       # [n_tiles] int32 line blocks per tile
+    starts_T: torch.Tensor     # [n_blocks] int32 first tile per line block
+    counts_T: torch.Tensor     # [n_blocks] int32 tiles per line block
     n_points: int              # P
     n_lines: int               # L
     cutoff_cm1: Optional[float]
@@ -154,11 +201,11 @@ def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
     if device is None:
         device = (nu_grid.device if isinstance(nu_grid, torch.Tensor)
                   else torch.device("cpu"))
-    nu_pad, _, far, starts, counts = _padded_windows(nu, nu0, TILE_P,
-                                                     BLOCK_L, cutoff_cm1)
+    nu_pad, _, far, *tables = _padded_windows(nu, nu0, TILE_P, BLOCK_L,
+                                              cutoff_cm1)
     on = lambda a: torch.as_tensor(a, device=device)
-    return Windows(on(nu_pad), float(far), on(starts), on(counts), len(nu),
-                   len(nu0), cutoff_cm1)
+    return Windows(on(nu_pad), float(far), *(on(t) for t in tables),
+                   len(nu), len(nu0), cutoff_cm1)
 
 
 def check_windows(nu_grid: torch.Tensor, windows, n_lines: int,
@@ -193,11 +240,13 @@ def pad_lines(a: torch.Tensor, Lp: int, fill: float) -> torch.Tensor:
 
 
 def tier_counts(windows: Windows, nu_c, scale_x, y, amps) -> dict:
-    """How many (live state, tile, sub-block) triples the kernels (K1 and
-    K2) evaluate in each tier, reckoned on the host from the same window
+    """How many (live state, tile, sub-block) triples the kernels (K1, K2
+    and K5) evaluate in each tier, reckoned on the host from the same window
     table, padding and float32 bound as the kernels.  ``windows``: the
     call's :class:`Windows`; the line states as the kernel wrappers take
-    them (tensors or arrays).  Returns {tier name: count}."""
+    them (tensors or arrays).  A state is live where its ``amps`` (any
+    [B, ...] array) has a nonzero entry: K5 passes its cotangent rows, or
+    a [B, 1] mask of them.  Returns {tier name: count}."""
     w = windows
     nu_pad = _host32(w.nu_pad)
     starts, counts = w.starts.cpu().numpy(), w.counts.cpu().numpy()

@@ -1,0 +1,197 @@
+"""Batched transposed basis contraction on the card: the wrapper of the
+hand-written CUDA kernel ``csrc/basis_transpose.cu`` and its plain PyTorch
+version.
+
+The kernel replaces the TPU kernel
+``spectrobot_tpu/ops/pallas_opacity.py:_basis_transpose_kernel`` (K5),
+reached there through ``basis_transpose_pallas_jit`` by every reverse-mode
+gradient of the line sum (``analytic_jvp='rev'``):
+
+    Ab_k[b, r, i] = sum_p ct[b, r, p] basis_k(p, i),   k in {K, Kx, xKx, Ky}
+
+with the basis of Humlicek's w4 (times chi and the cutoff mask) at every
+(point p, line i) pair of state b: the adjoint of K2
+(``ops/cuda_basis.py``).  ``ops.opacity.transpose_epilogue`` turns the four
+projections into the cotangents of the line inputs.
+
+What bounds it on an H100: FP32 work on the CUDA cores, the basis (about
+2.5x the forward's Voigt flops per pair) and 4 FMAs per cotangent row per
+pair; the bytes (the cotangent rows read once per visited tile, the
+outputs written once) are small beside it.  The design (see the source):
+one block per (128-line block, state), one line per thread, the block
+walking its tile window with the tile's rows staged in shared memory; each
+line's sums in fp32 in point order, in registers at R <= 2 and in shared
+memory above; deterministic, no atomics, no TF32.
+
+Device rule: a CPU tensor goes to :func:`basis_transpose_batch_plain`; a
+CUDA tensor always launches the kernel, and a build or launch failure
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from spectrobot_tpu_torch.ops.cuda_opacity import (
+    BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, _round_up, check_windows,
+    pad_lines)
+from spectrobot_tpu_torch.ops.opacity import tangent_transpose_plain
+
+# The most cotangent rows one kernel call takes: the Hopper block's 227 KB
+# of shared memory over 2.5 KB per row (a staged tile row and four
+# accumulator rows; csrc/basis_transpose.cu MAX_ROWS, checked against the
+# library when it is loaded).
+MAX_ROWS = 89
+
+# Kernel launches made by basis_transpose_batch in this process.
+LAUNCHES = 0
+_LIB = None
+
+Projections = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def basis_transpose_batch_plain(nu_grid, nu_c, sx, y, ct, *,
+                                cutoff_cm1: Optional[float] = 25.0,
+                                chi_b: Optional[torch.Tensor] = None
+                                ) -> Projections:
+    """The plain PyTorch version of :func:`basis_transpose_batch`, any dtype
+    and device: nu_c/sx/y [B, L], ct [B, R, P], chi_b [B, L] or None ->
+    (AbK, AbKx, AbxKx, AbKy), each [B, R, L] in ``nu_grid``'s dtype.
+
+    Every line is evaluated at every point (pointwise w4 gradient, cutoff
+    mask) and projected with ``torch.matmul``.  States are taken in groups
+    so that one (state, line, point) slab holds at most ``_PLAIN_SLAB``
+    elements."""
+    B, L = nu_c.shape
+    chunk = min(max(L, 1), 256)
+    group = max(1, _PLAIN_SLAB // (chunk * max(nu_grid.shape[0], 1)))
+    parts = [tangent_transpose_plain(
+                 nu_grid, nu_c[g], sx[g], y[g], ct[g],
+                 None if chi_b is None else chi_b[g], chunk=chunk,
+                 cutoff_cm1=cutoff_cm1)
+             for g in (slice(b0, b0 + group) for b0 in range(0, B, group))]
+    return tuple(torch.cat(o) for o in zip(*parts))
+
+
+def _check(nu_grid, nu_c, sx, y, ct, chi_b, *, kernel: bool) -> None:
+    """Raise on inputs of the wrong shape or on mixed devices; with
+    ``kernel``, also on what the kernel does not take (more states or rows
+    than it has room for, a dtype other than float32)."""
+    if nu_grid.dim() != 1:
+        raise ValueError(f"nu_grid must be 1-D, got {tuple(nu_grid.shape)}")
+    if nu_c.dim() != 2 or ct.dim() != 3:
+        raise ValueError(f"nu_c must be [B, L] and ct [B, R, P], got "
+                         f"{tuple(nu_c.shape)} and {tuple(ct.shape)}")
+    B, L = nu_c.shape
+    R = ct.shape[1]
+    if kernel:
+        if B > 65535:
+            raise ValueError(f"at most 65535 states per call, got {B}")
+        if R > MAX_ROWS:
+            raise ValueError(
+                f"{R} cotangent rows, but the transpose kernel holds at most "
+                f"{MAX_ROWS} (each line's sums and the staged tile rows live "
+                f"in shared memory); ops.opacity.BasisTranspose splits a "
+                f"folded jacrev batch into calls of at most {MAX_ROWS} rows")
+    want = {"nu_c": (nu_c, (B, L)), "sx": (sx, (B, L)), "y": (y, (B, L)),
+            "ct": (ct, (B, R, nu_grid.shape[0]))}
+    if chi_b is not None:
+        want["chi_b"] = (chi_b, (B, L))
+    want["nu_grid"] = (nu_grid, tuple(nu_grid.shape))
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != nu_grid.device:
+            raise ValueError(f"{name} is on {t.device}, nu_grid on "
+                             f"{nu_grid.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if kernel and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel library, built and bound on first use."""
+    global _LIB
+    if _LIB is None:
+        from spectrobot_tpu_torch.kernels import build
+
+        lib = build.load("basis_transpose")
+        geometry = (lib.basis_transpose_tile_p(),
+                    lib.basis_transpose_block_l(),
+                    lib.basis_transpose_sub_l(),
+                    lib.basis_transpose_max_rows())
+        if geometry != (TILE_P, BLOCK_L, SUB_L, MAX_ROWS):
+            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
+                               f"{(TILE_P, BLOCK_L, SUB_L, MAX_ROWS)}")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.basis_transpose_launch.argtypes = [ptr] * 13 + [
+            i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        lib.basis_transpose_launch.restype = i32
+        lib.basis_transpose_error_string.argtypes = [i32]
+        lib.basis_transpose_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
+                          nu_c: torch.Tensor, sx: torch.Tensor,
+                          y: torch.Tensor, ct: torch.Tensor, *,
+                          cutoff_cm1: Optional[float] = 25.0,
+                          chi_b: Optional[torch.Tensor] = None
+                          ) -> Projections:
+    """Batched transposed basis contraction (counterpart of the reference's
+    ``basis_transpose_pallas_jit``, batched over states): nu_grid [P]
+    (offset coordinates), nu_c/sx/y [B, L], ct [B, R, P], chi_b [B, L] or
+    None, all on one device -> (AbK, AbKx, AbxKx, AbKy), each [B, R, L].
+    CUDA tensors must be float32; CPU tensors go to
+    :func:`basis_transpose_batch_plain` in any dtype.
+
+    ``windows``: the scene's ``cuda_opacity.Windows`` (its per-line-block
+    tile windows; the plain version needs none).  The kernel skips states
+    whose cotangent rows are all zero; a zero-amplitude state is not
+    skipped, since its amplitude cotangent is not zero.
+    """
+    global LAUNCHES
+    on_cpu = nu_grid.device.type == "cpu"
+    _check(nu_grid, nu_c, sx, y, ct, chi_b, kernel=not on_cpu)
+    if on_cpu:
+        return basis_transpose_batch_plain(nu_grid, nu_c, sx, y, ct,
+                                           cutoff_cm1=cutoff_cm1, chi_b=chi_b)
+    if nu_grid.device.type != "cuda":
+        raise ValueError(f"no transpose kernel for device {nu_grid.device}")
+    B, L = nu_c.shape
+    R, P = ct.shape[1], nu_grid.shape[0]
+    check_windows(nu_grid, windows, L, cutoff_cm1)
+    win = windows
+    lib = _library()
+
+    dev = nu_grid.device
+    Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
+    nuc_d = pad_lines(nu_c, Lp, win.far)
+    sx_d, y_d = pad_lines(sx, Lp, 1e6), pad_lines(y, Lp, 1e6)
+    chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
+    ct_d = pad_lines(ct, Pp, 0.0)            # pads the point axis with zeros
+    active = (ct != 0).reshape(B, -1).any(dim=1).to(torch.int32)
+    outs = [torch.empty((B, R, Lp), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.basis_transpose_launch(
+            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
+            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
+            ct_d.data_ptr(), win.starts_T.data_ptr(), win.counts_T.data_ptr(),
+            active.data_ptr(), *(o.data_ptr() for o in outs), B, R, P, Pp,
+            Lp, cut, stream)
+        LAUNCHES += 1
+    if rc != 0:
+        msg = lib.basis_transpose_error_string(rc).decode()
+        raise RuntimeError(f"basis_transpose kernel launch failed: CUDA "
+                           f"error {rc} ({msg})")
+    return tuple(o[:, :, :L] for o in outs)

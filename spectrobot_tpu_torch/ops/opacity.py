@@ -9,6 +9,13 @@ call):
 
     out[o, p] = sum_i amps[o, i] * Re w(x_ip, y_i) * chi_ip * [|dnu| <= cut]
     x_ip = (nu[p] - nu_c[i]) * scale_x[i]
+
+Derivatives (:class:`LineSumOp`, the counterpart of the reference's
+``make_accumulate_op``): forward mode through the basis contraction
+(:class:`LineSum`, K2 on the card), reverse mode through its transpose
+(:class:`LineSumVJP`, K5 on the card), or plain autograd through
+:func:`line_sum_plain_ad`; :func:`ad_mode` reads the reference's
+``analytic_jvp`` switch.
 """
 
 from __future__ import annotations
@@ -17,8 +24,9 @@ import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
-from spectrobot_tpu.constants import SQRT_LN2, SQRT_LN2_PI
+from spectrobot_tpu_torch.constants import SQRT_LN2, SQRT_LN2_PI
 from spectrobot_tpu_torch.ops.strengths import (
     DeviceLines, doppler_hwhm, line_strength, lorentz_hwhm,
     pressure_shifted_center,
@@ -125,6 +133,71 @@ def _basis(nu_grid, nc, s, yy, cb=None, *, cutoff_cm1):
     return wr, kx, x * kx, ky
 
 
+def tangent_transpose_plain(nu_grid, nu_c, sx, y, ct, chi_b=None, *,
+                            chunk: int = 256,
+                            cutoff_cm1: Optional[float] = 25.0):
+    """The cotangent projections of the basis, plain PyTorch, any dtype:
+    lines [..., L], cotangent rows ct [..., R, P] -> (AbK, AbKx, AbxKx,
+    AbKy), each [..., R, L], with Ab_k[r, i] = sum_p ct[r, p] basis_k(p, i)
+    over the same :func:`_basis` the tangent contracts (the batched
+    counterpart of the reference's ``_tangent_transpose`` before its
+    epilogue, :func:`transpose_epilogue`).  The line axis is cut into
+    ``chunk``-line slabs."""
+    dt = nu_grid.dtype
+    ct = ct.to(dt)
+    outs = ([], [], [], [])
+    for lo in range(0, nu_c.shape[-1], chunk):
+        sl = slice(lo, lo + chunk)
+        basis = _basis(nu_grid, nu_c[..., sl].to(dt), sx[..., sl].to(dt),
+                       y[..., sl].to(dt),
+                       None if chi_b is None else chi_b[..., sl].to(dt),
+                       cutoff_cm1=cutoff_cm1)
+        for o, b in zip(outs, basis):
+            o.append(torch.matmul(ct, b.transpose(-1, -2)))
+    return tuple(torch.cat(o, dim=-1) for o in outs)
+
+
+def transpose_epilogue(sx, amps, AbK, AbKx, AbxKx, AbKy):
+    """Cotangents of the line inputs from the basis projections (the
+    reference's ``acc_bwd`` epilogue): per-line sx [..., L], amps and the
+    projections [..., R, L] -> (ct_nu_c, ct_sx, ct_y) [..., L] and ct_amps
+    [..., R, L], summed over the R = n_out rows:
+
+        ct_amps = AbK,  ct_nu_c = -sx sum_o amps AbKx,
+        ct_sx = sum_o amps AbxKx / sx,  ct_y = sum_o amps AbKy
+    """
+    so = lambda M: torch.sum(M.to(amps.dtype) * amps, dim=-2)
+    return (-sx * so(AbKx), so(AbxKx) / sx, so(AbKy), AbK.to(amps.dtype))
+
+
+def line_sum_plain_ad(nu_grid, nu_c, sx, y, amps, chi_b=None, *,
+                      chunk: int = 256, cutoff_cm1: Optional[float] = 25.0,
+                      remat: bool = False) -> torch.Tensor:
+    """The line sum for plain autograd (the reference's plain-AD path,
+    ``analytic_jvp=False``), any dtype and device: lines [..., L], amps
+    [..., n_out, L] -> [..., n_out, P], summed out of place over
+    ``chunk``-line slabs so both AD directions and ``torch.func`` trace it.
+
+    Autograd keeps about 390 bytes per (state, line, point) of each slab
+    for its backward pass.  ``remat=True`` recomputes each slab there
+    instead (``torch.utils.checkpoint``), so the backward holds one slab at
+    a time; ``torch.func.grad``/``jacrev`` do not take it."""
+    dt = nu_grid.dtype
+    nu_c, sx, y, amps = (a.to(dt) for a in (nu_c, sx, y, amps))
+    chi_b = None if chi_b is None else chi_b.to(dt)
+    out = None
+    for lo in range(0, amps.shape[-1], chunk):
+        sl = slice(lo, lo + chunk)
+        args = (nu_grid, nu_c[..., sl], sx[..., sl], y[..., sl],
+                amps[..., sl], None if chi_b is None else chi_b[..., sl])
+        part = (torch.utils.checkpoint.checkpoint(
+                    _line_sum, *args, cutoff_cm1=cutoff_cm1,
+                    use_reentrant=False)
+                if remat else _line_sum(*args, cutoff_cm1=cutoff_cm1))
+        out = part if out is None else out + part
+    return out
+
+
 def basis_coefficients(sx, amps, d_nu_c, d_sx, d_y, d_amps):
     """The coefficient rows (C1, C2, C3, C4) [..., n_out, L] of the basis
     for one tangent (per-line tangents [..., L], amps [..., n_out, L])."""
@@ -158,41 +231,70 @@ def _tangent_via_basis(nu_grid, nu_c, sx, y, amps, d_nu_c, d_sx, d_y,
 # ---------------------------------------------------------------------------
 
 
+def ad_mode(analytic_jvp) -> Optional[str]:
+    """The reference's ``analytic_jvp`` switch (``ops.opacity._ad_mode``):
+    True/'fwd' -> analytic forward mode (:class:`LineSum`), 'rev' -> analytic
+    reverse mode (:class:`LineSumVJP`), False/None -> plain autograd
+    (:func:`line_sum_plain_ad`, either direction)."""
+    if analytic_jvp is True or analytic_jvp == "fwd":
+        return "fwd"
+    if analytic_jvp == "rev":
+        return "rev"
+    if analytic_jvp in (False, None):
+        return None
+    raise ValueError(
+        f"analytic_jvp must be True/'fwd', 'rev', or False; got "
+        f"{analytic_jvp!r}")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Engine:
-    """The two batched primitives a differentiable line sum runs on:
+    """The batched primitives a differentiable line sum runs on:
 
     accumulate(nu_grid, windows, nu_c, sx, y, amps, *, cutoff_cm1, chi_b)
         -> [B, 2, P]
     contract(nu_grid, windows, nu_c, sx, y, C1, C2, C3, C4, active, *,
              cutoff_cm1, chi_b) -> [B, R, P]
+    transpose(nu_grid, windows, nu_c, sx, y, ct, *, cutoff_cm1, chi_b)
+        -> (AbK, AbKx, AbxKx, AbKy), each [B, R, L]
 
-    (``ops.cuda_basis.KERNELS``: K1 and K2; ``ops.cuda_basis.PLAIN``: their
-    plain PyTorch versions)."""
+    (``ops.cuda_basis.KERNELS``: K1, K2 and K5; ``ops.cuda_basis.PLAIN``:
+    their plain PyTorch versions).  ``transpose_rows``: the most cotangent
+    rows one ``transpose`` call takes (None: any)."""
     name: str
     accumulate: Callable
     contract: Callable
+    transpose: Optional[Callable] = None
+    transpose_rows: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LineSumOp:
-    """The batched line sum of one scene with analytic forward-mode
-    derivatives: ``op(nu_grid, nu_c, sx, y, amps, chi_b=None)`` -> [B, 2, P]
-    for states [B, L], amps [B, 2, L].
+    """The batched line sum of one scene with analytic derivatives:
+    ``op(nu_grid, nu_c, sx, y, amps, chi_b=None)`` -> [B, 2, P] for states
+    [B, L], amps [B, 2, L].  The primal is one ``engine.accumulate`` call.
 
-    The primal is one ``engine.accumulate`` call.  Under ``torch.func.jvp``
-    the tangent is one ``engine.contract`` call on the coefficient rows of
+    ``mode='fwd'`` (:class:`LineSum`): under ``torch.func.jvp`` the tangent
+    is one ``engine.contract`` call on the coefficient rows of
     :func:`basis_coefficients`; under ``torch.func.jacfwd`` (a vmap over
     tangents) :class:`BasisContract` folds every column into the rows, so a
-    Jacobian costs one accumulate and one contract call.  ``windows``: the
-    scene's window table (``ops.cuda_opacity.Windows``).  Not a tuple, so
-    ``torch.func`` hands it to the Functions untouched."""
+    Jacobian costs one accumulate and one contract call.
+
+    ``mode='rev'`` (:class:`LineSumVJP`): a gradient is one
+    ``engine.transpose`` call and :func:`transpose_epilogue`; under
+    ``torch.func.jacrev`` :class:`BasisTranspose` folds every cotangent
+    into the rows.
+
+    ``windows``: the scene's window table (``ops.cuda_opacity.Windows``).
+    Not a tuple, so ``torch.func`` hands it to the Functions untouched."""
     engine: Engine
     windows: object
     cutoff_cm1: Optional[float] = 25.0
+    mode: str = "fwd"
 
     def __call__(self, nu_grid, nu_c, sx, y, amps, chi_b=None):
-        return LineSum.apply(nu_grid, nu_c, sx, y, amps, chi_b, self)
+        fn = LineSumVJP if self.mode == "rev" else LineSum
+        return fn.apply(nu_grid, nu_c, sx, y, amps, chi_b, self)
 
 
 class LineSum(torch.autograd.Function):
@@ -271,3 +373,82 @@ class BasisContract(torch.autograd.Function):
                                     zip((C1, C2, C3, C4), in_dims[4:8])),
             active, chi_b, op)
         return out.reshape(B, n_t, R, -1).transpose(0, 1), 0
+
+
+class LineSumVJP(torch.autograd.Function):
+    """Primal through ``op.engine.accumulate``, gradient through
+    :class:`BasisTranspose` and :func:`transpose_epilogue` (the counterpart
+    of the reference's ``make_accumulate_op(engine='pallas', mode='rev')``).
+    The context keeps the flat inputs and no linearisation: the backward
+    evaluates the basis anew.  Chi and the grid get zero cotangent (frozen
+    chi).  Forward mode is refused, as JAX refuses it for a custom VJP."""
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, amps, chi_b, op):
+        return op.engine.accumulate(nu_grid, op.windows, nu_c, sx, y, amps,
+                                    cutoff_cm1=op.cutoff_cm1, chi_b=chi_b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        nu_grid, nu_c, sx, y, amps, chi_b, op = inputs
+        ctx.save_for_backward(nu_grid, nu_c, sx, y, amps, chi_b)
+        ctx.op = op
+
+    @staticmethod
+    def backward(ctx, ct):
+        nu_grid, nu_c, sx, y, amps, chi_b = ctx.saved_tensors
+        Ab = BasisTranspose.apply(nu_grid, nu_c, sx, y, ct, chi_b, ctx.op)
+        ct_nc, ct_sx, ct_y, ct_amps = transpose_epilogue(sx, amps, *Ab)
+        return None, ct_nc, ct_sx, ct_y, ct_amps, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(
+            "the line sum in reverse mode (analytic_jvp='rev') has no "
+            "forward-mode derivative, as a JAX custom_vjp has none: use "
+            "analytic_jvp=True for torch.func.jvp/jacfwd")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise NotImplementedError(
+            "the line sum is batched over states explicitly; vmap over its "
+            "primal inputs (a structural batch) has no counterpart in the "
+            "port, only the cotangent batch of torch.func.jacrev does")
+
+
+class BasisTranspose(torch.autograd.Function):
+    """One ``op.engine.transpose`` call: (AbK, AbKx, AbxKx, AbKy), each
+    [B, R, L], from cotangent rows ct [B, R, P].  Its vmap rule takes the
+    cotangent batch of ``torch.func.jacrev`` (only ``ct`` batched), folds it
+    into the rows ([n_ct, B, R, P] -> [B, n_ct*R, P]), makes one call, or
+    the fewest calls of at most ``engine.transpose_rows`` rows, and unfolds
+    the result (as :class:`BasisContract` folds the tangents of jacfwd)."""
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, ct, chi_b, op):
+        return tuple(op.engine.transpose(nu_grid, op.windows, nu_c, sx, y, ct,
+                                         cutoff_cm1=op.cutoff_cm1,
+                                         chi_b=chi_b))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, nu_grid, nu_c, sx, y, ct, chi_b, op):
+        if any(d is not None for d in in_dims[:4] + in_dims[5:6]):
+            raise NotImplementedError(
+                "BasisTranspose folds only a cotangent batch; the grid and "
+                "the line states must be unbatched")
+        n_ct = info.batch_size
+        ct = ct.movedim(in_dims[4], 0)                   # [n_ct, B, R, P]
+        _, B, R, P = ct.shape
+        rows = ct.transpose(0, 1).reshape(B, n_ct * R, P)
+        cap = op.engine.transpose_rows or n_ct * R
+        parts = [BasisTranspose.apply(nu_grid, nu_c, sx, y,
+                                      rows[:, r0:r0 + cap].contiguous(),
+                                      chi_b, op)
+                 for r0 in range(0, n_ct * R, cap)]
+        unfold = lambda *o: torch.cat(o, dim=1).reshape(
+            B, n_ct, R, -1).transpose(0, 1)
+        return tuple(unfold(*o) for o in zip(*parts)), (0, 0, 0, 0)

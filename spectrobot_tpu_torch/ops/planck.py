@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from spectrobot_tpu.constants import C1B, C2
+from spectrobot_tpu_torch.constants import C1B, C2
 
 
 def planck_nu(nu_cm1, T):

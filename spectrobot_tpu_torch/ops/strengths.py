@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spectrobot_tpu.constants import AMU, ATM, C2, C_LIGHT, K_BOLTZ, LN2, T_REF
+from spectrobot_tpu_torch.constants import AMU, ATM, C2, C_LIGHT, K_BOLTZ, LN2, T_REF
 
 
 class DeviceLines(NamedTuple):
@@ -59,7 +59,7 @@ def device_lines_from_linelist(ll, species, *, device, dtype=torch.float32,
     axis; lines of other species are dropped.  ``nu_ref`` (default: midpoint
     of the line range, rounded) rebases line centers to offsets.
     """
-    from spectrobot_tpu.data import tips
+    from spectrobot_tpu_torch.data import tips
 
     key = {tuple(s): i for i, s in enumerate(species)}
     pair = np.stack([ll.mol_id, ll.iso_id], axis=1)

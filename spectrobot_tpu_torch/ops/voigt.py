@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from spectrobot_tpu.constants import INV_SQRT_PI
+from spectrobot_tpu_torch.constants import INV_SQRT_PI
 from spectrobot_tpu_torch.ops import cpx
 
 # Humlicek region-3/4 rational coefficients, highest degree first (the

@@ -107,8 +107,8 @@ def retrieve(
     forward_flat / jacobian: flat-state callables (``retrieval.state``);
     they receive ``x0``'s dtype and device.  noise_sigma: per-channel
     measurement noise (diagonal S_eps).  logger: optional
-    ``spectrobot_tpu.utils.runlog.RunLogger``; checkpointer: optional
-    ``spectrobot_tpu.utils.checkpoint.Checkpointer`` (resumes from its
+    ``spectrobot_tpu_torch.utils.runlog.RunLogger``; checkpointer: optional
+    ``spectrobot_tpu_torch.utils.checkpoint.Checkpointer`` (resumes from its
     ``latest()``).  state_check: optional x -> str | None, called on every
     accepted state; a message is warned and logged, and the loop goes on.
     """

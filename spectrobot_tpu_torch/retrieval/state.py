@@ -7,7 +7,9 @@ The state is a dict ``{"T": [n_lev], "T_surface": [], "ln_vmr": {species:
 same thing in both packages.  The forward model is one function state -> y
 (concatenated channel radiances over all rays), differentiable in forward
 mode: :func:`jacobian_fwd` is ``torch.func.jacfwd``, whose tangent batch the
-line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``).
+line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``).  With
+``analytic_jvp='rev'`` it is differentiable in reverse mode instead: the
+gradient of a retrieval cost costs one transpose-kernel call.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from spectrobot_tpu_torch.forward.limb import (
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.ils import apply_ils
-from spectrobot_tpu_torch.ops.opacity import Engine
+from spectrobot_tpu_torch.ops.opacity import Engine, ad_mode
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 
 
@@ -145,6 +147,7 @@ def build_forward(
     nu_off: Optional[torch.Tensor] = None,
     engine: Engine = KERNELS,
     windows=None,
+    analytic_jvp=True,
 ) -> Callable[[Dict], torch.Tensor]:
     """Build F: state -> y (the port's counterpart of the reference's
     ``build_forward`` on its single-device line-by-line path).
@@ -155,6 +158,9 @@ def build_forward(
     ``nu_off``: the grid in offset coordinates (default: staged from
     float64 here); ``windows``: the scene's window table (default: built
     once here).  ``engine``: ``ops.cuda_basis.KERNELS`` or ``PLAIN``.
+    ``analytic_jvp``: True/'fwd' (forward mode: ``torch.func.jacfwd``),
+    'rev' (reverse mode: ``torch.autograd.grad``, ``torch.func.jacrev``) or
+    False (plain autograd), as ``forward.limb.layer_tau_kernel`` takes it.
     Output y is flattened [n_ray * n_chan].
     """
     if nu_off is None:
@@ -162,7 +168,7 @@ def build_forward(
             nu_grid.detach().cpu().double().numpy()
             - float(lines.nu_ref), dtype=nu_grid.dtype,
             device=nu_grid.device)
-    if windows is None:
+    if windows is None and ad_mode(analytic_jvp) is not None:
         windows = line_windows(nu_off, lines.nu0, cutoff_cm1=cutoff_cm1)
 
     def forward(state: Dict) -> torch.Tensor:
@@ -175,7 +181,8 @@ def build_forward(
             ts = state.get("T_surface", T_surface)
         dtau, dtau_em = layer_tau_kernel(nu_off, lines, cg, windows,
                                          cutoff_cm1=cutoff_cm1,
-                                         engine=engine)
+                                         engine=engine,
+                                         analytic_jvp=analytic_jvp)
         I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
                               T_surface=ts, emissivity=emissivity)
         if ils_W is not None:

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1 and K2) on the card (marker ``cuda``; skips without
+"""The CUDA kernels (K1, K2 and K5) on the card (marker ``cuda``; skips without
 a GPU and nvcc).  Run on the card with ``python -m pytest -m cuda tests/``."""
 
 import numpy as np
@@ -180,3 +180,119 @@ def test_jacobian_through_the_kernels_matches_plain(cuda):
     assert J.shape == (3 * 32, 9) and bool(torch.isfinite(J).all())
     assert float((J - J_plain).abs().max()) <= 1e-5 * float(
         J_plain.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K5: the transposed basis contraction (csrc/basis_transpose.cu)
+# ---------------------------------------------------------------------------
+
+
+def _transpose_inputs(device, n_rows, seed=2):
+    """K1's random states with random cotangent rows; state 2 has zero
+    amplitudes but live rows (its amplitude cotangent is not zero) and
+    state 4 has all-zero rows (dead for K5)."""
+    nu, nu0, nc, sx, y, amps, chi = _inputs(device, seed=seed)
+    rng = np.random.default_rng(seed + 200)
+    ct = rng.normal(size=(nc.shape[0], n_rows, nu.shape[0]))
+    ct[4] = 0.0
+    ct = torch.as_tensor(ct.astype(np.float32), device=device)
+    return nu, nu0, nc, sx, y, amps, chi, ct
+
+
+@pytest.mark.parametrize("n_rows", [2, 10])
+@pytest.mark.parametrize("with_chi", [False, True])
+@pytest.mark.parametrize("cutoff", [25.0, None])
+def test_transpose_kernel_matches_plain(cuda, n_rows, with_chi, cutoff):
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    nu, nu0, nc, sx, y, _, chi, ct = _transpose_inputs(cuda, n_rows)
+    chi = chi if with_chi else None
+    before = ctr.LAUNCHES
+    win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
+    got = ctr.basis_transpose_batch(nu, win, nc, sx, y, ct,
+                                    cutoff_cm1=cutoff, chi_b=chi)
+    torch.cuda.synchronize()
+    assert ctr.LAUNCHES == before + 1
+    ref = ctr.basis_transpose_batch_plain(nu, nc, sx, y, ct,
+                                          cutoff_cm1=cutoff, chi_b=chi)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (nc.shape[0], n_rows, nc.shape[1])
+        assert torch.all(g[4] == 0)              # all-zero rows: dead
+        assert float(g[2].abs().max()) > 0       # zero amps: still live
+        # K2's budget (tests/test_pallas_jacobian.py:124).
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    again = ctr.basis_transpose_batch(nu, win, nc, sx, y, ct,
+                                      cutoff_cm1=cutoff, chi_b=chi)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_transpose_kernel_rejects_what_it_does_not_take(cuda):
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    nu, nu0, nc, sx, y, _, _, ct = _transpose_inputs(cuda, 2)
+    win = co.line_windows(nu, nu0)
+    with pytest.raises(ValueError, match="cpu"):
+        ctr.basis_transpose_batch(nu, win, nc, sx, y, ct.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        ctr.basis_transpose_batch(nu, win, nc, sx, y, ct.double())
+    big = ct[:, :1].expand(-1, ctr.MAX_ROWS + 1, -1).contiguous()
+    with pytest.raises(ValueError, match="rows"):
+        ctr.basis_transpose_batch(nu, win, nc, sx, y, big)
+    with pytest.raises(TypeError, match="Windows"):
+        ctr.basis_transpose_batch(nu, nu0, nc, sx, y, ct)
+    rows = ct[:, :1].expand(-1, ctr.MAX_ROWS, -1).contiguous()
+    out = ctr.basis_transpose_batch(nu, win, nc, sx, y, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][:, 0], out[0][:, -1])
+
+
+def test_transpose_is_the_adjoint_of_the_contraction(cuda):
+    """<ct, K2(C)> = sum_k <C_k, K5(ct)_k> on the card, to float32
+    roundoff: within 1e-5 of the larger sum of absolute products."""
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda, n_rows=6)
+    ct = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(nc.shape[0], 6, nu.shape[0])).astype(np.float32), device=cuda)
+    win = co.line_windows(nu, nu0)
+    out = cb.basis_contract_batch(nu, win, nc, sx, y, *C, chi_b=chi)
+    Ab = ctr.basis_transpose_batch(nu, win, nc, sx, y, ct, chi_b=chi)
+    d = lambda a: a.double()
+    lhs = float(torch.sum(d(ct) * d(out)))
+    rhs = sum(float(torch.sum(d(c) * d(a))) for c, a in zip(C, Ab))
+    scale = max(float(torch.sum((d(ct) * d(out)).abs())),
+                sum(float(torch.sum((d(c) * d(a)).abs()))
+                    for c, a in zip(C, Ab)))
+    assert abs(lhs - rhs) <= 1e-5 * scale
+
+
+def test_jacrev_through_the_kernels_matches_jacfwd(cuda):
+    """torch.func.jacrev of a small limb forward in reverse mode on the
+    card: one K1 and one K5 launch (32 outputs x 2 depths fold into one
+    call), and the kernels' jacfwd Jacobian within 1e-5 max|J|."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    from spectrobot_tpu_torch.retrieval.state import (
+        build_forward, flatten_state, make_state)
+
+    cfg = cli.load_config(None, {
+        "grid.nu_min": "660.0", "grid.nu_max": "674.0",
+        "grid.n_points": "512", "scene.n_levels": "9",
+        "geometry.tangent_heights_km": "8.0,30.0", "geometry.n_sub": "2",
+        "instrument.enabled": "true", "instrument.n_channels": "16",
+        "compute.dtype": "float32"})
+    scene = cli.build_scene(cfg, cuda)
+    atm = scene.atm.to(torch.float32)
+    x0, unravel = flatten_state(make_state(atm, []))
+    fwd = {mode: build_forward(
+        atm, scene.lines, scene.nu, scene.species_names, scene.planet,
+        tangent_heights_m=torch.tensor([8e3, 30e3], device=cuda),
+        ils_W=scene.W, n_sub=2, nu_off=scene.nu_off, windows=scene.windows,
+        analytic_jvp=mode) for mode in (True, "rev")}
+    J = torch.func.jacfwd(lambda x: fwd[True](unravel(x)))(x0)
+    k1, k5 = co.LAUNCHES, ctr.LAUNCHES
+    Jr = torch.func.jacrev(lambda x: fwd["rev"](unravel(x)))(x0)
+    torch.cuda.synchronize()
+    assert (co.LAUNCHES - k1, ctr.LAUNCHES - k5) == (1, 1)
+    assert Jr.shape == J.shape == (2 * 16, 9)
+    assert float((Jr - J).abs().max()) <= 1e-5 * float(J.abs().max())

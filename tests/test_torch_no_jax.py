@@ -1,7 +1,8 @@
-"""The port runs where JAX is not installed: every module of
-spectrobot_tpu_torch (and chip_smoke.py) imports, and the tiny forward and
-retrieval run on CPU through ``python -m spectrobot_tpu_torch``, in a fresh
-interpreter that holds no jax."""
+"""The port runs where JAX and the JAX package are not installed: every
+module of spectrobot_tpu_torch (and chip_smoke.py) imports, and the tiny
+forward and retrieval (``python -m spectrobot_tpu_torch``) and the adjoint
+tool (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
+interpreter that holds no jax and no module of spectrobot_tpu."""
 
 import os
 import subprocess
@@ -17,6 +18,7 @@ SCRIPT = r"""
 import importlib, pkgutil, runpy, sys
 if {block}:
     sys.modules["jax"] = None        # any import of jax now raises
+    sys.modules["spectrobot_tpu"] = None     # ... and of the JAX package
 import spectrobot_tpu_torch
 for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
                                "spectrobot_tpu_torch."):
@@ -30,11 +32,19 @@ for cmd in ("forward", "retrieve"):
         runpy.run_module("spectrobot_tpu_torch", run_name="__main__")
     except SystemExit as e:
         assert e.code == 0, e.code
-loaded = [k for k, v in sys.modules.items()
-          if (k == "jax" or k.startswith("jax.")) and v is not None]
+sys.argv = ["spectrobot_tpu_torch.adjoint", "--device", "cpu", "--n-points",
+            "64", "--n-lev", "5", "--j-max", "4", "--n-rays", "2",
+            "--repeats", "1"]
+try:
+    runpy.run_module("spectrobot_tpu_torch.adjoint", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+loaded = [k for k, v in sys.modules.items() if v is not None and (
+          k in ("jax", "spectrobot_tpu")
+          or k.startswith(("jax.", "spectrobot_tpu.")))]
 assert not loaded, loaded
 if not {block}:
-    assert "jax" not in sys.modules
+    assert "jax" not in sys.modules and "spectrobot_tpu" not in sys.modules
 print("NO_JAX_OK")
 """
 
@@ -53,5 +63,6 @@ def test_port_runs_without_jax(tmp_path, block):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NO_JAX_OK" in proc.stdout
+    assert "max rel grad diff" in proc.stdout       # the adjoint tool ran
     assert (out / "forward.npz").exists()
     assert (out / "retrieval.npz").exists() and (out / "run.jsonl").exists()
