@@ -6,7 +6,7 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: the three kernels from spectrobot_tpu_torch/csrc (one nvcc
+  2. build: the four kernels from spectrobot_tpu_torch/csrc (one nvcc
      each, started together), with their ptxas reports;
   3. K1 (the line sum) against its plain PyTorch version on the card, in
      float32: the forward's own limb and nadir inputs
@@ -21,6 +21,10 @@ Phases, each of which raises (non-zero exit) on failure:
      limb, nadir + chi and bench cases, R = 66 (a folded jacrev) on the
      limb; all four tiers must occur; and the adjoint identity
      <ct, K2(C)> = sum_k <C_k, K5(ct)_k> on the limb case;
+  4c. K3 (the single-state line sum) against its plain version: one live
+     state of the bench scale (n_out = 2, cutoff 25), the reference bench's
+     dense shape (20480 lines x 16384 points, no cutoff) and a nadir state
+     with chi and 4 random amplitude rows; all four tiers must occur;
   5. main path, forward: the CLI forward of examples/mars_limb.toml through
      K1 (its launch count must rise), radiances checked, then the same scene
      through the plain version;
@@ -34,12 +38,19 @@ Phases, each of which raises (non-zero exit) on failure:
      to J^T dL/dy from the K1/K2 Jacobian and to the plain engine's
      reverse gradient; then the adjoint tool (spectrobot_tpu_torch.adjoint)
      at its defaults;
+  6c. the mesh at world size 1 (NCCL, in-process): the sharded forward
+     (parallel.sharded through parallel.oe) in the psum and nu-halo tiers
+     against the single-device forward, through K1; the halo accumulation
+     (parallel.halo.halo_accumulate_pallas_fn) on the bench state through
+     K3, against the plain sum; the sharded normal equations (F, H, g)
+     against those of the single-device Jacobian, K2 once per call;
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
-     per-iteration median; each kernel's bound (the larger of its bytes
-     over the memory rate and its flops over the FP32 rate, counted from
-     this run's inputs).
+     per-iteration median; K3 on its bench-state and dense cases; the warm
+     (1, 1, 1) mesh forward against the warm single-device one; each
+     kernel's bound (the larger of its bytes over the memory rate and its
+     flops over the FP32 rate, counted from this run's inputs).
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -48,6 +59,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -70,10 +82,16 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "spectrobot_tpu/ops/pallas_opacity.py:751"),
     "basis_transpose": ("spectrobot_tpu_torch/csrc/basis_transpose.cu",
                         "spectrobot_tpu/ops/pallas_opacity.py:1023"),
+    "opacity_single": ("spectrobot_tpu_torch/csrc/opacity_single.cu",
+                       "spectrobot_tpu/ops/pallas_opacity.py:287"),
 }
 # K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
 RTOL, ATOL_REL = 3e-5, 1e-6
+# The (1, 1, 1) mesh against the single-device path: radiances within
+# MESH_RTOL; the sharded normal equations within MESH_RTOL of max |H| and
+# max |g| of those built from the single-device Jacobian.
+MESH_RTOL = 1e-5
 # K2 vs plain, and the kernel Jacobian vs the plain one: max |err| <=
 # K2_REL max|ref| (the reference's basis-kernel and Jacobian parity,
 # tests/test_pallas_jacobian.py:124,182).
@@ -143,6 +161,16 @@ def _chi(nu_c, seed):
                            dtype=torch.float32, device=nu_c.device)
 
 
+def bench_device_lines(device, n_lines: int = 2048):
+    """The reference bench's random line list (bench.py:
+    bench_fused_pallas: 600-750 cm-1, seed 3), float32 on ``device``."""
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    return device_lines_from_linelist(
+        random_lines(n_lines, 600.0, 750.0, seed=3), [(2, 1)],
+        dtype=torch.float32, device=device)
+
+
 def k1_cases(device, *, n_points=None, bench_lines=2048, bench_points=8192,
              bench_rays=20):
     """The kernel inputs of phases 3 and 4, as the port's forward gives them
@@ -150,8 +178,6 @@ def k1_cases(device, *, n_points=None, bench_lines=2048, bench_points=8192,
     from spectrobot_tpu_torch import cli
     from spectrobot_tpu_torch.data.atmosphere import (
         MARS, mars_standard_atmosphere)
-    from spectrobot_tpu_torch.data.lines import random_lines
-    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
     from spectrobot_tpu_torch.retrieval.state import build_forward, make_state
 
     grid = {} if n_points is None else {"grid.n_points": str(n_points)}
@@ -166,9 +192,7 @@ def k1_cases(device, *, n_points=None, bench_lines=2048, bench_points=8192,
         yield K1Case(f"{mode}+chi", *base, _chi(base[2], 7))
 
     # The reference bench's production scale (bench.py:bench_fused_pallas).
-    ll = random_lines(bench_lines, 600.0, 750.0, seed=3)
-    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=torch.float32,
-                                    device=device)
+    dl = bench_device_lines(device, bench_lines)
     atm = mars_standard_atmosphere(n_lev=32, z_top=80e3, device=device)
     nu64 = np.linspace(600.0, 750.0, bench_points)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -345,6 +369,207 @@ def adjoint_identity(case: K1Case, C, ct: torch.Tensor) -> float:
     return ratio
 
 
+class K3Case(NamedTuple):
+    name: str
+    nu: torch.Tensor        # [P] grid
+    windows: object         # cuda_opacity.Windows of the grid and lines
+    nu_c: torch.Tensor      # [L]
+    sx: torch.Tensor
+    y: torch.Tensor
+    amps: torch.Tensor      # [n_out, L]
+    chi_b: Optional[torch.Tensor]
+
+    def as_batch(self) -> K1Case:
+        """The case as one state of a K1Case (for the tier and region
+        counts)."""
+        return K1Case(self.name, self.nu, self.windows, self.nu_c[None],
+                      self.sx[None], self.y[None], self.amps[None],
+                      None if self.chi_b is None else self.chi_b[None])
+
+
+def _deepest_state(case: K1Case) -> int:
+    """The live state of a case with the largest median y (the highest
+    pressure): the one that reaches the near tiers."""
+    live = torch.nonzero(case.amps.flatten(1).ne(0).any(1))[:, 0]
+    return int(live[torch.argmax(case.y[live].median(dim=1).values)])
+
+
+def k3_cases(cases: dict, device, *, dense_lines=20480,
+             dense_points=16384):
+    """K3's cases: the deepest live state of the bench scale (n_out = 2,
+    the scene's windows), the reference bench's dense shape
+    (bench.py:bench_kernel: random lines over 600-740 cm-1, seed 0, T = 220
+    K, p = 300 Pa, every line at every point) and the deepest nadir state
+    with chi and 4 random amplitude rows."""
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.ops import cuda_opacity as co
+    from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    c = cases["bench"]
+    b = _deepest_state(c)
+    yield K3Case("bench state", c.nu, c.windows, c.nu_c[b], c.sx[b], c.y[b],
+                 c.amps[b], None)
+    dl = device_lines_from_linelist(random_lines(dense_lines, 600.0, 740.0,
+                                                 seed=0), [(2, 1)],
+                                    dtype=torch.float32, device=device,
+                                    nu_ref=0.0)
+    kl = line_kernel_inputs(dl, 220.0, 300.0, 100.0, amp_weights=torch.ones(
+        2, dl.n_lines, device=device))
+    nu = torch.as_tensor(np.linspace(640.0, 700.0, dense_points),
+                         dtype=torch.float32, device=device)
+    yield K3Case("dense", nu, co.line_windows(nu, dl.nu0, cutoff_cm1=None),
+                 *(a.contiguous() for a in kl[:4]), None)
+    c = cases["nadir+chi"]
+    b = _deepest_state(c)
+    rng = np.random.default_rng(4)
+    rows = torch.as_tensor(rng.uniform(0.5, 1.5, (4, c.nu_c.shape[1])),
+                           dtype=torch.float32, device=device)
+    yield K3Case("nadir state, 4 rows", c.nu, c.windows, c.nu_c[b], c.sx[b],
+                 c.y[b], (rows * c.amps[b, :1]).contiguous(), c.chi_b[b])
+
+
+def compare_k3(case: K3Case) -> dict:
+    from spectrobot_tpu_torch.ops.cuda_single import (
+        accumulate_single, accumulate_single_plain, segments)
+
+    got = accumulate_single(case.nu, case.windows, case.nu_c, case.sx,
+                            case.y, case.amps, chi_b=case.chi_b,
+                            cutoff_cm1=case.windows.cutoff_cm1)
+    torch.cuda.synchronize()
+    ref = accumulate_single_plain(case.nu, case.nu_c, case.sx, case.y,
+                                  case.amps, chi_b=case.chi_b,
+                                  cutoff_cm1=case.windows.cutoff_cm1)
+    check(bool(torch.isfinite(got).all()), f"{case.name}: non-finite K3")
+    err = (got - ref).abs()
+    bound = RTOL * ref.abs() + ATOL_REL * ref.abs().max()
+    worst = float((err / bound).max())
+    row = {"case": case.name, "lines": int(case.nu_c.shape[0]),
+           "points": int(case.nu.shape[0]), "rows": int(case.amps.shape[0]),
+           "cutoff": case.windows.cutoff_cm1, "chi": case.chi_b is not None,
+           "segments": segments(case.windows),
+           "max_abs_err": float(err.max()), "max_ref": float(ref.abs().max()),
+           "budget": f"{RTOL:g}*|ref| + {ATOL_REL:g}*max|ref|",
+           "err_over_budget": worst}
+    print(f"K3 vs plain: {json.dumps(row)}")
+    check(worst <= 1.0, f"{case.name}: K3 disagrees with the plain version "
+                        f"({worst:.3g} x the budget)")
+    return row
+
+
+def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
+               bench_nu0: torch.Tensor) -> dict:
+    """Phase 6c: the mesh at world size 1 on the card (NCCL, in-process).
+    ``bench_nu0``: the unshifted centers of the bench state's lines.
+    Returns K3's launch count and what phase 7 times; the process group
+    stays up for phase 7, whose caller ends it."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops import cuda_basis as cb
+    from spectrobot_tpu_torch.ops import cuda_opacity as co
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel.mesh import (
+        initialize_multihost, make_mesh)
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    def reset():
+        co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = cs.LAUNCHES = 0
+
+    def counts():
+        return {"K1": co.LAUNCHES, "K2": cb.LAUNCHES, "K5": ctr.LAUNCHES,
+                "K3": cs.LAUNCHES}
+
+    made = initialize_multihost("cuda")
+    check(made, "a process group existed before the mesh phase")
+    out = {}
+    mesh = make_mesh((1, 1, 1), "cuda")
+    print(f"mesh: {mesh.shape} over {torch.distributed.get_world_size()}"
+          f" rank ({torch.distributed.get_backend()}) on {mesh.device}")
+    empty = make_state(scene.atm, [], retrieve_temperature=False)
+    x_empty = flatten_state(empty)[0]
+    I_single = cli.run_forward(cfg, scene).cpu().numpy()
+    for tier, halo_on in (("psum", False), ("nu-halo", True)):
+        cfg_t = dataclasses.replace(cfg, compute=dataclasses.replace(
+            cfg.compute, mesh_halo=halo_on))
+        oe = cli.sharded_problem(cfg_t, scene, mesh, scene.atm, empty)
+        reset()
+        I = oe.forward_flat(x_empty).reshape(I_single.shape)
+        torch.cuda.synchronize()
+        n = counts()
+        I = I.cpu().numpy()
+        err = float(np.abs(I - I_single).max())
+        print(f"mesh forward ({tier} tier) vs single-device: max |err| "
+              f"{err:.3e} of max {float(np.abs(I_single).max()):.3e}; "
+              f"launches {json.dumps(n)}")
+        check(n["K1"] == 1, f"the {tier} mesh forward launched K1 "
+                            f"{n['K1']} times, not once")
+        np.testing.assert_allclose(I, I_single, rtol=MESH_RTOL,
+                                   atol=MESH_RTOL * np.abs(I_single).max())
+        out[f"fwd_{tier}"] = oe
+
+    # The halo accumulation through K3 on the bench state, partitioned
+    # and windowed by the unshifted centers, as the scene's lines are.
+    cut = bench.windows.cutoff_cm1
+    nu_host = bench.nu.cpu().double().numpy()
+    edges = halo.nu_shard_edges(nu_host, 1, cut)
+    kl = KernelLines(bench.nu_c, bench.sx, bench.y, bench.amps)
+    skl = halo.partition_kernel_lines(kl, bench_nu0, edges)
+    f = halo.halo_accumulate_pallas_fn(
+        mesh, nu_host, halo.partition_kernel_lines(
+            kl._replace(nu_c=bench_nu0), bench_nu0, edges).nu_c,
+        cutoff_cm1=cut)
+    reset()
+    got = f(bench.nu, halo.shard_lines(skl, 0))
+    torch.cuda.synchronize()
+    n = counts()
+    ref = cs.accumulate_single_plain(bench.nu, bench.nu_c, bench.sx,
+                                     bench.y, bench.amps, cutoff_cm1=cut)
+    err = (got - ref).abs()
+    worst = float((err / (RTOL * ref.abs() + ATOL_REL * ref.abs().max()))
+                  .max())
+    print(f"halo accumulation (K3) vs the plain sum: max |err| "
+          f"{float(err.max()):.3e}, {worst:.3e} x K1's budget; launches "
+          f"{json.dumps(n)}")
+    check(n["K3"] == 1, f"the halo accumulation launched K3 {n['K3']} "
+                        f"times, not once")
+    check(worst <= 1.0, "the halo accumulation disagrees with the plain "
+                        "sum")
+    out["k3_launches"] = n["K3"]
+    out["halo"] = (f, bench.nu, halo.shard_lines(skl, 0))
+
+    # The sharded normal equations against the single-device Jacobian.
+    oe = cli.sharded_problem(cfg, scene, mesh, prob.atm,
+                             prob.init(prob.atm))
+    oe.bind_observation(y_obs.cpu().numpy(), sigma.cpu().numpy())
+    reset()
+    F, H, g = oe.normal_eqs(x0)
+    torch.cuda.synchronize()
+    n = counts()
+    J64 = J.double().cpu().numpy()
+    w = 1.0 / sigma.double().cpu().numpy() ** 2
+    y0 = prob.fwd_flat(x0).double().cpu().numpy()
+    H_ref = (J64.T * w) @ J64
+    g_ref = (J64.T * w) @ (y_obs.double().cpu().numpy() - y0)
+    errs = {"F": float(np.abs(F.double().cpu().numpy() - y0).max()
+                       / np.abs(y0).max()),
+            "H": float(np.abs(H.cpu().numpy() - H_ref).max()
+                       / np.abs(H_ref).max()),
+            "g": float(np.abs(g.cpu().numpy() - g_ref).max()
+                       / np.abs(g_ref).max())}
+    print(f"sharded normal equations vs the single-device Jacobian: "
+          f"max |err| / max |ref| {json.dumps(errs)}; launches "
+          f"{json.dumps(n)}")
+    check(n["K2"] == 1, f"the sharded normal equations launched K2 "
+                        f"{n['K2']} times, not once")
+    check(all(v <= MESH_RTOL for v in errs.values()),
+          "the sharded normal equations disagree with the single-device "
+          "Jacobian's")
+    out["x_empty"] = x_empty
+    return out
+
+
 def region_counts(case: K1Case, live: torch.Tensor) -> dict:
     """The (point, line) pairs within the cutoff of the ``live`` states [B]
     of the case, by the Humlicek region their (x, y) lies in (s = |x| + y:
@@ -420,6 +645,7 @@ def main() -> int:
     from spectrobot_tpu_torch import adjoint, cli
     from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_opacity as co
+    from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
 
     dev = torch.device("cuda")
@@ -437,6 +663,7 @@ def main() -> int:
     co._library()
     cb._library()
     ctr._library()
+    cs._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -486,6 +713,19 @@ def main() -> int:
           f"not every Voigt tier was exercised by K5: {tiers5}")
     adj_ratio = adjoint_identity(cases["limb"], coeffs["limb"],
                                  cots["limb", 66])
+
+    # Phase 4c: K3 against the plain version, and the tiers over its cases.
+    rows3, cases3 = {}, {}
+    tiers3 = {name: 0 for name in co.TIERS}
+    for case in k3_cases(cases, dev):
+        counts = co.tier_counts(case.windows, *case.as_batch()[3:7])
+        print(f"K3 tiers {case.name}: {json.dumps(counts)}")
+        for k, v in counts.items():
+            tiers3[k] += v
+        rows3[case.name] = compare_k3(case)
+        cases3[case.name] = case
+    check(all(v > 0 for v in tiers3.values()),
+          f"not every Voigt tier was exercised by K3: {tiers3}")
 
     # Phase 5: the main path, forward, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
@@ -631,6 +871,10 @@ def main() -> int:
           f"adjoint: analytic and plain-AD gradients differ by "
           f"{adj['max_rel_grad_diff']:.3e} of max |g|")
 
+    # Phase 6c: the mesh at world size 1 (NCCL, in-process).
+    mesh = mesh_phase(cfg, scene, prob["kernels"], x0, J, y_obs, sigma,
+                      cases3["bench state"], bench_device_lines(dev).nu0)
+
     # Phase 7: timings.
     def k1(case, fn):
         return lambda: fn(case.nu, case.windows, case.nu_c, case.sx,
@@ -697,6 +941,53 @@ def main() -> int:
           f"iterations, first call of the process), per-iteration median "
           f"{1e3 * np.median(it_walls):.2f} ms")
 
+    # K3 and its plain version on the bench state and the dense shape, and
+    # their bounds (the pairs of the one state, n_out rows of FMAs).
+    def k3(case, fn):
+        return lambda: fn(case.nu, case.windows, case.nu_c, case.sx, case.y,
+                          case.amps, cutoff_cm1=case.windows.cutoff_cm1,
+                          chi_b=case.chi_b)
+
+    def plain3(nu, windows, *args, **kw):
+        return cs.accumulate_single_plain(nu, *args, **kw)
+
+    k3_bounds = {}
+    for name in ("bench state", "dense"):
+        c = cases3[name]
+        L, P, n_out = c.nu_c.shape[0], c.nu.shape[0], c.amps.shape[0]
+        times["K3", name] = (cuda_ms(k3(c, cs.accumulate_single)),
+                             cuda_ms(k3(c, plain3)))
+        pairs = region_counts(c.as_batch(), torch.ones(1, dtype=torch.bool,
+                                                       device=dev))
+        k3_bounds[name] = bound_ms(pairs, REGION_FLOPS, 4.0 + 2 * n_out,
+                                   4.0 * (P + 3 * L + n_out * (L + P)))
+        print(f"time K3 {name} [{card}]: kernel {times['K3', name][0]:.3f} "
+              f"ms, plain {times['K3', name][1]:.3f} ms ({L} lines x {P} "
+              f"points x {n_out} rows, segments {cs.segments(c.windows)}); "
+              f"in-cutoff pairs by region {json.dumps(pairs)}; bound "
+              f"{k3_bounds[name][0]:.4f} ms ({k3_bounds[name][1]}); "
+              f"{sum(pairs.values()) / (times['K3', name][0] / 1e3):.4g} "
+              f"pairs/s")
+    f, nu_b, mine = mesh["halo"]
+    halo_ms = cuda_ms(lambda: f(nu_b, mine))
+    # The host dispatches a forward's ~300 small kernels, so its time varies
+    # with the host: the three forwards are timed in turns, 3 rounds.
+    fwds = {"single-device": lambda: cli.run_forward(cfg, scene, cb.KERNELS),
+            **{f"{tier} tier": (lambda oe: lambda: oe.forward_flat(
+                mesh["x_empty"]))(mesh[f"fwd_{tier}"])
+               for tier in ("psum", "nu-halo")}}
+    rounds = {name: [] for name in fwds}
+    for order in (list(fwds), list(fwds)[::-1], list(fwds)):
+        for name in order:
+            rounds[name].append(cuda_ms(fwds[name]))
+    for name, t in rounds.items():
+        print(f"time warm forward, {name} [{card}]: {np.median(t):.2f} ms "
+              f"(median of 3 rounds: {', '.join(f'{v:.2f}' for v in t)}; "
+              f"examples/mars_limb.toml, the (1, 1, 1) mesh for the tiers)")
+    print(f"time halo accumulation of the bench state [{card}]: "
+          f"{halo_ms:.3f} ms (one K3 call)")
+    torch.distributed.destroy_process_group()
+
     # Each kernel's bound at its timed limb inputs: K1 and K2 over the
     # amplitude-live states, K5 over the cotangent-live ones (all of them).
     c = cases["limb"]
@@ -716,6 +1007,7 @@ def main() -> int:
                                     4.0 + 8 * 2,
                                     lines_in + 4.0 * (B * 2 * P
                                                       + 4 * B * 2 * L)),
+        "opacity_single": k3_bounds["bench state"],
     }
     print(f"in-cutoff pairs by region (limb): K1/K2 {json.dumps(k1_pairs)}, "
           f"K5 {json.dumps(k5_pairs)}; bounds [ms]: "
@@ -733,7 +1025,9 @@ def main() -> int:
             ("basis_batch", ret_launches[1], rows2["limb"],
              times["K2", "limb"]),
             ("basis_transpose", grad_launches[2], rows5["limb", 2],
-             times["K5", "limb"]))]}))
+             times["K5", "limb"]),
+            ("opacity_single", mesh["k3_launches"], rows3["bench state"],
+             times["K3", "bench state"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,8 @@
                                                [--device {cuda,cpu}]
     python -m spectrobot_tpu_torch retrieve cfg.toml [...]
     python -m spectrobot_tpu_torch info
+    torchrun --nproc_per_node=N -m spectrobot_tpu_torch {forward,retrieve}
+        cfg.toml -o compute.mesh_nu=N [--device {cuda,cpu}]
 
 It reads the reference's TOML schema (the port's copy of its
 ``config`` module, :mod:`spectrobot_tpu_torch.config`) and writes
@@ -11,8 +13,12 @@ It reads the reference's TOML schema (the port's copy of its
 the reference's layout.  The forward is the single-device line-by-line
 limb/nadir path in local thermodynamic equilibrium; ``retrieve`` fits it to
 observations with forward-mode Jacobians and the Levenberg-Marquardt
-optimal-estimation loop.  Every configuration feature outside that raises
-``NotImplementedError`` naming its key.
+optimal-estimation loop.  With ``compute.mesh_ray/line/nu`` set to a mesh
+of more than one rank, both run on the (ray, line, nu) mesh over the ranks
+``torchrun`` starts (:mod:`spectrobot_tpu_torch.parallel`: NCCL, one card
+per rank, or gloo on the CPU), and rank 0 writes the outputs.  Every
+configuration feature outside that raises ``NotImplementedError`` naming
+its key.
 
 Engine rule: on CUDA the opacity line sum runs in the CUDA kernels (K1 for
 the primal, K2 for the Jacobian; ``compute.use_pallas = true`` with
@@ -24,6 +30,7 @@ back to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -32,6 +39,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spectrobot_tpu_torch.config import Config, load_config
 from spectrobot_tpu_torch.data import atmosphere as atm_mod
@@ -41,6 +49,8 @@ from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.ils import ils_matrix
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+from spectrobot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+from spectrobot_tpu_torch.parallel.oe import ShardedOE, make_sharded_oe
 from spectrobot_tpu_torch.retrieval.state import (
     NodeBasis, build_forward, flatten_state, jacobian_fwd_chunked,
     make_state)
@@ -48,7 +58,6 @@ from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
 # Where each unported feature will come from (ROADMAP.md, Queue 1).
 _LATER_PHYSICS = "ROADMAP Queue 1 item 6 (off-main physics)"
-_LATER_MESH = "ROADMAP Queue 1 item 7 (the mesh)"
 
 
 def _not_ported(key: str, value, roadmap_item: str):
@@ -69,10 +78,6 @@ def check_ported(cfg) -> None:
          _LATER_PHYSICS),
         ("compute.use_lut", c.use_lut, _LATER_PHYSICS),
         ("compute.variant", c.variant != "humlicek4", _LATER_PHYSICS),
-        ("compute.mesh_ray", c.mesh_ray != 1, _LATER_MESH),
-        ("compute.mesh_line", c.mesh_line != 1, _LATER_MESH),
-        ("compute.mesh_nu", c.mesh_nu != 0, _LATER_MESH),
-        ("compute.mesh_halo", c.mesh_halo, _LATER_MESH),
         ("run.save_optics", cfg.run.save_optics, _LATER_PHYSICS),
     ]
     for key, used, item in unported:
@@ -176,6 +181,20 @@ def n_rays(cfg) -> int:
     return len(g.tangent_heights_km if g.mode == "limb" else g.sec_theta)
 
 
+def _rays(cfg, scene: Scene) -> dict:
+    """The configured rays as ``build_forward`` takes them: tangent heights
+    [R] (limb), or secants [R] and the surface temperature (nadir)."""
+    g = cfg.geometry
+    dtype, device = scene.nu.dtype, scene.nu.device
+    if g.mode == "limb":
+        return {"tangent_heights_m": torch.as_tensor(
+            np.asarray(g.tangent_heights_km, float) * 1e3, dtype=dtype,
+            device=device)}
+    return {"sec_theta": torch.as_tensor(g.sec_theta, dtype=dtype,
+                                         device=device),
+            "T_surface": g.t_surface}
+
+
 def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
                   analytic_jvp=True):
     """F: state -> y (``retrieval.state.build_forward``) of the configured
@@ -184,23 +203,27 @@ def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
     reverse mode, False: plain autograd)."""
     g = cfg.geometry
     atm = scene.atm if atm is None else atm
-    dtype, device = scene.nu.dtype, scene.nu.device
-    rays = {}
-    if g.mode == "limb":
-        rays["tangent_heights_m"] = torch.as_tensor(
-            np.asarray(g.tangent_heights_km, float) * 1e3, dtype=dtype,
-            device=device)
-    else:
-        rays["sec_theta"] = torch.as_tensor(g.sec_theta, dtype=dtype,
-                                            device=device)
-        rays["T_surface"] = g.t_surface
     return build_forward(atm, scene.lines, scene.nu, scene.species_names,
                          scene.planet, emissivity=g.emissivity,
                          ils_W=scene.W, n_sub=g.n_sub,
                          cutoff_cm1=cfg.compute.cutoff_cm1,
                          nu_off=scene.nu_off, engine=engine,
                          windows=scene.windows, analytic_jvp=analytic_jvp,
-                         **rays)
+                         **_rays(cfg, scene))
+
+
+def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
+                    engine: Engine = KERNELS, state_map=None) -> ShardedOE:
+    """The configured forward over ``atm`` on this rank of ``mesh``, with
+    its sharded Jacobian and normal equations (``parallel.oe``), the state
+    shaped as ``state_template``."""
+    g = cfg.geometry
+    return make_sharded_oe(
+        mesh, atm, scene.lines, scene.nu, scene.species_names, scene.planet,
+        state_template=state_template, ils_W=scene.W, n_sub=g.n_sub,
+        cutoff_cm1=cfg.compute.cutoff_cm1, nu_off=scene.nu_off,
+        engine=engine, nu_halo=cfg.compute.mesh_halo,
+        emissivity=g.emissivity, state_map=state_map, **_rays(cfg, scene))
 
 
 def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:
@@ -218,27 +241,108 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def _check_mesh_divisibility(cfg, n_rays: int, m_ray: int, m_nu: int) -> None:
+    """The mesh's sharded axes must divide what they cut: a ValueError
+    naming the TOML keys."""
+    if n_rays % m_ray != 0:
+        raise ValueError(
+            f"the ray count ({n_rays}, from geometry.tangent_heights_km / "
+            f"geometry.sec_theta) must be divisible by compute.mesh_ray "
+            f"({m_ray}); pad the ray list or change compute.mesh_ray")
+    if cfg.grid.n_points % m_nu != 0:
+        raise ValueError(
+            f"grid.n_points ({cfg.grid.n_points}) must be divisible by "
+            f"compute.mesh_nu ({m_nu}); adjust grid.n_points or "
+            f"compute.mesh_nu")
+
+
+def mesh_plan(cfg, world_size: int):
+    """(use_mesh, (ray, line, nu)) from compute.mesh_*: the mesh engages
+    only when the configuration sets an axis (the defaults (1, 1, 0) stay
+    single-device) and its shape has more than one rank; mesh_nu = 0 takes
+    the ranks that the other two axes leave of ``world_size``."""
+    c = cfg.compute
+    m_ray, m_line = c.mesh_ray, c.mesh_line
+    explicit = (m_ray, m_line, c.mesh_nu) != (1, 1, 0)
+    m_nu = c.mesh_nu or max(world_size // max(m_ray * m_line, 1), 1)
+    return explicit and m_ray * m_line * m_nu > 1, (m_ray, m_line, m_nu)
+
+
+@contextlib.contextmanager
+def open_mesh(cfg, device: torch.device):
+    """The configured mesh over the ranks ``torchrun`` started (its
+    WORLD_SIZE), for the life of the ``with`` block, or None for a
+    single-device run.  A mesh whose size is not the world's, and a world
+    of several ranks with no mesh configured, raise a ValueError: no run
+    quietly falls back to one device."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    use_mesh, shape = mesh_plan(cfg, world)
+    if not use_mesh:
+        if world > 1:
+            raise ValueError(
+                f"{world} ranks (WORLD_SIZE) but the configuration sets no "
+                f"mesh of more than one rank: set compute.mesh_ray, "
+                f"compute.mesh_line or compute.mesh_nu (a single-device run "
+                f"takes one process)")
+        yield None
+        return
+    n = shape[0] * shape[1] * shape[2]
+    if n != world:
+        raise ValueError(
+            f"compute.mesh_ray, compute.mesh_line, compute.mesh_nu = {shape} "
+            f"is a mesh of {n} ranks, but the run has {world} (WORLD_SIZE): "
+            f"start it with torchrun --nproc_per_node={n}")
+    _check_mesh_divisibility(cfg, n_rays(cfg), shape[0], shape[2])
+    made = initialize_multihost(device.type)
+    try:
+        yield make_mesh(shape, device.type)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _is_rank0(mesh) -> bool:
+    return mesh is None or dist.get_rank() == 0
+
+
 def cmd_forward(cfg, device: torch.device) -> dict:
+    check_ported(cfg)
+    with open_mesh(cfg, device) as mesh:
+        return _forward(cfg, device, mesh)
+
+
+def _forward(cfg, device: torch.device, mesh) -> dict:
     engine = select_engine(cfg, device)
     scene = build_scene(cfg, device)
     t0 = time.time()
-    I = run_forward(cfg, scene, engine)
+    if mesh is None:
+        I = run_forward(cfg, scene, engine)
+    else:
+        empty = make_state(scene.atm, [], retrieve_temperature=False)
+        oe = sharded_problem(cfg, scene, mesh, scene.atm, empty, engine)
+        I = oe.forward_flat(flatten_state(empty)[0]).reshape(n_rays(cfg), -1)
     I = I.cpu().numpy()                 # waits for the device
     wall = time.time() - t0
 
-    os.makedirs(cfg.run.output_dir, exist_ok=True)
     out_path = os.path.join(cfg.run.output_dir, "forward.npz")
-    # After ILS channelisation the spectral axis is the channel centers.
-    sp = radiance_spectrum(np.asarray(scene.chans, np.float64), I)
-    extra = {"tangent_heights_km": np.asarray(cfg.geometry.tangent_heights_km)}
-    if scene.W is not None:
-        extra["nu_fine"] = scene.nu.cpu().numpy()
-    sp.save_npz(out_path, radiance=I, **extra)   # 'radiance' = compat alias
-    print(f"forward: {I.shape} radiances in {wall:.2f}s on {device} -> "
-          f"{out_path}", file=sys.stderr)
+    where = str(device) if mesh is None else (
+        f"a {tuple(mesh.shape.values())} (ray, line, nu) mesh of "
+        f"{mesh.size} {device.type} ranks"
+        f"{', nu-halo' if cfg.compute.mesh_halo else ''}")
+    if _is_rank0(mesh):
+        os.makedirs(cfg.run.output_dir, exist_ok=True)
+        # After ILS channelisation the spectral axis is the channel centers.
+        sp = radiance_spectrum(np.asarray(scene.chans, np.float64), I)
+        extra = {"tangent_heights_km":
+                 np.asarray(cfg.geometry.tangent_heights_km)}
+        if scene.W is not None:
+            extra["nu_fine"] = scene.nu.cpu().numpy()
+        sp.save_npz(out_path, radiance=I, **extra)  # 'radiance' = compat alias
+        print(f"forward: {I.shape} radiances in {wall:.2f}s on {where} -> "
+              f"{out_path}", file=sys.stderr)
     return {"radiance_shape": list(I.shape), "wall_s": wall,
             "output": out_path, "n_lines": scene.lines.n_lines,
-            "device": str(device)}
+            "device": where}
 
 
 def _check_obs_consistency(cfg, obs, chans, n_chan):
@@ -351,7 +455,27 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
 
     Dtypes: the state, the forward and the Jacobian run in the compute
     dtype (:func:`retrieval_problem`), the LM algebra in float64 on the
-    host."""
+    host.  On a mesh every rank runs the LM loop on the same numbers (the
+    sharded normal equations, ``parallel.oe``) and rank 0 writes."""
+    check_ported(cfg)
+    with open_mesh(cfg, device) as mesh:
+        return _retrieve(cfg, device, mesh)
+
+
+class _ReadOnlyCheckpointer:
+    """A rank other than 0 resumes from rank 0's checkpoints and writes
+    none.  It reads them at the start of the LM loop, before the loop's
+    first collective call, and rank 0 writes its first checkpoint only
+    after that call, so every rank resumes from the same one."""
+
+    def __init__(self, ck):
+        self.dir, self.latest = ck.dir, ck.latest
+
+    def save(self, *args, **kw) -> None:
+        return None
+
+
+def _retrieve(cfg, device: torch.device, mesh) -> dict:
     from spectrobot_tpu_torch.retrieval.obs import Observation
     from spectrobot_tpu_torch.utils.checkpoint import Checkpointer
     from spectrobot_tpu_torch.utils.runlog import RunLogger
@@ -368,7 +492,13 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
               f"({nb.z_nodes[0] / 1e3:.1f}-{nb.z_nodes[-1] / 1e3:.1f} km) "
               f"mapped to {atm.n_lev} levels", file=sys.stderr)
     n_fine = int(scene.nu.shape[0])
-    jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine)
+    oe = None
+    if mesh is None:
+        jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine)
+    else:
+        oe = sharded_problem(cfg, scene, mesh, atm, init(atm), engine,
+                             None if nb is None else nb.expand)
+        fwd_flat, jac = oe.forward_flat, oe.jacobian
 
     # Prior blocks in the flat order: "T", then the VMR profiles by sorted
     # species name, each one profile of the parameter basis.
@@ -404,11 +534,15 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
     if cfg.retrieval.windows:
         obs = obs.with_windows(cfg.retrieval.windows)
     y_obs, noise_flat = obs.flattened()
+    if oe is not None:
+        oe.bind_observation(y_obs, noise_flat)
 
+    rank0 = _is_rank0(mesh)
     os.makedirs(cfg.run.output_dir, exist_ok=True)
     log_path = cfg.run.log_file or os.path.join(cfg.run.output_dir,
                                                 "run.jsonl")
     ck_dir = cfg.run.checkpoint_dir or os.path.join(cfg.run.output_dir, "ck")
+    checkpointer = Checkpointer(ck_dir)
     state_check = None
     if ret_T:
         from spectrobot_tpu_torch.data import tips
@@ -431,13 +565,21 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
         OEConfig(max_iter=cfg.retrieval.max_iter,
                  lm_lambda0=cfg.retrieval.lm_lambda0,
                  chi2_rel_tol=cfg.retrieval.chi2_rel_tol),
-        logger=RunLogger(log_path, echo=True),
-        checkpointer=Checkpointer(ck_dir), state_check=state_check)
+        logger=RunLogger(log_path, echo=True) if rank0 else None,
+        checkpointer=(checkpointer if rank0
+                      else _ReadOnlyCheckpointer(checkpointer)),
+        normal_eqs=None if oe is None else oe.normal_eqs,
+        state_check=state_check)
 
     # The fitted spectrum at the solution (one more forward).
     y_fit = fwd_flat(torch.as_tensor(res.x, dtype=dtype, device=device))
     y_fit = y_fit.cpu().numpy().reshape(-1, n_chan)
     out_path = os.path.join(cfg.run.output_dir, "retrieval.npz")
+    result = {"converged": bool(res.converged),
+              "stop_reason": res.stop_reason, "n_iter": res.n_iter,
+              "chi2": float(res.chi2), "output": out_path}
+    if not rank0:
+        return result
     radiance_spectrum(np.asarray(chans, np.float64), y_fit).save_npz(
         out_path, x=res.x, S_hat=res.S_hat, A_kernel=res.A_kernel,
         chi2=res.chi2, n_iter=res.n_iter, converged=res.converged,
@@ -475,9 +617,7 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
                   "produced an acceptable step)")
     print(f"retrieve: {status}; n_iter={res.n_iter} "
           f"chi2={res.chi2:.4g} -> {out_path}", file=sys.stderr)
-    return {"converged": bool(res.converged), "stop_reason": res.stop_reason,
-            "status": status, "n_iter": res.n_iter,
-            "chi2": float(res.chi2), "output": out_path}
+    return {**result, "status": status}
 
 
 def cmd_info() -> dict:
@@ -514,7 +654,8 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, overrides)
     cmd = cmd_forward if args.cmd == "forward" else cmd_retrieve
     result = cmd(cfg, resolve_device(args.device))
-    print(json.dumps(result))
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(json.dumps(result))
     return 0
 
 

@@ -187,6 +187,7 @@ class Windows:
     n_points: int              # P
     n_lines: int               # L
     cutoff_cm1: Optional[float]
+    max_blocks: int            # the longest tile window, in line blocks
 
 
 def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
@@ -205,7 +206,8 @@ def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
                                               cutoff_cm1)
     on = lambda a: torch.as_tensor(a, device=device)
     return Windows(on(nu_pad), float(far), *(on(t) for t in tables),
-                   len(nu), len(nu0), cutoff_cm1)
+                   len(nu), len(nu0), cutoff_cm1,
+                   max(int(tables[1].max()) if tables[1].size else 0, 1))
 
 
 def check_windows(nu_grid: torch.Tensor, windows, n_lines: int,
@@ -304,6 +306,29 @@ def accumulate_batch_plain(nu_grid, nu_c, scale_x, y, amps, *,
         for g in (slice(b0, b0 + group) for b0 in range(0, B, group))])
 
 
+def check_tensors(nu_grid: torch.Tensor, want: dict, *, kernel: bool,
+                  note: str = "") -> None:
+    """Raise unless each ``want[name] = (tensor, shape)`` is a tensor of that
+    shape on ``nu_grid``'s device; with ``kernel``, also unless it is
+    float32 and contiguous (what the kernels take).  ``note`` ends the shape
+    error."""
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != nu_grid.device:
+            raise ValueError(f"{name} is on {t.device}, nu_grid on "
+                             f"{nu_grid.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}{note}")
+        if not kernel:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check(nu_grid, nu_c, scale_x, y, amps, chi_b, *, kernel: bool) -> None:
     """Raise on inputs of the wrong shape or on mixed devices; with
     ``kernel``, also on anything else the kernel does not take (more than
@@ -320,22 +345,8 @@ def _check(nu_grid, nu_c, scale_x, y, amps, chi_b, *, kernel: bool) -> None:
     if chi_b is not None:
         want["chi_b"] = (chi_b, (B, L))
     want["nu_grid"] = (nu_grid, tuple(nu_grid.shape))
-    for name, (t, shape) in want.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.device != nu_grid.device:
-            raise ValueError(f"{name} is on {t.device}, nu_grid on "
-                             f"{nu_grid.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)} (the kernel sums exactly "
-                             f"two depths)")
-        if not kernel:
-            continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(nu_grid, want, kernel=kernel,
+                  note=" (the kernel sums exactly two depths)")
 
 
 def _library() -> ctypes.CDLL:

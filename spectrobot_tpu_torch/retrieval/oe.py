@@ -100,6 +100,7 @@ def retrieve(
     cfg: OEConfig = OEConfig(),
     logger=None,
     checkpointer=None,
+    normal_eqs=None,
     state_check=None,
 ) -> RetrievalResult:
     """Run the OE/LM loop to convergence.
@@ -109,7 +110,11 @@ def retrieve(
     measurement noise (diagonal S_eps).  logger: optional
     ``spectrobot_tpu_torch.utils.runlog.RunLogger``; checkpointer: optional
     ``spectrobot_tpu_torch.utils.checkpoint.Checkpointer`` (resumes from its
-    ``latest()``).  state_check: optional x -> str | None, called on every
+    ``latest()``).  normal_eqs: optional x -> (F, H, g), H = K^T Se^-1 K
+    and g = K^T Se^-1 (y - F) assembled where the Jacobian lives (the
+    mesh's ``parallel.oe.ShardedOE``): each LM iteration then moves only
+    O(n_x^2) numbers to the host, and ``jacobian`` runs once, for the
+    posterior diagnostics.  state_check: optional x -> str | None, called on every
     accepted state; a message is warned and logged, and the loop goes on.
     """
     inv_se = 1.0 / _host(noise_sigma) ** 2
@@ -150,8 +155,12 @@ def retrieve(
 
     for it in range(start_iter, cfg.max_iter):
         t0 = time.time()
-        K = jacobian(dev(x))
-        x_try, dx, d2 = _lm_step(x, K, F, y, x_a, inv_se, S_a_inv, lam)
+        if normal_eqs is not None:
+            _, H, g = normal_eqs(dev(x))
+            x_try, dx, d2 = _lm_solve(x, H, g, x_a, S_a_inv, lam)
+        else:
+            K = jacobian(dev(x))
+            x_try, dx, d2 = _lm_step(x, K, F, y, x_a, inv_se, S_a_inv, lam)
         F_try = _host(forward_flat(dev(x_try)))
         m_try, p_try = _chi2_terms(y, F_try, x_try, x_a, inv_se, S_a_inv)
         chi2_try = float(m_try + p_try)

@@ -1,5 +1,11 @@
-"""The CUDA kernels (K1, K2 and K5) on the card (marker ``cuda``; skips without
-a GPU and nvcc).  Run on the card with ``python -m pytest -m cuda tests/``."""
+"""The CUDA kernels (K1, K2, K5 and K3) on the card, and the CLI's mesh
+route across the machine's cards (marker ``cuda``; skips without a GPU and
+nvcc, the mesh test without a second card).  Run on the card with
+``python -m pytest -m cuda tests/``."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -296,3 +302,139 @@ def test_jacrev_through_the_kernels_matches_jacfwd(cuda):
     assert (co.LAUNCHES - k1, ctr.LAUNCHES - k5) == (1, 1)
     assert Jr.shape == J.shape == (2 * 16, 9)
     assert float((Jr - J).abs().max()) <= 1e-5 * float(J.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K3: the single-state line sum (csrc/opacity_single.cu)
+# ---------------------------------------------------------------------------
+
+
+def _single_inputs(device, n_out, n_lines=2000, n_points=3000, seed=3):
+    """One state drawn as K1's random states are, with ``n_out`` random
+    amplitude rows; 2000 lines over 60 cm-1 give windows of many line
+    blocks, so K3 cuts them into several segments."""
+    rng = np.random.default_rng(seed)
+    nu0 = np.sort(rng.uniform(-30.0, 30.0, n_lines)).astype(np.float32)
+    nu_c = nu0 + rng.uniform(-0.01, 0.002, n_lines)
+    sx = np.full(n_lines, 10.0 ** rng.uniform(2.5, 3.5))
+    y = 10.0 ** rng.uniform(-3.0, 1.0, n_lines)
+    amps = 10.0 ** rng.uniform(-2.0, 2.0, (n_out, n_lines))
+    chi = rng.uniform(0.0, 0.3, n_lines)
+    nu = np.linspace(-25.0, 25.0, n_points)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return t(nu), nu0, t(nu_c), t(sx), t(y), t(amps), t(chi)
+
+
+@pytest.mark.parametrize("n_out", [1, 2, 4, 8])
+@pytest.mark.parametrize("cutoff", [25.0, None])
+def test_single_kernel_matches_plain(cuda, n_out, cutoff):
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    nu, nu0, nc, sx, y, amps, chi = _single_inputs(cuda, n_out)
+    for chi_b in (None, chi):
+        before = cs.LAUNCHES
+        win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
+        got = cs.accumulate_single(nu, win, nc, sx, y, amps,
+                                   cutoff_cm1=cutoff, chi_b=chi_b)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES == before + 1
+        assert cs.segments(win)[0] > 1
+        ref = cs.accumulate_single_plain(nu, nc, sx, y, amps,
+                                         cutoff_cm1=cutoff, chi_b=chi_b)
+        assert got.shape == ref.shape == (n_out, nu.shape[0])
+        # K1's budget (the reference's Pallas parity budget).
+        torch.testing.assert_close(got, ref, rtol=3e-5,
+                                   atol=1e-6 * float(ref.abs().max()))
+
+
+def test_single_kernel_is_k1_pair_for_pair(cuda):
+    """With one segment (a window of one line block) K3 sums every pair in
+    K1's order through K1's per-pair code: equal to K1 at B = 1, bit for
+    bit."""
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    nu, nu0, nc, sx, y, amps, chi = _single_inputs(cuda, 2, n_lines=100,
+                                                   n_points=1000)
+    win = co.line_windows(nu, nu0)
+    assert cs.segments(win) == (1, 1)
+    for chi_b in (None, chi):
+        k3 = cs.accumulate_single(nu, win, nc, sx, y, amps, chi_b=chi_b)
+        k1 = co.accumulate_batch(nu, win, nc[None], sx[None], y[None],
+                                 amps[None], chi_b=None if chi_b is None
+                                 else chi_b[None])
+        assert torch.equal(k3, k1[0])
+
+
+def test_single_kernel_is_deterministic(cuda):
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    nu, nu0, nc, sx, y, amps, _ = _single_inputs(cuda, 3)
+    win = co.line_windows(nu, nu0, cutoff_cm1=None)
+    a = cs.accumulate_single(nu, win, nc, sx, y, amps, cutoff_cm1=None)
+    b = cs.accumulate_single(nu, win, nc, sx, y, amps, cutoff_cm1=None)
+    assert torch.equal(a, b)
+
+
+def test_single_kernel_rejects_what_it_does_not_take(cuda):
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    nu, nu0, nc, sx, y, amps, _ = _single_inputs(cuda, 9)
+    win = co.line_windows(nu, nu0)
+    with pytest.raises(ValueError, match="1 to 8 amplitude rows"):
+        cs.accumulate_single(nu, win, nc, sx, y, amps)
+    with pytest.raises(TypeError, match="float32"):
+        cs.accumulate_single(nu.double(), win, nc.double(), sx.double(),
+                             y.double(), amps[:2].double())
+    with pytest.raises(ValueError, match="lines"):
+        cs.accumulate_single(nu, co.line_windows(nu, nu0[:-1]), nc, sx, y,
+                             amps[:2])
+
+
+# ---------------------------------------------------------------------------
+# The mesh across cards (torchrun, NCCL, one card per rank)
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCENE = os.path.join(REPO, "examples", "mars_limb.toml")
+
+
+def test_cli_mesh_on_every_card(cuda, tmp_path):
+    """``torchrun --nproc_per_node=n`` of the CLI on the machine's n cards
+    against the single-card CLI, float32, examples/mars_limb.toml at a 10
+    cm-1 cutoff (the nu-halo tier needs cutoff <= 55 cm-1 / n): the forward
+    on the (1, 1, n) mesh in the nu-halo tier, the retrieve on (2, 1, n/2)
+    (or (1, 1, n)) in the psum tier.  Tolerances: the kernel-vs-plain
+    radiance budget of chip_smoke.py for the radiances; 1e-4 relative for
+    the retrieved state and chi2 (float32 sums in another order)."""
+    from spectrobot_tpu_torch import cli
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the mesh across cards needs two cards or more")
+    m_ray = 2 if n % 2 == 0 and n >= 4 else 1
+    meshes = {"forward": ["-o", f"compute.mesh_nu={n}", "-o",
+                          "compute.mesh_halo=true"],
+              "retrieve": ["-o", f"compute.mesh_ray={m_ray}", "-o",
+                           f"compute.mesh_nu={n // m_ray}"]}
+    common = ["-o", "compute.cutoff_cm1=10"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for cmd, mesh in meshes.items():
+        assert cli.main([cmd, SCENE, "-o", f"run.output_dir={tmp_path}/one",
+                         *common]) == 0
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             f"--nproc_per_node={n}", "-m", "spectrobot_tpu_torch", cmd,
+             SCENE, "-o", f"run.output_dir={tmp_path}/mesh", *common, *mesh],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+    one = np.load(tmp_path / "one" / "forward.npz")["values"]
+    got = np.load(tmp_path / "mesh" / "forward.npz")["values"]
+    print(f"forward on {n} cards vs one: max |err| "
+          f"{np.abs(got - one).max():.3e} of max {np.abs(one).max():.3e}")
+    np.testing.assert_allclose(got, one, rtol=1e-4,
+                               atol=1e-5 * np.abs(one).max())
+    one = np.load(tmp_path / "one" / "retrieval.npz")
+    got = np.load(tmp_path / "mesh" / "retrieval.npz")
+    print(f"retrieve on {n} cards vs one: x max rel err "
+          f"{np.abs(got['x'] - one['x']).max() / np.abs(one['x']).max():.3e}"
+          f", chi2 {float(got['chi2']):.6g} vs {float(one['chi2']):.6g}, "
+          f"{int(got['n_iter'])} vs {int(one['n_iter'])} LM iterations")
+    assert int(got["n_iter"]) == int(one["n_iter"])
+    assert bool(got["converged"]) and bool(one["converged"])
+    np.testing.assert_allclose(got["x"], one["x"], rtol=1e-4)
+    np.testing.assert_allclose(got["chi2"], one["chi2"], rtol=1e-4)

@@ -1,5 +1,6 @@
 """The port runs where JAX and the JAX package are not installed: every
-module of spectrobot_tpu_torch (and chip_smoke.py) imports, and the tiny
+module of spectrobot_tpu_torch (the mesh's parallel/ and K3's
+ops/cuda_single.py among them) and chip_smoke.py imports, and the tiny
 forward and retrieval (``python -m spectrobot_tpu_torch``) and the adjoint
 tool (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
 interpreter that holds no jax and no module of spectrobot_tpu."""
@@ -24,6 +25,10 @@ for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
                                "spectrobot_tpu_torch."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
+for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
+             "parallel.sharded", "parallel.retrieval", "parallel.oe",
+             "ops.cuda_single"):
+    assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
 for cmd in ("forward", "retrieve"):
     sys.argv = ["spectrobot_tpu_torch", cmd, {toml!r}, "--device", "cpu",
