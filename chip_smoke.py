@@ -6,7 +6,7 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: the four kernels from spectrobot_tpu_torch/csrc (one nvcc
+  2. build: the five kernels from spectrobot_tpu_torch/csrc (one nvcc
      each, started together), with their ptxas reports;
   3. K1 (the line sum) against its plain PyTorch version on the card, in
      float32: the forward's own limb and nadir inputs
@@ -31,7 +31,9 @@ Phases, each of which raises (non-zero exit) on failure:
   6. main path, retrieve: the CLI temperature retrieval of the same scene
      (self-test observations) through K1 and K2; K2 must launch once per
      Jacobian, the fit converge with chi2 falling, and the Jacobian at the
-     prior through the kernels agree with the plain engine's;
+     prior through the kernels agree with the plain engine's; then the CLI
+     forward and retrieve again with lines.chi = "co2_mars" (the forward
+     against the plain engine's, the fit converged);
   6b. main path, reverse mode: the gradient of the retrieval cost
      1/2 |(y - y_obs) / sigma|^2 at the prior through
      retrieval_problem(analytic_jvp='rev'): one K1 and one K5 launch, equal
@@ -44,12 +46,27 @@ Phases, each of which raises (non-zero exit) on failure:
      (parallel.halo.halo_accumulate_pallas_fn) on the bench state through
      K3, against the plain sum; the sharded normal equations (F, H, g)
      against those of the single-device Jacobian, K2 once per call;
+  6d. the single-state line sum (ops.opacity.make_accumulate_op at one
+     state) through its entry points: acceptance config 1
+     (forward.model.nadir_single_layer, float32, 3001 points) against the
+     plain engine and the float64 oracle, one K3 launch; its jacfwd over
+     its 5 scalars one K3 and one K4 launch (R = 10), against the plain
+     Jacobian;
+     the dense shape of bench.py:bench_kernel (20480 lines x 16384 points,
+     no cutoff), jacfwd of cross_sections over (T, p, p_self): one K3 and
+     one K4 (R = 6); K4 on the rows of both Jacobians, and at R = 66 on random rows of the dense shape (also
+     against K2 at B = 1), the deepest bench state and the deepest nadir
+     state with chi, against its plain version; all four tiers must occur;
+     cross_sections_batch over the slice's 32 layers one K1 launch, its
+     jacfwd one K1 and one K2 (R = 64); the gradient of a scalar of
+     config 1's cross sections in mode 'rev' one K3 and one K5 launch,
+     against the jacfwd row;
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
      per-iteration median; K3 on its bench-state and dense cases; the warm
-     (1, 1, 1) mesh forward against the warm single-device one; each
-     kernel's bound (the larger of its bytes over the memory rate and its
+     (1, 1, 1) mesh forward against the warm single-device one; K4 on its
+     cases and the config-1 Jacobian; each kernel's bound (the larger of its bytes over the memory rate and its
      flops over the FP32 rate, counted from this run's inputs).
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
@@ -84,6 +101,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                         "spectrobot_tpu/ops/pallas_opacity.py:1023"),
     "opacity_single": ("spectrobot_tpu_torch/csrc/opacity_single.cu",
                        "spectrobot_tpu/ops/pallas_opacity.py:287"),
+    "basis_single": ("spectrobot_tpu_torch/csrc/basis_single.cu",
+                     "spectrobot_tpu/ops/pallas_opacity.py:701"),
 }
 # K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
@@ -118,6 +137,41 @@ REGIONS = ("I", "II", "III", "IV")
 REGION_FLOPS = dict(zip(REGIONS, (14.0, 41.0, 110.0, 135.0)))
 REGION_FLOPS_GRAD = dict(zip(REGIONS, (30.0, 50.0, 280.0, 190.0)))
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# Acceptance config 1 (tests/test_config1_golden.py: co2_15um_band(j_max=30),
+# 3001 points over 630-705 cm-1): one layer over a blackbody surface.
+CONFIG1 = dict(T_layer=215.0, p_layer_pa=500.0, column_m2=2.0e27,
+               vmr_self=0.95, T_surface=260.0)
+# Config 1's radiance against the float64 oracle (tests/golden/numpy_ref.py):
+# the float32 hot-path budget of tests/test_config1_golden.py:57.
+ORACLE_RTOL, ORACLE_ATOL_REL = 5e-3, 1e-4
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from spectrobot_tpu_torch.ops import (
+        cuda_basis, cuda_basis_single, cuda_opacity, cuda_single,
+        cuda_transpose)
+    for m in (cuda_opacity, cuda_basis, cuda_transpose, cuda_single,
+              cuda_basis_single):
+        m.LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the last :func:`reset_launches`."""
+    from spectrobot_tpu_torch.ops import (
+        cuda_basis, cuda_basis_single, cuda_opacity, cuda_single,
+        cuda_transpose)
+    return {"K1": cuda_opacity.LAUNCHES, "K2": cuda_basis.LAUNCHES,
+            "K5": cuda_transpose.LAUNCHES, "K3": cuda_single.LAUNCHES,
+            "K4": cuda_basis_single.LAUNCHES}
+
+
+def expect_launches(what: str, n: dict, **want) -> None:
+    """Fail unless the counts ``n`` are ``want`` (0 for a kernel not
+    named)."""
+    want = {k: want.get(k, 0) for k in n}
+    check(n == want, f"{what} launched {json.dumps(n)}, not "
+                     f"{json.dumps(want)}")
 
 
 class K1Case(NamedTuple):
@@ -464,23 +518,14 @@ def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
     Returns K3's launch count and what phase 7 times; the process group
     stays up for phase 7, whose caller ends it."""
     from spectrobot_tpu_torch import cli
-    from spectrobot_tpu_torch.ops import cuda_basis as cb
-    from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
-    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
     from spectrobot_tpu_torch.ops.opacity import KernelLines
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.mesh import (
         initialize_multihost, make_mesh)
     from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
 
-    def reset():
-        co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = cs.LAUNCHES = 0
-
-    def counts():
-        return {"K1": co.LAUNCHES, "K2": cb.LAUNCHES, "K5": ctr.LAUNCHES,
-                "K3": cs.LAUNCHES}
-
+    reset, counts = reset_launches, launch_counts
     made = initialize_multihost("cuda")
     check(made, "a process group existed before the mesh phase")
     out = {}
@@ -570,6 +615,304 @@ def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
     return out
 
 
+class K4Case(NamedTuple):
+    name: str
+    nu: torch.Tensor        # [P] grid
+    windows: object         # cuda_opacity.Windows of the grid and lines
+    nu_c: torch.Tensor      # [L]
+    sx: torch.Tensor
+    y: torch.Tensor
+    C: tuple                # C1..C4, each [R, L]
+    chi_b: Optional[torch.Tensor]
+
+    def as_batch(self) -> K1Case:
+        """The case as one live state of a K1Case (for the tier and region
+        counts)."""
+        one = lambda a: None if a is None else a[None]
+        return K1Case(self.name, self.nu, self.windows, one(self.nu_c),
+                      one(self.sx), one(self.y),
+                      torch.ones(1, 1, device=self.nu.device),
+                      one(self.chi_b))
+
+
+def recording_engine(seen: list):
+    """The kernel engine with a K4 that also records its inputs (the rows
+    a single-state Jacobian gives it) in ``seen``."""
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
+
+    def contract_single(nu, windows, nu_c, sx, y, *C, **kw):
+        seen.append((nu, windows, nu_c, sx, y, C, kw["chi_b"]))
+        return cbs.basis_contract_single(nu, windows, nu_c, sx, y, *C, **kw)
+
+    return dataclasses.replace(KERNELS, name="record",
+                               contract_single=contract_single)
+
+
+def compare_k4(case: K4Case, k2: bool = False) -> dict:
+    """K4 against its plain version (and, with ``k2``, against K2 at B = 1)
+    within K2_REL of max|ref|."""
+    from spectrobot_tpu_torch.ops.cuda_basis import basis_contract_batch
+    from spectrobot_tpu_torch.ops.cuda_basis_single import (
+        basis_contract_single, basis_contract_single_plain, row_groups)
+    from spectrobot_tpu_torch.ops.cuda_single import segments
+
+    cut = case.windows.cutoff_cm1
+    args = (case.nu, case.windows, case.nu_c, case.sx, case.y, *case.C)
+    got = basis_contract_single(*args, cutoff_cm1=cut, chi_b=case.chi_b)
+    torch.cuda.synchronize()
+    ref = basis_contract_single_plain(*args[:1], *args[2:], cutoff_cm1=cut,
+                                      chi_b=case.chi_b)
+    check(bool(torch.isfinite(got).all()), f"{case.name}: non-finite K4")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    R = case.C[0].shape[0]
+    row = {"case": case.name, "lines": int(case.nu_c.shape[0]),
+           "points": int(case.nu.shape[0]), "rows": R, "cutoff": cut,
+           "chi": case.chi_b is not None, "segments": segments(case.windows),
+           "row_groups": row_groups(R)[0], "max_abs_err": err,
+           "max_ref": scale, "budget": f"{K2_REL:g}*max|ref|",
+           "err_over_budget": err / (K2_REL * scale)}
+    if k2:
+        one = lambda a: None if a is None else a[None].contiguous()
+        b1 = basis_contract_batch(case.nu, case.windows, one(case.nu_c),
+                                  one(case.sx), one(case.y),
+                                  *(one(c) for c in case.C), cutoff_cm1=cut,
+                                  chi_b=one(case.chi_b))[0]
+        row["vs_k2_b1_max_abs_err"] = float((got - b1).abs().max())
+        check(row["vs_k2_b1_max_abs_err"] <= K2_REL * scale,
+              f"{case.name}: K4 disagrees with K2 at B = 1")
+    print(f"K4 vs plain: {json.dumps(row)}")
+    check(err <= K2_REL * scale, f"{case.name}: K4 disagrees with the plain "
+                                 f"version ({err:.3g} of max {scale:.3g})")
+    return row
+
+
+def config1_scene(device):
+    """Acceptance config 1's lines (the port's ``co2_15um_band(j_max=30)``,
+    float32) and grid (3001 points over 630-705 cm-1) on ``device``."""
+    from spectrobot_tpu_torch.data.synth import co2_15um_band
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    ll = co2_15um_band(j_max=30)
+    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=torch.float32,
+                                    device=device)
+    nu = torch.as_tensor(np.linspace(630.0, 705.0, 3001), dtype=torch.float32,
+                         device=device)
+    return ll, dl, nu
+
+
+def config1_oracle(ll, nu_host: np.ndarray) -> np.ndarray:
+    """Config 1's radiance by the independent float64 oracle
+    (tests/golden/numpy_ref.py, numpy and scipy only)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        from golden import numpy_ref
+    finally:
+        sys.path.pop(0)
+    from spectrobot_tpu_torch.data import tips
+    T = CONFIG1["T_layer"]
+    q_ratio = np.full(len(ll), tips.q_of_T(2, 1, 296.0) / tips.q_of_T(2, 1, T))
+    return numpy_ref.nadir_single_layer(
+        nu_host, ll, T, CONFIG1["p_layer_pa"], CONFIG1["column_m2"],
+        CONFIG1["vmr_self"], CONFIG1["T_surface"], q_ratio, cutoff=25.0)
+
+
+def column_errors(J, J_ref) -> float:
+    """The largest column error of a Jacobian (a tuple of columns, one per
+    argument) over that column's max|ref|, in units of K2_REL."""
+    return max(float((g - r).abs().max()) / (K2_REL * float(r.abs().max()))
+               for g, r in zip(J, J_ref))
+
+
+def single_state_phase(dev, cases3: dict, scene, *, dense_lines=20480,
+                       dense_points=16384) -> dict:
+    """Phase 6d: the single-state line sum (ops.opacity.make_accumulate_op
+    at one state) through its entry points: config 1 (radiance: K3; its
+    Jacobian: one K3 and one K4), the dense shape's cross sections and
+    their Jacobian (K4 at R = 6), K4 at R = 66 on the dense shape, the
+    deepest bench state and the deepest nadir state with chi, the
+    structural route (cross_sections_batch over the slice's 32 layers: K1;
+    its Jacobian: K1 and K2) and reverse mode (K3 and K5 at B = 1).
+    Returns K4's rows, cases and the config-1 Jacobian's launches."""
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.forward.model import nadir_single_layer
+    from spectrobot_tpu_torch.ops import cuda_basis as cb
+    from spectrobot_tpu_torch.ops import cuda_opacity as co
+    from spectrobot_tpu_torch.ops.opacity import (
+        cross_sections, cross_sections_batch, line_kernel_inputs)
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    out = {"cases": {}, "rows": {}}
+
+    # Config 1: the radiance through K3, against the plain engine and the
+    # float64 oracle; its Jacobian through one K3 and one K4.
+    ll, dl, nu = config1_scene(dev)
+    x = [f32(v) for v in CONFIG1.values()]
+    rad = lambda engine: (lambda *a: nadir_single_layer(nu, dl, *a,
+                                                        engine=engine))
+    reset_launches()
+    I = rad(None)(*x)
+    torch.cuda.synchronize()
+    expect_launches("the config-1 radiance", launch_counts(), K3=1)
+    I_plain = rad(cb.PLAIN)(*x)
+    golden = config1_oracle(ll, nu.double().cpu().numpy())
+    I_host = I.double().cpu().numpy()
+    err_plain = float((I - I_plain).abs().max())
+    err_gold = np.abs(I_host - golden)
+    worst = float((err_gold / (ORACLE_RTOL * np.abs(golden) + ORACLE_ATOL_REL
+                               * np.abs(golden).max())).max())
+    print(f"config 1 radiance [3001]: K3 vs plain max |err| {err_plain:.3e} "
+          f"of max {float(I_plain.abs().max()):.3e}; vs the float64 oracle "
+          f"max |err| {float(err_gold.max()):.3e}, {worst:.3e} x its budget "
+          f"({ORACLE_RTOL:g}*|ref| + {ORACLE_ATOL_REL:g}*max|ref|)")
+    check(bool(torch.isfinite(I).all()), "config 1: non-finite radiance")
+    np.testing.assert_allclose(I_host, I_plain.double().cpu().numpy(),
+                               rtol=1e-4, atol=1e-5 * float(I_plain.max()))
+    check(worst <= 1.0, "config 1 disagrees with the float64 oracle")
+    argn = tuple(range(len(x)))
+    reset_launches()
+    J = torch.func.jacfwd(rad(None), argnums=argn)(*x)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    print(f"config 1 Jacobian (5 columns): launches {json.dumps(n)}")
+    expect_launches("the config-1 Jacobian", n, K3=1, K4=1)
+    out["config1_jac_launches"] = n["K4"]
+    J_plain = torch.func.jacfwd(rad(cb.PLAIN), argnums=argn)(*x)
+    ratio = column_errors(J, J_plain)
+    print(f"config 1 Jacobian kernels vs plain: worst column error "
+          f"{ratio:.3e} x {K2_REL:g} of its max|ref|")
+    check(ratio <= 1.0, "the config-1 Jacobian disagrees with the plain one")
+    out["config1_jac_ms"] = cuda_ms(
+        lambda: torch.func.jacfwd(rad(None), argnums=argn)(*x))
+    seen = []
+    torch.func.jacfwd(rad(recording_engine(seen)), argnums=argn)(*x)
+    cases = [K4Case(f"config 1, R = {seen[0][5][0].shape[0]}", *seen[0])]
+
+    # The dense shape (bench.py:bench_kernel): cross sections through K3,
+    # their Jacobian over (T, p, p_self) through K4 at R = 6.
+    dd = device_lines_from_linelist(
+        random_lines(dense_lines, 600.0, 740.0, seed=0), [(2, 1)],
+        dtype=torch.float32, device=dev, nu_ref=0.0)
+    nud = torch.as_tensor(np.linspace(640.0, 700.0, dense_points),
+                          dtype=torch.float32, device=dev)
+    xs = lambda engine: (lambda T, p, ps: torch.stack(cross_sections(
+        nud, dd, T, p, ps, cutoff_cm1=None, nu_off=nud, engine=engine)))
+    xd = [f32(220.0), f32(300.0), f32(100.0)]
+    reset_launches()
+    Jd = torch.func.jacfwd(xs(None), argnums=(0, 1, 2))(*xd)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    print(f"dense cross sections Jacobian (3 columns, {dense_lines} lines x "
+          f"{dense_points} points): launches {json.dumps(n)}")
+    expect_launches("the dense Jacobian", n, K3=1, K4=1)
+    ratio = column_errors(Jd, torch.func.jacfwd(xs(cb.PLAIN),
+                                                argnums=(0, 1, 2))(*xd))
+    print(f"dense Jacobian kernels vs plain: worst column error {ratio:.3e} "
+          f"x {K2_REL:g} of its max|ref|")
+    check(ratio <= 1.0, "the dense Jacobian disagrees with the plain one")
+    seen.clear()
+    torch.func.jacfwd(xs(recording_engine(seen)), argnums=(0, 1, 2))(*xd)
+    win, C = seen[0][1], seen[0][5]
+    check(C[0].shape[0] == 6, f"the dense Jacobian gave K4 {C[0].shape[0]} "
+                              f"rows, not 6")
+    cases.append(K4Case("dense, R = 6", *seen[0]))
+    kl = line_kernel_inputs(dd, 220.0, 300.0, 100.0,
+                            amp_weights=torch.ones(2, dd.n_lines, device=dev))
+    dense3 = K3Case("dense", nud, win, *(a.contiguous() for a in kl[:4]),
+                    None)
+    # K4 at R = 66 on random rows: the dense shape (also against K2 at
+    # B = 1), the deepest bench state and the deepest nadir state with chi.
+    for seed, (name, c3) in enumerate((
+            ("dense", dense3), ("bench state", cases3["bench state"]),
+            ("nadir state + chi", cases3["nadir state, 4 rows"]))):
+        c3 = c3._replace(amps=c3.amps[:2].contiguous())
+        C = [c[0] for c in coefficient_rows(c3.as_batch(), K2_COLUMNS,
+                                            200 + seed)]
+        cases.append(K4Case(f"{name}, R = {2 * K2_COLUMNS}", c3.nu,
+                            c3.windows, c3.nu_c, c3.sx, c3.y, tuple(C),
+                            c3.chi_b))
+    tiers = {name: 0 for name in co.TIERS}
+    for case in cases:
+        b = case.as_batch()
+        for k, v in co.tier_counts(case.windows, *b[3:7]).items():
+            tiers[k] += v
+        out["rows"][case.name] = compare_k4(case, k2=case.name.startswith(
+            "dense, R = 66"))
+        out["cases"][case.name] = case
+    print(f"K4 tiers over its cases: {json.dumps(tiers)}")
+    check(all(v > 0 for v in tiers.values()),
+          f"not every Voigt tier was exercised by K4: {tiers}")
+
+    # The structural route: cross_sections_batch over the slice's 32 layer
+    # states (a vmap of cross_sections) runs K1; its Jacobian over the 32
+    # layer temperatures K1 and K2 (R = 64).
+    atm = scene.atm.to(torch.float32)
+    T_lay = 0.5 * (atm.T[1:] + atm.T[:-1])
+    p_lay = torch.sqrt(atm.p[1:] * atm.p[:-1])
+    ps_lay = 0.5 * (atm.vmr["CO2"][1:] + atm.vmr["CO2"][:-1]) * p_lay
+    xb = lambda engine: (lambda T: torch.stack(cross_sections_batch(
+        scene.nu, scene.lines, T, p_lay, ps_lay, nu_off=scene.nu_off,
+        engine=engine)))
+    reset_launches()
+    S = xb(None)(T_lay)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    print(f"cross_sections_batch ({T_lay.shape[0]} layers): launches "
+          f"{json.dumps(n)}")
+    expect_launches("cross_sections_batch", n, K1=1)
+    S_plain = xb(cb.PLAIN)(T_lay)
+    err = (S - S_plain).abs()
+    worst = float((err / (RTOL * S_plain.abs() + ATOL_REL
+                          * S_plain.abs().max())).max())
+    check(worst <= 1.0, "cross_sections_batch disagrees with the plain one")
+    reset_launches()
+    Jb = torch.func.jacfwd(xb(None))(T_lay)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    rows = []
+    rec = dataclasses.replace(cb.KERNELS, contract=lambda *a, **kw: (
+        rows.append(a[5].shape[1]), cb.KERNELS.contract(*a, **kw))[1])
+    torch.func.jacfwd(xb(rec))(T_lay)
+    print(f"cross_sections_batch Jacobian ({T_lay.shape[0]} columns): "
+          f"launches {json.dumps(n)}, K2 rows {rows}; kernels vs plain "
+          f"{worst:.3e} x K1's budget (values)")
+    expect_launches("the cross_sections_batch Jacobian", n, K1=1, K2=1)
+    check(rows == [2 * T_lay.shape[0]], f"K2 took rows {rows}")
+    Jb_plain = torch.func.jacfwd(xb(cb.PLAIN))(T_lay)
+    jerr = float((Jb - Jb_plain).abs().max())
+    check(jerr <= K2_REL * float(Jb_plain.abs().max()),
+          "the cross_sections_batch Jacobian disagrees with the plain one")
+
+    # Reverse mode: the gradient of a scalar of config 1's cross sections
+    # (K3 and K5 at B = 1) against the jacfwd columns (K3 and K4) contracted
+    # with the same weights, within ADJ_REL of the sum of absolute terms.
+    w = torch.as_tensor(np.random.default_rng(9).normal(size=nu.shape[0]),
+                        dtype=torch.float32, device=dev)
+    sig = lambda mode: (lambda T, p, ps: cross_sections(
+        nu, dl, T, p, ps, analytic_jvp=mode)[0])
+    xr = [f32(CONFIG1["T_layer"]), f32(CONFIG1["p_layer_pa"]),
+          f32(CONFIG1["vmr_self"] * CONFIG1["p_layer_pa"])]
+    args = [v.clone().requires_grad_() for v in xr]
+    reset_launches()
+    g = torch.autograd.grad((sig("rev")(*args) * w).sum(), args)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    Jc = torch.stack(torch.func.jacfwd(sig(True), argnums=(0, 1, 2))(*xr))
+    g_ref = (Jc.double() * w.double()).sum(1)
+    scale = (Jc.double() * w.double()).abs().sum(1)
+    ratio = float(((torch.stack(g).double() - g_ref).abs()
+                   / (ADJ_REL * scale)).max())
+    print(f"reverse gradient of a config-1 cross-section scalar: launches "
+          f"{json.dumps(n)}; vs the jacfwd columns: |diff| over {ADJ_REL:g} "
+          f"x the sum of absolute terms {ratio:.3e} (T, p, p_self: "
+          f"{', '.join(f'{float(v):.6e}' for v in g)})")
+    expect_launches("the single-state reverse gradient", n, K3=1, K5=1)
+    check(ratio <= 1.0,
+          "the single-state reverse gradient disagrees with the jacfwd row")
+    return out
+
+
 def region_counts(case: K1Case, live: torch.Tensor) -> dict:
     """The (point, line) pairs within the cutoff of the ``live`` states [B]
     of the case, by the Humlicek region their (x, y) lies in (s = |x| + y:
@@ -644,6 +987,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from spectrobot_tpu_torch import adjoint, cli
     from spectrobot_tpu_torch.ops import cuda_basis as cb
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
     from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
@@ -664,6 +1008,7 @@ def main() -> int:
     cb._library()
     ctr._library()
     cs._library()
+    cbs._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -729,7 +1074,7 @@ def main() -> int:
 
     # Phase 5: the main path, forward, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
-        co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = 0
+        reset_launches()
         cli.main(["forward", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
         fwd_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
@@ -757,7 +1102,7 @@ def main() -> int:
 
     # Phase 6: the main path, retrieve, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
-        co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = 0
+        reset_launches()
         t0 = time.perf_counter()
         cli.main(["retrieve", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
@@ -806,6 +1151,35 @@ def main() -> int:
     check(jac_err <= K2_REL * jac_max,
           "the kernel Jacobian disagrees with the plain one")
 
+    # The CLI forward and retrieve again with the chi wing correction.
+    chi_cli = ["-o", "lines.chi=co2_mars", "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        for cmd in ("forward", "retrieve"):
+            cli.main([cmd, SCENE, "-o", f"run.output_dir={tmp}", *chi_cli])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "forward.npz")) as out:
+            I_chi = out["values"]
+        with np.load(os.path.join(tmp, "retrieval.npz")) as out:
+            chi_res = {k: out[k] for k in ("converged", "n_iter", "chi2")}
+    cfg_chi = cli.load_config(SCENE, {"lines.chi": "co2_mars"})
+    I_chi_plain = cli.run_forward(cfg_chi, cli.build_scene(cfg_chi, dev),
+                                  cb.PLAIN).cpu().numpy()
+    print(f"CLI with lines.chi = co2_mars: launches {json.dumps(n)}; "
+          f"forward vs plain max |err| {np.abs(I_chi - I_chi_plain).max():.3e}"
+          f", vs no chi max |diff| {np.abs(I_chi - I).max():.3e} of max "
+          f"{np.abs(I).max():.3e}; retrieve converged "
+          f"{bool(chi_res['converged'])}, {int(chi_res['n_iter'])} LM "
+          f"iterations, chi2 {float(chi_res['chi2']):.6g}")
+    check(n["K1"] > 0 and n["K2"] == int(chi_res["n_iter"]) + 1,
+          "the CLI with chi did not run K1 and one K2 per Jacobian")
+    check(bool(np.isfinite(I_chi).all() and (I_chi >= 0).all()),
+          "chi radiances not finite and non-negative")
+    np.testing.assert_allclose(I_chi, I_chi_plain, rtol=1e-4,
+                               atol=1e-5 * np.abs(I_chi_plain).max())
+    check(bool(chi_res["converged"]), "the retrieval with chi did not "
+                                      "converge")
+
     # Phase 6b: the main path in reverse mode, the gradient of the
     # retrieval cost at the prior (the retrieve's observations and noise).
     y_obs = torch.as_tensor(res["y_obs"].reshape(-1), dtype=torch.float32,
@@ -820,7 +1194,7 @@ def main() -> int:
         r = (p.fwd_flat(x) - y_obs) / sigma
         return torch.autograd.grad(0.5 * torch.sum(r * r), x)[0]
 
-    co.LAUNCHES = cb.LAUNCHES = ctr.LAUNCHES = 0
+    reset_launches()
     g_rev = cost_grad(rev["kernels"])
     torch.cuda.synchronize()
     grad_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
@@ -874,6 +1248,10 @@ def main() -> int:
     # Phase 6c: the mesh at world size 1 (NCCL, in-process).
     mesh = mesh_phase(cfg, scene, prob["kernels"], x0, J, y_obs, sigma,
                       cases3["bench state"], bench_device_lines(dev).nu0)
+
+    # Phase 6d: the single-state line sum (K3, K4; K1, K2 and K5 on its
+    # structural and reverse routes).
+    single = single_state_phase(dev, cases3, scene)
 
     # Phase 7: timings.
     def k1(case, fn):
@@ -968,6 +1346,39 @@ def main() -> int:
               f"{k3_bounds[name][0]:.4f} ms ({k3_bounds[name][1]}); "
               f"{sum(pairs.values()) / (times['K3', name][0] / 1e3):.4g} "
               f"pairs/s")
+    # K4 and its plain version on its cases, and their bounds (the pairs
+    # of the one state, 4R contraction FMAs each).
+    def k4(case, fn):
+        return lambda: fn(case.nu, case.windows, case.nu_c, case.sx, case.y,
+                          *case.C, cutoff_cm1=case.windows.cutoff_cm1,
+                          chi_b=case.chi_b)
+
+    def plain4(nu, windows, *args, **kw):
+        return cbs.basis_contract_single_plain(nu, *args, **kw)
+
+    k4_bounds = {}
+    for name, c in single["cases"].items():
+        L, P, R = c.nu_c.shape[0], c.nu.shape[0], c.C[0].shape[0]
+        times["K4", name] = (cuda_ms(k4(c, cbs.basis_contract_single)),
+                             cuda_ms(k4(c, plain4)))
+        pairs = region_counts(c.as_batch(), torch.ones(1, dtype=torch.bool,
+                                                       device=dev))
+        n_bytes = 4.0 * (P + 3 * L + 4 * R * L + R * P
+                         + (0 if c.chi_b is None else L))
+        k4_bounds[name] = bound_ms(pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R,
+                                   n_bytes)
+        print(f"time K4 {name} [{card}]: kernel {times['K4', name][0]:.3f} "
+              f"ms, plain {times['K4', name][1]:.3f} ms ({L} lines x {P} "
+              f"points x {R} rows, segments {cs.segments(c.windows)}, row "
+              f"groups {cbs.row_groups(R)[0]}); in-cutoff pairs by region "
+              f"{json.dumps(pairs)}; bound {k4_bounds[name][0]:.4f} ms "
+              f"({k4_bounds[name][1]}); "
+              f"{sum(pairs.values()) / (times['K4', name][0] / 1e3):.4g} "
+              f"pairs/s")
+    print(f"time config-1 Jacobian [{card}]: {single['config1_jac_ms']:.3f} "
+          f"ms (torch.func.jacfwd of nadir_single_layer over its 5 scalars, "
+          f"CUDA events, median of 5: the window table on the host, one K3 "
+          f"and one K4 call)")
     f, nu_b, mine = mesh["halo"]
     halo_ms = cuda_ms(lambda: f(nu_b, mine))
     # The host dispatches a forward's ~300 small kernels, so its time varies
@@ -1008,6 +1419,7 @@ def main() -> int:
                                     lines_in + 4.0 * (B * 2 * P
                                                       + 4 * B * 2 * L)),
         "opacity_single": k3_bounds["bench state"],
+        "basis_single": k4_bounds["dense, R = 6"],
     }
     print(f"in-cutoff pairs by region (limb): K1/K2 {json.dumps(k1_pairs)}, "
           f"K5 {json.dumps(k5_pairs)}; bounds [ms]: "
@@ -1027,7 +1439,9 @@ def main() -> int:
             ("basis_transpose", grad_launches[2], rows5["limb", 2],
              times["K5", "limb"]),
             ("opacity_single", mesh["k3_launches"], rows3["bench state"],
-             times["K3", "bench state"]))]}))
+             times["K3", "bench state"]),
+            ("basis_single", single["config1_jac_launches"],
+             single["rows"]["dense, R = 6"], times["K4", "dense, R = 6"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

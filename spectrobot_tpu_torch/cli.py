@@ -73,7 +73,6 @@ def check_ported(cfg) -> None:
     unported = [
         ("nlte.enabled", cfg.nlte.enabled, _LATER_PHYSICS),
         ("cia.enabled", cfg.cia.enabled, _LATER_PHYSICS),
-        ("lines.chi", cfg.lines.chi, _LATER_PHYSICS),
         ("instrument.fov_fwhm_km", cfg.instrument.fov_fwhm_km > 0,
          _LATER_PHYSICS),
         ("compute.use_lut", c.use_lut, _LATER_PHYSICS),
@@ -125,6 +124,25 @@ def _build_atmosphere(cfg, device):
     return planet, atm
 
 
+def _build_chi(cfg, species_names):
+    """[lines] chi -> (ChiProfile, per-species-row apply mask) or None."""
+    name = cfg.lines.chi
+    if not name:
+        return None
+    from spectrobot_tpu_torch.ops.chi import CHI_PROFILES
+    if name not in CHI_PROFILES:
+        raise KeyError(f"unknown lines.chi profile {name!r}; available: "
+                       f"{sorted(CHI_PROFILES)}")
+    prof = CHI_PROFILES[name]
+    mask = tuple(s.upper() == prof.species.upper() for s in species_names)
+    if not any(mask):
+        import warnings
+        warnings.warn(f"lines.chi = {name!r} applies to {prof.species} but "
+                      f"the scene species are {species_names}: chi is a "
+                      f"no-op for this run")
+    return (prof, mask)
+
+
 class Scene(NamedTuple):
     planet: atm_mod.Planet
     atm: atm_mod.Atmosphere
@@ -135,6 +153,7 @@ class Scene(NamedTuple):
     W: object                  # [n_chan, P] ILS matrix or None
     chans: np.ndarray          # output axis (channels, or the fine grid)
     windows: Windows           # the kernels' window table, built once
+    chi: object                # (ChiProfile, row mask) or None (lines.chi)
 
 
 def build_scene(cfg, device: torch.device) -> Scene:
@@ -173,7 +192,7 @@ def build_scene(cfg, device: torch.device) -> Scene:
     windows = line_windows(nu_off, dl.nu0,
                            cutoff_cm1=cfg.compute.cutoff_cm1)
     return Scene(planet, atm, dl, species_names, nu, nu_off, W, chans,
-                 windows)
+                 windows, _build_chi(cfg, species_names))
 
 
 def n_rays(cfg) -> int:
@@ -209,7 +228,7 @@ def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
                          cutoff_cm1=cfg.compute.cutoff_cm1,
                          nu_off=scene.nu_off, engine=engine,
                          windows=scene.windows, analytic_jvp=analytic_jvp,
-                         **_rays(cfg, scene))
+                         chi=scene.chi, **_rays(cfg, scene))
 
 
 def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
@@ -223,7 +242,8 @@ def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
         state_template=state_template, ils_W=scene.W, n_sub=g.n_sub,
         cutoff_cm1=cfg.compute.cutoff_cm1, nu_off=scene.nu_off,
         engine=engine, nu_halo=cfg.compute.mesh_halo,
-        emissivity=g.emissivity, state_map=state_map, **_rays(cfg, scene))
+        emissivity=g.emissivity, state_map=state_map, chi=scene.chi,
+        **_rays(cfg, scene))
 
 
 def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:

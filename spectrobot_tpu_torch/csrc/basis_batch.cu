@@ -16,7 +16,8 @@
 // Humlicek's w4), so the Jacobian is the derivative of the forward kernel
 // (csrc/opacity_batch.cu), tier by tier.  The per-pair basis and the tier
 // decision live in voigt_basis.cuh, shared with the transpose (K5,
-// basis_transpose.cu).
+// basis_transpose.cu); the thread block's contraction in basis_contract.cuh,
+// shared with the single-state contraction (K4, basis_single.cu).
 //
 // What bounds it: FP32 work on the CUDA cores.  Per live (point, line) pair
 // the basis costs roughly 2.5x the forward's Voigt evaluation (far ~30
@@ -51,69 +52,9 @@
 
 #include <cuda_runtime.h>
 
-#include "voigt_basis.cuh"
+#include "basis_contract.cuh"
 
 namespace {
-
-constexpr int GROUP = 4;       // lines whose basis is held in registers
-constexpr int N_SUB = BLOCK_L / SUB_L;
-constexpr int N_WARP = TILE_P / 32;
-static_assert(TILE_P == BLOCK_L, "each thread stages one line");
-static_assert(SUB_L == 32 && N_SUB == N_WARP,
-              "warp w reduces the bounds of sub-block w");
-static_assert(SUB_L % GROUP == 0 && GROUP == 4, "float4 row reads");
-
-// Dynamic shared memory per coefficient row: its output row (TILE_P
-// floats) and its four staged sub-block rows (4 x SUB_L floats).
-constexpr int ROW_BYTES = (TILE_P + 4 * SUB_L) * 4;
-// The Hopper block limit (227 KB) less the static staging arrays.
-constexpr int SMEM_LIMIT = 232448;
-constexpr int STATIC_RESERVE = 4096;
-constexpr int MAX_ROWS = (SMEM_LIMIT - STATIC_RESERVE) / ROW_BYTES;
-
-struct Staged {
-  float nuc[BLOCK_L];
-  float sx[BLOCK_L];
-  float y[BLOCK_L];
-  float chi[BLOCK_L];
-};
-
-// One 32-line sub-block of the contraction for this thread's point.
-// c_s: [4][R][SUB_L] staged rows; out_s: [R][TILE_P] output tile.
-template <int TIER, bool HAS_CHI>
-__device__ __forceinline__ void contract_sub(const Staged& s, int base,
-                                             const float* __restrict__ c_s,
-                                             float* __restrict__ out_s,
-                                             int R, float nu_p, float cutoff,
-                                             int tid) {
-#pragma unroll 1
-  for (int g = 0; g < SUB_L; g += GROUP) {
-    float b[4][GROUP];
-    bool any = false;
-#pragma unroll
-    for (int j = 0; j < GROUP; ++j) {
-      const int i = base + g + j;
-      any |= pair_basis<TIER, HAS_CHI>(nu_p - s.nuc[i], s.sx[i], s.y[i],
-                                       HAS_CHI ? s.chi[i] : 0.0f, cutoff,
-                                       b[0][j], b[1][j], b[2][j], b[3][j]);
-    }
-    if (!any) continue;        // every term would add an exact zero
-#pragma unroll 2
-    for (int r = 0; r < R; ++r) {
-      float acc = out_s[r * TILE_P + tid];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float4 c =
-            *reinterpret_cast<const float4*>(c_s + (k * R + r) * SUB_L + g);
-        acc = fmaf(c.x, b[k][0], acc);
-        acc = fmaf(c.y, b[k][1], acc);
-        acc = fmaf(c.z, b[k][2], acc);
-        acc = fmaf(c.w, b[k][3], acc);
-      }
-      out_s[r * TILE_P + tid] = acc;
-    }
-  }
-}
 
 // grid = (Pp / TILE_P, B), block = TILE_P threads, R * ROW_BYTES bytes of
 // dynamic shared memory.  nu [Pp]; nuc, sx, y, chi [B, Lp]; c1..c4
@@ -137,8 +78,6 @@ basis_batch_kernel(const float* __restrict__ nu,
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int p = tile * TILE_P + tid;
   float* out_b = out + (size_t)b * R * Pp;
   if (active[b] == 0) {        // uniform over the block: all threads leave
@@ -149,85 +88,23 @@ basis_batch_kernel(const float* __restrict__ nu,
   extern __shared__ float4 dyn[];
   float* out_s = reinterpret_cast<float*>(dyn);        // [R][TILE_P]
   float* c_s = out_s + R * TILE_P;                      // [4][R][SUB_L]
-  __shared__ Staged s;
-  __shared__ float s_lo[N_WARP], s_hi[N_WARP];
-  __shared__ int s_tier[N_SUB];
+  __shared__ Shared sh;
 
   for (int r = 0; r < R; ++r) out_s[r * TILE_P + tid] = 0.0f;
-
-  // The tile's true wavenumber bounds.
   const float nu_p = nu[p];
-  {
-    const float lo = warp_min(nu_p), hi = warp_max(nu_p);
-    if (lane == 0) {
-      s_lo[warp] = lo;
-      s_hi[warp] = hi;
-    }
-  }
-  __syncthreads();
-  float tile_lo = s_lo[0], tile_hi = s_hi[0];
-#pragma unroll
-  for (int w = 1; w < N_WARP; ++w) {
-    tile_lo = fminf(tile_lo, s_lo[w]);
-    tile_hi = fmaxf(tile_hi, s_hi[w]);
-  }
+  float tile_lo, tile_hi;
+  tile_bounds(sh, nu_p, tile_lo, tile_hi);
 
   const size_t row = (size_t)b * Lp;
   const float* const cs[4] = {c1 + (size_t)b * R * Lp, c2 + (size_t)b * R * Lp,
                               c3 + (size_t)b * R * Lp, c4 + (size_t)b * R * Lp};
   const int start = starts[tile];
   const int count = counts[tile];
-  for (int k = 0; k < count; ++k) {
-    const int l0 = (start + k) * BLOCK_L;
-    const size_t l = (size_t)l0 + tid;
-    const float c = nuc[row + l];
-    const float sxv = sx[row + l];
-    const float yy = yv[row + l];
-    __syncthreads();           // everyone is done with the previous block
-    s.nuc[tid] = c;
-    s.sx[tid] = sxv;
-    s.y[tid] = yy;
-    if (HAS_CHI) s.chi[tid] = chi[row + l];
-    // Warp w holds the lines of sub-block w: reduce its bounds and pick
-    // its tier (the decision of csrc/opacity_batch.cu).
-    const float c_min = warp_min(c), c_max = warp_max(c);
-    const float sx_min = warp_min(sxv), y_min = warp_min(yy);
-    if (lane == 0)
-      s_tier[warp] = sub_block_tier(c_min, c_max, sx_min, y_min, tile_lo,
-                                    tile_hi);
-#pragma unroll 1
-    for (int sb = 0; sb < N_SUB; ++sb) {
-      __syncthreads();         // c_s free, s and s_tier written
-      // Stage the sub-block's rows as [4][R][SUB_L]: warp w copies rows
-      // q = w, w + N_WARP, ... of the 4R (basis, row) pairs, one line per
-      // lane (128 contiguous bytes per row).
-      const int lb = l0 + sb * SUB_L + lane;
-      for (int q = warp; q < 4 * R; q += N_WARP) {
-        const int kk = q / R;
-        c_s[q * SUB_L + lane] = cs[kk][(size_t)(q - kk * R) * Lp + lb];
-      }
-      __syncthreads();
-      const int base = sb * SUB_L;
-      switch (s_tier[sb]) {
-        case FAR:
-          contract_sub<FAR, HAS_CHI>(s, base, c_s, out_s, R, nu_p, cutoff,
-                                     tid);
-          break;
-        case MID:
-          contract_sub<MID, HAS_CHI>(s, base, c_s, out_s, R, nu_p, cutoff,
-                                     tid);
-          break;
-        case NEAR3:
-          contract_sub<NEAR3, HAS_CHI>(s, base, c_s, out_s, R, nu_p, cutoff,
-                                       tid);
-          break;
-        default:
-          contract_sub<NEAR4, HAS_CHI>(s, base, c_s, out_s, R, nu_p, cutoff,
-                                       tid);
-          break;
-      }
-    }
-  }
+  for (int k = 0; k < count; ++k)
+    contract_block<HAS_CHI>(sh, nuc + row, sx + row, yv + row,
+                            HAS_CHI ? chi + row : nullptr, cs, c_s, out_s, R,
+                            Lp, (start + k) * BLOCK_L, nu_p, tile_lo, tile_hi,
+                            cutoff);
   for (int r = 0; r < R; ++r) out_b[(size_t)r * Pp + p] = out_s[r * TILE_P + tid];
 }
 

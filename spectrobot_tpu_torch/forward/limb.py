@@ -20,6 +20,7 @@ import torch
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.forward.rt import layer_path_radiance
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
+from spectrobot_tpu_torch.ops.chi import CHI_MAX_CUTOFF
 from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.opacity import (
     Engine, LineSumOp, ad_mode, line_kernel_inputs, line_sum_plain_ad)
@@ -32,26 +33,28 @@ class LayerOptics(NamedTuple):
     source: torch.Tensor   # [R, NL, P] source-function radiance
 
 
-def _tau_prologue(lines: DeviceLines, cg: PathCG):
+def _tau_prologue(lines: DeviceLines, cg: PathCG, chi=None):
     """Stage 1 for every (ray, layer) state at once: CG states -> flat
-    kernel inputs (nu_c, scale_x, y) [B, L] and amps [B, 2, L], B = R*NL."""
+    kernel inputs (nu_c, scale_x, y) [B, L], amps [B, 2, L] and the chi
+    slopes [B, L] (None without ``chi``), B = R*NL."""
     R, NL, _ = cg.u.shape
     sp = lines.species_idx
     u_line_cm2 = cg.u[:, :, sp] * 1.0e-4               # [R, NL, L] one side
     # LTE: absorption and emission weights are both 1.
     amps = torch.stack([u_line_cm2, u_line_cm2], dim=-2)
     kl = line_kernel_inputs(lines, cg.T_sp[:, :, sp], cg.p_sp[:, :, sp],
-                            cg.p_self_sp[:, :, sp], amps)
+                            cg.p_self_sp[:, :, sp], amps, chi=chi)
     L = lines.n_lines
     return (kl.nu_c.reshape(R * NL, L), kl.scale_x.reshape(R * NL, L),
-            kl.y.reshape(R * NL, L), kl.amps.reshape(R * NL, 2, L))
+            kl.y.reshape(R * NL, L), kl.amps.reshape(R * NL, 2, L),
+            None if kl.chi_b is None else kl.chi_b.reshape(R * NL, L))
 
 
 def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
                      windows: Windows, *,
                      cutoff_cm1: Optional[float] = 25.0,
                      engine: Engine = KERNELS, analytic_jvp=True,
-                     chunk: int = 256, remat: bool = False):
+                     chunk: int = 256, remat: bool = False, chi=None):
     """One batched line sum over the whole (ray x layer) batch (the
     counterpart of the reference's ``layer_tau_pallas``), differentiable
     as ``analytic_jvp`` says (``ops.opacity.ad_mode``):
@@ -70,19 +73,29 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     ``engine``: ``ops.cuda_basis.KERNELS`` (the kernels on CUDA tensors) or
     ``PLAIN`` (their plain versions).  ``windows``: the scene's window table
     (``ops.cuda_opacity.line_windows`` of ``nu_off`` and ``lines.nu0``).
+    ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
+    correction, valid to a cutoff of ``ops.chi.CHI_MAX_CUTOFF``.
     Returns (dtau, dtau_em), each [R, NL, P].
     """
+    if chi is not None and (cutoff_cm1 is None
+                            or cutoff_cm1 > CHI_MAX_CUTOFF):
+        raise ValueError(
+            f"the chi wing correction implements the first Perrin-Hartmann "
+            f"segment only (valid to {CHI_MAX_CUTOFF} cm^-1); "
+            f"compute.cutoff_cm1={cutoff_cm1} exceeds it: lower the cutoff "
+            f"or disable lines.chi")
     R, NL, _ = cg.u.shape
     dt = nu_off.dtype
-    nu_c, sx, y, amps = (a.to(dt).contiguous()
-                         for a in _tau_prologue(lines, cg))
+    nu_c, sx, y, amps, chi_b = (None if a is None else a.to(dt).contiguous()
+                                for a in _tau_prologue(lines, cg, chi))
     mode = ad_mode(analytic_jvp)
     if mode is None:
-        out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chunk=chunk,
-                                cutoff_cm1=cutoff_cm1, remat=remat)
+        out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
+                                chunk=chunk, cutoff_cm1=cutoff_cm1,
+                                remat=remat)
     else:
         out = LineSumOp(engine, windows, cutoff_cm1, mode)(
-            nu_off, nu_c, sx, y, amps)                 # [B, 2, P]
+            nu_off, nu_c, sx, y, amps, chi_b)          # [B, 2, P]
     out = out.reshape(R, NL, 2, nu_off.shape[0])
     return out[:, :, 0, :], out[:, :, 1, :]
 
@@ -165,8 +178,8 @@ def layer_optics(nu_grid, lines: DeviceLines, cg: PathCG,
     """Per-(ray, layer) optical depth and source spectra [R, NL, P] (the
     reference's ``layer_optics``, LTE).  Keywords: those of
     :func:`layer_tau_kernel` (``analytic_jvp``, ``engine``, ``cutoff_cm1``,
-    ``chunk``, ``remat``) and ``nu_off``, ``windows`` (defaults from the
-    grid and the lines)."""
+    ``chunk``, ``remat``, ``chi``) and ``nu_off``, ``windows`` (defaults
+    from the grid and the lines)."""
     dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
     return optics_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em)
 

@@ -1,7 +1,7 @@
 """Batched basis contraction on the card: the wrapper of the hand-written
 CUDA kernel ``csrc/basis_batch.cu``, its plain PyTorch version, and the two
-engines of the differentiable line sum (K1, K2 and K5, or their plain
-versions).
+engines of the differentiable line sum (K1, K2, K5, K3 and K4, or their
+plain versions).
 
 The kernel replaces the TPU kernel
 ``spectrobot_tpu/ops/pallas_opacity.py:_basis_batch_kernel`` (K2), reached
@@ -38,6 +38,10 @@ import torch
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, _round_up,
     accumulate_batch, accumulate_batch_plain, check_windows, pad_lines)
+from spectrobot_tpu_torch.ops.cuda_basis_single import (
+    basis_contract_single, basis_contract_single_plain)
+from spectrobot_tpu_torch.ops.cuda_single import (
+    accumulate_single, accumulate_single_plain)
 from spectrobot_tpu_torch.ops.cuda_transpose import (
     MAX_ROWS as TRANSPOSE_ROWS, basis_transpose_batch,
     basis_transpose_batch_plain)
@@ -232,9 +236,20 @@ def _plain_transpose(nu_grid, windows, *args, **kw):
     return basis_transpose_batch_plain(nu_grid, *args, **kw)
 
 
-# The line sum's engines (ops.opacity.LineSumOp): the three kernels (their
-# plain versions on CPU tensors), and the plain versions on any device, which
-# needs no window table (the reference for the kernels on the card).
+def _plain_accumulate_single(nu_grid, windows, *args, **kw):
+    return accumulate_single_plain(nu_grid, *args, **kw)
+
+
+def _plain_contract_single(nu_grid, windows, *args, **kw):
+    return basis_contract_single_plain(nu_grid, *args, **kw)
+
+
+# The line sum's engines (ops.opacity.LineSumOp, AccumulateOp): the five
+# kernels (their plain versions on CPU tensors), and the plain versions on
+# any device, which need no window table (the reference for the kernels on
+# the card).
 KERNELS = Engine("kernels", accumulate_batch, basis_contract_batch,
-                 basis_transpose_batch, TRANSPOSE_ROWS)
-PLAIN = Engine("plain", _plain_accumulate, _plain_contract, _plain_transpose)
+                 basis_transpose_batch, TRANSPOSE_ROWS, accumulate_single,
+                 basis_contract_single)
+PLAIN = Engine("plain", _plain_accumulate, _plain_contract, _plain_transpose,
+               None, _plain_accumulate_single, _plain_contract_single)

@@ -1,0 +1,184 @@
+"""Single-state basis contraction on the card: the wrapper of the
+hand-written CUDA kernel ``csrc/basis_single.cu`` (K4) and its plain
+PyTorch version.
+
+The kernel replaces the TPU kernel
+``spectrobot_tpu/ops/pallas_opacity.py:_basis_kernel`` (K4), reached there
+through ``basis_contract_pallas_jit`` by the forward-mode derivatives of the
+single-state line sum (``make_accumulate_op`` at one state):
+
+    out[r, p] = sum_i C1[r,i] K + C2[r,i] Kx + C3[r,i] xKx + C4[r,i] Ky
+
+with the basis {K, dK/dx, x dK/dx, dK/dy} of Humlicek's w4 (times chi and
+the cutoff mask) at every (point p, line i) pair of the one state.  Under
+``torch.func.jacfwd`` the rows carry every Jacobian column, so the basis is
+evaluated once per Jacobian.
+
+What bounds it on an H100: FP32 work on the CUDA cores, as K2 (whose
+per-pair code and tier decision it shares, ``csrc/voigt_basis.cuh``).  One
+state gives K2's grid only P/128 blocks, so K4 takes K3's grid (tile, line
+segment; ``ops.cuda_single.segments``) and adds the segments' [R, P]
+partial sums in a fixed order in a second pass: deterministic, no atomics.
+More rows than one block holds (``MAX_ROWS``) are split into row groups,
+each of which evaluates the basis anew.
+
+Device rule: a CPU tensor goes to :func:`basis_contract_single_plain`; a
+CUDA tensor always launches the kernel, and a build or launch failure
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from spectrobot_tpu_torch.ops.cuda_opacity import (
+    BLOCK_L, SUB_L, TILE_P, Windows, _round_up, check_tensors, check_windows,
+    pad_lines)
+from spectrobot_tpu_torch.ops.cuda_single import segments
+from spectrobot_tpu_torch.ops.opacity import _basis
+
+# The most coefficient rows one thread block holds (csrc/basis_single.cu
+# MAX_ROWS, K2's limit; checked against the library when it is loaded).
+# A call takes any number: its rows are split into groups of at most this.
+MAX_ROWS = 223
+
+# Kernel launches made by basis_contract_single in this process.
+LAUNCHES = 0
+_LIB = None
+
+
+def basis_contract_single_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
+                                cutoff_cm1: Optional[float] = 25.0,
+                                chi_b: Optional[torch.Tensor] = None,
+                                chunk: int = 256) -> torch.Tensor:
+    """The plain PyTorch version of :func:`basis_contract_single`, any dtype
+    and device: nu_c/sx/y [L], C1..C4 [R, L], chi_b [L] or None -> [R, P]
+    in ``nu_grid``'s dtype.  Every line is evaluated at every point
+    (pointwise w4 gradient, cutoff mask) in ``chunk``-line slabs and
+    contracted with ``torch.matmul``."""
+    dt = nu_grid.dtype
+    L = nu_c.shape[0]
+    out = torch.zeros((C1.shape[0],) + nu_grid.shape, dtype=dt,
+                      device=nu_grid.device)
+    for lo in range(0, L, chunk):
+        sl = slice(lo, lo + chunk)
+        basis = _basis(nu_grid, nu_c[sl].to(dt), sx[sl].to(dt), y[sl].to(dt),
+                       None if chi_b is None else chi_b[sl].to(dt),
+                       cutoff_cm1=cutoff_cm1)
+        for C, b in zip((C1, C2, C3, C4), basis):
+            out += torch.matmul(C[:, sl].to(dt), b)
+    return out
+
+
+def row_groups(R: int) -> tuple:
+    """(n_grp, G): how K4 splits R rows into groups of at most
+    ``MAX_ROWS``, as even as the count allows."""
+    n_grp = -(-R // MAX_ROWS)
+    return n_grp, -(-R // n_grp)
+
+
+def _check(nu_grid, nu_c, sx, y, C, chi_b, *, kernel: bool) -> None:
+    """Raise on inputs of the wrong shape or on mixed devices; with
+    ``kernel``, also on what the kernel does not take (a dtype other than
+    float32, non-contiguous tensors, no rows)."""
+    if nu_grid.dim() != 1:
+        raise ValueError(f"nu_grid must be 1-D, got {tuple(nu_grid.shape)}")
+    if nu_c.dim() != 1 or C[0].dim() != 2:
+        raise ValueError(f"one state: nu_c must be [L] and C1 [R, L], got "
+                         f"{tuple(nu_c.shape)} and {tuple(C[0].shape)}")
+    L, R = nu_c.shape[0], C[0].shape[0]
+    if kernel and R == 0:
+        raise ValueError("the basis kernel needs at least one row")
+    want = {"nu_c": (nu_c, (L,)), "sx": (sx, (L,)), "y": (y, (L,))}
+    for k, c in enumerate(C, 1):
+        want[f"C{k}"] = (c, (R, L))
+    if chi_b is not None:
+        want["chi_b"] = (chi_b, (L,))
+    want["nu_grid"] = (nu_grid, tuple(nu_grid.shape))
+    check_tensors(nu_grid, want, kernel=kernel)
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel library, built and bound on first use."""
+    global _LIB
+    if _LIB is None:
+        from spectrobot_tpu_torch.kernels import build
+
+        lib = build.load("basis_single")
+        geometry = (lib.basis_single_tile_p(), lib.basis_single_block_l(),
+                    lib.basis_single_sub_l(), lib.basis_single_max_rows())
+        if geometry != (TILE_P, BLOCK_L, SUB_L, MAX_ROWS):
+            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
+                               f"{(TILE_P, BLOCK_L, SUB_L, MAX_ROWS)}")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.basis_single_launch.argtypes = [ptr] * 13 + [
+            i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        lib.basis_single_launch.restype = i32
+        lib.basis_single_error_string.argtypes = [i32]
+        lib.basis_single_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def basis_contract_single(nu_grid: torch.Tensor, windows: Windows,
+                          nu_c: torch.Tensor, sx: torch.Tensor,
+                          y: torch.Tensor, C1: torch.Tensor, C2: torch.Tensor,
+                          C3: torch.Tensor, C4: torch.Tensor, *,
+                          cutoff_cm1: Optional[float] = 25.0,
+                          chi_b: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Single-state basis contraction (counterpart of the reference's
+    ``basis_contract_pallas_jit``): nu_grid [P] (offset coordinates),
+    nu_c/sx/y [L] with ascending centers, C1..C4 [R, L] (any R), chi_b [L]
+    or None, all on one device -> [R, P].  ``cutoff_cm1=None`` sums every
+    line at every point.  CUDA tensors must be float32; CPU tensors go to
+    :func:`basis_contract_single_plain` in any dtype.
+
+    ``windows``: the ``cuda_opacity.Windows`` of this grid and these
+    centers (``line_windows``), as K3 takes them (the plain version needs
+    none).
+    """
+    global LAUNCHES
+    C = (C1, C2, C3, C4)
+    on_cpu = nu_grid.device.type == "cpu"
+    _check(nu_grid, nu_c, sx, y, C, chi_b, kernel=not on_cpu)
+    if on_cpu:
+        return basis_contract_single_plain(nu_grid, nu_c, sx, y, *C,
+                                           cutoff_cm1=cutoff_cm1, chi_b=chi_b)
+    if nu_grid.device.type != "cuda":
+        raise ValueError(f"no basis kernel for device {nu_grid.device}")
+    L, R, P = nu_c.shape[0], C1.shape[0], nu_grid.shape[0]
+    check_windows(nu_grid, windows, L, cutoff_cm1)
+    win = windows
+    lib = _library()
+
+    dev = nu_grid.device
+    Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
+    nuc_d = pad_lines(nu_c, Lp, win.far)
+    sx_d, y_d = pad_lines(sx, Lp, 1e6), pad_lines(y, Lp, 1e6)
+    chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
+    C_d = [pad_lines(c, Lp, 0.0) for c in C]
+    n_seg, seg_blocks = segments(win)
+    _, G = row_groups(R)
+    part = (None if n_seg == 1 else
+            torch.empty((n_seg, R, Pp), dtype=torch.float32, device=dev))
+    out = torch.empty((R, Pp), dtype=torch.float32, device=dev)
+    cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.basis_single_launch(
+            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
+            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
+            *(c.data_ptr() for c in C_d), win.starts.data_ptr(),
+            win.counts.data_ptr(), None if part is None else part.data_ptr(),
+            out.data_ptr(), R, G, Pp, Lp, n_seg, seg_blocks, cut, stream)
+        LAUNCHES += 1
+    if rc != 0:
+        msg = lib.basis_single_error_string(rc).decode()
+        raise RuntimeError(f"basis_single kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+    return out[:, :P]

@@ -210,6 +210,18 @@ def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
                    max(int(tables[1].max()) if tables[1].size else 0, 1))
 
 
+def all_block_windows(nu_grid, n_lines: int, *,
+                      cutoff_cm1: Optional[float] = 25.0,
+                      device=None) -> Windows:
+    """The :class:`Windows` that visit every line block for every tile (the
+    reference's all-blocks table, for a call that knows no centers) for
+    ``n_lines`` lines under ``cutoff_cm1``; the per-pair cutoff mask alone
+    keeps the sum exact."""
+    w = line_windows(nu_grid, np.zeros(n_lines, np.float32),
+                     cutoff_cm1=None, device=device)
+    return dataclasses.replace(w, cutoff_cm1=cutoff_cm1)
+
+
 def check_windows(nu_grid: torch.Tensor, windows, n_lines: int,
                   cutoff_cm1: Optional[float]) -> None:
     """Raise unless ``windows`` is the :class:`Windows` of this kernel call:

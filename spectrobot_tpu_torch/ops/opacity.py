@@ -3,19 +3,20 @@
 
 Stage 1 (:func:`line_kernel_inputs`): thermodynamic state -> flat per-line
 kernel inputs (shifted center, x scale, y, amplitudes with every prefactor
-folded in).  Stage 2 (:func:`accumulate_plain`; the CUDA kernel in
-:mod:`spectrobot_tpu_torch.ops.cuda_opacity` for the batched production
-call):
+folded in, and the chi wing slopes).  Stage 2 (:func:`accumulate_plain`;
+the CUDA kernels in :mod:`spectrobot_tpu_torch.ops.cuda_opacity` (batched)
+and :mod:`spectrobot_tpu_torch.ops.cuda_single` (one state)):
 
     out[o, p] = sum_i amps[o, i] * Re w(x_ip, y_i) * chi_ip * [|dnu| <= cut]
     x_ip = (nu[p] - nu_c[i]) * scale_x[i]
 
-Derivatives (:class:`LineSumOp`, the counterpart of the reference's
-``make_accumulate_op``): forward mode through the basis contraction
-(:class:`LineSum`, K2 on the card), reverse mode through its transpose
-(:class:`LineSumVJP`, K5 on the card), or plain autograd through
-:func:`line_sum_plain_ad`; :func:`ad_mode` reads the reference's
-``analytic_jvp`` switch.
+Derivatives (the counterparts of the reference's ``make_accumulate_op``):
+:class:`LineSumOp` for a batch of states, :func:`make_accumulate_op` for
+one state.  Forward mode goes through the basis contraction (K2 batched,
+K4 at one state), reverse mode through its transpose (K5), or plain
+autograd through :func:`line_sum_plain_ad`; :func:`ad_mode` reads the
+reference's ``analytic_jvp`` switch.  :func:`cross_sections` is the
+reference's public per-state interface on top of them.
 """
 
 from __future__ import annotations
@@ -27,16 +28,12 @@ import torch
 import torch.utils.checkpoint
 
 from spectrobot_tpu_torch.constants import SQRT_LN2, SQRT_LN2_PI
+from spectrobot_tpu_torch.ops.chi import CHI_DELTA1
 from spectrobot_tpu_torch.ops.strengths import (
     DeviceLines, doppler_hwhm, line_strength, lorentz_hwhm,
     pressure_shifted_center,
 )
 from spectrobot_tpu_torch.ops.voigt import wofz_humlicek4, wofz_humlicek4_grad
-
-# Sub-Lorentzian wing factor chi(|dnu|) = exp(-chi_b max(|dnu| - 3, 0))
-# (the reference's ops.chi.CHI_DELTA1).
-CHI_DELTA1 = 3.0
-
 
 class KernelLines(NamedTuple):
     """Flat per-line inputs of the accumulation ([..., L], amps
@@ -49,10 +46,12 @@ class KernelLines(NamedTuple):
 
 
 def line_kernel_inputs(lines: DeviceLines, T, p_pa, p_self_pa=0.0,
-                       amp_weights: Optional[torch.Tensor] = None
-                       ) -> KernelLines:
+                       amp_weights: Optional[torch.Tensor] = None,
+                       chi=None) -> KernelLines:
     """Stage-1 prologue.  T / p_pa / p_self_pa: scalars or per-line tensors
-    [..., L]; amp_weights [..., n_out, L] (default one all-ones row)."""
+    [..., L]; amp_weights [..., n_out, L] (default one all-ones row).
+    ``chi`` = (``ops.chi.ChiProfile``, row_mask [n_species] bool): per-line
+    sub-Lorentzian wing slopes b(T) for the profile's species (0 = off)."""
     S = line_strength(lines, T)
     ad = doppler_hwhm(lines, T)
     gl = lorentz_hwhm(lines, T, p_pa, p_self_pa)
@@ -61,8 +60,16 @@ def line_kernel_inputs(lines: DeviceLines, T, p_pa, p_self_pa=0.0,
     base = S * (SQRT_LN2_PI * inv_ad)
     amps = (base.unsqueeze(-2) if amp_weights is None
             else amp_weights * base.unsqueeze(-2))
+    chi_b = None
+    if chi is not None:
+        profile, row_mask = chi
+        mask = torch.as_tensor(row_mask, dtype=torch.bool,
+                               device=base.device)[lines.species_idx]
+        T_line = torch.broadcast_to(torch.as_tensor(
+            T, dtype=base.dtype, device=base.device), base.shape)
+        chi_b = torch.where(mask, profile.slope(T_line).to(base.dtype), 0.0)
     return KernelLines(nu_c=nu_c, scale_x=SQRT_LN2 * inv_ad,
-                       y=SQRT_LN2 * gl * inv_ad, amps=amps)
+                       y=SQRT_LN2 * gl * inv_ad, amps=amps, chi_b=chi_b)
 
 
 def _line_sum(nu, nu_c, sx, y, amps, chi_b=None, *, cutoff_cm1):
@@ -249,7 +256,7 @@ def ad_mode(analytic_jvp) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Engine:
-    """The batched primitives a differentiable line sum runs on:
+    """The primitives a differentiable line sum runs on, batched:
 
     accumulate(nu_grid, windows, nu_c, sx, y, amps, *, cutoff_cm1, chi_b)
         -> [B, 2, P]
@@ -258,14 +265,79 @@ class Engine:
     transpose(nu_grid, windows, nu_c, sx, y, ct, *, cutoff_cm1, chi_b)
         -> (AbK, AbKx, AbxKx, AbKy), each [B, R, L]
 
-    (``ops.cuda_basis.KERNELS``: K1, K2 and K5; ``ops.cuda_basis.PLAIN``:
-    their plain PyTorch versions).  ``transpose_rows``: the most cotangent
-    rows one ``transpose`` call takes (None: any)."""
+    and at one state (lines [L], rows [n_out or R, L]):
+
+    accumulate_single(nu_grid, windows, nu_c, sx, y, amps, *, cutoff_cm1,
+                      chi_b) -> [n_out, P]
+    contract_single(nu_grid, windows, nu_c, sx, y, C1, C2, C3, C4, *,
+                    cutoff_cm1, chi_b) -> [R, P]
+
+    (``ops.cuda_basis.KERNELS``: K1, K2, K5, K3 and K4;
+    ``ops.cuda_basis.PLAIN``: their plain PyTorch versions).
+    ``transpose_rows``: the most cotangent rows one ``transpose`` call
+    takes (None: any)."""
     name: str
     accumulate: Callable
     contract: Callable
     transpose: Optional[Callable] = None
     transpose_rows: Optional[int] = None
+    accumulate_single: Optional[Callable] = None
+    contract_single: Optional[Callable] = None
+
+
+def _windows(op, nu_grid, nu_c):
+    """The window table of a kernel call: ``op.windows``, else one built
+    here, on the host, from the call's grid (unwrapped inside a Function's
+    forward, also under ``torch.func`` transforms): from ``op.centers``
+    (the lines' unshifted centers), or without them the all-blocks table
+    (every line block for every tile, the reference's default at
+    ``windows=None``)."""
+    if op.windows is not None:
+        return op.windows
+    from spectrobot_tpu_torch.ops import cuda_opacity as co
+    if op.centers is not None:
+        return co.line_windows(nu_grid, op.centers, cutoff_cm1=op.cutoff_cm1)
+    return co.all_block_windows(nu_grid, nu_c.shape[-1],
+                                cutoff_cm1=op.cutoff_cm1)
+
+
+def _broadcast(n: int, in_dims, tensors) -> list:
+    """The tensors of a vmap rule with their batch of ``n`` leading (an
+    unbatched one broadcast), contiguous; None stays None."""
+    return [None if a is None else
+            (a.expand((n,) + a.shape) if d is None else a.movedim(d, 0))
+            .contiguous()
+            for a, d in zip(tensors, in_dims)]
+
+
+def _map_batch(fn, n: int, in_dims, args):
+    """``fn`` over the ``n`` elements of a batch, one call each (the
+    reference's ``lax.map`` for a batched grid, which has no flat form);
+    the results stacked on a leading axis."""
+    pick = lambda a, d, k: a if d is None else a.select(d, k)
+    outs = [fn(*(pick(a, d, k) for a, d in zip(args, in_dims)))
+            for k in range(n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+def _flatten_states(fn, info, in_dims, args):
+    """A structural vmap of a batched Function ``fn`` (args: the grid, the
+    per-state tensors with a leading state axis B, the op): the vmap batch
+    of n is flattened into B ([n, B, ...] -> [n*B, ...]), one call is made
+    and the result unflattened (the reference's ``accB_rule`` and
+    ``tanB_rule``).  A batched grid takes one call per element."""
+    n = info.batch_size
+    if in_dims[0] is not None:
+        return _map_batch(fn, n, in_dims, args)
+    grid, *states, op = args
+    states = _broadcast(n, in_dims[1:-1], states)
+    B = next(a.shape[1] for a in states if a is not None)
+    out = fn(grid, *(None if a is None else a.reshape((n * B,) + a.shape[2:])
+                     for a in states), op)
+    unflat = lambda o: o.reshape((n, B) + o.shape[1:])
+    return tuple(map(unflat, out)) if isinstance(out, tuple) else unflat(out)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -286,11 +358,15 @@ class LineSumOp:
     into the rows.
 
     ``windows``: the scene's window table (``ops.cuda_opacity.Windows``).
-    Not a tuple, so ``torch.func`` hands it to the Functions untouched."""
+    Not a tuple, so ``torch.func`` hands it to the Functions untouched.
+    Without one, each call builds its table on the host from ``centers``
+    (the lines' unshifted centers [L], ascending) or, without them, visits
+    every line block."""
     engine: Engine
     windows: object
     cutoff_cm1: Optional[float] = 25.0
     mode: str = "fwd"
+    centers: object = None
 
     def __call__(self, nu_grid, nu_c, sx, y, amps, chi_b=None):
         fn = LineSumVJP if self.mode == "rev" else LineSum
@@ -305,7 +381,8 @@ class LineSum(torch.autograd.Function):
 
     @staticmethod
     def forward(nu_grid, nu_c, sx, y, amps, chi_b, op):
-        return op.engine.accumulate(nu_grid, op.windows, nu_c, sx, y, amps,
+        return op.engine.accumulate(nu_grid, _windows(op, nu_grid, nu_c),
+                                    nu_c, sx, y, amps,
                                     cutoff_cm1=op.cutoff_cm1, chi_b=chi_b)
 
     @staticmethod
@@ -328,24 +405,22 @@ class LineSum(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        raise NotImplementedError(
-            "the line sum is batched over states explicitly; vmap over its "
-            "primal inputs (a structural batch) has no counterpart in the "
-            "port, only the tangent batch of torch.func.jacfwd does")
+        return _flatten_states(LineSum.apply, info, in_dims, args), 0
 
 
 class BasisContract(torch.autograd.Function):
     """One ``op.engine.contract`` call: [B, R, P] from coefficient rows
-    [B, R, L].  Its vmap rule takes the tangent batch of
-    ``torch.func.jacfwd`` (only the rows and ``active`` batched), folds it
-    into the rows ([n_t, B, R, L] -> [B, n_t*R, L]), makes one call and
-    unfolds the result (the reference's ``tanB_rule``)."""
+    [B, R, L].  Its vmap rule (the reference's ``tanB_rule``) folds the
+    tangent batch of ``torch.func.jacfwd`` (only the rows and ``active``
+    batched) into the rows ([n_t, B, R, L] -> [B, n_t*R, L]), makes one
+    call and unfolds the result; a structural batch (the line states
+    batched) is flattened into B."""
 
     @staticmethod
     def forward(nu_grid, nu_c, sx, y, C1, C2, C3, C4, active, chi_b, op):
-        return op.engine.contract(nu_grid, op.windows, nu_c, sx, y, C1, C2,
-                                  C3, C4, active, cutoff_cm1=op.cutoff_cm1,
-                                  chi_b=chi_b)
+        return op.engine.contract(nu_grid, _windows(op, nu_grid, nu_c), nu_c,
+                                  sx, y, C1, C2, C3, C4, active,
+                                  cutoff_cm1=op.cutoff_cm1, chi_b=chi_b)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -354,10 +429,10 @@ class BasisContract(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, nu_grid, nu_c, sx, y, C1, C2, C3, C4, active,
              chi_b, op):
+        args = (nu_grid, nu_c, sx, y, C1, C2, C3, C4, active, chi_b, op)
         if any(d is not None for d in in_dims[:4] + in_dims[9:10]):
-            raise NotImplementedError(
-                "BasisContract folds only a tangent batch (the coefficient "
-                "rows); the grid and the line states must be unbatched")
+            return _flatten_states(BasisContract.apply, info, in_dims,
+                                   args), 0
         n_t = info.batch_size
         B, R, L = C1.shape[-3:]
 
@@ -381,11 +456,13 @@ class LineSumVJP(torch.autograd.Function):
     of the reference's ``make_accumulate_op(engine='pallas', mode='rev')``).
     The context keeps the flat inputs and no linearisation: the backward
     evaluates the basis anew.  Chi and the grid get zero cotangent (frozen
-    chi).  Forward mode is refused, as JAX refuses it for a custom VJP."""
+    chi).  Forward mode is refused, as JAX refuses it for a custom VJP.  A
+    structural vmap is flattened into B."""
 
     @staticmethod
     def forward(nu_grid, nu_c, sx, y, amps, chi_b, op):
-        return op.engine.accumulate(nu_grid, op.windows, nu_c, sx, y, amps,
+        return op.engine.accumulate(nu_grid, _windows(op, nu_grid, nu_c),
+                                    nu_c, sx, y, amps,
                                     cutoff_cm1=op.cutoff_cm1, chi_b=chi_b)
 
     @staticmethod
@@ -410,23 +487,22 @@ class LineSumVJP(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        raise NotImplementedError(
-            "the line sum is batched over states explicitly; vmap over its "
-            "primal inputs (a structural batch) has no counterpart in the "
-            "port, only the cotangent batch of torch.func.jacrev does")
+        return _flatten_states(LineSumVJP.apply, info, in_dims, args), 0
 
 
 class BasisTranspose(torch.autograd.Function):
     """One ``op.engine.transpose`` call: (AbK, AbKx, AbxKx, AbKy), each
-    [B, R, L], from cotangent rows ct [B, R, P].  Its vmap rule takes the
-    cotangent batch of ``torch.func.jacrev`` (only ``ct`` batched), folds it
-    into the rows ([n_ct, B, R, P] -> [B, n_ct*R, P]), makes one call, or
-    the fewest calls of at most ``engine.transpose_rows`` rows, and unfolds
-    the result (as :class:`BasisContract` folds the tangents of jacfwd)."""
+    [B, R, L], from cotangent rows ct [B, R, P].  Its vmap rule folds the
+    cotangent batch of ``torch.func.jacrev`` (only ``ct`` batched) into the
+    rows ([n_ct, B, R, P] -> [B, n_ct*R, P]), makes one call, or the fewest
+    calls of at most ``engine.transpose_rows`` rows, and unfolds the result
+    (as :class:`BasisContract` folds the tangents of jacfwd); a structural
+    batch (the line states batched) is flattened into B."""
 
     @staticmethod
     def forward(nu_grid, nu_c, sx, y, ct, chi_b, op):
-        return tuple(op.engine.transpose(nu_grid, op.windows, nu_c, sx, y, ct,
+        return tuple(op.engine.transpose(nu_grid, _windows(op, nu_grid, nu_c),
+                                         nu_c, sx, y, ct,
                                          cutoff_cm1=op.cutoff_cm1,
                                          chi_b=chi_b))
 
@@ -437,9 +513,9 @@ class BasisTranspose(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, nu_grid, nu_c, sx, y, ct, chi_b, op):
         if any(d is not None for d in in_dims[:4] + in_dims[5:6]):
-            raise NotImplementedError(
-                "BasisTranspose folds only a cotangent batch; the grid and "
-                "the line states must be unbatched")
+            return (_flatten_states(BasisTranspose.apply, info, in_dims,
+                                    (nu_grid, nu_c, sx, y, ct, chi_b, op)),
+                    (0, 0, 0, 0))
         n_ct = info.batch_size
         ct = ct.movedim(in_dims[4], 0)                   # [n_ct, B, R, P]
         _, B, R, P = ct.shape
@@ -452,3 +528,254 @@ class BasisTranspose(torch.autograd.Function):
         unfold = lambda *o: torch.cat(o, dim=1).reshape(
             B, n_ct, R, -1).transpose(0, 1)
         return tuple(unfold(*o) for o in zip(*parts)), (0, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The line sum of one state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AccumulateOp(LineSumOp):
+    """The line sum of one state with analytic derivatives:
+    ``op(nu_grid, nu_c, sx, y, amps, chi_b=None)`` -> [n_out, P] for lines
+    [L], amps [n_out, L] (:func:`make_accumulate_op`).  The primal is one
+    ``engine.accumulate_single`` call (K3 on the card).
+
+    ``mode='fwd'`` (:class:`SingleLineSum`): a ``torch.func.jvp`` tangent
+    is one ``engine.contract_single`` call (K4); under ``jacfwd``
+    :class:`SingleBasisContract` folds every column into its rows.
+    ``mode='rev'`` (:class:`SingleLineSumVJP`): a gradient is one
+    ``engine.transpose`` call at B = 1 (K5) and :func:`transpose_epilogue`.
+    A structural vmap (line inputs batched) promotes the call to the
+    batched :class:`LineSum` / :class:`LineSumVJP`, which run K1, K2 and
+    K5.  ``has_chi=False`` refuses a ``chi_b``."""
+    has_chi: bool = False
+
+    def __call__(self, nu_grid, nu_c, sx, y, amps, chi_b=None):
+        if chi_b is not None and not self.has_chi:
+            raise ValueError("chi_b given to a line sum built with "
+                             "has_chi=False")
+        fn = SingleLineSumVJP if self.mode == "rev" else SingleLineSum
+        return fn.apply(nu_grid, nu_c, sx, y, amps, chi_b, self)
+
+
+def make_accumulate_op(*, cutoff_cm1: Optional[float] = 25.0,
+                       mode: str = "fwd", windows=None,
+                       has_chi: bool = False,
+                       engine: Optional[Engine] = None,
+                       centers=None) -> AccumulateOp:
+    """The single-state line sum acc(nu_grid, nu_c, sx, y, amps,
+    chi_b=None) -> [n_out, P] with analytic derivatives (the counterpart of
+    the reference's ``make_accumulate_op(engine='pallas')`` at one state;
+    :class:`AccumulateOp`).  ``nu_grid`` gets no derivative.
+
+    ``mode``: 'fwd' (``torch.func.jvp``/``jacfwd``) or 'rev'
+    (``torch.autograd.grad``, ``torch.func.grad``/``jacrev``).
+    ``windows``: the ``ops.cuda_opacity.Windows`` of the grid and the
+    lines' unshifted centers (``line_windows``); without it each call
+    builds the table from ``centers`` (those centers [L], ascending), or,
+    without them too, visits every line block (exact but slower).
+    ``engine``: ``ops.cuda_basis.KERNELS`` (default: the kernels on CUDA
+    tensors, their plain versions on the CPU) or ``PLAIN``."""
+    if mode not in ("fwd", "rev"):
+        raise ValueError(f"mode must be 'fwd' or 'rev', got {mode!r}")
+    if engine is None:
+        from spectrobot_tpu_torch.ops.cuda_basis import KERNELS as engine
+    return AccumulateOp(engine, windows, cutoff_cm1, mode, centers, has_chi)
+
+
+def _contiguous(*tensors):
+    return tuple(None if a is None else a.contiguous() for a in tensors)
+
+
+class SingleLineSum(torch.autograd.Function):
+    """Primal through ``op.engine.accumulate_single``, tangent through
+    :class:`SingleBasisContract` (the reference's ``acc0`` and ``tan0``).
+    Chi is constant in the tangent; the grid has none.  Its vmap rule
+    (``acc0_rule``) promotes a structural batch to :class:`LineSum`."""
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, amps, chi_b, op):
+        nu_c, sx, y, amps, chi_b = _contiguous(nu_c, sx, y, amps, chi_b)
+        return op.engine.accumulate_single(
+            nu_grid, _windows(op, nu_grid, nu_c), nu_c, sx, y, amps,
+            cutoff_cm1=op.cutoff_cm1, chi_b=chi_b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        nu_grid, nu_c, sx, y, amps, chi_b, op = inputs
+        ctx.save_for_forward(nu_grid, nu_c, sx, y, amps, chi_b)
+        ctx.op = op
+
+    @staticmethod
+    def jvp(ctx, _d_nu, d_nu_c, d_sx, d_y, d_amps, _d_chi, _d_op):
+        nu_grid, nu_c, sx, y, amps, chi_b = ctx.saved_tensors
+        zero = lambda d, a: torch.zeros_like(a) if d is None else d
+        C = basis_coefficients(sx, amps, zero(d_nu_c, nu_c), zero(d_sx, sx),
+                               zero(d_y, y), zero(d_amps, amps))
+        return SingleBasisContract.apply(nu_grid, nu_c, sx, y, *C, chi_b,
+                                         ctx.op)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _promote(LineSum.apply, SingleLineSum.apply, info, in_dims,
+                        args), 0
+
+
+class SingleBasisContract(torch.autograd.Function):
+    """One ``op.engine.contract_single`` call: [R, P] from coefficient rows
+    [R, L].  Its vmap rule (the reference's ``tan0_rule``) folds the
+    tangent batch of ``torch.func.jacfwd`` (only the rows batched) into the
+    rows ([n_t, R, L] -> [n_t*R, L]), makes one call and unfolds the
+    result; a structural batch promotes the call to :class:`BasisContract`.
+    """
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, C1, C2, C3, C4, chi_b, op):
+        args = _contiguous(nu_c, sx, y, C1, C2, C3, C4, chi_b)
+        return op.engine.contract_single(
+            nu_grid, _windows(op, nu_grid, nu_c), *args[:7],
+            cutoff_cm1=op.cutoff_cm1, chi_b=args[7])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, nu_grid, nu_c, sx, y, C1, C2, C3, C4, chi_b, op):
+        args = (nu_grid, nu_c, sx, y, C1, C2, C3, C4, chi_b, op)
+        if any(d is not None for d in in_dims[:4] + in_dims[8:9]):
+            # A structural batch: the batched contraction, every state live.
+            def batched(nu_grid, nu_c, sx, y, C1, C2, C3, C4, chi_b, op):
+                return BasisContract.apply(nu_grid, nu_c, sx, y, C1, C2, C3,
+                                           C4, None, chi_b, op)
+            return _promote(batched, SingleBasisContract.apply, info,
+                            in_dims, args), 0
+        n_t = info.batch_size
+        R, L = C1.shape[-2:]
+        fold = lambda C, d: (C.expand(n_t, R, L) if d is None
+                             else C.movedim(d, 0)).reshape(n_t * R, L)
+        out = SingleBasisContract.apply(
+            nu_grid, nu_c, sx, y, *(fold(C, d) for C, d in
+                                    zip((C1, C2, C3, C4), in_dims[4:8])),
+            chi_b, op)
+        return out.reshape(n_t, R, -1), 0
+
+
+class SingleLineSumVJP(torch.autograd.Function):
+    """Primal through ``op.engine.accumulate_single``, gradient through
+    :class:`BasisTranspose` at B = 1 and :func:`transpose_epilogue` (the
+    reference's ``make_accumulate_op(mode='rev')`` at one state); under
+    ``torch.func.jacrev`` the cotangents fold into the transpose's rows.
+    Chi and the grid get zero cotangent (frozen chi).  Forward mode is
+    refused; a structural vmap promotes the call to :class:`LineSumVJP`."""
+
+    @staticmethod
+    def forward(nu_grid, nu_c, sx, y, amps, chi_b, op):
+        return SingleLineSum.forward(nu_grid, nu_c, sx, y, amps, chi_b, op)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        nu_grid, nu_c, sx, y, amps, chi_b, op = inputs
+        ctx.save_for_backward(nu_grid, nu_c, sx, y, amps, chi_b)
+        ctx.op = op
+
+    @staticmethod
+    def backward(ctx, ct):
+        nu_grid, nu_c, sx, y, amps, chi_b = ctx.saved_tensors
+        one = lambda a: None if a is None else a.unsqueeze(0)
+        Ab = BasisTranspose.apply(nu_grid, one(nu_c), one(sx), one(y),
+                                  one(ct), one(chi_b), ctx.op)
+        ct_nc, ct_sx, ct_y, ct_amps = transpose_epilogue(
+            sx, amps, *(a.squeeze(0) for a in Ab))
+        return None, ct_nc, ct_sx, ct_y, ct_amps, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return LineSumVJP.jvp(ctx, *tangents)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _promote(LineSumVJP.apply, SingleLineSumVJP.apply, info,
+                        in_dims, args), 0
+
+
+def _promote(batched, single, info, in_dims, args):
+    """The vmap rule of a single-state Function (args: the grid, the
+    state's tensors, the op): the vmap batch becomes the state axis of the
+    ``batched`` Function, one call (the reference's ``acc0_rule`` and
+    ``tan0_rule``); a batched grid takes one ``single`` call per
+    element."""
+    n = info.batch_size
+    if in_dims[0] is not None:
+        return _map_batch(single, n, in_dims, args)
+    grid, *states, op = args
+    return batched(grid, *_broadcast(n, in_dims[1:-1], states), op)
+
+
+def cross_sections(nu_grid, lines: DeviceLines, T, p_pa, p_self_pa=0.0,
+                   w_abs: Optional[torch.Tensor] = None,
+                   w_em: Optional[torch.Tensor] = None, *,
+                   chunk: int = 256, variant: str = "humlicek4",
+                   cutoff_cm1: Optional[float] = 25.0, analytic_jvp=True,
+                   nu_off: Optional[torch.Tensor] = None, chi=None,
+                   engine: Optional[Engine] = None):
+    """Absorption and emission cross sections [cm^2/molec] of one
+    homogeneous state, each [P] (the reference's stable public interface).
+    ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
+    correction.
+
+    ``analytic_jvp``: True/'fwd' (default) the single-state op in forward
+    mode (:func:`make_accumulate_op`: K3 for the values, K4 for
+    ``torch.func.jvp``/``jacfwd``), 'rev' in reverse mode (K3, and K5 at
+    B = 1 for a gradient), False plain autograd through
+    :func:`line_sum_plain_ad` in ``chunk``-line slabs.  Under a structural
+    ``vmap`` (:func:`cross_sections_batch`) the op runs the batched kernels
+    (K1, K2, K5).  ``nu_off``: the grid in offset coordinates staged from
+    float64 (default ``nu_grid - lines.nu_ref``, exact only for a float64
+    grid); the line inputs are cast to its dtype.  ``engine``: the op's
+    engine (default ``ops.cuda_basis.KERNELS``: on CUDA tensors the
+    kernels, on CPU tensors their plain versions).  The kernels' window
+    table is built on the host at each call from the grid and
+    ``lines.nu0``.  Only ``variant='humlicek4'`` is ported."""
+    if variant != "humlicek4":
+        raise NotImplementedError(
+            f"variant={variant!r} is not ported (the port evaluates "
+            f"humlicek4 only)")
+    ones = torch.ones(lines.n_lines, dtype=lines.sw.dtype,
+                      device=lines.sw.device)
+    wa = ones if w_abs is None else w_abs
+    we = ones if w_em is None else w_em
+    kl = line_kernel_inputs(lines, T, p_pa, p_self_pa,
+                            amp_weights=torch.stack([wa, we]), chi=chi)
+    if nu_off is None:
+        nu_off = nu_grid - float(lines.nu_ref)
+    dt = nu_off.dtype
+    nu_c, sx, y, amps, chi_b = (None if a is None else a.to(dt) for a in kl)
+    mode = ad_mode(analytic_jvp)
+    if mode is None:
+        out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
+                                chunk=chunk, cutoff_cm1=cutoff_cm1)
+    else:
+        op = make_accumulate_op(cutoff_cm1=cutoff_cm1, mode=mode,
+                                has_chi=chi_b is not None, engine=engine,
+                                centers=lines.nu0)
+        out = op(nu_off, nu_c, sx, y, amps, chi_b)
+    return out[0], out[1]
+
+
+def cross_sections_batch(nu_grid, lines: DeviceLines, T_lay, p_lay,
+                         p_self_lay, w_abs_lay=None, w_em_lay=None, **kw):
+    """Per-layer cross sections: T_lay/p_lay/p_self_lay [n_lay], weights
+    [n_lay, L] or None -> (sigma_abs, sigma_em), each [n_lay, P]:
+    ``torch.func.vmap`` of :func:`cross_sections`, so the op's structural
+    rule runs the batched kernels (K1 once; K1 and K2 under ``jacfwd``).
+    Keywords as :func:`cross_sections`."""
+    if w_abs_lay is None:
+        return torch.func.vmap(lambda T, p, ps: cross_sections(
+            nu_grid, lines, T, p, ps, None, None, **kw))(T_lay, p_lay,
+                                                         p_self_lay)
+    return torch.func.vmap(lambda T, p, ps, wa, we: cross_sections(
+        nu_grid, lines, T, p, ps, wa, we, **kw))(T_lay, p_lay, p_self_lay,
+                                                 w_abs_lay, w_em_lay)

@@ -120,6 +120,7 @@ def make_sharded_oe(
     emissivity: float = 1.0,
     lut=None,
     state_map=None,
+    chi=None,
 ) -> ShardedOE:
     """The sharded retrieval callables of a limb scene (``tangent_heights_m``
     [R]) or a nadir one (``sec_theta`` [R], surface at ``T_surface`` or the
@@ -132,7 +133,9 @@ def make_sharded_oe(
     array on this rank's device; each rank takes its block.  The ray count
     must split over ``ray``, the grid over ``nu``; the line axis is padded
     (or, with ``nu_halo``, owner-partitioned) here.  ``engine``: the line
-    sum's kernels (``ops.cuda_basis.KERNELS``) or ``PLAIN``.
+    sum's kernels (``ops.cuda_basis.KERNELS``) or ``PLAIN``.  ``chi`` =
+    (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing correction
+    (each rank's lines compute their own slopes).
     """
     if lut is not None:
         raise NotImplementedError(
@@ -156,7 +159,7 @@ def make_sharded_oe(
         mesh, win_grid=nu_off.detach().cpu().double().numpy(),
         win_lines=dlp.nu0.detach().cpu().double().numpy(),
         cutoff_cm1=cutoff_cm1, engine=engine, nu_halo=nu_halo,
-        is_limb=is_limb, emissivity=emissivity)
+        is_limb=is_limb, emissivity=emissivity, chi=chi)
 
     P = nu_grid.shape[0]
     rays = tangent_heights_m if is_limb else sec_theta

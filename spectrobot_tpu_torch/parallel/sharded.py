@@ -195,7 +195,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                         cutoff_cm1: Optional[float] = 25.0,
                         engine: Engine = KERNELS, nu_halo: bool = False,
                         is_limb: bool = True, emissivity: float = 1.0,
-                        analytic_jvp=True):
+                        analytic_jvp=True, chi=None):
     """Build the sharded radiance function of this rank:
     f(nu_loc, nu_off_loc, lines_loc, cg_loc, I_bg=None) -> I_loc [R_loc,
     P_loc], the arguments as :func:`stage_sharded` gives them.
@@ -204,7 +204,8 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
     (psum tier: the padded sorted list [Lp]; nu-halo tier:
     :func:`partition_lines_by_nu`'s [n_nu, Lmax] buffer), host arrays from
     which this rank's window tables are built once.  ``engine``,
-    ``analytic_jvp``: as ``forward.limb.layer_tau_kernel`` takes them.
+    ``analytic_jvp``, ``chi``: as ``forward.limb.layer_tau_kernel`` takes
+    them.
     ``is_limb=False`` integrates nadir rays over a grey surface: ``I_bg``
     carries eps B(T_surface), and for ``emissivity < 1`` the reflected
     downwelling is added from the same layer optics.  Nadir needs no
@@ -218,7 +219,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
         def tau(lines, s_i):
             return layer_tau_kernel(nu_off_loc, lines, cg_loc, windows[s_i],
                                     cutoff_cm1=cutoff_cm1, engine=engine,
-                                    analytic_jvp=analytic_jvp)
+                                    analytic_jvp=analytic_jvp, chi=chi)
 
         dtau, dtau_em = tau(lines_loc, 0)
         if nu_halo:

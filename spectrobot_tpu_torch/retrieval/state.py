@@ -148,6 +148,7 @@ def build_forward(
     engine: Engine = KERNELS,
     windows=None,
     analytic_jvp=True,
+    chi=None,
 ) -> Callable[[Dict], torch.Tensor]:
     """Build F: state -> y (the port's counterpart of the reference's
     ``build_forward`` on its single-device line-by-line path).
@@ -161,7 +162,8 @@ def build_forward(
     ``analytic_jvp``: True/'fwd' (forward mode: ``torch.func.jacfwd``),
     'rev' (reverse mode: ``torch.autograd.grad``, ``torch.func.jacrev``) or
     False (plain autograd), as ``forward.limb.layer_tau_kernel`` takes it.
-    Output y is flattened [n_ray * n_chan].
+    ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
+    correction.  Output y is flattened [n_ray * n_chan].
     """
     if nu_off is None:
         nu_off = torch.as_tensor(
@@ -182,7 +184,7 @@ def build_forward(
         dtau, dtau_em = layer_tau_kernel(nu_off, lines, cg, windows,
                                          cutoff_cm1=cutoff_cm1,
                                          engine=engine,
-                                         analytic_jvp=analytic_jvp)
+                                         analytic_jvp=analytic_jvp, chi=chi)
         I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
                               T_surface=ts, emissivity=emissivity)
         if ils_W is not None:

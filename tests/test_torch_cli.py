@@ -94,13 +94,15 @@ def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
     ("scene.atmosphere=mars_zonal", "scene.atmosphere"),
 ])
 def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
-    # The mesh keys are ported: a mesh of more ranks than the run has (one,
-    # here) raises a ValueError naming them.
-    err = ValueError if key.startswith("compute.mesh_") else \
-        NotImplementedError
+    # The mesh keys and lines.chi are ported: a mesh of more ranks than the
+    # run has (one, here) raises a ValueError naming them, and so does chi
+    # beyond the cutoff its single-segment form is valid to.
+    ported = key.startswith("compute.mesh_") or key == "lines.chi"
+    err = ValueError if ported else NotImplementedError
+    extra = ["-o", "compute.cutoff_cm1=40"] if key == "lines.chi" else []
     with pytest.raises(err, match=key.replace(".", r"\.")):
         cli.main(["forward", tiny_toml, "--device", "cpu", "-o", override,
-                  "-o", f"run.output_dir={tmp_path}"])
+                  "-o", f"run.output_dir={tmp_path}", *extra])
     assert not os.path.exists(os.path.join(tmp_path, "forward.npz"))
 
 

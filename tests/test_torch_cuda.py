@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1, K2, K5 and K3) on the card, and the CLI's mesh
+"""The CUDA kernels (K1, K2, K5, K3 and K4) on the card, and the CLI's mesh
 route across the machine's cards (marker ``cuda``; skips without a GPU and
 nvcc, the mesh test without a second card).  Run on the card with
 ``python -m pytest -m cuda tests/``."""
@@ -13,6 +13,7 @@ import torch
 
 from spectrobot_tpu_torch.ops import cuda_basis as cb
 from spectrobot_tpu_torch.ops import cuda_opacity as co
+from spectrobot_tpu_torch.ops.cuda_single import segments
 
 pytestmark = pytest.mark.cuda
 
@@ -384,6 +385,95 @@ def test_single_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="lines"):
         cs.accumulate_single(nu, co.line_windows(nu, nu0[:-1]), nc, sx, y,
                              amps[:2])
+
+
+# ---------------------------------------------------------------------------
+# K4: the single-state basis contraction (csrc/basis_single.cu)
+# ---------------------------------------------------------------------------
+
+
+def _single_basis_inputs(device, n_rows, seed=5, **kw):
+    """One state of ``_single_inputs`` with ``n_rows`` random coefficient
+    rows scaled by its first amplitude row (C2, the Kx row, included)."""
+    nu, nu0, nc, sx, y, amps, chi = _single_inputs(device, 1, seed=seed,
+                                                   **kw)
+    rng = np.random.default_rng(seed + 100)
+    scale = amps[:1].cpu().numpy()
+    C = [torch.as_tensor((rng.normal(size=(n_rows, nc.shape[0])) * scale)
+                         .astype(np.float32), device=device)
+         for _ in range(4)]
+    return nu, nu0, nc, sx, y, C, chi
+
+
+@pytest.mark.parametrize("n_rows", [1, 6, 66, 300])
+@pytest.mark.parametrize("cutoff", [25.0, None])
+def test_single_basis_kernel_matches_plain(cuda, n_rows, cutoff):
+    """K4 against its plain version, with and without chi, over several
+    segments; 300 rows take two row groups."""
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(cuda, n_rows)
+    win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
+    assert segments(win)[0] > 1
+    assert cbs.row_groups(n_rows)[0] == (2 if n_rows > cbs.MAX_ROWS else 1)
+    for chi_b in (None, chi):
+        before = cbs.LAUNCHES
+        got = cbs.basis_contract_single(nu, win, nc, sx, y, *C,
+                                        cutoff_cm1=cutoff, chi_b=chi_b)
+        torch.cuda.synchronize()
+        assert cbs.LAUNCHES == before + 1
+        ref = cbs.basis_contract_single_plain(nu, nc, sx, y, *C,
+                                              cutoff_cm1=cutoff, chi_b=chi_b)
+        assert got.shape == ref.shape == (n_rows, nu.shape[0])
+        # The reference's basis-kernel parity (tests/test_pallas_jacobian.py).
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+
+
+def test_single_basis_kernel_is_k2_pair_for_pair(cuda):
+    """With one segment (a window of one line block) and one row group K4
+    runs K2's block on the one state: equal to K2 at B = 1, bit for bit."""
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(cuda, 10, n_lines=100,
+                                                      n_points=1000)
+    win = co.line_windows(nu, nu0)
+    assert segments(win) == (1, 1)
+    for chi_b in (None, chi):
+        k4 = cbs.basis_contract_single(nu, win, nc, sx, y, *C, chi_b=chi_b)
+        k2 = cb.basis_contract_batch(nu, win, nc[None], sx[None], y[None],
+                                     *(c[None] for c in C),
+                                     chi_b=None if chi_b is None
+                                     else chi_b[None])
+        assert torch.equal(k4, k2[0])
+
+
+def test_single_basis_kernel_is_deterministic(cuda):
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(cuda, 12)
+    win = co.line_windows(nu, nu0, cutoff_cm1=None)
+    a = cbs.basis_contract_single(nu, win, nc, sx, y, *C, cutoff_cm1=None,
+                                  chi_b=chi)
+    b = cbs.basis_contract_single(nu, win, nc, sx, y, *C, cutoff_cm1=None,
+                                  chi_b=chi)
+    assert torch.equal(a, b)
+
+
+def test_single_basis_kernel_rejects_what_it_does_not_take(cuda):
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    nu, nu0, nc, sx, y, C, _ = _single_basis_inputs(cuda, 4)
+    win = co.line_windows(nu, nu0)
+    with pytest.raises(ValueError, match="cpu"):
+        cbs.basis_contract_single(nu, win, nc, sx.cpu(), y, *C)
+    with pytest.raises(TypeError, match="float32"):
+        cbs.basis_contract_single(nu, win, nc, sx, y, C[0].double(), *C[1:])
+    with pytest.raises(ValueError, match="one state"):
+        cbs.basis_contract_single(nu, win, nc[None], sx, y, *C)
+    with pytest.raises(ValueError, match="at least one row"):
+        cbs.basis_contract_single(nu, win, nc, sx, y, *(c[:0] for c in C))
+    with pytest.raises(ValueError, match="lines"):
+        cbs.basis_contract_single(nu, co.line_windows(nu, nu0[:-1]), nc, sx,
+                                  y, *C)
+    with pytest.raises(ValueError, match="cutoff"):
+        cbs.basis_contract_single(nu, win, nc, sx, y, *C, cutoff_cm1=None)
 
 
 # ---------------------------------------------------------------------------

@@ -187,12 +187,27 @@ def test_jacfwd_makes_one_contraction_of_all_columns():
 
 
 def test_line_sum_refuses_a_structural_vmap():
+    """The batched line sum once refused a structural vmap; it now flattens
+    the vmap batch into its state axis (the reference's ``accB_rule``): one
+    accumulate call on [n*B, L] states, equal to the calls state by
+    state."""
+    calls = []
+
+    def accumulate(*args, **kw):
+        calls.append(tuple(args[2].shape))
+        return cb.PLAIN.accumulate(*args, **kw)
+
     nu = torch.linspace(-5.0, 5.0, 16, dtype=torch.float64)
-    op = top.LineSumOp(cb.PLAIN, None, 25.0)
-    lines = torch.ones(2, 3, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="batched over states"):
-        torch.func.vmap(lambda a: op(nu, a, a, a, a[:, None].expand(3, 2, 4)
-                                     .contiguous()))(lines)
+    op = top.LineSumOp(top.Engine("counting", accumulate, None), None, 25.0)
+    rng = np.random.default_rng(0)
+    lines = torch.as_tensor(rng.uniform(0.5, 1.5, (2, 3, 4)))
+    f = lambda a: op(nu, a, a, a, a[:, None].expand(3, 2, 4).contiguous())
+    out = torch.func.vmap(f)(lines)
+    assert calls == [(6, 4)]
+    assert out.shape == (2, 3, 2, 16)
+    for k in range(2):
+        np.testing.assert_allclose(out[k].numpy(), f(lines[k]).numpy(),
+                                   rtol=1e-14, atol=0.0)
 
 
 def _config4(dtype):

@@ -1,8 +1,9 @@
 """The port runs where JAX and the JAX package are not installed: every
-module of spectrobot_tpu_torch (the mesh's parallel/ and K3's
-ops/cuda_single.py among them) and chip_smoke.py imports, and the tiny
-forward and retrieval (``python -m spectrobot_tpu_torch``) and the adjoint
-tool (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
+module of spectrobot_tpu_torch (the mesh's parallel/, K3's
+ops/cuda_single.py and K4's ops/cuda_basis_single.py among them) and
+chip_smoke.py imports, and the tiny forward and retrieval (``python -m
+spectrobot_tpu_torch``), a config-1 Jacobian and the adjoint tool
+(``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
 interpreter that holds no jax and no module of spectrobot_tpu."""
 
 import os
@@ -27,9 +28,20 @@ for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
         importlib.import_module(m.name)
 for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "parallel.sharded", "parallel.retrieval", "parallel.oe",
-             "ops.cuda_single"):
+             "ops.cuda_single", "ops.cuda_basis_single", "ops.chi",
+             "forward.model"):
     assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
+import torch
+from spectrobot_tpu_torch.data.synth import co2_15um_band
+from spectrobot_tpu_torch.forward.model import nadir_single_layer
+from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+dl = device_lines_from_linelist(co2_15um_band(j_max=4), [(2, 1)],
+                                dtype=torch.float64, device="cpu")
+J = torch.func.jacfwd(lambda T: nadir_single_layer(
+    torch.linspace(660.0, 670.0, 64, dtype=torch.float64), dl, T, 500.0,
+    2e27, 0.95, 260.0))(torch.tensor(215.0, dtype=torch.float64))
+assert bool(torch.isfinite(J).all()) and J.shape == (64,)
 for cmd in ("forward", "retrieve"):
     sys.argv = ["spectrobot_tpu_torch", cmd, {toml!r}, "--device", "cpu",
                 "-o", "run.output_dir=" + {out!r}, "-o", "retrieval.max_iter=2"]
