@@ -358,6 +358,18 @@ def _forward(cfg, device: torch.device, mesh) -> dict:
         if scene.W is not None:
             extra["nu_fine"] = scene.nu.cpu().numpy()
         sp.save_npz(out_path, radiance=I, **extra)  # 'radiance' = compat alias
+        try:
+            from spectrobot_tpu_torch.utils.plots import plot_radiances
+            labels = ([f"{h:.1f} km" for h in cfg.geometry.tangent_heights_km]
+                      if cfg.geometry.mode == "limb" else
+                      [f"sec={s_:.2f}" for s_ in cfg.geometry.sec_theta])
+            plot_radiances(os.path.join(cfg.run.output_dir, "forward.png"),
+                           np.asarray(sp.nu), np.asarray(sp.values),
+                           labels=labels if len(labels) == I.shape[0]
+                           else None,
+                           title=f"{cfg.geometry.mode} {sp.kind} [{sp.units}]")
+        except Exception as e:  # plotting must never fail a forward
+            print(f"plotting skipped: {e}", file=sys.stderr)
         print(f"forward: {I.shape} radiances in {wall:.2f}s on {where} -> "
               f"{out_path}", file=sys.stderr)
     return {"radiance_shape": list(I.shape), "wall_s": wall,
@@ -646,9 +658,15 @@ def cmd_info() -> dict:
                 for i in range(torch.cuda.device_count())] if cuda else [])
     engine = (select_engine(Config(), torch.device("cuda")).name
               if cuda else PLAIN.name)
+    from spectrobot_tpu_torch.data import hitran_native
+    from spectrobot_tpu_torch.data.molparams import MOLECULES
     return {"version": __import__("spectrobot_tpu_torch").__version__,
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "devices": devices, "default_engine": engine}
+            "devices": devices, "default_engine": engine,
+            "native_parser_built": hitran_native.available(),
+            "molecules_registered": len(MOLECULES),
+            "isotopologues_registered": sum(len(m.isotopologues)
+                                            for m in MOLECULES.values())}
 
 
 def main(argv=None) -> int:

@@ -70,6 +70,10 @@ def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
                                  atol_rel):
     ref = _jax_forward(tiny_toml, overrides, tmp_path / "jax")
     got = _torch_forward(tiny_toml, overrides, tmp_path / "torch")
+    # The same files (forward.npz and the forward.png plot), the same keys.
+    assert sorted(os.listdir(tmp_path / "torch")) == sorted(
+        os.listdir(tmp_path / "jax"))
+    assert "forward.png" in os.listdir(tmp_path / "torch")
     assert sorted(got.files) == sorted(ref.files)
     for key in ("kind", "units"):
         assert str(got[key]) == str(ref[key])
@@ -169,6 +173,18 @@ def test_retrieve_float32_matches_jax_cli(tiny_toml, tmp_path, capsys):
     assert np.isfinite(got["values"]).all() and np.isfinite(got["x"]).all()
     sigma = np.sqrt(np.diag(ref["S_hat"]))
     assert np.max(np.abs(got["x"] - ref["x"]) / sigma) <= 0.1
+
+
+def test_info_reports_the_reference_keys():
+    """``info`` reports the native parser and the molecule registry as the
+    reference's does, with the same values."""
+    from spectrobot_tpu.cli import cmd_info as jax_info
+    got, ref = cli.cmd_info(), jax_info()
+    for key in ("native_parser_built", "molecules_registered",
+                "isotopologues_registered"):
+        assert got[key] == ref[key], key
+    assert got["molecules_registered"] == 55
+    assert got["isotopologues_registered"] == 145
 
 
 def test_cuda_device_rule(tiny_toml):
