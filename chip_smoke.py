@@ -6,7 +6,7 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: the five kernels from spectrobot_tpu_torch/csrc (one nvcc
+  2. build: the seven kernels from spectrobot_tpu_torch/csrc (one nvcc
      each, started together), with their ptxas reports;
   3. K1 (the line sum) against its plain PyTorch version on the card, in
      float32: the forward's own limb and nadir inputs
@@ -61,6 +61,15 @@ Phases, each of which raises (non-zero exit) on failure:
      jacfwd one K1 and one K2 (R = 64); the gradient of a scalar of
      config 1's cross sections in mode 'rev' one K3 and one K5 launch,
      against the jacfwd row;
+  6e. the remote-copy halo tier (spectrobot_tpu_torch.dma_halo) on the
+     loopback ring of one card: ring_exchange for 2, 4 and 8 shards in both
+     directions bit-equal to the roll, ring_halo_lines of the dense case's
+     partitioned lines bit-equal to the roll, fused_halo_accumulate_fn
+     against its plain version within K1's budget (the deepest bench state
+     at 1, 2 and 4 shards with cutoff 25 and at 8 with cutoff 10; the dense
+     shape at 4 shards with cutoff 10), every call twice in a row; one
+     launch per call; then the ring and the fused kernel timed against
+     their plain versions (and the ring against torch.roll);
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
@@ -103,6 +112,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                        "spectrobot_tpu/ops/pallas_opacity.py:287"),
     "basis_single": ("spectrobot_tpu_torch/csrc/basis_single.cu",
                      "spectrobot_tpu/ops/pallas_opacity.py:701"),
+    "dma_ring": ("spectrobot_tpu_torch/csrc/dma_ring.cu",
+                 "benchmarks/dma_halo.py:60"),
+    "dma_halo": ("spectrobot_tpu_torch/csrc/dma_halo.cu",
+                 "benchmarks/dma_halo.py:102"),
 }
 # K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
@@ -149,21 +162,24 @@ ORACLE_RTOL, ORACLE_ATOL_REL = 5e-3, 1e-4
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_opacity, cuda_single,
+        cuda_basis, cuda_basis_single, cuda_dma, cuda_opacity, cuda_single,
         cuda_transpose)
     for m in (cuda_opacity, cuda_basis, cuda_transpose, cuda_single,
               cuda_basis_single):
         m.LAUNCHES = 0
+    cuda_dma.RING_LAUNCHES = cuda_dma.HALO_LAUNCHES = 0
 
 
 def launch_counts() -> dict:
     """Each kernel's launches since the last :func:`reset_launches`."""
     from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_opacity, cuda_single,
+        cuda_basis, cuda_basis_single, cuda_dma, cuda_opacity, cuda_single,
         cuda_transpose)
     return {"K1": cuda_opacity.LAUNCHES, "K2": cuda_basis.LAUNCHES,
             "K5": cuda_transpose.LAUNCHES, "K3": cuda_single.LAUNCHES,
-            "K4": cuda_basis_single.LAUNCHES}
+            "K4": cuda_basis_single.LAUNCHES,
+            "dma_ring": cuda_dma.RING_LAUNCHES,
+            "dma_halo": cuda_dma.HALO_LAUNCHES}
 
 
 def expect_launches(what: str, n: dict, **want) -> None:
@@ -913,6 +929,171 @@ def single_state_phase(dev, cases3: dict, scene, *, dense_lines=20480,
     return out
 
 
+def host_ms(fn, n: int = 20) -> tuple:
+    """Host clock over ``n`` calls of ``fn`` back to back after a warm-up
+    [ms a call]: (until the last is issued, until the device is done)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return 1e3 * (t1 - t0) / n, 1e3 * (t2 - t0) / n
+
+
+def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
+              dense_lines=20480) -> dict:
+    """Phase 6e: the remote-copy halo tier on the loopback ring of this
+    card, through spectrobot_tpu_torch.dma_halo's entry points.  Each call
+    runs twice in a row (the epoch protocol across calls).  Returns the
+    launch counts, the errors, the times and the bounds of the ring and
+    fused kernels."""
+    import types
+
+    from spectrobot_tpu_torch import dma_halo
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.ops import cuda_dma as cd
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel.peer import loopback_ring
+
+    dense_nu0 = device_lines_from_linelist(
+        random_lines(dense_lines, 600.0, 740.0, seed=0), [(2, 1)],
+        dtype=torch.float32, device=dev, nu_ref=0.0).nu0
+
+    def partition(case, nu0, n, cut):
+        edges = halo.nu_shard_edges(case.nu.double().cpu().numpy(), n, cut)
+        return halo.partition_kernel_lines(
+            KernelLines(case.nu_c, case.sx, case.y, case.amps), nu0, edges)
+
+    rings = {n: loopback_ring(n, dev) for n in (1, 2, 4, 8)}
+    fused_cases = [("bench state", bench, bench_nu0, n, 25.0)
+                   for n in (1, 2, 4)]
+    fused_cases += [("bench state", bench, bench_nu0, 8, 10.0),
+                    ("dense", dense, dense_nu0, 4, 10.0)]
+    parts = {(name, n, cut): partition(c, nu0, n, cut)
+             for name, c, nu0, n, cut in fused_cases}
+    g = torch.Generator(device=dev).manual_seed(60)
+    xs = {n: torch.randn((n * 64, 1000), generator=g, device=dev)
+          for n in (2, 4, 8)}
+    dense4 = parts["dense", 4, 10.0]
+
+    # The main path: every entry point, the counts read just after.
+    reset_launches()
+    rolls, fused = [], {}
+    for n, x in xs.items():
+        for direction in (1, -1):
+            f = dma_halo.ring_exchange(rings[n], "nu", direction)
+            for _ in range(2):
+                rolls.append((f"ring n={n} dir={direction:+d}", f(x),
+                              torch.roll(x.reshape(n, 64, 1000), direction,
+                                         0).reshape(x.shape)))
+    for _ in range(2):
+        left, right = dma_halo.ring_halo_lines(rings[4], dense4)
+        for got, shift in ((left, 1), (right, -1)):
+            rolls += [(f"halo lines {name} shift {shift:+d}", a,
+                       torch.roll(b, shift, 0))
+                      for name, a, b in zip(halo.ShardedKernelLines._fields,
+                                            got, dense4)]
+    for name, c, _, n, cut in fused_cases:
+        f = dma_halo.fused_halo_accumulate_fn(rings[n], cutoff_cm1=cut)
+        fused[name, n, cut] = [f(c.nu, parts[name, n, cut])
+                               for _ in range(2)]
+    torch.cuda.synchronize()
+    n_calls = launch_counts()
+    print(f"remote-copy tier (loopback, one card): launches "
+          f"{json.dumps(n_calls)}")
+    expect_launches("the remote-copy tier", n_calls,
+                    dma_ring=len(xs) * 2 * 2 + 2 * 2,
+                    dma_halo=2 * len(fused_cases))
+
+    for what, got, want in rolls:
+        check(torch.equal(got, want), f"{what}: not bit-equal to the roll")
+    ring_err = max(float((got - want).abs().max()) for _, got, want in rolls)
+    print(f"ring_exchange (n = 2, 4, 8, both directions, twice each) and "
+          f"ring_halo_lines (dense case, 4 shards, twice): {len(rolls)} "
+          f"results bit-equal to the roll")
+    rows = {}
+    for name, c, _, n, cut in fused_cases:
+        skl = parts[name, n, cut]
+        plain = cd.fused_halo_accumulate_plain(
+            rings[n], c.nu.reshape(n, -1),
+            halo.pack_lines(KernelLines(*skl)), cutoff_cm1=cut)
+        ref = plain.transpose(0, 1).reshape(plain.shape[1], -1)
+        got = fused[name, n, cut]
+        check(torch.equal(got[0], got[1]),
+              f"{name}, {n} shards: the two calls differ")
+        check(bool(torch.isfinite(got[0]).all()),
+              f"{name}, {n} shards: non-finite fused sum")
+        err = (got[0] - ref).abs()
+        worst = float((err / (RTOL * ref.abs() + ATOL_REL * ref.abs().max()))
+                      .max())
+        row = rows[name, n, cut] = {
+            "case": name, "shards": n, "cutoff": cut,
+            "lines": int(c.nu_c.shape[0]), "Lmax": int(skl.nu_c.shape[1]),
+            "points": int(c.nu.shape[0]), "max_abs_err": float(err.max()),
+            "max_ref": float(ref.abs().max()),
+            "budget": f"{RTOL:g}*|ref| + {ATOL_REL:g}*max|ref|",
+            "err_over_budget": worst}
+        print(f"dma_halo vs plain: {json.dumps(row)}")
+        check(worst <= 1.0, f"{name}, {n} shards: the fused halo sum "
+                            f"disagrees with its plain version")
+
+    # Times at the dense case on 4 shards (the full-width case), and bounds.
+    packed = halo.pack_lines(KernelLines(*dense4)).contiguous()
+    r4 = rings[4]
+    times = {"dma_ring": (cuda_ms(lambda: cd.ring_exchange_cuda(r4, packed,
+                                                                 1)),
+                          cuda_ms(lambda: cd.ring_exchange_plain(r4, packed,
+                                                                  1)),
+                          cuda_ms(lambda: torch.roll(packed, 1, 0)))}
+    f = dma_halo.fused_halo_accumulate_fn(r4, cutoff_cm1=10.0)
+    nu4 = dense.nu.reshape(4, -1)
+    times["dma_halo"] = (
+        cuda_ms(lambda: f(dense.nu, dense4)),
+        cuda_ms(lambda: cd.fused_halo_accumulate_plain(
+            r4, nu4, packed, cutoff_cm1=10.0)), None)
+    pairs = dict.fromkeys(REGIONS, 0)
+    no_windows = types.SimpleNamespace(cutoff_cm1=10.0)
+    for k in range(4):
+        rows_k = torch.cat([packed[k], packed[(k - 1) % 4],
+                            packed[(k + 1) % 4]], dim=-1)
+        one = K1Case("dense shard", nu4[k], no_windows, rows_k[0][None],
+                     rows_k[1][None], rows_k[2][None], rows_k[3:][None], None)
+        for r, v in region_counts(one, torch.ones(1, dtype=torch.bool,
+                                                  device=dev)).items():
+            pairs[r] += v
+    n_out, P = packed.shape[1] - 3, dense.nu.shape[0]
+    bounds = {
+        # Each block read once and written once by the roll.
+        "dma_ring": (1e3 * 2.0 * 4 * packed.numel() / HBM_BYTES_S, "bytes"),
+        "dma_halo": bound_ms(pairs, REGION_FLOPS, 4.0 + 2 * n_out,
+                             4.0 * (P + packed.numel() + n_out * P))}
+    for name, fn in (("dma_ring", lambda: cd.ring_exchange_cuda(r4, packed,
+                                                                 1)),
+                     ("dma_halo", lambda: f(dense.nu, dense4))):
+        issue, total = host_ms(fn)
+        print(f"host time {name}: {issue:.4f} ms a call to issue, "
+              f"{total:.4f} ms a call to finish (20 calls back to back)")
+    print(f"time dma_ring (loopback, 4 shards x {tuple(packed.shape[1:])} "
+          f"packed rows of the dense case): kernel "
+          f"{times['dma_ring'][0]:.4f} ms, plain {times['dma_ring'][1]:.4f} "
+          f"ms, torch.roll {times['dma_ring'][2]:.4f} ms; bound "
+          f"{bounds['dma_ring'][0]:.5f} ms (bytes)")
+    print(f"time dma_halo (loopback, dense shape, 4 shards, cutoff 10): "
+          f"kernel {times['dma_halo'][0]:.3f} ms, plain "
+          f"{times['dma_halo'][1]:.3f} ms; in-cutoff pairs by region "
+          f"{json.dumps(pairs)}; bound {bounds['dma_halo'][0]:.4f} ms "
+          f"({bounds['dma_halo'][1]})")
+    for r in rings.values():
+        r.close()
+    return {"launches": n_calls, "rows": rows, "times": times,
+            "bounds": bounds, "ring_err": ring_err}
+
+
 def region_counts(case: K1Case, live: torch.Tensor) -> dict:
     """The (point, line) pairs within the cutoff of the ``live`` states [B]
     of the case, by the Humlicek region their (x, y) lies in (s = |x| + y:
@@ -988,6 +1169,7 @@ def main() -> int:
     from spectrobot_tpu_torch import adjoint, cli
     from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    from spectrobot_tpu_torch.ops import cuda_dma as cd
     from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
@@ -1009,6 +1191,8 @@ def main() -> int:
     ctr._library()
     cs._library()
     cbs._library()
+    cd._library("dma_ring")
+    cd._library("dma_halo")
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -1253,6 +1437,10 @@ def main() -> int:
     # structural and reverse routes).
     single = single_state_phase(dev, cases3, scene)
 
+    # Phase 6e: the remote-copy halo tier on the loopback ring.
+    dma = dma_phase(dev, cases3["bench state"], bench_device_lines(dev).nu0,
+                    cases3["dense"])
+
     # Phase 7: timings.
     def k1(case, fn):
         return lambda: fn(case.nu, case.windows, case.nu_c, case.sx,
@@ -1420,6 +1608,7 @@ def main() -> int:
                                                       + 4 * B * 2 * L)),
         "opacity_single": k3_bounds["bench state"],
         "basis_single": k4_bounds["dense, R = 6"],
+        **dma["bounds"],
     }
     print(f"in-cutoff pairs by region (limb): K1/K2 {json.dumps(k1_pairs)}, "
           f"K5 {json.dumps(k5_pairs)}; bounds [ms]: "
@@ -1430,7 +1619,7 @@ def main() -> int:
          "replaces": KERNELS[name][1], "launches": launches,
          "max_abs_err": row["max_abs_err"], "ms": t[0], "plain_ms": t[1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": t[2] if len(t) > 2 else None}
         for name, launches, row, t in (
             ("opacity_batch", ret_launches[0], rows["limb"],
              times["K1", "limb"]),
@@ -1441,7 +1630,11 @@ def main() -> int:
             ("opacity_single", mesh["k3_launches"], rows3["bench state"],
              times["K3", "bench state"]),
             ("basis_single", single["config1_jac_launches"],
-             single["rows"]["dense, R = 6"], times["K4", "dense, R = 6"]))]}))
+             single["rows"]["dense, R = 6"], times["K4", "dense, R = 6"]),
+            ("dma_ring", dma["launches"]["dma_ring"],
+             {"max_abs_err": dma["ring_err"]}, dma["times"]["dma_ring"]),
+            ("dma_halo", dma["launches"]["dma_halo"],
+             dma["rows"]["dense", 4, 10.0], dma["times"]["dma_halo"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

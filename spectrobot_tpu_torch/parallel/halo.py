@@ -111,13 +111,22 @@ def rebase_grid_per_shard(nu_host, origins: np.ndarray,
     return torch.as_tensor(chunks.reshape(-1), dtype=dtype)
 
 
+def pack_lines(kl: KernelLines) -> torch.Tensor:
+    """Lines as one block of rows [nu_c, scale_x, y, amps_0..] x L (with a
+    leading shard axis: [n, 3 + n_out, L])."""
+    return torch.cat([torch.stack(tuple(kl[:3]), dim=-2), kl.amps], dim=-2)
+
+
+def unpack_lines(packed: torch.Tensor) -> KernelLines:
+    """The inverse of :func:`pack_lines`."""
+    return KernelLines(packed[..., 0, :], packed[..., 1, :],
+                       packed[..., 2, :], packed[..., 3:, :])
+
+
 def _exchange(lines: KernelLines, mesh, shift: int) -> KernelLines:
     """The ``KernelLines`` of the rank ``shift`` places before this one on
-    the ``nu`` ring, in one message: centers, scales, y and amps packed as
-    [3 + n_out, L]."""
-    packed = torch.cat([torch.stack(lines[:3]), lines.amps])
-    got = ring_shift(packed, mesh, "nu", shift)
-    return KernelLines(got[0], got[1], got[2], got[3:])
+    the ``nu`` ring, in one message (:func:`pack_lines`)."""
+    return unpack_lines(ring_shift(pack_lines(lines), mesh, "nu", shift))
 
 
 def _hops(n_shards: int):

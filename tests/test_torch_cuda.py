@@ -1,7 +1,8 @@
-"""The CUDA kernels (K1, K2, K5, K3 and K4) on the card, and the CLI's mesh
-route across the machine's cards (marker ``cuda``; skips without a GPU and
-nvcc, the mesh test without a second card).  Run on the card with
-``python -m pytest -m cuda tests/``."""
+"""The CUDA kernels (K1, K2, K5, K3, K4 and the remote-copy tier's ring and
+fused halo kernels) on the card, and the CLI's mesh route and the
+remote-copy tier across the machine's cards (marker ``cuda``; skips without
+a GPU and nvcc, the multi-card tests without a second card).  Run on the
+card with ``python -m pytest -m cuda tests/``."""
 
 import os
 import subprocess
@@ -528,3 +529,127 @@ def test_cli_mesh_on_every_card(cuda, tmp_path):
     assert bool(got["converged"]) and bool(one["converged"])
     np.testing.assert_allclose(got["x"], one["x"], rtol=1e-4)
     np.testing.assert_allclose(got["chi2"], one["chi2"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The remote-copy tier (csrc/dma_ring.cu, csrc/dma_halo.cu): the loopback
+# ring on one card, and the ranks of a torchrun ring across the cards
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("direction", [1, -1])
+def test_dma_ring_matches_roll(cuda, n, direction):
+    """The ring kernel on the loopback ring: bit-equal to the roll of the
+    blocks, with 16-byte and 4-byte copies and a ragged last chunk, twice
+    in a row (the epoch protocol across calls); one launch per call."""
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel.peer import loopback_ring
+    ring = loopback_ring(n, cuda)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    for shape in ((8, 128), (5, 3001), (64, 4096)):
+        x = torch.randn((n,) + shape, generator=g, device=cuda)
+        for _ in range(2):
+            before = cuda_dma.RING_LAUNCHES
+            got = cuda_dma.ring_exchange_cuda(ring, x, direction)
+            torch.cuda.synchronize()
+            assert cuda_dma.RING_LAUNCHES == before + 1
+            assert torch.equal(got, torch.roll(x, direction, 0))
+    ring.close()
+
+
+def _dma_scene(device, n, cutoff):
+    """tests/test_dma_halo.py's fused case (500 lines, 1024 points) in the
+    port, partitioned over ``n`` shards."""
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    from spectrobot_tpu_torch.parallel import halo
+    dl = device_lines_from_linelist(random_lines(500, 580.0, 720.0, seed=3),
+                                    [(2, 1)], dtype=torch.float32,
+                                    device=device, nu_ref=0.0)
+    kl = line_kernel_inputs(dl, 210.0, 120.0, 40.0, amp_weights=torch.ones(
+        2, dl.n_lines, device=device))
+    nu = np.linspace(600.0, 700.0, 1024)
+    edges = halo.nu_shard_edges(nu, n, cutoff)
+    skl = halo.partition_kernel_lines(kl, dl.nu0, edges)
+    return torch.as_tensor(nu, dtype=torch.float32, device=device), skl
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("cutoff", [10.0, None])
+def test_dma_halo_matches_plain(cuda, n, cutoff):
+    """The fused kernel on the loopback ring against its plain version
+    (own lines plus each hop's), within K1's budget; one launch per call,
+    bit-equal from call to call."""
+    from spectrobot_tpu_torch import dma_halo
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel.peer import loopback_ring
+    nu, skl = _dma_scene(cuda, n, cutoff)
+    ring = loopback_ring(n, cuda)
+    f = dma_halo.fused_halo_accumulate_fn(ring, cutoff_cm1=cutoff)
+    outs = []
+    for _ in range(2):
+        before = cuda_dma.HALO_LAUNCHES
+        outs.append(f(nu, skl))
+        torch.cuda.synchronize()
+        assert cuda_dma.HALO_LAUNCHES == before + 1
+    assert torch.equal(outs[0], outs[1])
+    packed = halo.pack_lines(halo.KernelLines(*skl))
+    ref = cuda_dma.fused_halo_accumulate_plain(
+        ring, nu.reshape(n, -1), packed, cutoff_cm1=cutoff)
+    ref = ref.transpose(0, 1).reshape(2, -1)
+    torch.testing.assert_close(outs[0], ref, rtol=3e-5,
+                               atol=1e-6 * float(ref.abs().max()))
+    ring.close()
+
+
+def test_dma_ring_halo_lines_match_roll(cuda):
+    from spectrobot_tpu_torch import dma_halo
+    from spectrobot_tpu_torch.parallel.peer import loopback_ring
+    _, skl = _dma_scene(cuda, 4, 10.0)
+    ring = loopback_ring(4, cuda)
+    for _ in range(2):
+        left, right = dma_halo.ring_halo_lines(ring, skl)
+        for got, shift in ((left, 1), (right, -1)):
+            for g, a in zip(got, skl):
+                assert torch.equal(g, torch.roll(a, shift, 0))
+    ring.close()
+
+
+def test_dma_tier_on_every_card(cuda):
+    """``torchrun --nproc_per_node=n -m spectrobot_tpu_torch.dma_halo`` on
+    the machine's n cards: the ring exchange bit-equal to ring_shift (the
+    dense case's packed rows and a 64 MB block per rank), the fused halo sum
+    within K1's budget of the single-card plain sum; then with one rank
+    that never launches, its neighbours end in a CUDA error within the
+    spin timeout instead of hanging."""
+    import json
+    import time
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the ring across cards needs two cards or more")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    run = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={n}", "-m", "spectrobot_tpu_torch.dma_halo"]
+    proc = subprocess.run(run, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(res))
+    assert len(res["ranks"]) == n
+    for r in res["ranks"]:
+        assert r["ring packed rows"]["bit_equal"] and r["ring block"][
+            "bit_equal"]
+        assert r["fused halo"]["vs_single_card_plain"]["fused"][
+            "err_over_budget"] <= 1.0
+    t0 = time.time()
+    proc = subprocess.run(run + ["--missing-peer", str(n - 1)], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    elapsed = time.time() - t0
+    print(proc.stdout[-3000:])
+    assert proc.returncode != 0
+    assert "ended in a CUDA error" in proc.stdout, proc.stderr[-3000:]
+    assert elapsed < 120

@@ -1,6 +1,7 @@
 """The port runs where JAX and the JAX package are not installed: every
 module of spectrobot_tpu_torch (the mesh's parallel/, K3's
-ops/cuda_single.py and K4's ops/cuda_basis_single.py among them) and
+ops/cuda_single.py, K4's ops/cuda_basis_single.py and the remote-copy
+tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py among them) and
 chip_smoke.py imports, and the tiny forward and retrieval (``python -m
 spectrobot_tpu_torch``), a config-1 Jacobian and the adjoint tool
 (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
@@ -29,7 +30,7 @@ for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
 for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "parallel.sharded", "parallel.retrieval", "parallel.oe",
              "ops.cuda_single", "ops.cuda_basis_single", "ops.chi",
-             "forward.model"):
+             "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer"):
     assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
 import torch

@@ -1,7 +1,8 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
-halo,sharded,mesh_retrieval}.py).  :func:`run` starts ``world`` gloo ranks
-with ``torch.multiprocessing.spawn``; each runs one case function of this
-module on numpy inputs made by the calling test and saves what it returns.
+halo,sharded,mesh_retrieval,dma_halo}.py).  :func:`run` starts ``world``
+gloo ranks with ``torch.multiprocessing.spawn``; each runs one case
+function of this module on numpy inputs made by the calling test and saves
+what it returns.
 This module imports torch and the port only (never jax), so the ranks start
 light."""
 
@@ -196,3 +197,38 @@ def cli_case(rank, world, toml, runs):
                           MASTER_PORT=str(port))
         assert cli.main([argv[0], toml, "--device", "cpu", *argv[1:]]) == 0
     return None
+
+
+# ---------------------------------------------------------------------------
+# the remote-copy halo tier (its plain versions on gloo ranks)
+# ---------------------------------------------------------------------------
+
+
+def dma_case(rank, world, ring_xs, halo_skl, fused):
+    """Each rank's results of spectrobot_tpu_torch.dma_halo's entry points
+    on the (1, 1, world) mesh: the ring exchange of its block of each
+    [world * rows, cols] array of ``ring_xs`` in both directions,
+    ring_halo_lines of its row of ``halo_skl`` (or None), the fused halo sum
+    of its grid chunk (``fused`` = (nu, skl, cutoff)), and the ring's epoch
+    (calls made)."""
+    from spectrobot_tpu_torch import dma_halo
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel.peer import mesh_ring
+    mesh = _mesh((1, 1, world))
+
+    def mine(skl):
+        return KernelLines(*(torch.as_tensor(a)[rank] for a in skl))
+
+    out = {"ring": {}}
+    for key, x in ring_xs.items():
+        blk = torch.as_tensor(x).reshape(world, -1, x.shape[1])[rank]
+        for d in (1, -1):
+            out["ring"][key, d] = dma_halo.ring_exchange(mesh, "nu", d)(blk)
+    if halo_skl is not None:
+        out["halo_lines"] = dma_halo.ring_halo_lines(mesh, mine(halo_skl))
+    nu, skl, cutoff = fused
+    nu_loc = torch.as_tensor(nu)[mesh.block(len(nu), "nu")]
+    out["fused"] = dma_halo.fused_halo_accumulate_fn(
+        mesh, cutoff_cm1=cutoff)(nu_loc, mine(skl))
+    out["epoch"] = mesh_ring(mesh).epoch
+    return out
