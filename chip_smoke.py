@@ -1173,6 +1173,7 @@ def main() -> int:
     from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    from spectrobot_tpu_torch.parallel import peer
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1191,8 +1192,8 @@ def main() -> int:
     ctr._library()
     cs._library()
     cbs._library()
-    cd._library("dma_ring")
-    cd._library("dma_halo")
+    peer.library()
+    cd._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}

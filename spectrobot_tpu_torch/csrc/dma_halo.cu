@@ -18,11 +18,12 @@
 // no exchange; two shards make one (their neighbours coincide, or the halo
 // would count them twice).  The protocol is csrc/peer_ring.cuh's.
 //
-// The line sum evaluates pairs with K1's and K3's per-pair code and tier
-// decision (csrc/voigt_primal.cuh), dense within the local chunk as the
-// reference is (no window table), but a 32-line sub-block whose centers all
-// lie beyond the cutoff of the 128-point tile is skipped: exact, as every
-// one of its pairs is masked.
+// The line sums are K3's work items (csrc/line_sum_item.cuh: K1's and K3's
+// per-pair code and tier decision, K3's staging and ordered partial sums),
+// dense within the local chunk as the reference is (no window table), but a
+// 32-line sub-block whose centers all lie beyond the cutoff of the
+// 128-point tile is skipped: exact, as every one of its pairs is masked.
+// The rows are read through L2 alone, as a peer may have just stored them.
 //
 // What bounds it: FP32 arithmetic on the CUDA cores (K3's per-pair flops on
 // the in-cutoff pairs); the copies are a few hundred KB a call.  The
@@ -38,98 +39,10 @@
 
 #include <cuda_runtime.h>
 
+#include "line_sum_item.cuh"
 #include "peer_ring.cuh"
-#include "voigt_primal.cuh"
 
 namespace {
-
-constexpr int MAX_OUT = 8;       // amplitude rows per call
-constexpr int SKIP = -1;         // a sub-block beyond the cutoff
-constexpr int SUM_THREADS = 256;
-
-struct Staged {
-  float nuc[BLOCK_L];
-  float sx[BLOCK_L];
-  float y[BLOCK_L];
-  float a[MAX_OUT][BLOCK_L];
-};
-
-template <int TIER>
-__device__ __forceinline__ void accumulate_sub(const Staged& s, int base,
-                                               float nu_p, float cutoff,
-                                               int n_out,
-                                               float (&acc)[MAX_OUT]) {
-#pragma unroll 2
-  for (int i = base; i < base + SUB_L; ++i) {
-    float wr;
-    if (!pair_wr<TIER, false>(nu_p - s.nuc[i], s.sx[i], s.y[i], 0.0f, cutoff,
-                              wr))
-      continue;
-#pragma unroll
-    for (int o = 0; o < MAX_OUT; ++o)
-      if (o < n_out) acc[o] = fmaf(s.a[o][i], wr, acc[o]);
-  }
-}
-
-// One (tile, line segment) item: the sum over line blocks [b0, b1) of the
-// packed rows `rows` [3 + n_out, Lp] at the tile's points, written to
-// dst[o * Pp + p].  Every thread of the block holds one point.
-__device__ void line_sum_item(const float* rows, const float* nu, int tile,
-                              int b0, int b1, int n_out, int Lp, int Pp,
-                              float cutoff, float* dst) {
-  __shared__ Staged s;
-  __shared__ int s_tier[N_SUB];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int p = tile * TILE_P + tid;
-  const float nu_p = nu[p];
-  float tile_lo, tile_hi;
-  tile_bounds(nu_p, tile_lo, tile_hi);
-  float acc[MAX_OUT];
-#pragma unroll
-  for (int o = 0; o < MAX_OUT; ++o) acc[o] = 0.0f;
-  for (int b = b0; b < b1; ++b) {
-    const int l = b * BLOCK_L + tid;
-    const float c = __ldcg(rows + l);
-    const float sxv = __ldcg(rows + Lp + l);
-    const float yy = __ldcg(rows + 2 * Lp + l);
-    __syncthreads();           // everyone is done with the previous block
-    s.nuc[tid] = c;
-    s.sx[tid] = sxv;
-    s.y[tid] = yy;
-#pragma unroll
-    for (int o = 0; o < MAX_OUT; ++o)
-      if (o < n_out) s.a[o][tid] = __ldcg(rows + (size_t)(3 + o) * Lp + l);
-    const float gap = fmaxf(fmaxf(warp_min(c) - tile_hi,
-                                  tile_lo - warp_max(c)), 0.0f);
-    const int tier = sub_block_tier(c, sxv, yy, tile_lo, tile_hi);
-    if ((tid & 31) == 0) s_tier[warp] = gap > cutoff ? SKIP : tier;
-    __syncthreads();
-#pragma unroll 1
-    for (int sb = 0; sb < N_SUB; ++sb) {
-      const int base = sb * SUB_L;
-      switch (s_tier[sb]) {
-        case SKIP:
-          break;
-        case FAR:
-          accumulate_sub<FAR>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-        case MID:
-          accumulate_sub<MID>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-        case NEAR3:
-          accumulate_sub<NEAR3>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-        default:
-          accumulate_sub<NEAR4>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < MAX_OUT; ++o)
-    if (o < n_out) dst[(size_t)o * Pp + p] = acc[o];
-  __syncthreads();             // the shared tiles are reused by the next item
-}
 
 // table [n_loc, 3]: workspace bases per shard; nu [n_loc, Pp];
 // pack [n_loc, q, Lp] with q = 3 + n_out; part [n_loc, n_src * n_seg,
@@ -140,10 +53,11 @@ dma_halo_kernel(const long long* __restrict__ table,
                 const float* __restrict__ nu, const float* pack, float* part,
                 long long cap_floats, int n_loc, int n_out, int Pp, int Lp,
                 int n_dirs, int n_seg, int seg_blocks, float cutoff,
-                u64 epoch, u64 target0, u64 target1, long long budget) {
+                int chunk, u64 epoch, u64 target0, u64 target1,
+                long long budget) {
   const int q = 3 + n_out;
   const long long n_pack = (long long)q * Lp;
-  const int n_chunks = (int)((n_pack + CHUNK_FLOATS - 1) / CHUNK_FLOATS);
+  const int n_chunks = (int)((n_pack + chunk - 1) / chunk);
   const int n_tiles = Pp / TILE_P;
   const int n_blocks = Lp / BLOCK_L;
   const int n_src = 1 + n_dirs;
@@ -158,7 +72,7 @@ dma_halo_kernel(const long long* __restrict__ table,
     const int k = i / (n_dirs * n_chunks);
     const int d = (i / n_chunks) % n_dirs;
     send_chunk<true>(table + 3 * k, d, pack + (size_t)k * n_pack, n_pack,
-                     i % n_chunks, cap_floats, epoch, budget);
+                     i % n_chunks, chunk, cap_floats, epoch, budget);
   }
 
   // 3. The own lines; 4-5. the wait and the received halos.
@@ -178,33 +92,17 @@ dma_halo_kernel(const long long* __restrict__ table,
       }
       float* dst = part + (((size_t)k * n_src + src) * n_seg + seg) *
                               n_out * Pp;
-      line_sum_item(rows, nu + (size_t)k * Pp, tile, b0, b1, n_out, Lp, Pp,
-                    cutoff, dst);
+      line_sum_item<false, true, true>(
+          LineRows{rows, rows + Lp, rows + 2 * Lp, nullptr, rows + 3 * Lp},
+          nu + (size_t)k * Pp, tile, b0, b1, n_out, Lp, Pp, cutoff, dst);
+      __syncthreads();         // the shared tiles are reused by the next item
     }
   }
-}
-
-// out[k, i] = sum_j part[k, j, i] over the m = n_src * n_seg partial sums,
-// in order; n = n_out * Pp values per shard.
-__global__ void __launch_bounds__(SUM_THREADS)
-sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
-                 int m, int n, int n_loc) {
-  const long long i = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
-  if (i >= (long long)n * n_loc) return;
-  const long long k = i / n, j = i % n;
-  const float* src = part + (size_t)k * m * n + j;
-  float acc = src[0];
-  for (int s = 1; s < m; ++s) acc += src[(size_t)s * n];
-  out[i] = acc;
 }
 
 }  // namespace
 
 extern "C" {
-
-int dma_halo_tile_p() { return TILE_P; }
-int dma_halo_block_l() { return BLOCK_L; }
-int dma_halo_max_out() { return MAX_OUT; }
 
 const char* dma_halo_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -212,33 +110,35 @@ const char* dma_halo_error_string(int code) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // n_dirs: 0 (one shard), 1 (two: send right only) or 2; cutoff = +inf
-// disables the mask; target0/1: each receiver's arrival count in direction
-// 0/1 once this call's chunks are in.
+// disables the mask; chunk: floats per copy item (a multiple of 4);
+// target0/1: each receiver's arrival count in direction 0/1 once this
+// call's chunks are in.
 int dma_halo_launch(int device, const long long* table, const float* nu,
                     const float* pack, float* part, float* out,
                     long long cap_floats, int n_loc, int n_out, int Pp,
                     int Lp, int n_dirs, int n_seg, int seg_blocks,
-                    float cutoff, u64 epoch, u64 target0, u64 target1,
-                    float timeout_s, void* stream) {
+                    float cutoff, int chunk, u64 epoch, u64 target0,
+                    u64 target1, float timeout_s, void* stream) {
   const long long n_pack = (long long)(3 + n_out) * Lp;
   if (n_out < 1 || n_out > MAX_OUT || Pp <= 0 || Pp % TILE_P != 0 ||
       Lp <= 0 || Lp % BLOCK_L != 0 || n_dirs < 0 || n_dirs > 2 ||
-      n_loc < 1 || n_seg < 1 || seg_blocks < 1 ||
+      n_loc < 1 || n_seg < 1 || seg_blocks < 1 || chunk < 4 ||
+      chunk % 4 != 0 ||
       (n_dirs > 0 && n_pack > cap_floats) || (size_t)pack % 16 != 0 ||
       cap_floats % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n_src = 1 + n_dirs;
-  const long long n_chunks = (n_pack + CHUNK_FLOATS - 1) / CHUNK_FLOATS;
+  const long long n_chunks = (n_pack + chunk - 1) / chunk;
   const long long items =
       (long long)n_loc * ((long long)n_src * (Pp / TILE_P) * n_seg +
                           n_dirs * n_chunks);
   if (items > (1ll << 30)) return (int)cudaErrorInvalidValue;
   long long budget = timeout_cycles(device, timeout_s);
   void* args[] = {&table, &nu, &pack, &part, &cap_floats, &n_loc, &n_out,
-                  &Pp, &Lp, &n_dirs, &n_seg, &seg_blocks, &cutoff, &epoch,
-                  &target0, &target1, &budget};
+                  &Pp, &Lp, &n_dirs, &n_seg, &seg_blocks, &cutoff, &chunk,
+                  &epoch, &target0, &target1, &budget};
   const int grid = resident_blocks((const void*)dma_halo_kernel, device,
                                    TILE_P, items);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -247,10 +147,7 @@ int dma_halo_launch(int device, const long long* table, const float* nu,
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int m = n_src * n_seg, n = n_out * Pp;
-  const long long total = (long long)n * n_loc;
-  sum_parts_kernel<<<(unsigned)((total + SUM_THREADS - 1) / SUM_THREADS),
-                     SUM_THREADS, 0, s>>>(part, out, m, n, n_loc);
+  launch_sum_parts(part, out, n_src * n_seg, n_out * Pp, n_loc, s);
   return (int)cudaGetLastError();
 }
 

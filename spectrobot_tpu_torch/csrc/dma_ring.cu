@@ -17,8 +17,9 @@
 // the peer's buffer, then from the own buffer into the output) and read
 // once more; over NVLink the peer stores run at the link's 450 GB/s each
 // way, on one card at the 3.35 TB/s of device memory.  The design: 32 KB
-// chunks as work items of a persistent, cooperative grid, 16-byte accesses
-// where the block allows them, loads of the received buffer through L2.
+// chunks (the host's CHUNK_FLOATS, parallel/peer.py) as work items of a
+// persistent, cooperative grid, 16-byte accesses where the block allows
+// them, loads of the received buffer through L2.
 //
 // This file also holds the workspace's host functions (cudaMalloc, CUDA
 // IPC), called by spectrobot_tpu_torch/parallel/peer.py through ctypes.
@@ -35,20 +36,21 @@ template <bool VEC>
 __global__ void __launch_bounds__(RING_THREADS)
 dma_ring_kernel(const long long* __restrict__ table, const float* x,
                 float* out, long long n, long long cap_floats, int n_loc,
-                int d, int n_chunks, u64 epoch, u64 target, long long budget) {
+                int d, int chunk, int n_chunks, u64 epoch, u64 target,
+                long long budget) {
   signal_free(table, n_loc, d, 1, epoch);
   const int items = n_loc * n_chunks;
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
     const int k = i / n_chunks;
     send_chunk<VEC>(table + 3 * k, d, x + (size_t)k * n, n, i % n_chunks,
-                    cap_floats, epoch, budget);
+                    chunk, cap_floats, epoch, budget);
   }
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
     const int k = i / n_chunks, c = i % n_chunks;
     const long long own = table[3 * k + OWN];
     block_wait(ws_arrived(own, d), target, budget);
-    const long long lo = (long long)c * CHUNK_FLOATS;
-    const long long hi = lo + CHUNK_FLOATS < n ? lo + CHUNK_FLOATS : n;
+    const long long lo = (long long)c * chunk;
+    const long long hi = lo + chunk < n ? lo + chunk : n;
     block_copy<VEC>(out + (size_t)k * n, ws_recv(own, d, cap_floats), lo,
                     hi);
   }
@@ -59,7 +61,6 @@ dma_ring_kernel(const long long* __restrict__ table, const float* x,
 extern "C" {
 
 int dma_ws_header_bytes() { return WS_HEADER; }
-int dma_chunk_floats() { return CHUNK_FLOATS; }
 int dma_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
 
 const char* dma_ring_error_string(int code) {
@@ -106,22 +107,24 @@ int dma_ipc_close(int device, void* p) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // n floats per shard, at most cap_floats; d = 0 (direction +1) or 1 (-1);
-// target: the receiver's arrival count once this call's chunks are in.
+// chunk: floats per copy item (a multiple of 4); target: the receiver's
+// arrival count once this call's chunks are in.
 int dma_ring_launch(int device, const long long* table, const float* x,
                     float* out, long long n, long long cap_floats, int n_loc,
-                    int d, u64 epoch, u64 target, float timeout_s,
+                    int d, int chunk, u64 epoch, u64 target, float timeout_s,
                     void* stream) {
-  if (n <= 0 || n > cap_floats || n_loc < 1 || (d != 0 && d != 1))
+  if (n <= 0 || n > cap_floats || n_loc < 1 || (d != 0 && d != 1) ||
+      chunk < 4 || chunk % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long chunks = (n + CHUNK_FLOATS - 1) / CHUNK_FLOATS;
+  const long long chunks = (n + chunk - 1) / chunk;
   if (chunks * n_loc > (1ll << 30)) return (int)cudaErrorInvalidValue;
   int n_chunks = (int)chunks;
   long long budget = timeout_cycles(device, timeout_s);
   const bool vec = n % 4 == 0 && ((size_t)x % 16) == 0 &&
                    ((size_t)out % 16) == 0 && cap_floats % 4 == 0;
-  void* args[] = {&table, &x, &out, &n, &cap_floats, &n_loc, &d,
+  void* args[] = {&table, &x, &out, &n, &cap_floats, &n_loc, &d, &chunk,
                   &n_chunks, &epoch, &target, &budget};
   void* kern = vec ? (void*)dma_ring_kernel<true>
                    : (void*)dma_ring_kernel<false>;

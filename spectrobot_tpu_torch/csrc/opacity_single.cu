@@ -10,7 +10,9 @@
 // One state, any number of amplitude rows up to MAX_OUT, a ragged window
 // table or every block (no cutoff: the dense case), optional chi.  The
 // per-pair code and the tier decision are K1's (csrc/voigt_primal.cuh), so
-// K1 and K3 agree pair for pair.
+// K1 and K3 agree pair for pair; the (tile, line segment) item and the
+// segment pass are csrc/line_sum_item.cuh's, which the fused halo
+// accumulation (dma_halo.cu) runs too.
 //
 // What bounds it: FP32 arithmetic on the CUDA cores, as K1 (per pair ~14
 // flops far, ~55 mid, ~165 near3, ~300 near4, plus 2 per amplitude row);
@@ -30,37 +32,9 @@
 
 #include <cuda_runtime.h>
 
-#include "voigt_primal.cuh"
+#include "line_sum_item.cuh"
 
 namespace {
-
-constexpr int MAX_OUT = 8;     // amplitude rows per call
-constexpr int SUM_THREADS = 256;
-
-struct Staged {
-  float nuc[BLOCK_L];
-  float sx[BLOCK_L];
-  float y[BLOCK_L];
-  float chi[BLOCK_L];
-  float a[MAX_OUT][BLOCK_L];
-};
-
-template <int TIER, bool HAS_CHI>
-__device__ __forceinline__ void accumulate_sub(const Staged& s, int base,
-                                               float nu_p, float cutoff,
-                                               int n_out,
-                                               float (&acc)[MAX_OUT]) {
-#pragma unroll 2
-  for (int i = base; i < base + SUB_L; ++i) {
-    float wr;
-    if (!pair_wr<TIER, HAS_CHI>(nu_p - s.nuc[i], s.sx[i], s.y[i],
-                                HAS_CHI ? s.chi[i] : 0.0f, cutoff, wr))
-      continue;
-#pragma unroll
-    for (int o = 0; o < MAX_OUT; ++o)
-      if (o < n_out) acc[o] = fmaf(s.a[o][i], wr, acc[o]);
-  }
-}
 
 // grid = (Pp / TILE_P, n_seg), block = TILE_P threads.
 // nu [Pp]; nuc, sx, y, chi [Lp]; amps [n_out, Lp]; starts, counts [n_tiles]
@@ -81,73 +55,12 @@ opacity_single_kernel(const float* __restrict__ nu,
                       int seg_blocks, float cutoff) {
   const int tile = blockIdx.x;
   const int seg = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int p = tile * TILE_P + tid;
-
-  __shared__ Staged s;
-  __shared__ int s_tier[N_SUB];
-
-  const float nu_p = nu[p];
-  float tile_lo, tile_hi;
-  tile_bounds(nu_p, tile_lo, tile_hi);
-
   const int first = seg * seg_blocks;
   const int last = min(counts[tile], first + seg_blocks);
-  float acc[MAX_OUT];
-#pragma unroll
-  for (int o = 0; o < MAX_OUT; ++o) acc[o] = 0.0f;
-  for (int k = first; k < last; ++k) {
-    const int l = (starts[tile] + k) * BLOCK_L + tid;
-    const float c = nuc[l];
-    const float sxv = sx[l];
-    const float yy = yv[l];
-    __syncthreads();           // everyone is done with the previous block
-    s.nuc[tid] = c;
-    s.sx[tid] = sxv;
-    s.y[tid] = yy;
-    if (HAS_CHI) s.chi[tid] = chi[l];
-#pragma unroll
-    for (int o = 0; o < MAX_OUT; ++o)
-      if (o < n_out) s.a[o][tid] = amps[(size_t)o * Lp + l];
-    // Warp w holds the lines of sub-block w in registers: its tier.
-    const int tier = sub_block_tier(c, sxv, yy, tile_lo, tile_hi);
-    if ((tid & 31) == 0) s_tier[warp] = tier;
-    __syncthreads();
-#pragma unroll 1
-    for (int sb = 0; sb < N_SUB; ++sb) {
-      const int base = sb * SUB_L;
-      switch (s_tier[sb]) {
-        case FAR:
-          accumulate_sub<FAR, HAS_CHI>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-        case MID:
-          accumulate_sub<MID, HAS_CHI>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-        case NEAR3:
-          accumulate_sub<NEAR3, HAS_CHI>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-        default:
-          accumulate_sub<NEAR4, HAS_CHI>(s, base, nu_p, cutoff, n_out, acc);
-          break;
-      }
-    }
-  }
-  float* out = part + (size_t)seg * n_out * Pp;
-#pragma unroll
-  for (int o = 0; o < MAX_OUT; ++o)
-    if (o < n_out) out[(size_t)o * Pp + p] = acc[o];
-}
-
-// out[i] = sum_k part[k, i] over the n_seg segments, in segment order.
-__global__ void __launch_bounds__(SUM_THREADS)
-sum_segments_kernel(const float* __restrict__ part, float* __restrict__ out,
-                    int n_seg, int n) {
-  const int i = blockIdx.x * SUM_THREADS + threadIdx.x;
-  if (i >= n) return;
-  float acc = part[i];
-  for (int k = 1; k < n_seg; ++k) acc += part[(size_t)k * n + i];
-  out[i] = acc;
+  line_sum_item<HAS_CHI, false, false>(
+      LineRows{nuc, sx, yv, chi, amps}, nu, tile, starts[tile] + first,
+      starts[tile] + last, n_out, Lp, Pp, cutoff,
+      part + (size_t)seg * n_out * Pp);
 }
 
 }  // namespace
@@ -190,9 +103,7 @@ int opacity_single_launch(const float* nu, const float* nuc, const float* sx,
         seg_blocks, cutoff);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 1) return static_cast<int>(err);
-  const int n = n_out * Pp;
-  sum_segments_kernel<<<(n + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
-                        s>>>(part, out, n_seg, n);
+  launch_sum_parts(part, out, n_seg, n_out * Pp, 1, s);
   return static_cast<int>(cudaGetLastError());
 }
 

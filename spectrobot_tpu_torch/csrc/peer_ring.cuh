@@ -47,7 +47,6 @@ namespace {
 constexpr int WS_HEADER = 256;          // bytes before recv[0]
 constexpr int WS_READY = 0;             // u64 offset of ready[2]
 constexpr int WS_ARRIVED = 16;          // u64 offset of arrived[2] (byte 128)
-constexpr int CHUNK_FLOATS = 8192;      // 32 KB per copy item
 constexpr int RING_THREADS = 128;
 
 // Per-shard entries of the table: own, left and right workspace bases.
@@ -146,17 +145,19 @@ __device__ __forceinline__ void signal_free(const long long* table, int n_loc,
   }
 }
 
-// Phase 2 for one item: chunk c of shard k's block (n floats at src) into
-// the recv[d] buffer of the shard it sends to.
+// Phase 2 for one item: chunk c (of `chunk` floats, the host's copy item)
+// of shard k's block (n floats at src) into the recv[d] buffer of the shard
+// it sends to.
 template <bool VEC>
 __device__ __forceinline__ void send_chunk(const long long* row, int d,
                                            const float* src, long long n,
-                                           int c, long long cap_floats,
-                                           u64 epoch, long long budget) {
+                                           int c, int chunk,
+                                           long long cap_floats, u64 epoch,
+                                           long long budget) {
   block_wait(ws_ready(row[OWN], d), epoch, budget);
   const long long dst = dst_of(row, d);
-  const long long lo = (long long)c * CHUNK_FLOATS;
-  const long long hi = lo + CHUNK_FLOATS < n ? lo + CHUNK_FLOATS : n;
+  const long long lo = (long long)c * chunk;
+  const long long hi = lo + chunk < n ? lo + chunk : n;
   block_copy<VEC>(ws_recv(dst, d, cap_floats), src, lo, hi);
   block_signal_arrival(ws_arrived(dst, d));
 }

@@ -8,6 +8,12 @@
 //   wr = Re w(x, y) * exp(-chi_b * max(|dnu| - 3, 0)) * [|dnu| <= cutoff]
 //   x = dnu * sx,   dnu = nu[p] - nu_c[i]
 //
+// Every product that meets a sum is written out: fmaf where it is fused,
+// __fmul_rn where it is not.  The compiler's own contraction of a * b + c
+// depends on the code around it, so with plain operators the same pair
+// could round differently in K1, K3 and the fused halo kernel; written out,
+// each pair gives the same wr in every kernel that includes this header.
+//
 // The tier of a (tile, 32-line sub-block) is chosen from a conservative
 // bound on s = |x| + y, uniformly for the sub-block, so the switch over
 // tiers never diverges inside a warp:
@@ -98,32 +104,32 @@ __device__ __forceinline__ void cpoly(const float (&c)[N], float zr, float zi,
   pi = 0.0f;
 #pragma unroll
   for (int k = 1; k < N; ++k) {
-    const float r = pr * zr - pi * zi + c[k];
-    pi = pr * zi + pi * zr;
+    const float r = fmaf(pr, zr, fmaf(-pi, zi, c[k]));
+    pi = fmaf(pr, zi, __fmul_rn(pi, zr));
     pr = r;
   }
 }
 
 // Region I (s >= 15): Re w = c y (0.5 + x^2 + y^2) / |0.5 + t^2|^2.
 __device__ __forceinline__ float wr_region1(float x, float y) {
-  const float y2 = y * y;
-  const float a = 0.5f + y2 - x * x;
+  const float h = fmaf(y, y, 0.5f);
+  const float a = fmaf(-x, x, h);
   const float b = 2.0f * x * y;
-  return INV_SQRT_PI * y * (0.5f + y2 + x * x) / (a * a + b * b);
+  return INV_SQRT_PI * y * fmaf(x, x, h) / fmaf(a, a, __fmul_rn(b, b));
 }
 
 // Region II (s >= 5.5): w = t (1.410474 + c u) / (0.75 + u (3 + u)), u = t^2.
 __device__ __forceinline__ float wr_region2(float x, float y) {
-  const float ur = y * y - x * x;
+  const float ur = fmaf(y, y, __fmul_rn(-x, x));
   const float ui = -2.0f * x * y;
-  const float ar = 1.410474f + INV_SQRT_PI * ur;
+  const float ar = fmaf(INV_SQRT_PI, ur, 1.410474f);
   const float ai = INV_SQRT_PI * ui;
-  const float nr = y * ar + x * ai;
-  const float ni = y * ai - x * ar;
+  const float nr = fmaf(y, ar, __fmul_rn(x, ai));
+  const float ni = fmaf(y, ai, __fmul_rn(-x, ar));
   const float br = 3.0f + ur;
-  const float dr = 0.75f + (ur * br - ui * ui);
-  const float di = ur * ui + ui * br;
-  return (nr * dr + ni * di) / (dr * dr + di * di);
+  const float dr = 0.75f + fmaf(ur, br, __fmul_rn(-ui, ui));
+  const float di = fmaf(ur, ui, __fmul_rn(ui, br));
+  return fmaf(nr, dr, __fmul_rn(ni, di)) / fmaf(dr, dr, __fmul_rn(di, di));
 }
 
 // Region III: w = N3(t) / D3(t), t = y - i x.
@@ -135,7 +141,7 @@ __device__ __forceinline__ float wr_region3(float x, float y) {
   float nr, ni, dr, di;
   cpoly(N3, y, -x, nr, ni);
   cpoly(D3, y, -x, dr, di);
-  return (nr * dr + ni * di) / (dr * dr + di * di);
+  return fmaf(nr, dr, __fmul_rn(ni, di)) / fmaf(dr, dr, __fmul_rn(di, di));
 }
 
 // Region IV: w = exp(u) - t P4(u) / Q4(u), u = t^2.
@@ -144,18 +150,18 @@ __device__ __forceinline__ float wr_region4(float x, float y) {
                        1540.787f, -3321.9905f, 36183.31f};
   const float Q4[8] = {-1.0f, 1.841439f, -61.57037f, 364.2191f,
                        -2186.181f, 9022.228f, -24322.84f, 32066.6f};
-  const float ur = y * y - x * x;
+  const float ur = fmaf(y, y, __fmul_rn(-x, x));
   const float ui = -2.0f * x * y;
   float pr, pi, qr, qi;
   cpoly(P4, ur, ui, pr, pi);
   cpoly(Q4, ur, ui, qr, qi);
-  const float qq = qr * qr + qi * qi;
-  const float fr = (pr * qr + pi * qi) / qq;
-  const float fi = (pi * qr - pr * qi) / qq;
+  const float qq = fmaf(qr, qr, __fmul_rn(qi, qi));
+  const float fr = fmaf(pr, qr, __fmul_rn(pi, qi)) / qq;
+  const float fi = fmaf(pi, qr, __fmul_rn(-pr, qi)) / qq;
   float sn, cs;
   sincosf(ui, &sn, &cs);
   // Re(t F) with t = (y, -x): y fr + x fi.
-  return expf(ur) * cs - (y * fr + x * fi);
+  return fmaf(expf(ur), cs, -fmaf(y, fr, __fmul_rn(x, fi)));
 }
 
 // Pointwise w4 (the near tiers): only the pair's own region is evaluated.
@@ -165,7 +171,7 @@ __device__ __forceinline__ float wr_w4(float x, float y) {
   const float s = ax + y;
   if (s >= 15.0f) return wr_region1(x, y);
   if (s >= 5.5f) return wr_region2(x, y);
-  if (WITH_REGION4 && y < 0.195f * ax - 0.176f) return wr_region4(x, y);
+  if (WITH_REGION4 && y < fmaf(0.195f, ax, -0.176f)) return wr_region4(x, y);
   return wr_region3(x, y);
 }
 

@@ -15,14 +15,15 @@ block) or the loopback ring of ``n`` shards in one process
 
     torchrun --nproc_per_node=4 -m spectrobot_tpu_torch.dma_halo
         [--device {cuda,cpu}] [--dense-lines 20480] [--dense-points 16384]
-        [--cutoff 10] [--block-mb 64] [--repeats 10] [--missing-peer R]
+        [--block-mb 64] [--missing-peer R]
 
 measures the tier against the production one on the cards of one host:
 the ring exchange of the dense case's packed line rows and of a
 ``--block-mb`` block per rank against ``ring_shift`` (NCCL), and the fused
-halo accumulation of ``bench.py:bench_kernel``'s dense shape against
-``parallel/halo.py:halo_accumulate_pallas_fn`` (K3 and NCCL ring shifts);
-every result is checked (the rings bit-equal, the fused sum within K1's
+halo accumulation of ``bench.py:bench_kernel``'s dense shape at a
+``CUTOFF_CM1`` cutoff against ``parallel/halo.py:halo_accumulate_pallas_fn``
+(K3 and NCCL ring shifts), each timed over ``REPEATS`` calls; every result
+is checked (the rings bit-equal, the fused sum within K1's
 budget of the single-card plain sum).  Rank 0 prints one JSON line.  With
 ``--missing-peer R`` rank R never launches: its neighbours' kernels must
 end in a CUDA error within ``parallel.peer.TIMEOUT_S``, not hang (exit 3).
@@ -42,18 +43,23 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from spectrobot_tpu_torch.ops import cuda_dma
 from spectrobot_tpu_torch.ops.cuda_dma import (
     fused_halo_accumulate_cuda, ring_exchange_cuda)
 from spectrobot_tpu_torch.ops.opacity import KernelLines
 from spectrobot_tpu_torch.parallel.halo import (
     ShardedKernelLines, pack_lines, unpack_lines)
 from spectrobot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+from spectrobot_tpu_torch.parallel import peer
 from spectrobot_tpu_torch.parallel.peer import TIMEOUT_S, Ring, mesh_ring
 
 # K1's parity budget (tests/test_pallas_opacity.py:90): |err| <= RTOL |ref|
 # + ATOL_REL max|ref|.
 RTOL, ATOL_REL = 3e-5, 1e-6
 NVLINK_BYTES_S = 450e9      # one direction between two H100s (data sheet)
+# The dense case's line cutoff [cm-1], and the timed calls of each route.
+CUTOFF_CM1 = 10.0
+REPEATS = 10
 
 
 def nu_ring_mesh(device_type: str = "cuda"):
@@ -134,12 +140,12 @@ def fused_halo_accumulate_fn(ring, *, cutoff_cm1: Optional[float] = 25.0):
 # ---------------------------------------------------------------------------
 
 
-def dense_case(device, mesh, *, n_lines: int, n_points: int,
-               cutoff: float):
+def dense_case(device, mesh, *, n_lines: int, n_points: int):
     """``bench.py:bench_kernel``'s dense shape (random lines over 600-740
     cm-1, seed 0, T 220 K, p 300 Pa, p_self 100 Pa, two amplitude rows)
-    over 640-700 cm-1, partitioned over the mesh's nu ranks.  Returns
-    (nu_host, all lines, the partition, this rank's chunk and lines)."""
+    over 640-700 cm-1, partitioned over the mesh's nu ranks at
+    ``CUTOFF_CM1``.  Returns (nu_host, all lines, the partition, this
+    rank's chunk and lines)."""
     from spectrobot_tpu_torch.data.lines import random_lines
     from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
     from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
@@ -154,21 +160,21 @@ def dense_case(device, mesh, *, n_lines: int, n_points: int,
     kl = KernelLines(*(a.contiguous() for a in kl[:4]))
     nu_host = np.linspace(640.0, 700.0, n_points)
     n, k = mesh.shape["nu"], mesh.coord["nu"]
-    edges = halo.nu_shard_edges(nu_host, n, cutoff)
+    edges = halo.nu_shard_edges(nu_host, n, CUTOFF_CM1)
     skl = halo.partition_kernel_lines(kl, dl.nu0, edges)
     nu_loc = torch.as_tensor(nu_host[mesh.block(n_points, "nu")],
                              dtype=torch.float32, device=device)
     return nu_host, kl, skl, nu_loc, halo.shard_lines(skl, k)
 
 
-def _times(fn, repeats: int, device) -> Optional[list]:
-    """Device time of each of ``repeats`` calls after a warm-up [ms], the
+def _times(fn, device) -> Optional[list]:
+    """Device time of each of ``REPEATS`` calls after a warm-up [ms], the
     ranks in step (a barrier before each call); None on the CPU."""
     fn()
     if device.type != "cuda":
         return None
     out = []
-    for _ in range(repeats):
+    for _ in range(REPEATS):
         dist.barrier()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -210,11 +216,9 @@ def _missing_peer(ring: Ring, mesh, device, missing: int) -> int:
     return code
 
 
-def run(device, *, n_lines=20480, n_points=16384, cutoff=10.0,
-        block_mb=64.0, repeats=10) -> dict:
+def run(device, *, n_lines=20480, n_points=16384, block_mb=64.0) -> dict:
     """The measurement on every rank of the ``nu`` ring; returns this
     rank's numbers and checks (raises on a failed check)."""
-    from spectrobot_tpu_torch.ops.cuda_dma import _library
     from spectrobot_tpu_torch.ops.opacity import accumulate_plain
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.collectives import ring_shift
@@ -223,12 +227,12 @@ def run(device, *, n_lines=20480, n_points=16384, cutoff=10.0,
     ring = mesh_ring(mesh)
     n, k = mesh.shape["nu"], mesh.coord["nu"]
     if device.type == "cuda":       # build before any rank waits on a peer
-        _library("dma_ring")
-        _library("dma_halo")
+        peer.library()
+        cuda_dma._library()
         ring.sync_once("dma_ring")
         ring.sync_once("dma_halo")
     nu_host, kl, skl, nu_loc, mine = dense_case(
-        device, mesh, n_lines=n_lines, n_points=n_points, cutoff=cutoff)
+        device, mesh, n_lines=n_lines, n_points=n_points)
     packed = pack_lines(mine).contiguous()
     rows = max(1, int(block_mb * 2 ** 20 / 4 / 4096))
     g = torch.Generator(device=device).manual_seed(k)
@@ -243,22 +247,20 @@ def run(device, *, n_lines=20480, n_points=16384, cutoff=10.0,
                 raise RuntimeError(f"rank {k}: the ring exchange of the "
                                    f"{name} (direction {direction}) differs "
                                    f"from ring_shift")
-        t_dma = _times(lambda: ring_exchange_cuda(ring, x, 1), repeats,
-                       device)
-        t_nccl = _times(lambda: ring_shift(x, mesh, "nu", 1), repeats,
-                        device)
+        t_dma = _times(lambda: ring_exchange_cuda(ring, x, 1), device)
+        t_nccl = _times(lambda: ring_shift(x, mesh, "nu", 1), device)
         nbytes = x.numel() * 4
         out[f"ring {name}"] = {
             "shape": list(x.shape), "bytes": nbytes, "bit_equal": True,
             "dma_ms": _median(t_dma), "ring_shift_ms": _median(t_nccl),
             "nvlink_bound_ms": 1e3 * nbytes / NVLINK_BYTES_S}
 
-    f = fused_halo_accumulate_fn(ring, cutoff_cm1=cutoff)
+    f = fused_halo_accumulate_fn(ring, cutoff_cm1=CUTOFF_CM1)
     prod = halo.halo_accumulate_pallas_fn(mesh, nu_host,
                                           skl.nu_c.cpu().numpy(),
-                                          cutoff_cm1=cutoff)
+                                          cutoff_cm1=CUTOFF_CM1)
     got = f(nu_loc, mine)
-    ref = accumulate_plain(nu_loc, kl, cutoff_cm1=cutoff)
+    ref = accumulate_plain(nu_loc, kl, cutoff_cm1=CUTOFF_CM1)
     got_prod = prod(nu_loc, mine)
     errs = {}
     for name, v in (("fused", got), ("production", got_prod)):
@@ -272,12 +274,11 @@ def run(device, *, n_lines=20480, n_points=16384, cutoff=10.0,
                                f"with the single-card plain sum: "
                                f"{errs[name]}")
     out["fused halo"] = {
-        "lines": n_lines, "points": n_points, "cutoff": cutoff,
+        "lines": n_lines, "points": n_points, "cutoff": CUTOFF_CM1,
         "Lmax": int(skl.nu_c.shape[1]), "P_loc": int(nu_loc.shape[0]),
         "vs_single_card_plain": errs,
-        "dma_ms": _median(_times(lambda: f(nu_loc, mine), repeats, device)),
-        "production_ms": _median(_times(lambda: prod(nu_loc, mine), repeats,
-                                        device))}
+        "dma_ms": _median(_times(lambda: f(nu_loc, mine), device)),
+        "production_ms": _median(_times(lambda: prod(nu_loc, mine), device))}
     ring.close()
     return out
 
@@ -287,9 +288,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--dense-lines", type=int, default=20480)
     p.add_argument("--dense-points", type=int, default=16384)
-    p.add_argument("--cutoff", type=float, default=10.0)
     p.add_argument("--block-mb", type=float, default=64.0)
-    p.add_argument("--repeats", type=int, default=10)
     p.add_argument("--missing-peer", type=int, default=None,
                    help="this rank never launches: its neighbours' kernels "
                         "must end in an error")
@@ -316,8 +315,7 @@ def main(argv=None) -> int:
     device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
               if device.type == "cuda" else device)
     res = run(device, n_lines=args.dense_lines, n_points=args.dense_points,
-              cutoff=args.cutoff, block_mb=args.block_mb,
-              repeats=args.repeats)
+              block_mb=args.block_mb)
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, res)
     if dist.get_rank() == 0:

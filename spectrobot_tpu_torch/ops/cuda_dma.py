@@ -18,8 +18,8 @@ every shard's block along a leading axis, and one launch covers them all.
 
 What bounds them on an H100: the ring, bytes (NVLink's 450 GB/s each way
 between cards, 3.35 TB/s of device memory on the loopback); the fused
-kernel, FP32 arithmetic on the in-cutoff pairs, as K3 (whose per-pair code
-and tier decision it shares, ``csrc/voigt_primal.cuh``).
+kernel, FP32 arithmetic on the in-cutoff pairs, as K3 (whose work item and
+ordered partial sums it runs, ``csrc/line_sum_item.cuh``).
 
 Device rule: a CPU tensor goes to the plain version (``torch.roll`` on the
 loopback, ``parallel.collectives.ring_shift`` on a ring of ranks; the
@@ -38,64 +38,44 @@ from typing import Optional
 
 import torch
 
+from spectrobot_tpu_torch.ops.cuda_opacity import BLOCK_L, TILE_P
+from spectrobot_tpu_torch.ops.cuda_single import MAX_OUT, split_blocks
 from spectrobot_tpu_torch.ops.opacity import accumulate_plain
+from spectrobot_tpu_torch.parallel import peer
 from spectrobot_tpu_torch.parallel.collectives import ring_shift
 from spectrobot_tpu_torch.parallel.halo import (
     _hops, halo_accumulate_fn, pack_lines, unpack_lines)
-from spectrobot_tpu_torch.parallel.peer import TIMEOUT_S, Ring
+from spectrobot_tpu_torch.parallel.peer import CHUNK_FLOATS, TIMEOUT_S, Ring
 
-# Floats per copy item (csrc/peer_ring.cuh CHUNK_FLOATS), points per tile,
-# lines per block and the most amplitude rows (csrc/dma_halo.cu), checked
-# against the libraries when they are loaded.
-CHUNK_FLOATS = 8192
-TILE_P = 128
-BLOCK_L = 128
-MAX_OUT = 8
-# Work items a fused call aims at over its sources and tiles; the line
-# segments follow from it, as K3's do.
-TARGET_ITEMS = 2048
 # Pads of the packed rows: a far center, wide and zero-amplitude.
 PAD_ROWS = (1e9, 1e6, 1e6)
 
 # Kernel launches made by the wrappers in this process.
 RING_LAUNCHES = 0
 HALO_LAUNCHES = 0
-_LIBS: dict = {}
+_LIB = None
 
 
-def _library(name: str) -> ctypes.CDLL:
-    """The kernel library ``name`` (dma_ring or dma_halo), built and bound
-    on first use."""
-    if name not in _LIBS:
+def _library() -> ctypes.CDLL:
+    """The fused kernel's library, built and bound on first use (the ring
+    kernel's is ``parallel.peer.library``).  Its tile, block and row limit
+    are K3's: both kernels include ``csrc/line_sum_item.cuh``."""
+    global _LIB
+    if _LIB is None:
         from spectrobot_tpu_torch.kernels import build
 
-        lib = build.load(name)
+        lib = build.load("dma_halo")
         ptr, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_ulonglong)
-        f32 = ctypes.c_float
-        if name == "dma_ring":
-            if lib.dma_chunk_floats() != CHUNK_FLOATS:
-                raise RuntimeError(f"copy chunk {lib.dma_chunk_floats()} != "
-                                   f"{CHUNK_FLOATS} floats")
-            lib.dma_ring_launch.argtypes = [i32, ptr, ptr, ptr, i64, i64,
-                                            i32, i32, u64, u64, f32, ptr]
-            lib.dma_ring_launch.restype = i32
-            lib.dma_ring_error_string.argtypes = [i32]
-            lib.dma_ring_error_string.restype = ctypes.c_char_p
-        else:
-            geometry = (lib.dma_halo_tile_p(), lib.dma_halo_block_l(),
-                        lib.dma_halo_max_out())
-            if geometry != (TILE_P, BLOCK_L, MAX_OUT):
-                raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                                   f"{(TILE_P, BLOCK_L, MAX_OUT)}")
-            lib.dma_halo_launch.argtypes = [
-                i32, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32,
-                i32, i32, f32, u64, u64, u64, f32, ptr]
-            lib.dma_halo_launch.restype = i32
-            lib.dma_halo_error_string.argtypes = [i32]
-            lib.dma_halo_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return _LIBS[name]
+        lib.dma_halo_launch.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32,
+            i32, i32, ctypes.c_float, i32, u64, u64, u64, ctypes.c_float,
+            ptr]
+        lib.dma_halo_launch.restype = i32
+        lib.dma_halo_error_string.argtypes = [i32]
+        lib.dma_halo_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
 def _raise_on(lib, name: str, rc: int) -> None:
@@ -165,7 +145,7 @@ def ring_exchange_cuda(ring: Ring, x: torch.Tensor,
     _check_kernel_tensor(ring, x, "x")
     if n_floats == 0:
         raise ValueError("the ring exchange takes a non-empty block")
-    lib = _library("dma_ring")
+    lib = peer.library()
     ring.sync_once("dma_ring")
     ws = ring.workspace_for(n_floats)
     epoch, arrived = ring.begin_call({d: chunks})
@@ -175,8 +155,8 @@ def ring_exchange_cuda(ring: Ring, x: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dma_ring_launch(
             dev.index, ws.table.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_floats, ws.cap_floats, ring.local_shards, d, epoch,
-            arrived[d], TIMEOUT_S, stream)
+            n_floats, ws.cap_floats, ring.local_shards, d, CHUNK_FLOATS,
+            epoch, arrived[d], TIMEOUT_S, stream)
         RING_LAUNCHES += 1
     _raise_on(lib, "dma_ring", rc)
     return out
@@ -211,15 +191,6 @@ def fused_halo_accumulate_plain(ring: Ring, nu: torch.Tensor,
             out = out + acc(nu[k], got[k])
         outs.append(out)
     return torch.stack(outs)
-
-
-def segments(n_items: int, n_blocks: int) -> tuple:
-    """(n_seg, seg_blocks): the line segments of each (source, tile) so that
-    a call has about ``TARGET_ITEMS`` work items over ``n_items`` (source,
-    tile) pairs."""
-    n_seg = max(1, min(n_blocks, -(-TARGET_ITEMS // n_items)))
-    seg_blocks = -(-n_blocks // n_seg)
-    return -(-n_blocks // seg_blocks), seg_blocks
 
 
 def _pad_points(nu: torch.Tensor, Pp: int) -> torch.Tensor:
@@ -277,7 +248,7 @@ def fused_halo_accumulate_cuda(ring: Ring, nu: torch.Tensor,
     if n_out > MAX_OUT:
         raise ValueError(f"the kernel takes 1 to {MAX_OUT} amplitude rows, "
                          f"got {n_out}")
-    lib = _library("dma_halo")
+    lib = _library()
     ring.sync_once("dma_halo")
     ws = ring.workspace_for(q * Lp)
     epoch, arrived = ring.begin_call({d: chunks for d in dirs})
@@ -286,8 +257,8 @@ def fused_halo_accumulate_cuda(ring: Ring, nu: torch.Tensor,
     nu_d = _pad_points(nu, Pp)
     pack_d = _pad_lines(packed, Lp)
     n_src = 1 + len(dirs)
-    n_seg, seg_blocks = segments(n_loc * n_src * (Pp // TILE_P),
-                                 Lp // BLOCK_L)
+    n_seg, seg_blocks = split_blocks(n_loc * n_src * (Pp // TILE_P),
+                                     Lp // BLOCK_L)
     dev = nu.device
     part = torch.empty((n_loc, n_src * n_seg, n_out, Pp),
                        dtype=torch.float32, device=dev)
@@ -299,8 +270,8 @@ def fused_halo_accumulate_cuda(ring: Ring, nu: torch.Tensor,
             dev.index, ws.table.data_ptr(), nu_d.data_ptr(),
             pack_d.data_ptr(), part.data_ptr(), out.data_ptr(),
             ws.cap_floats, n_loc, n_out, Pp, Lp, len(dirs), n_seg,
-            seg_blocks, cut, epoch, arrived[0], arrived[1], TIMEOUT_S,
-            stream)
+            seg_blocks, cut, CHUNK_FLOATS, epoch, arrived[0], arrived[1],
+            TIMEOUT_S, stream)
         HALO_LAUNCHES += 1
     _raise_on(lib, "dma_halo", rc)
     out = out[..., :P]

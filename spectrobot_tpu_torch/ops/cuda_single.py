@@ -61,13 +61,20 @@ def accumulate_single_plain(nu_grid, nu_c, scale_x, y, amps, *,
                             cutoff_cm1=cutoff_cm1)
 
 
+def split_blocks(n_items: int, n_blocks: int) -> tuple:
+    """(n_seg, seg_blocks): ``n_blocks`` line blocks cut into segments of
+    ``seg_blocks`` each, so that ``n_items`` (tile, ...) items of
+    ``n_seg`` segments make about ``TARGET_BLOCKS`` thread blocks."""
+    n_seg = max(1, min(n_blocks, -(-TARGET_BLOCKS // n_items)))
+    seg_blocks = -(-n_blocks // n_seg)
+    return -(-n_blocks // seg_blocks), seg_blocks
+
+
 def segments(windows: Windows) -> tuple:
     """(n_seg, seg_blocks): how K3 cuts each tile's window of line blocks
     so that about ``TARGET_BLOCKS`` thread blocks share the work."""
-    n_tiles = windows.nu_pad.shape[0] // TILE_P
-    n_seg = max(1, min(windows.max_blocks, -(-TARGET_BLOCKS // n_tiles)))
-    seg_blocks = -(-windows.max_blocks // n_seg)
-    return -(-windows.max_blocks // seg_blocks), seg_blocks
+    return split_blocks(windows.nu_pad.shape[0] // TILE_P,
+                        windows.max_blocks)
 
 
 def _check(nu_grid, nu_c, scale_x, y, amps, chi_b, *, kernel: bool) -> None:

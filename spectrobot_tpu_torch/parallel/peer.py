@@ -35,33 +35,41 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-# Bytes before the receive buffers (csrc/peer_ring.cuh WS_HEADER, checked
-# against the library when it is loaded).
-HEADER_BYTES = 256
-# A spin on a peer's flag traps after this long: a lost peer ends in a CUDA
-# error instead of a hang.
+# Floats per copy item of the kernels (32 KB): the host counts the chunks
+# each receiver waits for, and passes the size with every launch.
+CHUNK_FLOATS = 8192
+# A spin on a peer's flag traps after this long, counted from the start of
+# the wait: a lost peer ends in a CUDA error instead of a hang.  So the
+# ranks of a ring launch in step: each rank's launch starts within
+# TIMEOUT_S of its neighbours'.  The first launch on a workspace follows the
+# barrier that opens it, and each kernel library's first use a barrier too
+# (Ring.sync_once); host work between calls that skews the ranks by more
+# than this (a rank writing files, a long kernel queued ahead) traps the
+# waiting kernel and loses its process's CUDA context.
 TIMEOUT_S = 5.0
 
 _LIB = None
 _MESH_RINGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _library() -> ctypes.CDLL:
-    """The workspace functions of ``csrc/dma_ring.cu``, built on first use."""
+def library() -> ctypes.CDLL:
+    """The library of ``csrc/dma_ring.cu`` (the ring kernel and the
+    workspace's functions), built and bound on first use."""
     global _LIB
     if _LIB is None:
         from spectrobot_tpu_torch.kernels import build
 
         lib = build.load("dma_ring")
-        if lib.dma_ws_header_bytes() != HEADER_BYTES:
-            raise RuntimeError(f"workspace header {lib.dma_ws_header_bytes()}"
-                               f" != {HEADER_BYTES} bytes")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptr, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_ulonglong)
         for name, args in (("dma_ws_alloc", [i32, i64, ptr]),
                            ("dma_ws_free", [i32, ptr]),
                            ("dma_ipc_get", [i32, ptr, ptr]),
                            ("dma_ipc_open", [i32, ptr, ptr]),
-                           ("dma_ipc_close", [i32, ptr])):
+                           ("dma_ipc_close", [i32, ptr]),
+                           ("dma_ring_launch", [i32, ptr, ptr, ptr, i64, i64,
+                                                i32, i32, i32, u64, u64,
+                                                ctypes.c_float, ptr])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32
         lib.dma_ring_error_string.argtypes = [i32]
@@ -71,7 +79,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _call(name: str, *args) -> None:
-    lib = _library()
+    lib = library()
     rc = getattr(lib, name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc} "
@@ -126,8 +134,8 @@ class PeerWorkspace:
 
 def _alloc(idx: int, cap_floats: int) -> int:
     p = ctypes.c_void_p()
-    _call("dma_ws_alloc", idx, HEADER_BYTES + 8 * cap_floats,
-          ctypes.byref(p))
+    _call("dma_ws_alloc", idx,
+          library().dma_ws_header_bytes() + 8 * cap_floats, ctypes.byref(p))
     return int(p.value)
 
 
@@ -153,7 +161,7 @@ def _open_ranks(mesh, device: torch.device,
     devices = [None] * n
     dist.all_gather_object(devices, idx, group=group)
     check_peer_access(devices)
-    lib = _library()
+    lib = library()
     with torch.cuda.device(device):
         own = _alloc(idx, cap_floats)
         handle = ctypes.create_string_buffer(lib.dma_ipc_handle_bytes())

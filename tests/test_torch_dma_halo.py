@@ -215,7 +215,7 @@ def test_epoch_counts_up_once_per_call():
     packed = torch.zeros(4, 5, 300)
     packed[:, 0] = 1e9
     cuda_dma.fused_halo_accumulate_cuda(ring, nu, packed, cutoff_cm1=5.0)
-    chunks = -(-5 * 384 // cuda_dma.CHUNK_FLOATS)   # lines padded to 384
+    chunks = -(-5 * 384 // peer.CHUNK_FLOATS)       # lines padded to 384
     assert ring.epoch == 4 and ring.arrived == [1 + chunks, 2 + chunks]
 
 
