@@ -15,7 +15,8 @@ Phases, each of which raises (non-zero exit) on failure:
      the chi wing factor; all four Voigt tiers must occur;
   4. K2 (the basis contraction) against its plain version at the same
      inputs with 66 random nonzero coefficient rows (33 Jacobian columns x 2
-     depths); all four tiers must occur;
+     depths), and at the bench's inputs with R = 10 and R = 223 (K2's
+     largest); all four tiers must occur;
   4b. K5 (the transposed basis contraction) against its plain version at
      the same inputs with random cotangent rows: R = 2 (a gradient) on the
      limb, nadir + chi and bench cases, R = 66 (a folded jacrev) on the
@@ -75,8 +76,12 @@ Phases, each of which raises (non-zero exit) on failure:
      warm reverse gradient, and the retrieval's wall time and
      per-iteration median; K3 on its bench-state and dense cases; the warm
      (1, 1, 1) mesh forward against the warm single-device one; K4 on its
-     cases and the config-1 Jacobian; each kernel's bound (the larger of its bytes over the memory rate and its
-     flops over the FP32 rate, counted from this run's inputs).
+     cases and the config-1 Jacobian; each kernel's bound (the larger of its
+     bytes over the memory rate and its flops over the FP32 rate, counted
+     from this run's inputs; for K2 and K4 the largest of the basis flops
+     over the FP32 rate, the contraction's three TF32 passes over the TF32
+     rate and the bytes, with the bound of an FP32-core contraction beside
+     it).
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -145,11 +150,16 @@ GRAD_RTOL, GRAD_ATOL_REL = 2e-5, 1e-5
 # 55, near3 165, near4 300 and TIER_FLOPS_GRAD = 30, 80, 360, 550, one
 # transcendental = 8 flops; each tier adds one region to the branchless
 # evaluation); plus 4 pipeline flops a pair (dnu, x, broadcast, mask) and
-# 2 per FMA of the contraction.
+# 2 per FMA of the contraction.  K2 and K4 contract on the tensor cores
+# in three TF32 passes: their bound is the largest of the basis flops (4
+# per pair and the region's) over the FP32 rate, the contraction's flops
+# (2 per FMA, 4 R FMAs a pair) times TF32_PASSES over the TF32 rate (495
+# TFLOP/s dense, the same sheet) and the bytes over the memory rate.
 REGIONS = ("I", "II", "III", "IV")
 REGION_FLOPS = dict(zip(REGIONS, (14.0, 41.0, 110.0, 135.0)))
 REGION_FLOPS_GRAD = dict(zip(REGIONS, (30.0, 50.0, 280.0, 190.0)))
-FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+TF32_PASSES = 3
 # Acceptance config 1 (tests/test_config1_golden.py: co2_15um_band(j_max=30),
 # 3001 points over 630-705 cm-1): one layer over a blackbody surface.
 CONFIG1 = dict(T_layer=215.0, p_layer_pa=500.0, column_m2=2.0e27,
@@ -1126,6 +1136,22 @@ def bound_ms(pairs: dict, flops: dict, per_pair: float,
                                        else "bytes")
 
 
+def basis_bound_ms(pairs: dict, R: int, n_bytes: float) -> tuple:
+    """(bound in ms, what bounds it, which term) of K2 or K4 at ``R`` rows:
+    the largest of the basis's flops over the FP32 rate, the contraction's
+    TF32_PASSES passes over the TF32 rate, and ``n_bytes`` over the memory
+    rate."""
+    n = sum(pairs.values())
+    terms = {
+        "FP32 basis": sum(v * (REGION_FLOPS_GRAD[r] + 4.0)
+                          for r, v in pairs.items()) / FP32_FLOPS,
+        "TF32 contraction": TF32_PASSES * n * 8.0 * R / TF32_FLOPS,
+        "bytes": n_bytes / HBM_BYTES_S}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            term)
+
+
 def cuda_ms(fn, n: int = 5) -> float:
     """Median device time of ``fn`` over n runs after one warm-up [ms]."""
     fn()
@@ -1221,6 +1247,13 @@ def main() -> int:
                                    case.y, case.amps).items():
             tiers2[k] += v
         rows2[name] = compare_k2(case, coeffs[name])
+    # The narrowest accumulator and the widest at K2's largest R (odd, so
+    # its last n-tile is part padding) at the bench shape.
+    for seed, R in ((3, 10), (4, cb.MAX_ROWS)):
+        C = [c[:, :R].contiguous() for c in
+             coefficient_rows(cases["bench"], (R + 1) // 2, seed)]
+        rows2[f"bench, R = {R}"] = compare_k2(cases["bench"], C)
+        del C
     print(f"K2 tiers over its cases: {json.dumps(tiers2)}")
     check(all(v > 0 for v in tiers2.values()),
           f"not every Voigt tier was exercised by K2: {tiers2}")
@@ -1554,14 +1587,15 @@ def main() -> int:
                                                        device=dev))
         n_bytes = 4.0 * (P + 3 * L + 4 * R * L + R * P
                          + (0 if c.chi_b is None else L))
-        k4_bounds[name] = bound_ms(pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R,
-                                   n_bytes)
+        k4_bounds[name] = basis_bound_ms(pairs, R, n_bytes)
+        fp32_bound = bound_ms(pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R, n_bytes)
         print(f"time K4 {name} [{card}]: kernel {times['K4', name][0]:.3f} "
               f"ms, plain {times['K4', name][1]:.3f} ms ({L} lines x {P} "
               f"points x {R} rows, segments {cs.segments(c.windows)}, row "
               f"groups {cbs.row_groups(R)[0]}); in-cutoff pairs by region "
               f"{json.dumps(pairs)}; bound {k4_bounds[name][0]:.4f} ms "
-              f"({k4_bounds[name][1]}); "
+              f"({k4_bounds[name][2]}); FP32-core bound "
+              f"{fp32_bound[0]:.4f} ms; "
               f"{sum(pairs.values()) / (times['K4', name][0] / 1e3):.4g} "
               f"pairs/s")
     print(f"time config-1 Jacobian [{card}]: {single['config1_jac_ms']:.3f} "
@@ -1600,9 +1634,8 @@ def main() -> int:
     bounds = {
         "opacity_batch": bound_ms(k1_pairs, REGION_FLOPS, 4.0 + 2 * 2,
                                   lines_in + 4.0 * (2 * B * L + 2 * B * P)),
-        "basis_batch": bound_ms(k1_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R2,
-                                lines_in + 4.0 * (4 * B * R2 * L
-                                                  + B * R2 * P)),
+        "basis_batch": basis_bound_ms(k1_pairs, R2, lines_in + 4.0 * (
+            4 * B * R2 * L + B * R2 * P)),
         "basis_transpose": bound_ms(k5_pairs, REGION_FLOPS_GRAD,
                                     4.0 + 8 * 2,
                                     lines_in + 4.0 * (B * 2 * P
@@ -1611,6 +1644,13 @@ def main() -> int:
         "basis_single": k4_bounds["dense, R = 6"],
         **dma["bounds"],
     }
+    k2_fp32 = bound_ms(k1_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R2,
+                       lines_in + 4.0 * (4 * B * R2 * L + B * R2 * P))
+    print(f"K2 (limb, R = {R2}) bound {bounds['basis_batch'][0]:.4f} ms "
+          f"({bounds['basis_batch'][2]}); FP32-core bound "
+          f"{k2_fp32[0]:.4f} ms; K4 (dense, R = 6) bound "
+          f"{bounds['basis_single'][0]:.4f} ms "
+          f"({bounds['basis_single'][2]})")
     print(f"in-cutoff pairs by region (limb): K1/K2 {json.dumps(k1_pairs)}, "
           f"K5 {json.dumps(k5_pairs)}; bounds [ms]: "
           f"{json.dumps({k: v[0] for k, v in bounds.items()})}")

@@ -56,8 +56,10 @@ from spectrobot_tpu_torch.retrieval.state import (
     make_state)
 from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
-# Where each unported feature will come from (ROADMAP.md, Queue 1).
-_LATER_PHYSICS = "ROADMAP Queue 1 item 6 (off-main physics)"
+# Where each unported feature will come from: its item of ROADMAP.md,
+# Queue 1.
+def _item(n: int) -> str:
+    return f"ROADMAP Queue 1 item {n}"
 
 
 def _not_ported(key: str, value, roadmap_item: str):
@@ -71,13 +73,13 @@ def check_ported(cfg) -> None:
     this port does not have yet."""
     c = cfg.compute
     unported = [
-        ("nlte.enabled", cfg.nlte.enabled, _LATER_PHYSICS),
-        ("cia.enabled", cfg.cia.enabled, _LATER_PHYSICS),
+        ("nlte.enabled", cfg.nlte.enabled, _item(1)),
+        ("cia.enabled", cfg.cia.enabled, _item(3)),
         ("instrument.fov_fwhm_km", cfg.instrument.fov_fwhm_km > 0,
-         _LATER_PHYSICS),
-        ("compute.use_lut", c.use_lut, _LATER_PHYSICS),
-        ("compute.variant", c.variant != "humlicek4", _LATER_PHYSICS),
-        ("run.save_optics", cfg.run.save_optics, _LATER_PHYSICS),
+         _item(4)),
+        ("compute.use_lut", c.use_lut, _item(5)),
+        ("compute.variant", c.variant != "humlicek4", _item(7)),
+        ("run.save_optics", cfg.run.save_optics, _item(8)),
     ]
     for key, used, item in unported:
         if used:
@@ -91,7 +93,7 @@ def check_ported(cfg) -> None:
             is_2d = "lat_deg" in z.files
     if is_2d:
         raise _not_ported("scene.atmosphere", src,
-                          _LATER_PHYSICS + ", 2-D atmospheres")
+                          _item(6) + ", 2-D atmospheres")
 
 
 def select_engine(cfg, device: torch.device) -> Engine:

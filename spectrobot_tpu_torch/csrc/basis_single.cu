@@ -14,25 +14,29 @@
 // thread block is K2's (basis_contract.cuh, with the per-pair basis and the
 // tier decision of voigt_basis.cuh), so K4 and K2 agree pair for pair.
 //
-// What bounds it: FP32 work on the CUDA cores, as K2: per live pair the
-// basis (roughly 2.5x the forward's Voigt evaluation) and 4 FMAs per row.
+// What bounds it: as K2, the larger of the basis's FP32 work on the CUDA
+// cores (per live pair roughly 2.5x the forward's Voigt evaluation), the
+// three TF32 passes of the contraction on the tensor cores (4 FMAs per row
+// per pair) and the bytes ([R, P] written once, or n_seg partials).
 //
 // What the design does about it: one state gives K2's grid of one block per
 // (128-point tile, state) only P / 128 blocks.  K4 takes K3's grid instead
 // (csrc/opacity_single.cu): each tile's window of line blocks is cut into
 // segments of seg_blocks blocks, one thread block each, so a single state
-// fills the card.  Within a segment a block runs K2's block: the basis of a
-// group of GROUP lines once into registers, contracted against the rows of
-// a 32-line sub-block staged in shared memory, the [R, 128] output tile in
-// shared memory, one column per thread.  The [n_seg, R, Pp]
-// partial sums are added in segment order by a second pass: deterministic,
-// no atomics, no TF32.  With one segment the first pass writes the result
-// directly and equals K2 at B = 1 bit for bit.
+// fills the card.  Within a segment a block runs K2's block
+// (basis_contract.cuh): 8 warps of 16 points, each pair's basis evaluated
+// once straight into the A fragments, the rows staged by cp.async and
+// split once into B fragments, 3xTF32 mma.sync with the sums of every row
+// in registers.  The [n_seg, R, Pp] partial sums are added in segment
+// order by a second pass: deterministic, no atomics.  With one segment the
+// first pass writes the result directly and equals K2 at B = 1 bit for bit.
+// Occupancy as K2 (basis_batch.cu): ptxas -v gives 80, 122-123 and 210
+// registers at NT = 2, 9 and 28 (8-20 bytes spilled), 3, 2 and 1 blocks
+// of 8 warps per SM.
 //
-// Rows beyond what one block's shared memory holds (MAX_ROWS) are split
-// into row groups, a third grid axis: each group evaluates the basis of its
-// segment anew, so a call of n_grp groups costs n_grp basis evaluations
-// per pair (and one contraction per row, as with one group).
+// Up to MAX_ROWS rows the basis is evaluated once per pair for all of
+// them.  More rows than the registers hold are split into row groups, a
+// third grid axis, each of which evaluates the basis of its segment anew.
 //
 // Build and binding as csrc/basis_batch.cu (nvcc sm_90a, plain C
 // interface, ctypes: spectrobot_tpu_torch/ops/cuda_basis_single.py).
@@ -45,14 +49,15 @@ namespace {
 
 constexpr int SUM_THREADS = 256;
 
-// grid = (Pp / TILE_P, n_seg, n_grp), block = TILE_P threads, G * ROW_BYTES
-// bytes of dynamic shared memory.  nu [Pp]; nuc, sx, y, chi [Lp]; c1..c4
-// [R, Lp]; starts, counts [n_tiles] (window of line blocks per tile);
-// part [n_seg, R, Pp]: segment k of tile t sums the blocks starts[t] +
-// [k seg_blocks, (k + 1) seg_blocks) of its window, for the rows
-// [g G, min((g + 1) G, R)) of row group g.
-template <bool HAS_CHI>
-__global__ void __launch_bounds__(TILE_P)
+// grid = (Pp / TILE_P, n_seg, n_grp), block = THREADS, smem_bytes(G) of
+// dynamic shared memory.  nu [Pp]; nuc, sx, y, chi [Lp]; c1..c4 [R, Lp]
+// (16-byte aligned); starts, counts [n_tiles] (window of line blocks per
+// tile); part [n_seg, R, Pp]: segment k of tile t sums the blocks
+// starts[t] + [k seg_blocks, (k + 1) seg_blocks) of its window, for the
+// rows [g G, min((g + 1) G, R)) of row group g.  NT n-tiles of 8 rows
+// cover G.
+template <int NT, bool HAS_CHI>
+__global__ void __launch_bounds__(THREADS, min_blocks(NT))
 basis_single_kernel(const float* __restrict__ nu,
                     const float* __restrict__ nuc,
                     const float* __restrict__ sx,
@@ -70,30 +75,25 @@ basis_single_kernel(const float* __restrict__ nu,
   const int seg = blockIdx.y;
   const int r0 = blockIdx.z * G;
   const int Rg = min(G, R - r0);
-  const int tid = threadIdx.x;
-  const int p = tile * TILE_P + tid;
 
   extern __shared__ float4 dyn[];
-  float* out_s = reinterpret_cast<float*>(dyn);        // [Rg][TILE_P]
-  float* c_s = out_s + Rg * TILE_P;                     // [4][Rg][SUB_L]
   __shared__ Shared sh;
-
-  for (int r = 0; r < Rg; ++r) out_s[r * TILE_P + tid] = 0.0f;
-  const float nu_p = nu[p];
+  const int p0 = lane_point(tile);
+  const float nu0 = nu[p0], nu1 = nu[p0 + 8];
   float tile_lo, tile_hi;
-  tile_bounds(sh, nu_p, tile_lo, tile_hi);
+  tile_bounds(sh, nu0, nu1, tile_lo, tile_hi);
 
   const float* const cs[4] = {c1 + (size_t)r0 * Lp, c2 + (size_t)r0 * Lp,
                               c3 + (size_t)r0 * Lp, c4 + (size_t)r0 * Lp};
-  const int start = starts[tile];
   const int first = seg * seg_blocks;
   const int last = min(counts[tile], first + seg_blocks);
-  for (int k = first; k < last; ++k)
-    contract_block<HAS_CHI>(sh, nuc, sx, yv, chi, cs, c_s, out_s, Rg, Lp,
-                            (start + k) * BLOCK_L, nu_p, tile_lo, tile_hi,
-                            cutoff);
-  float* out = part + ((size_t)seg * R + r0) * Pp;
-  for (int r = 0; r < Rg; ++r) out[(size_t)r * Pp + p] = out_s[r * TILE_P + tid];
+  float acc[NT][4] = {};
+  contract_window<NT, HAS_CHI>(
+      sh, reinterpret_cast<float*>(dyn), nuc, sx, yv, chi, cs, Rg, Lp,
+      (starts[tile] + first) * BLOCK_L,
+      max(last - first, 0) * GROUPS_PER_BLOCK, nu0, nu1, tile_lo, tile_hi,
+      cutoff, acc);
+  store_rows<NT>(part + ((size_t)seg * R + r0) * Pp, acc, Rg, Pp, p0);
 }
 
 // out[i] = sum_k part[k, i] over the n_seg segments, in segment order.
@@ -114,16 +114,19 @@ cudaError_t launch(const float* nu, const float* nuc, const float* sx,
                    const int* starts, const int* counts, float* dst, int R,
                    int G, int n_grp, int Pp, int Lp, int n_seg,
                    int seg_blocks, float cutoff, cudaStream_t stream) {
-  const int smem = G * ROW_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      basis_single_kernel<HAS_CHI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Pp / TILE_P, n_seg, n_grp);
-  basis_single_kernel<HAS_CHI><<<grid, TILE_P, smem, stream>>>(
-      nu, nuc, sx, y, chi, c1, c2, c3, c4, starts, counts, dst, R, G, Pp, Lp,
-      seg_blocks, cutoff);
-  return cudaGetLastError();
+  return with_width(G, [&](auto width) {
+    constexpr int NT = decltype(width)::value;
+    const int smem = smem_bytes(G);
+    cudaError_t err = cudaFuncSetAttribute(
+        basis_single_kernel<NT, HAS_CHI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(Pp / TILE_P, n_seg, n_grp);
+    basis_single_kernel<NT, HAS_CHI><<<grid, THREADS, smem, stream>>>(
+        nu, nuc, sx, y, chi, c1, c2, c3, c4, starts, counts, dst, R, G, Pp,
+        Lp, seg_blocks, cutoff);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -143,7 +146,8 @@ const char* basis_single_error_string(int code) {
 
 // Launches on `stream` and returns the CUDA error of the launches (0 =
 // launched).  `chi` may be null (no wing correction); cutoff = +inf
-// disables the mask.  R rows in n_grp groups of at most G <= MAX_ROWS.
+// disables the mask; c1..c4 must be 16-byte aligned (cp.async).  R rows
+// in n_grp groups of at most G <= MAX_ROWS.
 // With n_seg > 1, `part` holds [n_seg, R, Pp] floats of scratch; with
 // n_seg == 1 it is not read and may be null.
 int basis_single_launch(const float* nu, const float* nuc, const float* sx,
@@ -154,7 +158,8 @@ int basis_single_launch(const float* nu, const float* nuc, const float* sx,
                         int seg_blocks, float cutoff, void* stream) {
   if (R <= 0 || G <= 0 || G > MAX_ROWS || Pp <= 0 || Pp % TILE_P != 0 ||
       Lp <= 0 || Lp % BLOCK_L != 0 || n_seg < 1 || n_seg > 65535 ||
-      seg_blocks < 1 || (n_seg > 1 && part == nullptr))
+      seg_blocks < 1 || (n_seg > 1 && part == nullptr) ||
+      !rows_aligned(c1, c2, c3, c4))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_grp = (R + G - 1) / G;
   if (n_grp > 65535) return static_cast<int>(cudaErrorInvalidValue);

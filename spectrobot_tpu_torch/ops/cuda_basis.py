@@ -15,12 +15,15 @@ with the basis {K, dK/dx, x dK/dx, dK/dy} of Humlicek's w4 (times chi and
 the cutoff mask) at every (point p, line i) pair of state b.  The rows r
 carry every Jacobian column, so the basis is evaluated once per Jacobian.
 
-What bounds it on an H100: FP32 work on the CUDA cores, the basis (about
-2.5x the forward's Voigt flops) and the contraction (4 FMAs per row per
-pair, 264 at R = 66).  The design (see the source) evaluates each pair's
-basis once into registers, contracts it against rows staged in shared
-memory, and keeps the [R, 128] output tile in shared memory, one column
-per thread: deterministic, no atomics, no TF32.
+What bounds it on an H100: the basis on the CUDA cores (FP32, about 2.5x
+the forward's Voigt flops per pair), the contraction on the tensor cores
+(4 FMAs per row per pair, 264 at R = 66, in three TF32 passes) and the
+[B, R, P] output written once.  The design (see ``csrc/basis_contract.cuh``)
+evaluates each pair's basis once, straight into the A fragments of
+3xTF32 ``mma.sync`` products (hi/lo split, lo.lo dropped: the counterpart
+of the reference's 3-pass HIGH matrix-unit precision), stages the rows by
+``cp.async`` and keeps every row's sums in registers: deterministic, no
+atomics.
 
 Device rule: a CPU tensor goes to :func:`basis_contract_batch_plain`; a
 CUDA tensor always launches the kernel, and a build or launch failure
@@ -39,7 +42,7 @@ from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, _round_up,
     accumulate_batch, accumulate_batch_plain, check_windows, pad_lines)
 from spectrobot_tpu_torch.ops.cuda_basis_single import (
-    basis_contract_single, basis_contract_single_plain)
+    aligned, basis_contract_single, basis_contract_single_plain)
 from spectrobot_tpu_torch.ops.cuda_single import (
     accumulate_single, accumulate_single_plain)
 from spectrobot_tpu_torch.ops.cuda_transpose import (
@@ -47,9 +50,9 @@ from spectrobot_tpu_torch.ops.cuda_transpose import (
     basis_transpose_batch_plain)
 from spectrobot_tpu_torch.ops.opacity import Engine, _basis
 
-# The most coefficient rows one kernel call takes: the Hopper block's
-# 227 KB of shared memory over 1 KB per row (csrc/basis_batch.cu MAX_ROWS,
-# checked against the library when it is loaded).
+# The most coefficient rows one kernel call takes: the rows' sums live in
+# each lane's registers (csrc/basis_contract.cuh MAX_ROWS, checked against
+# the library when it is loaded).
 MAX_ROWS = 223
 
 # Kernel launches made by basis_contract_batch in this process.
@@ -108,9 +111,8 @@ def _check(nu_grid, nu_c, sx, y, C, active, chi_b, *, kernel: bool) -> None:
         if R > MAX_ROWS:
             raise ValueError(
                 f"{R} coefficient rows, but the basis kernel holds at most "
-                f"{MAX_ROWS} (its [R, 128] output tile and staged rows "
-                f"live in shared memory); take the Jacobian in chunks "
-                f"(retrieval.jac_chunk)")
+                f"{MAX_ROWS} (the sums of every row live in registers); "
+                f"take the Jacobian in chunks (retrieval.jac_chunk)")
     want = {"nu_c": (nu_c, (B, L)), "sx": (sx, (B, L)), "y": (y, (B, L))}
     for k, c in enumerate(C, 1):
         want[f"C{k}"] = (c, (B, R, L))
@@ -200,7 +202,7 @@ def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
     nuc_d = pad_lines(nu_c, Lp, win.far)
     sx_d, y_d = pad_lines(sx, Lp, 1e6), pad_lines(y, Lp, 1e6)
     chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
-    C_d = [pad_lines(c, Lp, 0.0) for c in C]
+    C_d = [aligned(pad_lines(c, Lp, 0.0)) for c in C]
     if active is None:
         active = torch.stack([(c != 0).flatten(1).any(1) for c in C]).any(0)
     active = active.to(torch.int32).contiguous()

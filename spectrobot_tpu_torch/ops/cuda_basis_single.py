@@ -14,13 +14,15 @@ the cutoff mask) at every (point p, line i) pair of the one state.  Under
 ``torch.func.jacfwd`` the rows carry every Jacobian column, so the basis is
 evaluated once per Jacobian.
 
-What bounds it on an H100: FP32 work on the CUDA cores, as K2 (whose
-per-pair code and tier decision it shares, ``csrc/voigt_basis.cuh``).  One
-state gives K2's grid only P/128 blocks, so K4 takes K3's grid (tile, line
-segment; ``ops.cuda_single.segments``) and adds the segments' [R, P]
-partial sums in a fixed order in a second pass: deterministic, no atomics.
-More rows than one block holds (``MAX_ROWS``) are split into row groups,
-each of which evaluates the basis anew.
+What bounds it on an H100: as K2 (whose thread block it runs,
+``csrc/basis_contract.cuh``: the basis once per pair on the CUDA cores,
+straight into 3xTF32 ``mma.sync`` products on the tensor cores, every
+row's sums in registers).  One state gives K2's grid only P/128 blocks, so
+K4 takes K3's grid (tile, line segment; ``ops.cuda_single.segments``) and
+adds the segments' [R, P] partial sums in a fixed order in a second pass:
+deterministic, no atomics.  More rows than the registers hold
+(``MAX_ROWS``) are split into row groups, each of which evaluates the
+basis anew.
 
 Device rule: a CPU tensor goes to :func:`basis_contract_single_plain`; a
 CUDA tensor always launches the kernel, and a build or launch failure
@@ -41,8 +43,9 @@ from spectrobot_tpu_torch.ops.cuda_opacity import (
 from spectrobot_tpu_torch.ops.cuda_single import segments
 from spectrobot_tpu_torch.ops.opacity import _basis
 
-# The most coefficient rows one thread block holds (csrc/basis_single.cu
-# MAX_ROWS, K2's limit; checked against the library when it is loaded).
+# The most coefficient rows one thread block holds in registers
+# (csrc/basis_contract.cuh MAX_ROWS, K2's limit; checked against the
+# library when it is loaded).
 # A call takes any number: its rows are split into groups of at most this.
 MAX_ROWS = 223
 
@@ -79,6 +82,12 @@ def row_groups(R: int) -> tuple:
     ``MAX_ROWS``, as even as the count allows."""
     n_grp = -(-R // MAX_ROWS)
     return n_grp, -(-R // n_grp)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary (K2 and K4 copy coefficient rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(nu_grid, nu_c, sx, y, C, chi_b, *, kernel: bool) -> None:
@@ -161,7 +170,7 @@ def basis_contract_single(nu_grid: torch.Tensor, windows: Windows,
     nuc_d = pad_lines(nu_c, Lp, win.far)
     sx_d, y_d = pad_lines(sx, Lp, 1e6), pad_lines(y, Lp, 1e6)
     chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
-    C_d = [pad_lines(c, Lp, 0.0) for c in C]
+    C_d = [aligned(pad_lines(c, Lp, 0.0)) for c in C]
     n_seg, seg_blocks = segments(win)
     _, G = row_groups(R)
     part = (None if n_seg == 1 else

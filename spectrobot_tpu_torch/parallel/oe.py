@@ -140,7 +140,7 @@ def make_sharded_oe(
     if lut is not None:
         raise NotImplementedError(
             "compute.use_lut with a mesh is not ported to "
-            "spectrobot_tpu_torch yet (ROADMAP Queue 1 item 6)")
+            "spectrobot_tpu_torch yet (ROADMAP Queue 1 item 5)")
     is_limb = tangent_heights_m is not None
     if not is_limb and sec_theta is None:
         raise ValueError("pass tangent_heights_m (limb) or sec_theta (nadir)")

@@ -110,6 +110,29 @@ def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
     assert not os.path.exists(os.path.join(tmp_path, "forward.npz"))
 
 
+@pytest.mark.parametrize("override,item", [
+    ({"nlte.enabled": "true"}, 1),
+    ({"cia.enabled": "true"}, 3),
+    ({"instrument.fov_fwhm_km": "3.0"}, 4),
+    ({"compute.use_lut": "true"}, 5),
+    ({"scene.atmosphere": "mars_zonal"}, 6),
+    ({"compute.variant": "weideman"}, 7),
+    ({"run.save_optics": "true"}, 8),
+])
+def test_each_refusal_names_its_roadmap_item(tiny_toml, override, item):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP Queue 1 item {item}\b"):
+        cli.check_ported(load_config(tiny_toml, override))
+
+
+def test_sharded_lut_refusal_names_its_roadmap_item():
+    from spectrobot_tpu_torch.parallel.oe import make_sharded_oe
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP Queue 1 item 5\b"):
+        make_sharded_oe(None, None, None, None, [], None, state_template={},
+                        lut=object())
+
+
 def _jax_retrieve(toml, overrides, out_dir, x64=True):
     import jax
 

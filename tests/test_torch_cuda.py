@@ -101,10 +101,17 @@ def _basis_inputs(device, n_rows=10, seed=1, **kw):
     return nu, nu0, nc, sx, y, C, chi
 
 
+# Row counts of the tensor-core contraction: one n-tile (1, 2), the
+# narrowest accumulator (10), the slice's 66 and 68 (not multiples of 8
+# over three n-tile chunks), and the widest accumulator at K2's largest R.
+BASIS_ROWS = [1, 2, 10, 66, 68, 223]
+
+
+@pytest.mark.parametrize("n_rows", BASIS_ROWS)
 @pytest.mark.parametrize("with_chi", [False, True])
 @pytest.mark.parametrize("cutoff", [25.0, None])
-def test_basis_kernel_matches_plain(cuda, with_chi, cutoff):
-    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda)
+def test_basis_kernel_matches_plain(cuda, n_rows, with_chi, cutoff):
+    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda, n_rows=n_rows)
     chi = chi if with_chi else None
     before = cb.LAUNCHES
     win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
@@ -114,7 +121,7 @@ def test_basis_kernel_matches_plain(cuda, with_chi, cutoff):
     assert cb.LAUNCHES == before + 1
     ref = cb.basis_contract_batch_plain(nu, nc, sx, y, *C, cutoff_cm1=cutoff,
                                         chi_b=chi)
-    assert got.shape == ref.shape == (nc.shape[0], 10, nu.shape[0])
+    assert got.shape == ref.shape == (nc.shape[0], n_rows, nu.shape[0])
     assert torch.all(got[2] == 0)            # the dead state
     # The reference's basis-kernel parity (tests/test_pallas_jacobian.py).
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
@@ -135,8 +142,9 @@ def test_basis_kernel_takes_the_scene_windows(cuda):
                                 y, *C)
 
 
-def test_basis_kernel_is_deterministic(cuda):
-    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda)
+@pytest.mark.parametrize("n_rows", [10, 66, 223])
+def test_basis_kernel_is_deterministic(cuda, n_rows):
+    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda, n_rows=n_rows)
     win = co.line_windows(nu, nu0)
     a = cb.basis_contract_batch(nu, win, nc, sx, y, *C, chi_b=chi)
     b = cb.basis_contract_batch(nu, win, nc, sx, y, *C, chi_b=chi)
@@ -159,6 +167,25 @@ def test_basis_kernel_rejects_what_it_does_not_take(cuda):
     torch.cuda.synchronize()
     assert cb.LAUNCHES == before + 1 and out.shape[1] == cb.MAX_ROWS
     assert torch.equal(out[:, 0], out[:, -1])
+
+
+def test_basis_kernels_take_rows_off_a_16_byte_boundary(cuda):
+    """The kernels copy coefficient rows 16 bytes at a time: rows that
+    start one float into their storage (L a multiple of 128, so no padding
+    copy) are copied by the wrappers and give the aligned rows' result."""
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    nu, nu0, nc, sx, y, C, _ = _basis_inputs(cuda, n_lines=256)
+    win = co.line_windows(nu, nu0)
+    off = [torch.empty(c.numel() + 1, device=cuda)[1:].view_as(c).copy_(c)
+           for c in C]
+    assert all(c.data_ptr() % 16 != 0 and c.is_contiguous() for c in off)
+    assert torch.equal(cb.basis_contract_batch(nu, win, nc, sx, y, *off),
+                       cb.basis_contract_batch(nu, win, nc, sx, y, *C))
+    one = [c[3] for c in off]
+    assert torch.equal(
+        cbs.basis_contract_single(nu, win, nc[3], sx[3], y[3], *one),
+        cbs.basis_contract_single(nu, win, nc[3], sx[3], y[3],
+                                  *(c[3] for c in C)))
 
 
 def test_jacobian_through_the_kernels_matches_plain(cuda):
@@ -406,7 +433,7 @@ def _single_basis_inputs(device, n_rows, seed=5, **kw):
     return nu, nu0, nc, sx, y, C, chi
 
 
-@pytest.mark.parametrize("n_rows", [1, 6, 66, 300])
+@pytest.mark.parametrize("n_rows", sorted(BASIS_ROWS + [6, 300]))
 @pytest.mark.parametrize("cutoff", [25.0, None])
 def test_single_basis_kernel_matches_plain(cuda, n_rows, cutoff):
     """K4 against its plain version, with and without chi, over several
@@ -430,12 +457,14 @@ def test_single_basis_kernel_matches_plain(cuda, n_rows, cutoff):
             ref.abs().max())
 
 
-def test_single_basis_kernel_is_k2_pair_for_pair(cuda):
+@pytest.mark.parametrize("n_rows", [10, 66, 223])
+def test_single_basis_kernel_is_k2_pair_for_pair(cuda, n_rows):
     """With one segment (a window of one line block) and one row group K4
-    runs K2's block on the one state: equal to K2 at B = 1, bit for bit."""
+    runs K2's block on the one state: equal to K2 at B = 1, bit for bit, at
+    each accumulator width."""
     from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
-    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(cuda, 10, n_lines=100,
-                                                      n_points=1000)
+    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(
+        cuda, n_rows, n_lines=100, n_points=1000)
     win = co.line_windows(nu, nu0)
     assert segments(win) == (1, 1)
     for chi_b in (None, chi):
@@ -447,9 +476,10 @@ def test_single_basis_kernel_is_k2_pair_for_pair(cuda):
         assert torch.equal(k4, k2[0])
 
 
-def test_single_basis_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("n_rows", [12, 68])
+def test_single_basis_kernel_is_deterministic(cuda, n_rows):
     from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
-    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(cuda, 12)
+    nu, nu0, nc, sx, y, C, chi = _single_basis_inputs(cuda, n_rows)
     win = co.line_windows(nu, nu0, cutoff_cm1=None)
     a = cbs.basis_contract_single(nu, win, nc, sx, y, *C, cutoff_cm1=None,
                                   chi_b=chi)

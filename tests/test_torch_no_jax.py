@@ -1,8 +1,8 @@
 """The port runs where JAX and the JAX package are not installed: every
 module of spectrobot_tpu_torch (the mesh's parallel/, K3's
 ops/cuda_single.py, K4's ops/cuda_basis_single.py and the remote-copy
-tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py among them) and
-chip_smoke.py imports, and the tiny forward and retrieval (``python -m
+tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py among them),
+chip_smoke.py and ablate_basis.py import, and the tiny forward and retrieval (``python -m
 spectrobot_tpu_torch``), a config-1 Jacobian and the adjoint tool
 (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
 interpreter that holds no jax and no module of spectrobot_tpu."""
@@ -33,6 +33,7 @@ for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer"):
     assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
+import ablate_basis
 import torch
 from spectrobot_tpu_torch.data.synth import co2_15um_band
 from spectrobot_tpu_torch.forward.model import nadir_single_layer
