@@ -81,7 +81,8 @@ Phases, each of which raises (non-zero exit) on failure:
      from this run's inputs; for K2 and K4 the largest of the basis flops
      over the FP32 rate, the contraction's three TF32 passes over the TF32
      rate and the bytes, with the bound of an FP32-core contraction beside
-     it).
+     it); K1's and K5's bounds also at the bench scale and K5's at R = 66,
+     beside their times.
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -391,7 +392,7 @@ def cotangent_rows(case: K1Case, R: int, seed: int) -> torch.Tensor:
 
 def compare_k5(case: K1Case, ct: torch.Tensor) -> dict:
     from spectrobot_tpu_torch.ops.cuda_transpose import (
-        basis_transpose_batch, basis_transpose_batch_plain)
+        basis_transpose_batch, basis_transpose_batch_plain, segments)
 
     got = basis_transpose_batch(case.nu, case.windows, case.nu_c, case.sx,
                                 case.y, ct, chi_b=case.chi_b)
@@ -409,6 +410,8 @@ def compare_k5(case: K1Case, ct: torch.Tensor) -> dict:
     row = {"case": case.name, "states": int(case.nu_c.shape[0]),
            "checked": int(idx.numel()), "lines": int(case.nu_c.shape[1]),
            "points": int(case.nu.shape[0]), "rows": int(ct.shape[1]),
+           "segments": segments(case.windows, case.nu_c.shape[0],
+                                ct.shape[1]),
            "max_abs_err": max(errs),
            "outputs": {k: {"max_abs_err": e, "max_ref": m}
                        for k, e, m in zip(("K", "Kx", "xKx", "Ky"), errs,
@@ -1654,6 +1657,27 @@ def main() -> int:
     print(f"in-cutoff pairs by region (limb): K1/K2 {json.dumps(k1_pairs)}, "
           f"K5 {json.dumps(k5_pairs)}; bounds [ms]: "
           f"{json.dumps({k: v[0] for k, v in bounds.items()})}")
+    k5_66_bound = bound_ms(k5_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R2,
+                           lines_in + 4.0 * (B * R2 * P + 4 * B * R2 * L))
+    # The same bounds at the bench scale, beside the bench times.
+    c = cases["bench"]
+    Bb, Lb, Pb = c.nu_c.shape[0], c.nu_c.shape[1], c.nu.shape[0]
+    lines_b = 4.0 * (Pb + 3 * Bb * Lb)
+    k1b_pairs = region_counts(c, c.amps.flatten(1).ne(0).any(1))
+    k5b_pairs = region_counts(c, cots["bench", 2].flatten(1).ne(0).any(1))
+    k1b = bound_ms(k1b_pairs, REGION_FLOPS, 4.0 + 2 * 2,
+                   lines_b + 4.0 * (2 * Bb * Lb + 2 * Bb * Pb))
+    k5b = bound_ms(k5b_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * 2,
+                   lines_b + 4.0 * (Bb * 2 * Pb + 4 * Bb * 2 * Lb))
+    print(f"bounds beside the times [{card}]: K1 limb "
+          f"{times['K1', 'limb'][0]:.3f} ms vs {bounds['opacity_batch'][0]:.4f}"
+          f" ms; K1 bench {times['K1', 'bench'][0]:.3f} ms vs {k1b[0]:.4f} "
+          f"ms ({k1b[1]}); K5 limb R = 2 {times['K5', 'limb'][0]:.3f} ms vs "
+          f"{bounds['basis_transpose'][0]:.4f} ms; K5 limb R = {R2} "
+          f"{k5_66:.3f} ms vs {k5_66_bound[0]:.4f} ms ({k5_66_bound[1]}); "
+          f"K5 bench R = 2 {k5_bench:.3f} ms vs {k5b[0]:.4f} ms ({k5b[1]}); "
+          f"in-cutoff pairs by region (bench): K1 {json.dumps(k1b_pairs)}, "
+          f"K5 {json.dumps(k5b_pairs)}")
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -15,11 +15,16 @@ Per (point, line) pair the Humlicek evaluation costs, by tier (the
 reference's ``bench.py:_dense_tier_mix`` / ``TIER_FLOPS`` reckoning), about
 14 flops (far), 55 (mid), 165 (near3) and 300 (near4), while the inputs are
 a few floats per line and per point.  The kernel's design works on the
-flops: dead states and out-of-window line blocks are never evaluated, the
-tier is picked once per 32-line sub-block so most pairs run the 14-flop
-region-1 rational, near-tier pairs evaluate only their own region, and
-pairs beyond the cutoff skip the line shape.  The line reduction (an MXU
-matmul on the TPU) is an FMA into two registers per thread, in line order.
+instructions it issues per pair: dead states and out-of-window line blocks
+are never evaluated, each 32-line sub-block is cut to its run of lines
+that can reach the tile, the tier is picked once per sub-block so most
+pairs run the 14-flop region-1 rational, near-tier pairs evaluate only
+their own region, and each staged line (two shared-memory broadcasts)
+serves two grid points per thread.  The line reduction (an MXU matmul on
+the TPU) is an FMA into two registers per point, in line order, so the
+sums are those of a plain loop over every line, bit for bit.  The kernel
+reads the unpadded rows and decides which states are dead itself: the
+wrapper allocates the output and launches it, nothing else.
 
 Device rule: a CPU tensor goes to :func:`accumulate_batch_plain`; a CUDA
 tensor always launches the kernel, and a build or launch failure raises.
@@ -188,6 +193,7 @@ class Windows:
     n_lines: int               # L
     cutoff_cm1: Optional[float]
     max_blocks: int            # the longest tile window, in line blocks
+    max_tiles: int             # the longest line block window, in tiles
 
 
 def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
@@ -205,9 +211,10 @@ def line_windows(nu_grid, nu0_host, *, cutoff_cm1: Optional[float] = 25.0,
     nu_pad, _, far, *tables = _padded_windows(nu, nu0, TILE_P, BLOCK_L,
                                               cutoff_cm1)
     on = lambda a: torch.as_tensor(a, device=device)
+    longest = lambda c: max(int(c.max()) if c.size else 0, 1)
     return Windows(on(nu_pad), float(far), *(on(t) for t in tables),
-                   len(nu), len(nu0), cutoff_cm1,
-                   max(int(tables[1].max()) if tables[1].size else 0, 1))
+                   len(nu), len(nu0), cutoff_cm1, longest(tables[1]),
+                   longest(tables[3]))
 
 
 def all_block_windows(nu_grid, n_lines: int, *,
@@ -254,9 +261,11 @@ def pad_lines(a: torch.Tensor, Lp: int, fill: float) -> torch.Tensor:
 
 
 def tier_counts(windows: Windows, nu_c, scale_x, y, amps) -> dict:
-    """How many (live state, tile, sub-block) triples the kernels (K1, K2
-    and K5) evaluate in each tier, reckoned on the host from the same window
-    table, padding and float32 bound as the kernels.  ``windows``: the
+    """How many (live state, tile, sub-block) triples of the window tables
+    the kernels (K1, K2 and K5) decide in each tier, reckoned on the host
+    from the same window table, padding and float32 bound as the kernels
+    (K1 and K5 then skip the lines, or tiles, of a triple that lie beyond
+    the cutoff).  ``windows``: the
     call's :class:`Windows`; the line states as the kernel wrappers take
     them (tensors or arrays).  A state is live where its ``amps`` (any
     [B, ...] array) has a nonzero entry: K5 passes its cotangent rows, or
@@ -374,8 +383,9 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError(f"kernel geometry {geometry} != wrapper "
                                f"{(TILE_P, BLOCK_L, SUB_L)}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.opacity_batch_launch.argtypes = [ptr] * 10 + [
-            i32, i32, i32, ctypes.c_float, ptr]
+        f32 = ctypes.c_float
+        lib.opacity_batch_launch.argtypes = [ptr] * 9 + [
+            i32, i32, i32, i32, f32, f32, ptr]
         lib.opacity_batch_launch.restype = i32
         lib.opacity_batch_error_string.argtypes = [i32]
         lib.opacity_batch_error_string.restype = ctypes.c_char_p
@@ -415,24 +425,19 @@ def accumulate_batch(nu_grid: torch.Tensor, windows: Windows,
     lib = _library()
 
     dev = nu_grid.device
-    Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
-    nuc_d = pad_lines(nu_c, Lp, win.far)
-    sx_d, y_d = pad_lines(scale_x, Lp, 1e6), pad_lines(y, Lp, 1e6)
-    chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
-    amps_d = pad_lines(amps, Lp, 0.0)
-    active = (amps != 0).reshape(B, -1).any(dim=1).to(torch.int32)
-    out = torch.empty((B, 2, Pp), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 2, P), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.opacity_batch_launch(
-            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
-            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
-            amps_d.data_ptr(), win.starts.data_ptr(), win.counts.data_ptr(),
-            active.data_ptr(), out.data_ptr(), B, Pp, Lp, cut, stream)
+            win.nu_pad.data_ptr(), nu_c.data_ptr(), scale_x.data_ptr(),
+            y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),
+            amps.data_ptr(), win.starts.data_ptr(), win.counts.data_ptr(),
+            out.data_ptr(), B, P, win.nu_pad.shape[0], L, win.far, cut,
+            stream)
         LAUNCHES += 1
     if rc != 0:
         msg = lib.opacity_batch_error_string(rc).decode()
         raise RuntimeError(f"opacity_batch kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
-    return out[:, :, :P]
+    return out

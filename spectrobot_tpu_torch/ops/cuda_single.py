@@ -61,11 +61,13 @@ def accumulate_single_plain(nu_grid, nu_c, scale_x, y, amps, *,
                             cutoff_cm1=cutoff_cm1)
 
 
-def split_blocks(n_items: int, n_blocks: int) -> tuple:
-    """(n_seg, seg_blocks): ``n_blocks`` line blocks cut into segments of
-    ``seg_blocks`` each, so that ``n_items`` (tile, ...) items of
-    ``n_seg`` segments make about ``TARGET_BLOCKS`` thread blocks."""
-    n_seg = max(1, min(n_blocks, -(-TARGET_BLOCKS // n_items)))
+def split_blocks(n_items: int, n_blocks: int,
+                 target: int = TARGET_BLOCKS) -> tuple:
+    """(n_seg, seg_blocks): a window of ``n_blocks`` blocks (line blocks,
+    or tiles for K5) cut into segments of ``seg_blocks`` each, so that
+    ``n_items`` items of ``n_seg`` segments make about ``target`` thread
+    blocks."""
+    n_seg = max(1, min(n_blocks, -(-target // n_items)))
     seg_blocks = -(-n_blocks // n_seg)
     return -(-n_blocks // seg_blocks), seg_blocks
 

@@ -18,10 +18,15 @@ What bounds it on an H100: FP32 work on the CUDA cores, the basis (about
 2.5x the forward's Voigt flops per pair) and 4 FMAs per cotangent row per
 pair; the bytes (the cotangent rows read once per visited tile, the
 outputs written once) are small beside it.  The design (see the source):
-one block per (128-line block, state), one line per thread, the block
-walking its tile window with the tile's rows staged in shared memory; each
-line's sums in fp32 in point order, in registers at R <= 2 and in shared
-memory above; deterministic, no atomics, no TF32.
+one block per (128-line block, state, segment of the tile window, chunk of
+rows), one line per thread, the block walking its segment with the tile's
+rows staged in shared memory; each line's sums in registers, in fp32 and
+in point order (all of them at R <= 2, 8 rows a block above); a warp skips
+the tiles beyond the cutoff of its lines and the block those whose rows
+are all zero; the segments' partial sums are added in a fixed order by the
+last block to finish.  Deterministic, no atomics on values, no TF32.  The
+kernel reads the unpadded rows: the wrapper allocates the outputs (and the
+partial sums' workspace) and launches it, nothing else.
 
 Device rule: a CPU tensor goes to :func:`basis_transpose_batch_plain`; a
 CUDA tensor always launches the kernel, and a build or launch failure
@@ -37,19 +42,30 @@ from typing import Optional, Tuple
 import torch
 
 from spectrobot_tpu_torch.ops.cuda_opacity import (
-    BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, _round_up, check_windows,
-    pad_lines)
+    BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, check_windows)
+from spectrobot_tpu_torch.ops.cuda_single import split_blocks
 from spectrobot_tpu_torch.ops.opacity import tangent_transpose_plain
 
-# The most cotangent rows one kernel call takes: the Hopper block's 227 KB
-# of shared memory over 2.5 KB per row (a staged tile row and four
-# accumulator rows; csrc/basis_transpose.cu MAX_ROWS, checked against the
-# library when it is loaded).
+# The most cotangent rows one kernel call takes (csrc/basis_transpose.cu
+# MAX_ROWS, checked against the library when it is loaded); a thread block
+# holds the sums of REG_ROWS rows at R <= REG_ROWS, else of CHUNK_ROWS, in
+# registers.
 MAX_ROWS = 89
+REG_ROWS = 2
+CHUNK_ROWS = 8
+
+# Thread blocks a call aims at: about four waves of the 8 blocks of 128
+# threads an SM holds at R <= 2 (64 registers a thread) on the H100's 132
+# SMs, so that the segments' uneven work (a tile at a line's center costs
+# many times one in its wing) evens out.
+TARGET_BLOCKS = 4096
 
 # Kernel launches made by basis_transpose_batch in this process.
 LAUNCHES = 0
 _LIB = None
+# Per (device, stream): the kernel's arrival counters, zero between calls
+# (each launch leaves them zero), so that no call runs a fill kernel.
+_COUNTERS: dict = {}
 
 Projections = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -77,6 +93,34 @@ def basis_transpose_batch_plain(nu_grid, nu_c, sx, y, ct, *,
     return tuple(torch.cat(o) for o in zip(*parts))
 
 
+def row_chunks(n_rows: int) -> int:
+    """The thread blocks the kernel gives each (line block, state, segment)
+    for ``n_rows`` cotangent rows: one at R <= REG_ROWS, else one per
+    CHUNK_ROWS rows."""
+    return 1 if n_rows <= REG_ROWS else -(-n_rows // CHUNK_ROWS)
+
+
+def segments(windows: Windows, n_states: int, n_rows: int = 2) -> tuple:
+    """(n_seg, seg_tiles): how the kernel cuts each line block's window of
+    tiles so that the (line block, state, segment, row chunk) grid makes
+    about ``TARGET_BLOCKS`` thread blocks; every window fits in n_seg
+    segments of seg_tiles tiles."""
+    return split_blocks(windows.starts_T.shape[0] * max(n_states, 1)
+                        * row_chunks(n_rows), windows.max_tiles,
+                        TARGET_BLOCKS)
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 arrival counters for launches on
+    ``stream`` (each launch leaves them zero), allocated once."""
+    key = (dev, stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < n:
+        have = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=dev)
+    return have
+
+
 def _check(nu_grid, nu_c, sx, y, ct, chi_b, *, kernel: bool) -> None:
     """Raise on inputs of the wrong shape or on mixed devices; with
     ``kernel``, also on what the kernel does not take (more states or rows
@@ -93,9 +137,8 @@ def _check(nu_grid, nu_c, sx, y, ct, chi_b, *, kernel: bool) -> None:
             raise ValueError(f"at most 65535 states per call, got {B}")
         if R > MAX_ROWS:
             raise ValueError(
-                f"{R} cotangent rows, but the transpose kernel holds at most "
-                f"{MAX_ROWS} (each line's sums and the staged tile rows live "
-                f"in shared memory); ops.opacity.BasisTranspose splits a "
+                f"{R} cotangent rows, but the transpose kernel takes at most "
+                f"{MAX_ROWS} a call; ops.opacity.BasisTranspose splits a "
                 f"folded jacrev batch into calls of at most {MAX_ROWS} rows")
     want = {"nu_c": (nu_c, (B, L)), "sx": (sx, (B, L)), "y": (y, (B, L)),
             "ct": (ct, (B, R, nu_grid.shape[0]))}
@@ -125,13 +168,17 @@ def _library() -> ctypes.CDLL:
         geometry = (lib.basis_transpose_tile_p(),
                     lib.basis_transpose_block_l(),
                     lib.basis_transpose_sub_l(),
+                    lib.basis_transpose_reg_rows(),
+                    lib.basis_transpose_chunk_rows(),
                     lib.basis_transpose_max_rows())
-        if geometry != (TILE_P, BLOCK_L, SUB_L, MAX_ROWS):
+        want = (TILE_P, BLOCK_L, SUB_L, REG_ROWS, CHUNK_ROWS, MAX_ROWS)
+        if geometry != want:
             raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{(TILE_P, BLOCK_L, SUB_L, MAX_ROWS)}")
+                               f"{want}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.basis_transpose_launch.argtypes = [ptr] * 13 + [
-            i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        f32 = ctypes.c_float
+        lib.basis_transpose_launch.argtypes = [ptr] * 14 + [
+            i32] * 8 + [f32, f32, ptr]
         lib.basis_transpose_launch.restype = i32
         lib.basis_transpose_error_string.argtypes = [i32]
         lib.basis_transpose_error_string.restype = ctypes.c_char_p
@@ -172,26 +219,30 @@ def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
     lib = _library()
 
     dev = nu_grid.device
-    Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
-    nuc_d = pad_lines(nu_c, Lp, win.far)
-    sx_d, y_d = pad_lines(sx, Lp, 1e6), pad_lines(y, Lp, 1e6)
-    chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
-    ct_d = pad_lines(ct, Pp, 0.0)            # pads the point axis with zeros
-    active = (ct != 0).reshape(B, -1).any(dim=1).to(torch.int32)
-    outs = [torch.empty((B, R, Lp), dtype=torch.float32, device=dev)
+    n_lblk = win.starts_T.shape[0]
+    n_seg, seg_tiles = segments(win, B, R)
+    nu_c, sx, y, ct = (a.contiguous() for a in (nu_c, sx, y, ct))
+    chi_b = None if chi_b is None else chi_b.contiguous()
+    outs = [torch.empty((B, R, L), dtype=torch.float32, device=dev)
             for _ in range(4)]
+    part = (None if n_seg == 1 else torch.empty(
+        (n_seg, B, 4 * R, n_lblk * BLOCK_L), dtype=torch.float32, device=dev))
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counters = (None if n_seg == 1 else
+                    _counters(dev, stream, B * n_lblk * row_chunks(R)))
         rc = lib.basis_transpose_launch(
-            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
-            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
-            ct_d.data_ptr(), win.starts_T.data_ptr(), win.counts_T.data_ptr(),
-            active.data_ptr(), *(o.data_ptr() for o in outs), B, R, P, Pp,
-            Lp, cut, stream)
+            win.nu_pad.data_ptr(), nu_c.data_ptr(), sx.data_ptr(),
+            y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),
+            ct.data_ptr(), win.starts_T.data_ptr(), win.counts_T.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            *(o.data_ptr() for o in outs), B, R, P, win.nu_pad.shape[0], L,
+            n_lblk, n_seg, seg_tiles, win.far, cut, stream)
         LAUNCHES += 1
     if rc != 0:
         msg = lib.basis_transpose_error_string(rc).decode()
         raise RuntimeError(f"basis_transpose kernel launch failed: CUDA "
                            f"error {rc} ({msg})")
-    return tuple(o[:, :, :L] for o in outs)
+    return tuple(outs)

@@ -232,3 +232,100 @@ def test_cuda_device_rule(tiny_toml):
         for cmd in ("forward", "retrieve"):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 cli.main([cmd, tiny_toml])
+
+
+# The retrieval paths beyond one species' temperature, each a float64 CPU
+# run of both CLIs on a small scene.  Scratch runs of these cases agreed to
+# 4.7e-15 of max |x| or better; the tolerance, X_TOL of max |x| (and of max
+# radiance for the forward), leaves room for summation order only.
+X_TOL = 1e-10
+RETRIEVAL_CASES = {
+    # config 5 in small (examples/multispecies_retrieval.toml): CO2 + CO
+    # lines in the 4-5 um window, T + ln VMR(CO)
+    "co2_co_vmr": """\
+[grid]
+nu_min = 2080.0
+nu_max = 2380.0
+n_points = 256
+[scene]
+n_levels = 7
+z_top_m = 60e3
+species = ["CO2", "CO"]
+[lines]
+source = "synthetic:co2_43um,co_fundamental"
+[geometry]
+tangent_heights_km = [8.0, 25.0]
+n_sub = 2
+[instrument]
+enabled = true
+fwhm_cm1 = 4.0
+n_channels = 32
+[retrieval]
+retrieve_vmr = ["CO"]
+max_iter = 6
+""",
+    # nadir with the chi wing correction, a grey surface and ln VMR(CO2)
+    "nadir_chi_vmr": TINY_TOML.replace("[geometry]", """\
+[lines]
+chi = "co2_mars"
+[geometry]
+mode = "nadir"
+sec_theta = [1.0, 1.4]
+emissivity = 0.9""").replace("[compute]", """\
+[retrieval]
+retrieve_vmr = ["CO2"]
+max_iter = 8
+[compute]"""),
+    # T and ln VMR(CO2) on 3 altitude nodes
+    "nodes_vmr": TINY_TOML.replace("[compute]", """\
+[retrieval]
+retrieve_vmr = ["CO2"]
+n_nodes = 3
+max_iter = 6
+[compute]"""),
+    # a line list file whose CO2 lines are two isotopologues (626 and 636)
+    "two_isotopologues": TINY_TOML.replace("[geometry]", """\
+[lines]
+source = "{npz}"
+[geometry]""").replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]"""),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RETRIEVAL_CASES))
+def test_retrieval_paths_match_jax_cli_f64(tmp_path, capsys, case):
+    """Each case: forward.npz and retrieval.npz of both CLIs in float64,
+    the same iterations and convergence, radiances and retrieved state
+    within X_TOL of their maxima."""
+    from spectrobot_tpu.data.hitran import LineList
+    from spectrobot_tpu.data.synth import co2_15um_band
+
+    text = RETRIEVAL_CASES[case]
+    if "{npz}" in text:
+        ll = co2_15um_band()
+        iso = ll.iso_id.copy()
+        iso[1::2] = 2
+        ll = LineList(**{**{f: getattr(ll, f) for f in ll.__dataclass_fields__},
+                         "iso_id": iso})
+        path = tmp_path / "lines.npz"
+        ll.save_npz(str(path))
+        assert set(LineList.load_npz(str(path)).iso_id.tolist()) == {1, 2}
+        text = text.replace("{npz}", str(path))
+    toml = tmp_path / f"{case}.toml"
+    toml.write_text(text)
+    ov = {"compute.dtype": "float64"}
+    ref_f = _jax_forward(str(toml), ov, tmp_path / "jax_f")
+    got_f = _torch_forward(str(toml), ov, tmp_path / "torch_f")
+    r = ref_f["values"]
+    np.testing.assert_allclose(got_f["values"], r, rtol=0,
+                               atol=X_TOL * np.abs(r).max())
+    _, ref = _jax_retrieve(str(toml), ov, tmp_path / "jax")
+    res, got, _ = _torch_retrieve(str(toml), ov, tmp_path / "torch", capsys)
+    assert res["converged"] and bool(ref["converged"])
+    for key in ("n_iter", "converged", "stop_reason"):
+        assert got[key] == ref[key], key
+    assert got["x"].shape == ref["x"].shape
+    np.testing.assert_allclose(got["x"], ref["x"], rtol=0,
+                               atol=X_TOL * np.abs(ref["x"]).max())

@@ -83,6 +83,75 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         co.accumulate_batch(nu, nu0, nc, sx, y, amps)
 
 
+def _tensor_ops(call) -> list:
+    """The tensor operations one warm ``call`` dispatches, by name (a
+    kernel launched through ctypes is not one of them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    call()
+    torch.cuda.synchronize()
+    with Record() as rec:
+        call()
+    return rec.ops
+
+
+@pytest.mark.parametrize("n_lines,n_points", [(300, 1000), (129, 383),
+                                              (31, 130)])
+def test_kernel_takes_rows_of_any_length(cuda, n_lines, n_points):
+    """K1 on L and P that are not multiples of 128: the wrapper allocates
+    the output and launches the kernel once, with no other tensor operation
+    (no padded copies, no mask, no slice), and writes [B, 2, P] within
+    K1's budget of the plain version."""
+    nu, nu0, nc, sx, y, amps, chi = _inputs(cuda, n_lines=n_lines,
+                                            n_points=n_points)
+    win = co.line_windows(nu, nu0)
+    for chi_b in (None, chi):
+        call = lambda: co.accumulate_batch(nu, win, nc, sx, y, amps,
+                                           chi_b=chi_b)
+        before = co.LAUNCHES
+        assert _tensor_ops(call) == ["aten.empty.memory_format"]
+        assert co.LAUNCHES == before + 2
+        got = call()
+        ref = co.accumulate_batch_plain(nu, nc, sx, y, amps, chi_b=chi_b)
+        assert got.shape == (nc.shape[0], 2, n_points) and got.is_contiguous()
+        torch.testing.assert_close(got, ref, rtol=3e-5,
+                                   atol=1e-6 * float(ref.abs().max()))
+
+
+def test_kernel_writes_exact_zeros_beyond_the_cutoff(cuda):
+    """One line block whose first sub-block lies left of the grid and whose
+    other lines lie right of it, each beyond the cutoff of every point:
+    every tile visits the block and writes exact zeros.  A state with
+    all-zero amplitudes writes exact zeros too; a third state with lines
+    inside the grid does not."""
+    rng = np.random.default_rng(11)
+    nu = np.linspace(-30.0, 30.0, 700)
+    nu0 = np.sort(np.concatenate([rng.uniform(-45.0, -41.0, 32),
+                                  rng.uniform(41.0, 45.0, 96)]))
+    nc = np.stack([nu0, nu0, np.linspace(-20.0, 20.0, 128)])
+    sx = np.full((3, 128), 1e3)
+    y = np.full((3, 128), 0.05)
+    amps = rng.uniform(0.5, 2.0, (3, 2, 128))
+    amps[1] = 0.0
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    win = co.line_windows(t(nu), nu0.astype(np.float32), cutoff_cm1=10.0)
+    assert int(win.counts.min()) == 1          # every tile visits the block
+    got = co.accumulate_batch(t(nu), win, t(nc), t(sx), t(y), t(amps),
+                              cutoff_cm1=10.0)
+    torch.cuda.synchronize()
+    assert torch.all(got[:2] == 0)
+    assert float(got[2].abs().min()) > 0
+
+
 # ---------------------------------------------------------------------------
 # K2: the basis contraction (csrc/basis_batch.cu)
 # ---------------------------------------------------------------------------
@@ -259,6 +328,65 @@ def test_transpose_kernel_matches_plain(cuda, n_rows, with_chi, cutoff):
     again = ctr.basis_transpose_batch(nu, win, nc, sx, y, ct,
                                       cutoff_cm1=cutoff, chi_b=chi)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("target", [1, 1 << 20])
+@pytest.mark.parametrize("with_chi", [False, True])
+def test_transpose_kernel_over_segments(cuda, monkeypatch, target, with_chi):
+    """K5 with each window in one segment (a block target of 1) and cut
+    into a segment per tile (a target above the tiles of every window):
+    both within 1e-5 max|ref| of the plain version, each bit-equal from
+    call to call; the wrapper allocates the outputs (and the workspace of
+    the segments' partial sums) and launches the kernel once, with no other
+    tensor operation."""
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    monkeypatch.setattr(ctr, "TARGET_BLOCKS", target)
+    nu, nu0, nc, sx, y, _, chi, ct = _transpose_inputs(cuda, 2)
+    chi = chi if with_chi else None
+    win = co.line_windows(nu, nu0)
+    n_seg, seg_tiles = ctr.segments(win, nc.shape[0])
+    assert (n_seg == 1) == (target == 1) and (target == 1 or seg_tiles == 1)
+    call = lambda: ctr.basis_transpose_batch(nu, win, nc, sx, y, ct,
+                                             chi_b=chi)
+    before = ctr.LAUNCHES
+    ops = _tensor_ops(call)
+    assert ops == ["aten.empty.memory_format"] * (4 if n_seg == 1 else 5)
+    assert ctr.LAUNCHES == before + 2
+    got = call()
+    ref = ctr.basis_transpose_batch_plain(nu, nc, sx, y, ct, chi_b=chi)
+    for g, r in zip(got, ref):
+        assert torch.all(g[4] == 0)              # all-zero rows
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(got, call()))
+
+
+def test_transpose_kernel_on_the_dense_shape(cuda):
+    """K5 at B = 1 on the reference bench's dense shape (20480 random lines
+    over 600-740 cm-1, 16384 points, no cutoff; many segments) against the
+    plain version, within 1e-5 max|ref| of each output."""
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    dl = device_lines_from_linelist(random_lines(20480, 600.0, 740.0, seed=0),
+                                    [(2, 1)], dtype=torch.float32,
+                                    device=cuda, nu_ref=0.0)
+    kl = line_kernel_inputs(dl, 220.0, 300.0, 100.0,
+                            amp_weights=torch.ones(2, dl.n_lines, device=cuda))
+    nu = torch.as_tensor(np.linspace(640.0, 700.0, 16384),
+                         dtype=torch.float32, device=cuda)
+    win = co.line_windows(nu, dl.nu0, cutoff_cm1=None)
+    assert ctr.segments(win, 1)[0] > 1
+    nc, sx, y = (a[None].contiguous() for a in kl[:3])
+    ct = torch.as_tensor(np.random.default_rng(12).normal(
+        size=(1, 2, nu.shape[0])).astype(np.float32), device=cuda)
+    got = ctr.basis_transpose_batch(nu, win, nc, sx, y, ct, cutoff_cm1=None)
+    ref = ctr.basis_transpose_batch_plain(nu, nc, sx, y, ct, cutoff_cm1=None)
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
 def test_transpose_kernel_rejects_what_it_does_not_take(cuda):

@@ -249,3 +249,79 @@ def test_cpu_transpose_never_launches():
                                       t(ct.astype(np.float32)))
     for g, r in zip(got, ref):
         assert g.shape == (2, 2, nc.shape[1]) and torch.equal(g, r)
+
+
+# ---------------------------------------------------------------------------
+# K5's segments: how the kernel cuts each line block's window of tiles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_states,n_points,n_lines,n_rows", [
+    (640, 8192, 121, 2), (620, 8192, 2048, 2), (1, 16384, 20480, 2),
+    (1, 3001, 120, 2), (96, 8192, 121, 2), (640, 8192, 121, 66),
+    (1, 3001, 120, 10)])
+def test_transpose_segments_make_the_block_target(n_states, n_points,
+                                                  n_lines, n_rows):
+    """Every tile of the longest window falls in exactly one segment, none
+    is empty, and the segments are the shortest whose count stays within
+    the TARGET_BLOCKS thread blocks' share of each (line block, state), so
+    the grid makes at least half the target, or one block per tile of
+    every window where that is fewer."""
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    win = co.line_windows(np.linspace(0.0, 100.0, n_points),
+                          np.linspace(0.0, 100.0, n_lines), cutoff_cm1=None)
+    n_lblk = win.starts_T.shape[0]
+    assert win.max_tiles == win.nu_pad.shape[0] // co.TILE_P
+    n_seg, seg_tiles = ctr.segments(win, n_states, n_rows)
+    assert (n_seg - 1) * seg_tiles < win.max_tiles <= n_seg * seg_tiles
+    items = n_lblk * n_states * ctr.row_chunks(n_rows)
+    assert ctr.row_chunks(n_rows) == (1 if n_rows <= 2 else -(-n_rows // 8))
+    share = -(-ctr.TARGET_BLOCKS // items)
+    assert n_seg <= share
+    assert seg_tiles == 1 or -(-win.max_tiles // (seg_tiles - 1)) > share
+    assert 2 * items * n_seg >= min(ctr.TARGET_BLOCKS,
+                                    items * win.max_tiles)
+
+
+@pytest.mark.parametrize("target,n_states", [(1, 640), (4096, 9000)])
+def test_transpose_segments_one_segment(monkeypatch, target, n_states):
+    """A block target the (line block, state) grid already meets gives one
+    segment of the whole window (the kernel then writes its sums without a
+    workspace)."""
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    monkeypatch.setattr(ctr, "TARGET_BLOCKS", target)
+    win = co.line_windows(np.linspace(0.0, 50.0, 8192),
+                          np.linspace(0.0, 50.0, 121))
+    assert ctr.segments(win, n_states) == (1, win.max_tiles)
+
+
+@pytest.mark.parametrize("n_states", [1, 64, 640])
+def test_transpose_segments_windows_of_one_tile(n_states):
+    """Windows one tile long (a grid of one tile) make one segment of one
+    tile, whatever the number of states."""
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+
+    win = co.line_windows(np.linspace(0.0, 1.0, 100),
+                          np.linspace(0.0, 1.0, 300), cutoff_cm1=25.0)
+    assert win.max_tiles == 1
+    assert ctr.segments(win, n_states) == (1, 1)
+
+
+def test_ablation_edits_apply():
+    """python -m spectrobot_tpu_torch.ablate_line_sums takes parts out of
+    K1 and K5 by text edits of the checkout's sources: each edit finds its
+    text exactly once."""
+    from spectrobot_tpu_torch import ablate_line_sums as ab
+    from spectrobot_tpu_torch.kernels import build
+
+    assert {"full", "no_voigt", "pts1", "no_skips", "no_basis",
+            "no_split"} <= set(ab.EDITS)
+    for name, edits in ab.EDITS.items():
+        assert (name == "full") == (not edits), name
+        for kernel, path, old, new in edits:
+            assert kernel in ab.KERNELS
+            text = (build.SOURCE_DIR / path).read_text()
+            assert text.count(old) == 1, (name, path)
+            assert old != new
