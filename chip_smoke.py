@@ -63,14 +63,17 @@ Phases, each of which raises (non-zero exit) on failure:
      config 1's cross sections in mode 'rev' one K3 and one K5 launch,
      against the jacfwd row;
   6e. the remote-copy halo tier (spectrobot_tpu_torch.dma_halo) on the
-     loopback ring of one card: ring_exchange for 2, 4 and 8 shards in both
-     directions bit-equal to the roll, ring_halo_lines of the dense case's
+     loopback ring of one card: ring_exchange for 2, 4 and 8 shards of
+     64 x 1000 floats and 1, 2, 3, 4 and 8 shards of 7 x 143 (not a multiple
+     of 4 or of a copy item) in both directions, and 50 calls back to back
+     on 3 shards, bit-equal to the roll, ring_halo_lines of the dense case's
      partitioned lines bit-equal to the roll, fused_halo_accumulate_fn
      against its plain version within K1's budget (the deepest bench state
      at 1, 2 and 4 shards with cutoff 25 and at 8 with cutoff 10; the dense
      shape at 4 shards with cutoff 10), every call twice in a row; one
      launch per call; then the ring and the fused kernel timed against
-     their plain versions (and the ring against torch.roll);
+     their plain versions (and the ring against torch.roll, with both
+     host issue times and the ring's device time);
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
@@ -982,7 +985,7 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
         return halo.partition_kernel_lines(
             KernelLines(case.nu_c, case.sx, case.y, case.amps), nu0, edges)
 
-    rings = {n: loopback_ring(n, dev) for n in (1, 2, 4, 8)}
+    rings = {n: loopback_ring(n, dev) for n in (1, 2, 3, 4, 8)}
     fused_cases = [("bench state", bench, bench_nu0, n, 25.0)
                    for n in (1, 2, 4)]
     fused_cases += [("bench state", bench, bench_nu0, 8, 10.0),
@@ -990,20 +993,36 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
     parts = {(name, n, cut): partition(c, nu0, n, cut)
              for name, c, nu0, n, cut in fused_cases}
     g = torch.Generator(device=dev).manual_seed(60)
-    xs = {n: torch.randn((n * 64, 1000), generator=g, device=dev)
-          for n in (2, 4, 8)}
+    # Blocks of 64 x 1000 floats a shard, and ragged ones of 7 x 143 (1001
+    # floats: not a multiple of 4 or of a copy item).
+    shapes = {(64, 1000): (2, 4, 8), (7, 143): (1, 2, 3, 4, 8)}
+    xs = [(n, torch.randn((n * rows, cols), generator=g, device=dev))
+          for (rows, cols), ns in shapes.items() for n in ns]
+    back = [torch.randn((3 * 7, 143), generator=g, device=dev)
+            for _ in range(50)]
     dense4 = parts["dense", 4, 10.0]
+
+    def rolled(x, n, direction):
+        return torch.roll(x.reshape(n, -1, x.shape[1]), direction,
+                          0).reshape(x.shape)
 
     # The main path: every entry point, the counts read just after.
     reset_launches()
     rolls, fused = [], {}
-    for n, x in xs.items():
+    for n, x in xs:
         for direction in (1, -1):
             f = dma_halo.ring_exchange(rings[n], "nu", direction)
             for _ in range(2):
-                rolls.append((f"ring n={n} dir={direction:+d}", f(x),
-                              torch.roll(x.reshape(n, 64, 1000), direction,
-                                         0).reshape(x.shape)))
+                rolls.append((f"ring n={n} {tuple(x.shape)} "
+                              f"dir={direction:+d}", f(x),
+                              rolled(x, n, direction)))
+    # 50 calls back to back on 3 shards, the directions in turns (the epoch
+    # and the per-chunk arrival flags across calls).
+    fs = {d: dma_halo.ring_exchange(rings[3], "nu", d) for d in (1, -1)}
+    outs = [fs[1 if i % 2 else -1](x) for i, x in enumerate(back)]
+    rolls += [(f"ring n=3 back to back, call {i}", got,
+               rolled(x, 3, 1 if i % 2 else -1))
+              for i, (x, got) in enumerate(zip(back, outs))]
     for _ in range(2):
         left, right = dma_halo.ring_halo_lines(rings[4], dense4)
         for got, shift in ((left, 1), (right, -1)):
@@ -1020,15 +1039,16 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
     print(f"remote-copy tier (loopback, one card): launches "
           f"{json.dumps(n_calls)}")
     expect_launches("the remote-copy tier", n_calls,
-                    dma_ring=len(xs) * 2 * 2 + 2 * 2,
+                    dma_ring=len(xs) * 2 * 2 + len(back) + 2 * 2,
                     dma_halo=2 * len(fused_cases))
 
     for what, got, want in rolls:
         check(torch.equal(got, want), f"{what}: not bit-equal to the roll")
     ring_err = max(float((got - want).abs().max()) for _, got, want in rolls)
-    print(f"ring_exchange (n = 2, 4, 8, both directions, twice each) and "
-          f"ring_halo_lines (dense case, 4 shards, twice): {len(rolls)} "
-          f"results bit-equal to the roll")
+    print(f"ring_exchange (n = 2, 4, 8 at 64 x 1000 floats a shard and n = "
+          f"1, 2, 3, 4, 8 at 7 x 143, both directions, twice each; 50 calls "
+          f"back to back at n = 3) and ring_halo_lines (dense case, 4 "
+          f"shards, twice): {len(rolls)} results bit-equal to the roll")
     rows = {}
     for name, c, _, n, cut in fused_cases:
         skl = parts[name, n, cut]
@@ -1085,16 +1105,22 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
         "dma_ring": (1e3 * 2.0 * 4 * packed.numel() / HBM_BYTES_S, "bytes"),
         "dma_halo": bound_ms(pairs, REGION_FLOPS, 4.0 + 2 * n_out,
                              4.0 * (P + packed.numel() + n_out * P))}
-    for name, fn in (("dma_ring", lambda: cd.ring_exchange_cuda(r4, packed,
-                                                                 1)),
-                     ("dma_halo", lambda: f(dense.nu, dense4))):
-        issue, total = host_ms(fn)
+    ring = lambda: cd.ring_exchange_cuda(r4, packed, 1)
+    roll = lambda: torch.roll(packed, 1, 0)
+    host = {name: host_ms(fn) for name, fn in (
+        ("dma_ring", ring), ("torch.roll", roll),
+        ("dma_halo", lambda: f(dense.nu, dense4)))}
+    for name, (issue, total) in host.items():
         print(f"host time {name}: {issue:.4f} ms a call to issue, "
               f"{total:.4f} ms a call to finish (20 calls back to back)")
     print(f"time dma_ring (loopback, 4 shards x {tuple(packed.shape[1:])} "
           f"packed rows of the dense case): kernel "
-          f"{times['dma_ring'][0]:.4f} ms, plain {times['dma_ring'][1]:.4f} "
-          f"ms, torch.roll {times['dma_ring'][2]:.4f} ms; bound "
+          f"{times['dma_ring'][0]:.4f} ms (CUDA events around the call; "
+          f"device {kernel_ms(ring, 'dma_ring_kernel'):.4f} ms, host issue "
+          f"{host['dma_ring'][0]:.4f} ms), plain {times['dma_ring'][1]:.4f} "
+          f"ms, torch.roll {times['dma_ring'][2]:.4f} ms (device "
+          f"{kernel_ms(roll, 'roll'):.4f} ms, host issue "
+          f"{host['torch.roll'][0]:.4f} ms); bound "
           f"{bounds['dma_ring'][0]:.5f} ms (bytes)")
     print(f"time dma_halo (loopback, dense shape, 4 shards, cutoff 10): "
           f"kernel {times['dma_halo'][0]:.3f} ms, plain "
@@ -1153,6 +1179,23 @@ def basis_bound_ms(pairs: dict, R: int, n_bytes: float) -> tuple:
     term = max(terms, key=terms.get)
     return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
             term)
+
+
+def kernel_ms(call, kernel: str, n: int = 10) -> float:
+    """Mean device time of a launch of the kernel named ``kernel`` over
+    ``n`` calls [ms] (``torch.profiler``; per launch recorded, as the
+    profiler may miss one; 0 when no such kernel ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if kernel in e.key]
+    return (sum(e.device_time_total for e in found) / 1e3
+            / max(sum(e.count for e in found), 1))
 
 
 def cuda_ms(fn, n: int = 5) -> float:

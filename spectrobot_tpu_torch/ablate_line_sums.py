@@ -1,7 +1,10 @@
-"""Ablation builds of the line sum (K1) and its transpose (K5) on one CUDA
-GPU, and the audit of K1's inner loops in SASS.
+"""Ablation builds of the line sums (K1, K3), the transpose (K5) and the
+ring exchange on one CUDA GPU, and the audit of K1's and K3's inner loops
+in SASS.
 
     python -m spectrobot_tpu_torch.ablate_line_sums [--parent DIR]
+        [--kernels opacity_batch,basis_transpose,opacity_single,dma_ring]
+        [--parent-only]
 
 Run from the repository root (it reads chip_smoke.py's cases).  Each
 variant is built from a copy of spectrobot_tpu_torch/csrc with one part of a
@@ -9,46 +12,66 @@ kernel taken out by a text edit (the run fails if an edit no longer
 applies):
 
   full        the kernels as they are;
-  no_voigt    K1 without the Voigt arithmetic: a pair within the cutoff
-              adds dnu * sx + y; the staging, the cutoff test and the loop
-              remain;
-  pts1        K1 with one grid point per thread (128 threads a block);
-  pts4        K1 with four grid points per thread (32 threads a block);
-  no_skips    K1 walking every line of every sub-block (not its run of
-              lines within reach of the tile), K5 without its whole-warp
+  no_voigt    K1 and K3 without the Voigt arithmetic: a pair within the
+              cutoff adds dnu * sx + y; the staging, the cutoff test and
+              the loop remain;
+  pts1        K1 with one grid point per thread (128 threads);
+  pts2        K3 with two grid points per thread (64 threads);
+  pts4        K1 and K3 with four grid points per thread (32 threads);
+  no_skips    K1 and K3 walking every line of every sub-block (not its run
+              of lines within reach of the tile), K5 without its whole-warp
               skip of tiles beyond the cutoff;
+  no_sum      K3 without the sum of its segments (the last block of a tile
+              resets its counter and returns);
   no_basis    K5 without the basis: a pair within the cutoff contributes
               (x, y, x y); the staging, the walk and the contraction
               remain;
   no_split    K5 with one segment per line block (no split of the tile
-              walk).
+              walk);
+  sys_scope   the ring on the loopback with the protocol at system scope
+              (.sys, __threadfence_system) as between cards;
+  two_pass    the ring on the loopback through the receive buffers (store
+              into the neighbour's buffer, then copy it out chunk by
+              chunk), the path of a ring of ranks;
+  plain_launch  the ring launched as an ordinary kernel, not a cooperative
+              one (the same grid; it measures the cooperative launch's
+              host cost, and gives up its guarantee that every block is
+              resident).
 
 Of the parent's kernels (``--parent``): full, no_voigt, no_basis, and
 
-  one_load    K1's inner loop reads only the line center per pair; the
-              other staged values are read once per sub-block;
-  one_warp    K5 with one warp per thread block, each block one 32-line
-              sub-block, staging its own tiles (R = 2 cases only).
+  no_sum      K3 without its second pass (the sum of the segments);
+  gpu_scope   the ring's protocol at device scope (.gpu, __threadfence);
+  no_copy     the ring without its copy of the received buffer into the
+              output (the waits remain).
 
 ``--parent DIR`` adds the sources and wrappers under DIR/spectrobot_tpu_torch
 (``git archive <commit> spectrobot_tpu_torch/csrc spectrobot_tpu_torch/ops
-| tar -x -C DIR``) as the variants ``parent/<variant>``, with the edits of
-``PARENT_EDITS``, and compares the parent's full K1 with the checkout's on
-every case, bit for bit, and its K5 by the largest difference.
+spectrobot_tpu_torch/parallel | tar -x -C DIR``) as the variants
+``parent/<variant>``, with the edits of ``PARENT_EDITS``, and compares the
+parent's full K1 and K3 with the checkout's on every case, bit for bit,
+and its K5 by the largest difference.
 
 Cases: chip_smoke.py's K1 inputs (the limb, nadir + chi, bench and bench +
 chi cases; the limb's live states alone, which takes the dead-state blocks
 out), K5 at R = 2 on the limb and the bench, at R = 66 on the limb, and at
 B = 1 on the reference bench's dense shape (20480 lines x 16384 points, no
-cutoff).  Times, each case over the variants in turns, forward and then
+cutoff); K3 on chip_smoke.py's cases (the dense shape, the deepest bench
+state, the deepest nadir state with chi and 4 rows) and on config 1's
+inputs (3001 points); the ring on the loopback ring of this card: 4 shards
+of [5, 8192] floats (chip_smoke.py's timed case) and 2 and 8 shards of
+[64, 1000].  Times, each case over the variants in turns, forward and then
 reverse order: the wrapper call (CUDA events, median of 10 after a
-warm-up) and the kernel alone (``torch.profiler``'s device time per
-launch of the kernel, over 10 calls of one launch each).  Prints the
-card's name and power limit, the loops of K1's kernels in SASS
-(``cuobjdump -sass``: for each loop, its instructions and their kinds),
-then one JSON line per variant with its registers, static shared memory,
-spills and times.  An ablated build computes wrong results by
-construction: only ``full`` and ``parent/full`` are results.
+warm-up), the kernel alone (``torch.profiler``'s device time per launch of
+the kernel, over 10 calls of one launch each; for K3 also the parent's
+segment pass) and, for the ring, the host clock per call over 20 calls
+back to back (until issued, until done).  Prints the card's name and power
+limit, the loops of K1's and K3's kernels in SASS (``cuobjdump -sass``:
+for each loop, its instructions and their kinds), then one JSON line per
+variant with its registers, static shared memory, spills and times.  An
+ablated build computes wrong results by construction: only ``full`` and
+``parent/full`` are results, and each full ring is held bit-equal to
+``torch.roll``.
 """
 
 from __future__ import annotations
@@ -69,103 +92,90 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-KERNELS = {"opacity_batch": "cuda_opacity", "basis_transpose": "cuda_transpose"}
+# kernel -> (module that loads its library, name of its loader).
+KERNELS = {"opacity_batch": ("ops.cuda_opacity", "_library"),
+           "basis_transpose": ("ops.cuda_transpose", "_library"),
+           "opacity_single": ("ops.cuda_single", "_library"),
+           "dma_ring": ("parallel.peer", "library")}
+# The wrapper modules a parent set loads from its own sources, in import
+# order (each later one imports the earlier ones).
+PARENT_MODULES = ("ops.cuda_opacity", "ops.cuda_single",
+                  "ops.cuda_transpose", "parallel.peer", "ops.cuda_dma")
+SASS_KERNELS = ("opacity_batch", "opacity_single")
 
 # variant -> [(kernel, file in csrc, old text, new text)].
-NO_VOIGT = [(
-    "opacity_batch", "voigt_primal.cuh",
-    "  const float x = dnu * sx;\n  if (TIER == FAR) {",
-    "  wr = fmaf(dnu, sx, y);\n  return true;\n"
-    "  const float x = dnu * sx;\n  if (TIER == FAR) {")]
+NO_VOIGT = [(k, "voigt_primal.cuh",
+             "  const float x = dnu * sx;\n  if (TIER == FAR) {",
+             "  wr = fmaf(dnu, sx, y);\n  return true;\n"
+             "  const float x = dnu * sx;\n  if (TIER == FAR) {")
+            for k in ("opacity_batch", "opacity_single")]
 NO_BASIS = [(
     "basis_transpose", "voigt_basis.cuh",
     "  const float x = dnu * sx;\n  basis_pair<TIER>(x, y, K, kx, ky);",
     "  const float x = dnu * sx;\n  K = x;\n  kx = y;\n  ky = x * y;")]
+
+
+def _both(file: str, old: str, new: str) -> list:
+    """An edit of the loop K1 and K3 share, for both kernels."""
+    return [(k, file, old, new) for k in ("opacity_batch", "opacity_single")]
+
+
 EDITS = {
     "full": [],
     "no_voigt": NO_VOIGT,
-    "pts1": [("opacity_batch", "opacity_batch.cu",
-              "constexpr int PTS = 2;", "constexpr int PTS = 1;")],
-    "pts4": [("opacity_batch", "opacity_batch.cu",
-              "constexpr int PTS = 2;", "constexpr int PTS = 4;")],
-    "no_skips": [("opacity_batch", "opacity_batch.cu",
-                  "__ballot_sync(0xffffffffu, real && !(gap > reach))",
-                  "__ballot_sync(0xffffffffu, true)"),
-                 ("basis_transpose", "basis_transpose.cu",
-                  "if (gap > reach) continue;",
-                  "if (gap > reach && false) continue;")],
+    "pts1": [("opacity_batch", "opacity_batch.cu", "constexpr int PTS = 2;",
+              "constexpr int PTS = 1;")],
+    "pts2": [("opacity_single", "opacity_single.cu",
+              "constexpr int PTS = 1;", "constexpr int PTS = 2;")],
+    "pts4": [("opacity_batch", "opacity_batch.cu", "constexpr int PTS = 2;",
+              "constexpr int PTS = 4;"),
+             ("opacity_single", "opacity_single.cu",
+              "constexpr int PTS = 1;", "constexpr int PTS = 4;")],
+    "no_skips": _both("line_sum_item.cuh",
+                      "__ballot_sync(0xffffffffu, real && !(gap > reach))",
+                      "__ballot_sync(0xffffffffu, true)")
+                + [("basis_transpose", "basis_transpose.cu",
+                    "if (gap > reach) continue;",
+                    "if (gap > reach && false) continue;")],
+    "no_sum": [("opacity_single", "opacity_single.cu",
+                "  if (!s_last) return;",
+                "  if (threadIdx.x == 0 && s_last) counters[tile] = 0;\n"
+                "  return;")],
     "no_basis": NO_BASIS,
     "no_split": [("basis_transpose", "basis_transpose.cu",
                   "  const dim3 grid(n_lblk, B, n_seg * ((R + RR - 1) / RR));",
                   "  n_seg = 1;\n  seg_tiles = 1 << 30;\n"
                   "  const dim3 grid(n_lblk, B, n_seg * ((R + RR - 1) / RR));")],
+    "plain_launch": [("dma_ring", "dma_ring.cu",
+                      "cudaLaunchCooperativeKernel(", "cudaLaunchKernel(")],
+    "sys_scope": [("dma_ring", "dma_ring.cu",
+                   "(void*)dma_ring_kernel<GPU_SCOPE, false, VEC>",
+                   "(void*)dma_ring_kernel<SYS_SCOPE, false, VEC>")],
+    "two_pass": [("dma_ring", "dma_ring.cu",
+                  "(void*)dma_ring_kernel<GPU_SCOPE, false, VEC>",
+                  "(void*)dma_ring_kernel<GPU_SCOPE, true, VEC>")],
 }
-# The same ablations on the sources of 8b6fafa (the kernels before their
-# redesign).
+# The ablations of the parent's kernels (7ca61e2: K3 and the ring before
+# their redesign).
 PARENT_EDITS = {
     "full": [],
     "no_voigt": NO_VOIGT,
-    "one_load": [(
-        "opacity_batch", "opacity_batch.cu",
-        "pair_wr<TIER, HAS_CHI>(nu_p - s.nuc[i], s.sx[i], s.y[i],\n"
-        "                                HAS_CHI ? s.chi[i] : 0.0f, cutoff, wr))\n"
-        "      continue;\n"
-        "    acc0 = fmaf(s.a0[i], wr, acc0);\n"
-        "    acc1 = fmaf(s.a1[i], wr, acc1);",
-        "pair_wr<TIER, HAS_CHI>(nu_p - s.nuc[i], s.sx[base], s.y[base],\n"
-        "                                HAS_CHI ? s.chi[base] : 0.0f, cutoff,"
-        " wr))\n"
-        "      continue;\n"
-        "    acc0 = fmaf(s.a0[base], wr, acc0);\n"
-        "    acc1 = fmaf(s.a1[base], wr, acc1);")],
     "no_basis": NO_BASIS,
-    "one_warp": [
-        ("basis_transpose", "basis_transpose.cu",
-         "  const int blk = blockIdx.x;\n",
-         "  const int blk = blockIdx.x / N_WARP;\n"),
-        ("basis_transpose", "basis_transpose.cu",
-         "  const size_t l = (size_t)blk * BLOCK_L + tid;",
-         "  const size_t l = (size_t)blockIdx.x * 32 + tid;"),
-        ("basis_transpose", "basis_transpose.cu",
-         "    const float nu_p = nu[p0 + tid];\n"
-         "    nu_s[tid] = nu_p;\n"
-         "    for (int r = 0; r < R; ++r)\n"
-         "      ct_s[r * TILE_P + tid] = ct_b[(size_t)r * Pp + p0 + tid];\n",
-         "    float lo = INFINITY, hi = -INFINITY;\n"
-         "    for (int q = tid; q < TILE_P; q += 32) {\n"
-         "      const float v = nu[p0 + q];\n"
-         "      nu_s[q] = v;\n"
-         "      lo = fminf(lo, v);\n"
-         "      hi = fmaxf(hi, v);\n"
-         "      for (int r = 0; r < R; ++r)\n"
-         "        ct_s[r * TILE_P + q] = ct_b[(size_t)r * Pp + p0 + q];\n"
-         "    }\n"),
-        ("basis_transpose", "basis_transpose.cu",
-         "    const float lo = warp_min(nu_p), hi = warp_max(nu_p);\n"
-         "    if (lane == 0) {\n"
-         "      s_lo[warp] = lo;\n"
-         "      s_hi[warp] = hi;\n"
-         "    }\n"
-         "    __syncthreads();\n"
-         "    float tile_lo = s_lo[0], tile_hi = s_hi[0];\n"
-         "#pragma unroll\n"
-         "    for (int w = 1; w < N_WARP; ++w) {\n"
-         "      tile_lo = fminf(tile_lo, s_lo[w]);\n"
-         "      tile_hi = fmaxf(tile_hi, s_hi[w]);\n"
-         "    }\n",
-         "    __syncwarp();\n"
-         "    const float tile_lo = warp_min(lo), tile_hi = warp_max(hi);\n"),
-        ("basis_transpose", "basis_transpose.cu",
-         "  const dim3 grid(Lp / BLOCK_L, B);\n"
-         "  basis_transpose_kernel<HAS_CHI, REG><<<grid, BLOCK_L, smem, "
-         "stream>>>(",
-         "  const dim3 grid(Lp / 32, B);\n"
-         "  basis_transpose_kernel<HAS_CHI, REG><<<grid, 32, smem, "
-         "stream>>>(")],
+    "no_sum": [("opacity_single", "opacity_single.cu",
+                "  launch_sum_parts(part, out, n_seg, n_out * Pp, 1, s);",
+                "  (void)part;")],
+    "gpu_scope": [("dma_ring", "peer_ring.cuh", old, new) for old, new in (
+        ("ld.acquire.sys.global", "ld.acquire.gpu.global"),
+        ("st.release.sys.global", "st.release.gpu.global"),
+        ("red.release.sys.global", "red.release.gpu.global"),
+        ("    __threadfence_system();", "    __threadfence();"))],
+    "no_copy": [("dma_ring", "dma_ring.cu",
+                 "    block_copy<VEC>(out + (size_t)k * n, ws_recv(own, d, "
+                 "cap_floats), lo,\n                    hi);",
+                 "    (void)lo;\n    (void)hi;")],
 }
-# Cases a variant is not timed on (one_warp keeps K5's shared accumulators
-# of 128 lines for its 32: above R = 2 it holds one warp per SM).
-SKIP = {"one_warp": ("R = 66",)}
+# Cases a variant is not timed on.
+SKIP: dict = {}
 REPEATS = 10
 
 
@@ -196,37 +206,56 @@ def build_variant(src: str, edits: list, kernel: str) -> tuple:
     return lib, proc.stdout + proc.stderr
 
 
-def bind(mod, path: str):
-    """Load ``path`` as the library of wrapper module ``mod`` (the module's
-    own binding code sets the argument types)."""
+def bind(mod, loader: str, path: str):
+    """Load ``path`` as the library of module ``mod`` (the module's own
+    binding code, its function ``loader``, sets the argument types)."""
     from spectrobot_tpu_torch.kernels import build
 
     load = build.load
     build.load = lambda name: ctypes.CDLL(path)
     try:
         mod._LIB = None
-        return mod._library()
+        return getattr(mod, loader)()
     finally:
         build.load = load
 
 
+def checkout_modules() -> dict:
+    import importlib
+    return {rel: importlib.import_module(f"spectrobot_tpu_torch.{rel}")
+            for rel in PARENT_MODULES}
+
+
 def parent_modules(root: str) -> dict:
-    """The parent's wrapper modules (``ops/cuda_opacity.py``,
-    ``ops/cuda_transpose.py`` under ``root``), loaded under their own
-    names; they take the checkout's window tables."""
+    """The parent's wrapper modules (``PARENT_MODULES`` under ``root``),
+    loaded under their own names; while they load, each one stands in for
+    the checkout's module of its name, so that they import one another.
+    They take the checkout's window tables."""
     from spectrobot_tpu_torch.ops import cuda_opacity as co
 
-    mods = {}
-    for kernel, name in KERNELS.items():
-        path = os.path.join(root, "spectrobot_tpu_torch", "ops", f"{name}.py")
-        spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[spec.name] = mod
-        spec.loader.exec_module(mod)
-        mod.Windows = co.Windows
-        if hasattr(mod, "check_windows"):
-            mod.check_windows = co.check_windows
-        mods[kernel] = mod
+    checkout_modules()
+    mods, saved = {}, {}
+    try:
+        for rel in PARENT_MODULES:
+            full = f"spectrobot_tpu_torch.{rel}"
+            pkg_name, name = full.rsplit(".", 1)
+            pkg = sys.modules[pkg_name]
+            saved[full] = (sys.modules[full], getattr(pkg, name))
+            path = os.path.join(root, "spectrobot_tpu_torch",
+                                *rel.split(".")) + ".py"
+            spec = importlib.util.spec_from_file_location(
+                "parent_" + rel.replace(".", "_"), path)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[full] = sys.modules[spec.name] = mod
+            setattr(pkg, name, mod)
+            spec.loader.exec_module(mod)
+            mods[rel] = mod
+    finally:
+        for full, (mod, attr) in saved.items():
+            sys.modules[full] = mod
+            setattr(sys.modules[full.rsplit(".", 1)[0]],
+                    full.rsplit(".", 1)[1], attr)
+    mods["ops.cuda_opacity"].Windows = co.Windows
     return mods
 
 
@@ -286,69 +315,162 @@ def _dense_case(dev):
                      kl[3][None].contiguous(), None)
 
 
-def cases(dev) -> dict:
-    """name -> (kernel, args, kwargs) of the wrapper call."""
+def config1_k3_inputs(dev) -> tuple:
+    """K3's inputs in acceptance config 1's radiance (chip_smoke's scene
+    and state, recorded from forward.model.nadir_single_layer): (nu,
+    windows, nu_c, sx, y, amps, chi_b)."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from spectrobot_tpu_torch.forward.model import nadir_single_layer
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS as ENGINE
+
+    seen = []
+
+    def record(nu, windows, nu_c, sx, y, amps, **kw):
+        seen.append((nu, windows, nu_c.contiguous(), sx.contiguous(),
+                     y.contiguous(), amps.contiguous(), kw["chi_b"]))
+        return torch.zeros(amps.shape[:1] + nu.shape, device=nu.device)
+
+    _, dl, nu = cs.config1_scene(dev)
+    x = [torch.tensor(v, dtype=torch.float32, device=dev)
+         for v in cs.CONFIG1.values()]
+    nadir_single_layer(nu, dl, *x, engine=dataclasses.replace(
+        ENGINE, name="record", accumulate_single=record))
+    (inputs,) = seen
+    return inputs
+
+
+def cases(dev, kernels) -> dict:
+    """name -> (kernel, args, kwargs) of the wrapper call; for the ring,
+    args are (shards, x [n, rows, cols])."""
     import chip_smoke as cs
 
-    k1 = {c.name: c for c in cs.k1_cases(dev)}
     out = {}
-    for name, c in k1.items():
-        out[f"K1 {name}"] = ("opacity_batch", (
-            c.nu, c.windows, c.nu_c, c.sx, c.y, c.amps), {"chi_b": c.chi_b})
-    c = k1["limb"]
-    live = torch.nonzero(c.amps.flatten(1).ne(0).any(1))[:, 0]
-    sub = lambda a: a[live].contiguous()
-    out["K1 limb, live states"] = ("opacity_batch", (
-        c.nu, c.windows, sub(c.nu_c), sub(c.sx), sub(c.y), sub(c.amps)), {})
-    dense = _dense_case(dev)
-    for seed, (c, R) in enumerate(((k1["limb"], 2), (k1["limb"], 66),
-                                   (k1["bench"], 2), (dense, 2))):
-        ct = cs.cotangent_rows(c, R, 300 + seed)
-        kw = {"chi_b": c.chi_b}
-        if c.name == "dense":
-            kw["cutoff_cm1"] = None
-        out[f"K5 {c.name}, R = {R}"] = ("basis_transpose", (
-            c.nu, c.windows, c.nu_c, c.sx, c.y, ct), kw)
+    k1 = {c.name: c for c in cs.k1_cases(dev)}
+    if "opacity_batch" in kernels:
+        for name, c in k1.items():
+            out[f"K1 {name}"] = ("opacity_batch", (
+                c.nu, c.windows, c.nu_c, c.sx, c.y, c.amps),
+                {"chi_b": c.chi_b})
+        c = k1["limb"]
+        live = torch.nonzero(c.amps.flatten(1).ne(0).any(1))[:, 0]
+        sub = lambda a: a[live].contiguous()
+        out["K1 limb, live states"] = ("opacity_batch", (
+            c.nu, c.windows, sub(c.nu_c), sub(c.sx), sub(c.y), sub(c.amps)),
+            {})
+    if "basis_transpose" in kernels:
+        dense = _dense_case(dev)
+        for seed, (c, R) in enumerate(((k1["limb"], 2), (k1["limb"], 66),
+                                       (k1["bench"], 2), (dense, 2))):
+            ct = cs.cotangent_rows(c, R, 300 + seed)
+            kw = {"chi_b": c.chi_b}
+            if c.name == "dense":
+                kw["cutoff_cm1"] = None
+            out[f"K5 {c.name}, R = {R}"] = ("basis_transpose", (
+                c.nu, c.windows, c.nu_c, c.sx, c.y, ct), kw)
+    if "opacity_single" in kernels:
+        for c in cs.k3_cases(k1, dev):
+            out[f"K3 {c.name}"] = ("opacity_single", (
+                c.nu, c.windows, c.nu_c, c.sx, c.y, c.amps),
+                {"chi_b": c.chi_b, "cutoff_cm1": c.windows.cutoff_cm1})
+        nu, win, *rows, chi = config1_k3_inputs(dev)
+        out["K3 config 1"] = ("opacity_single", (nu, win, *rows),
+                              {"chi_b": chi, "cutoff_cm1": win.cutoff_cm1})
+    if "dma_ring" in kernels:
+        g = torch.Generator(device=dev).manual_seed(61)
+        for n, shape in ((4, (5, 8192)), (2, (64, 1000)), (8, (64, 1000))):
+            x = torch.randn((n,) + shape, generator=g, device=dev)
+            out[f"ring n={n} {list(shape)}"] = ("dma_ring", (n, x), {})
     return out
 
 
-def kernel_ms(call, kernel: str, n: int = REPEATS) -> float:
-    """Mean device time of a launch of the kernel named ``kernel`` over
-    ``n`` calls [ms] (per launch recorded: the profiler may miss one)."""
-    from torch.profiler import ProfilerActivity, profile
+def ring_host_split(ring, x, n: int = 1000) -> dict:
+    """Host clock per call [ms] of the ring wrapper on ``x`` and of its
+    parts, each over ``n`` calls back to back after a warm-up: the tensor
+    it allocates, the stream lookup (PyTorch's Stream object, and the raw
+    handle the wrapper takes), a device context (which the wrapper does
+    without), the launch of the last call's arguments alone, and, as the
+    yardstick, torch.roll of the same blocks."""
+    import time
 
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import peer
+
+    dev = x.device
+    lib = peer.library()
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "wrapper": lambda: cuda_dma.ring_exchange_cuda(ring, x, 1),
+        "torch.roll": lambda: torch.roll(x, 1, 0),
+        "empty_like": lambda: torch.empty_like(x),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "device context": context,
+        "launch alone": lambda: lib.dma_ring_launch(ctypes.byref(
+            ring.workspace.ring_args)),
+    }
+    out = {}
+    for name, fn in parts.items():
+        if name == "launch alone":   # relaunches write into a live output
+            keep = cuda_dma.ring_exchange_cuda(ring, x, 1)
+        fn()
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if kernel in e.key]
-    return (sum(e.device_time_total for e in found) / 1e3
-            / max(sum(e.count for e in found), 1))
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = 1e3 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+    del keep
+    return out
+
+
+def wrapper_call(kernel: str, mods: dict, rings: dict, a: tuple, kw: dict):
+    """The call of ``kernel``'s wrapper in the module set ``mods`` on the
+    case's arguments (the ring's on this set's loopback rings)."""
+    if kernel == "opacity_batch":
+        fn, args = mods["ops.cuda_opacity"].accumulate_batch, a
+    elif kernel == "basis_transpose":
+        fn, args = mods["ops.cuda_transpose"].basis_transpose_batch, a
+    elif kernel == "opacity_single":
+        fn, args = mods["ops.cuda_single"].accumulate_single, a
+    else:
+        n, x = a
+        if n not in rings:
+            rings[n] = mods["parallel.peer"].loopback_ring(n, x.device)
+        fn, args = mods["ops.cuda_dma"].ring_exchange_cuda, (rings[n], x, 1)
+    return lambda: fn(*args, **kw)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--parent-only", action="store_true",
+                    help="time the parent's variants alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate_line_sums: no CUDA device", file=sys.stderr)
         return 1
+    kernels = tuple(args.kernels.split(","))
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels takes {', '.join(KERNELS)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke as cs
     from spectrobot_tpu_torch.kernels import build
-    from spectrobot_tpu_torch.ops import cuda_opacity, cuda_transpose
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    sets = {"": (str(build.SOURCE_DIR), EDITS,
-                 {"opacity_batch": cuda_opacity,
-                  "basis_transpose": cuda_transpose})}
+    sets = {} if args.parent_only else {
+        "": (str(build.SOURCE_DIR), EDITS, checkout_modules())}
     if args.parent:
         sets["parent/"] = (os.path.join(args.parent, "spectrobot_tpu_torch",
                                         "csrc"), PARENT_EDITS,
@@ -356,7 +478,7 @@ def main(argv=None) -> int:
     jobs = []
     for prefix, (src, edits, _) in sets.items():
         for v, e in edits.items():
-            for kernel in KERNELS:
+            for kernel in kernels:
                 if v == "full" or any(k == kernel for k, *_ in e):
                     jobs.append((prefix + v, src, e, kernel))
     with ThreadPoolExecutor(len(jobs)) as pool:
@@ -364,7 +486,7 @@ def main(argv=None) -> int:
     libs, rows = {}, {}
     for (v, _, _, kernel), (path, log) in zip(jobs, built):
         prefix = "parent/" if v.startswith("parent/") else ""
-        libs[v, kernel] = (sets[prefix][2][kernel], path)
+        libs[v, kernel] = (prefix, path)
         row = rows.setdefault(v, {"variant": v, "card": card})
         row[f"{kernel} registers"] = [
             int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -373,40 +495,67 @@ def main(argv=None) -> int:
         row[f"{kernel} spill bytes"] = max(
             [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
             or [0])
-        if kernel == "opacity_batch" and v.endswith("full"):
+        if kernel in SASS_KERNELS and v.endswith("full"):
             for loop in sass_loops(path):
                 print(f"sass {v}: {json.dumps(loop)}")
-    bound = {key: bind(mod, path) for key, (mod, path) in libs.items()}
-    all_cases = cases(torch.device("cuda"))
+    bound = {}
+    for (v, kernel), (prefix, path) in libs.items():
+        rel, loader = KERNELS[kernel]
+        bound[v, kernel] = bind(sets[prefix][2][rel], loader, path)
+    rings = {prefix: {} for prefix in sets}
+    all_cases = cases(torch.device("cuda"), kernels)
     for name, (kernel, a, kw) in all_cases.items():
         variants = [v for v, k in libs if k == kernel
                     and not any(s in name for s in SKIP.get(
                         v.split("/")[-1], ()))]
         outs = {}
         for v in variants + variants[::-1]:
-            mod = libs[v, kernel][0]
-            mod._LIB = bound[v, kernel]
-            fn = getattr(mod, "accumulate_batch" if kernel == "opacity_batch"
-                         else "basis_transpose_batch")
-            call = lambda: fn(*a, **kw)
-            rows[v].setdefault(f"{name} ms", []).append(
-                cs.cuda_ms(call, REPEATS))
-            rows[v].setdefault(f"{name} kernel ms", []).append(
-                kernel_ms(call, kernel))
+            prefix = libs[v, kernel][0]
+            mods = sets[prefix][2]
+            rel, _ = KERNELS[kernel]
+            mods[rel]._LIB = bound[v, kernel]
+            call = wrapper_call(kernel, mods, rings[prefix], a, kw)
+            row = rows[v]
+            row.setdefault(f"{name} ms", []).append(cs.cuda_ms(call,
+                                                               REPEATS))
+            row.setdefault(f"{name} kernel ms", []).append(
+                cs.kernel_ms(call, kernel, REPEATS))
+            if kernel == "opacity_single" and prefix:
+                row.setdefault(f"{name} sum pass ms", []).append(
+                    cs.kernel_ms(call, "sum_parts", REPEATS))
+            if kernel in ("dma_ring", "opacity_single"):
+                issue, total = cs.host_ms(call)
+                row.setdefault(f"{name} host issue ms", []).append(issue)
+                row.setdefault(f"{name} host total ms", []).append(total)
             if v.endswith("full") and v not in outs:
                 outs[v] = call()
-        if "parent/full" in outs:
+        if kernel == "dma_ring" and "" in sets:
+            print(f"ring host split, {name}: " + json.dumps(
+                ring_host_split(rings[""][a[0]], a[1])))
+        if kernel == "dma_ring":
+            x = a[1]
+            for v, got in outs.items():
+                same = bool(torch.equal(got, torch.roll(x, 1, 0)))
+                print(f"ring {v}, {name}: bit-equal to torch.roll {same}")
+                if not same:
+                    raise RuntimeError(f"{v}: the ring is not the roll")
+        elif "parent/full" in outs and "full" in outs:
             got, ref = outs["full"], outs["parent/full"]
-            if kernel == "opacity_batch":
+            if kernel in ("opacity_batch", "opacity_single"):
                 same = bool(torch.equal(got, ref))
-                print(f"K1 vs parent, {name}: bit-equal {same}; max |diff| "
-                      f"{float((got - ref).abs().max()):.3e}")
+                d = float((got - ref).abs().max())
+                m = float(ref.abs().max())
+                print(f"{name} vs parent: bit-equal {same}; max |diff| "
+                      f"{d:.3e} of max {m:.3e}")
             else:
                 d = max(float((g - r).abs().max()) for g, r in zip(got, ref))
                 m = max(float(r.abs().max()) for r in ref)
                 print(f"K5 vs parent, {name}: max |diff| {d:.3e} of max "
                       f"{m:.3e}")
         torch.cuda.empty_cache()
+    for prefix, by_n in rings.items():
+        for ring in by_n.values():
+            ring.close()
     for row in rows.values():
         print(json.dumps(row))
     return 0

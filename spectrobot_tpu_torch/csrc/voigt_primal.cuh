@@ -1,9 +1,10 @@
 // Device code shared by the opacity line sums: the batched one (K1,
-// opacity_batch.cu) and the single-state one (K3, opacity_single.cu).  The
+// opacity_batch.cu), the single-state one (K3, opacity_single.cu) and the
+// fused halo accumulation (dma_halo.cu), through line_sum_item.cuh.  The
 // tile geometry, the tier decision and the per-pair Re w of Humlicek's w4
-// (spectrobot_tpu/ops/voigt.py) live here once, so both kernels evaluate
-// every (point, line) pair alike and the host's tier_counts
-// (ops/cuda_opacity.py) holds for both.
+// (spectrobot_tpu/ops/voigt.py) live here once, so the three kernels
+// evaluate every (point, line) pair alike and the host's tier_counts
+// (ops/cuda_opacity.py) holds for all of them.
 //
 //   wr = Re w(x, y) * exp(-chi_b * max(|dnu| - 3, 0)) * [|dnu| <= cutoff]
 //   x = dnu * sx,   dnu = nu[p] - nu_c[i]
@@ -30,14 +31,11 @@
 
 namespace {
 
-constexpr int TILE_P = 128;    // grid points per block = threads per block
+constexpr int TILE_P = 128;    // grid points per tile
 constexpr int BLOCK_L = 128;   // lines staged per window block
 constexpr int SUB_L = 32;      // lines per tier decision = one warp
 constexpr int N_SUB = BLOCK_L / SUB_L;
-constexpr int N_WARP = TILE_P / 32;
-static_assert(TILE_P == BLOCK_L, "each thread stages one line");
-static_assert(SUB_L == 32 && N_SUB == N_WARP,
-              "warp w reduces the bounds of sub-block w");
+static_assert(SUB_L == 32, "a warp decides the tier of a sub-block");
 
 constexpr float INV_SQRT_PI = 0.56418958354775628f;
 constexpr float CHI_DELTA1 = 3.0f;
@@ -57,26 +55,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// The true wavenumber bounds of the block's tile: every thread of the
-// block passes its point and gets the tile's min and max.
-__device__ __forceinline__ void tile_bounds(float nu_p, float& tile_lo,
-                                            float& tile_hi) {
-  __shared__ float s_lo[N_WARP], s_hi[N_WARP];
-  const float lo = warp_min(nu_p), hi = warp_max(nu_p);
-  if ((threadIdx.x & 31) == 0) {
-    s_lo[threadIdx.x >> 5] = lo;
-    s_hi[threadIdx.x >> 5] = hi;
-  }
-  __syncthreads();
-  tile_lo = s_lo[0];
-  tile_hi = s_hi[0];
-#pragma unroll
-  for (int w = 1; w < N_WARP; ++w) {
-    tile_lo = fminf(tile_lo, s_lo[w]);
-    tile_hi = fmaxf(tile_hi, s_hi[w]);
-  }
 }
 
 // The tier of one (tile, sub-block), warp-wide: each lane of the warp holds

@@ -39,13 +39,15 @@ from typing import Optional
 import torch
 
 from spectrobot_tpu_torch.ops.cuda_opacity import BLOCK_L, TILE_P
-from spectrobot_tpu_torch.ops.cuda_single import MAX_OUT, split_blocks
+from spectrobot_tpu_torch.ops.cuda_single import (
+    MAX_OUT, current_stream, split_blocks)
 from spectrobot_tpu_torch.ops.opacity import accumulate_plain
 from spectrobot_tpu_torch.parallel import peer
 from spectrobot_tpu_torch.parallel.collectives import ring_shift
 from spectrobot_tpu_torch.parallel.halo import (
     _hops, halo_accumulate_fn, pack_lines, unpack_lines)
-from spectrobot_tpu_torch.parallel.peer import CHUNK_FLOATS, TIMEOUT_S, Ring
+from spectrobot_tpu_torch.parallel.peer import (
+    CHUNK_FLOATS, TIMEOUT_S, Ring, ring_chunk)
 
 # Pads of the packed rows: a far center, wide and zero-amplitude.
 PAD_ROWS = (1e9, 1e6, 1e6)
@@ -69,8 +71,7 @@ def _library() -> ctypes.CDLL:
                               ctypes.c_longlong, ctypes.c_ulonglong)
         lib.dma_halo_launch.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32,
-            i32, i32, ctypes.c_float, i32, u64, u64, u64, ctypes.c_float,
-            ptr]
+            i32, i32, ctypes.c_float, i32, u64, ctypes.c_float, i32, ptr]
         lib.dma_halo_launch.restype = i32
         lib.dma_halo_error_string.argtypes = [i32]
         lib.dma_halo_error_string.restype = ctypes.c_char_p
@@ -103,6 +104,9 @@ def _check_ring_tensor(ring: Ring, t: torch.Tensor, name: str,
 
 
 def _check_kernel_tensor(ring: Ring, t: torch.Tensor, name: str) -> None:
+    if (t.is_cuda and t.get_device() == ring.device.index
+            and t.dtype is torch.float32 and t.is_contiguous()):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"no remote-copy kernel for device {t.device}")
     if t.device != ring.device:
@@ -137,27 +141,24 @@ def ring_exchange_cuda(ring: Ring, x: torch.Tensor,
     global RING_LAUNCHES
     d = _direction_index(direction)
     _check_ring_tensor(ring, x, "x", 2)
-    n_floats = x[0].numel() if ring.loopback else x.numel()
-    chunks = -(-n_floats // CHUNK_FLOATS)
-    if x.device.type == "cpu":
-        ring.begin_call({d: chunks})
+    n_floats = x.numel() // ring.n if ring.loopback else x.numel()
+    if not x.is_cuda and x.device.type == "cpu":
+        ring.begin_call()
         return ring_exchange_plain(ring, x, direction)
     _check_kernel_tensor(ring, x, "x")
     if n_floats == 0:
         raise ValueError("the ring exchange takes a non-empty block")
     lib = peer.library()
     ring.sync_once("dma_ring")
-    ws = ring.workspace_for(n_floats)
-    epoch, arrived = ring.begin_call({d: chunks})
+    args = ring.workspace_for(n_floats).ring_args
     out = torch.empty_like(x)
-    dev = x.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dma_ring_launch(
-            dev.index, ws.table.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_floats, ws.cap_floats, ring.local_shards, d, CHUNK_FLOATS,
-            epoch, arrived[d], TIMEOUT_S, stream)
-        RING_LAUNCHES += 1
+    args.x, args.out = x.data_ptr(), out.data_ptr()
+    args.n, args.d = n_floats, d
+    args.chunk = ring_chunk(n_floats, args.n_loc)
+    args.epoch = ring.begin_call()
+    args.stream = current_stream(args.device)
+    rc = lib.dma_ring_launch(ctypes.byref(args))
+    RING_LAUNCHES += 1
     _raise_on(lib, "dma_ring", rc)
     return out
 
@@ -237,10 +238,9 @@ def fused_halo_accumulate_cuda(ring: Ring, nu: torch.Tensor,
     if packed.device != nu.device:
         raise ValueError(f"packed is on {packed.device}, nu on {nu.device}")
     Lp = -(-max(L, 1) // BLOCK_L) * BLOCK_L
-    chunks = -(-(q * Lp) // CHUNK_FLOATS)
     dirs = ring.directions
     if nu.device.type == "cpu":
-        ring.begin_call({d: chunks for d in dirs})
+        ring.begin_call()
         return fused_halo_accumulate_plain(ring, nu, packed,
                                            cutoff_cm1=cutoff_cm1)
     for name, t in (("nu", nu), ("packed", packed)):
@@ -251,7 +251,7 @@ def fused_halo_accumulate_cuda(ring: Ring, nu: torch.Tensor,
     lib = _library()
     ring.sync_once("dma_halo")
     ws = ring.workspace_for(q * Lp)
-    epoch, arrived = ring.begin_call({d: chunks for d in dirs})
+    epoch = ring.begin_call()
     n_loc = ring.local_shards
     Pp = -(-P // TILE_P) * TILE_P
     nu_d = _pad_points(nu, Pp)
@@ -270,8 +270,8 @@ def fused_halo_accumulate_cuda(ring: Ring, nu: torch.Tensor,
             dev.index, ws.table.data_ptr(), nu_d.data_ptr(),
             pack_d.data_ptr(), part.data_ptr(), out.data_ptr(),
             ws.cap_floats, n_loc, n_out, Pp, Lp, len(dirs), n_seg,
-            seg_blocks, cut, CHUNK_FLOATS, epoch, arrived[0], arrived[1],
-            TIMEOUT_S, stream)
+            seg_blocks, cut, CHUNK_FLOATS, epoch, TIMEOUT_S,
+            int(ring.loopback), stream)
         HALO_LAUNCHES += 1
     _raise_on(lib, "dma_halo", rc)
     out = out[..., :P]

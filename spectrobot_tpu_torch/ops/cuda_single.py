@@ -11,12 +11,14 @@ The kernel replaces the TPU kernel
 
 for one state and ``n_out`` amplitude rows (1 to ``MAX_OUT``).
 
-What bounds it on an H100: FP32 arithmetic on the CUDA cores, as K1 (whose
-per-pair code and tier decision it shares, ``csrc/voigt_primal.cuh``).  One
-state gives one block per 128-point tile only a fraction of the card, so
-each tile's window of line blocks is cut into segments, one thread block
-each, and a second pass adds the segments' partial sums in a fixed order:
-deterministic, no atomics.
+What bounds it on an H100: FP32 arithmetic on the CUDA cores, as K1, whose
+loop it runs (``csrc/line_sum_item.cuh``: runs of lines within reach of
+each tile, unpadded rows, one point a thread; the per-pair code and tier
+decision of ``csrc/voigt_primal.cuh``).  One state gives one block per
+128-point tile only a fraction of the card, so each tile's window of line
+blocks is cut into segments, one thread block each, and the last block of
+each tile adds the segments' partial sums in a fixed order: deterministic,
+no atomics on values, one launch, no padded copies.
 
 Device rule: a CPU tensor goes to :func:`accumulate_single_plain`; a CUDA
 tensor always launches the kernel, and a build or launch failure raises.
@@ -31,8 +33,7 @@ from typing import Optional
 import torch
 
 from spectrobot_tpu_torch.ops.cuda_opacity import (
-    BLOCK_L, TILE_P, Windows, _round_up, check_tensors, check_windows,
-    pad_lines)
+    BLOCK_L, TILE_P, Windows, check_tensors, check_windows)
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
 
 # The most amplitude rows one call takes (csrc/opacity_single.cu MAX_OUT,
@@ -46,6 +47,9 @@ TARGET_BLOCKS = 2048
 # Kernel launches made by accumulate_single in this process.
 LAUNCHES = 0
 _LIB = None
+# Per (device, stream): the kernel's arrival counters, one per tile, zero
+# between calls (each launch leaves them zero).
+_COUNTERS: dict = {}
 
 
 def accumulate_single_plain(nu_grid, nu_c, scale_x, y, amps, *,
@@ -70,6 +74,27 @@ def split_blocks(n_items: int, n_blocks: int,
     n_seg = max(1, min(n_blocks, -(-target // n_items)))
     seg_blocks = -(-n_blocks // n_seg)
     return -(-n_blocks // seg_blocks), seg_blocks
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``index`` (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
+    a Stream object: the kernel wrappers' host time is a part of their
+    call's)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def arrival_counters(cache: dict, dev: torch.device, stream: int,
+                     n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 arrival counters for a kernel's launches on
+    ``stream``, kept in ``cache`` (each launch leaves them zero, so no call
+    runs a fill kernel)."""
+    key = (dev, stream)
+    have = cache.get(key)
+    if have is None or have.numel() < n:
+        have = cache[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=dev)
+    return have
 
 
 def segments(windows: Windows) -> tuple:
@@ -113,8 +138,9 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError(f"kernel geometry {geometry} != wrapper "
                                f"{(TILE_P, BLOCK_L, MAX_OUT)}")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.opacity_single_launch.argtypes = [ptr] * 10 + [
-            i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+        f32 = ctypes.c_float
+        lib.opacity_single_launch.argtypes = [i32] + [ptr] * 11 + [
+            i32, i32, i32, i32, f32, i32, i32, f32, ptr]
         lib.opacity_single_launch.restype = i32
         lib.opacity_single_error_string.argtypes = [i32]
         lib.opacity_single_error_string.restype = ctypes.c_char_p
@@ -153,27 +179,26 @@ def accumulate_single(nu_grid: torch.Tensor, windows: Windows,
     lib = _library()
 
     dev = nu_grid.device
-    Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
-    nuc_d = pad_lines(nu_c, Lp, win.far)
-    sx_d, y_d = pad_lines(scale_x, Lp, 1e6), pad_lines(y, Lp, 1e6)
-    chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
-    amps_d = pad_lines(amps, Lp, 0.0)
+    Pp = win.nu_pad.shape[0]
     n_seg, seg_blocks = segments(win)
     part = (None if n_seg == 1 else
             torch.empty((n_seg, n_out, Pp), dtype=torch.float32, device=dev))
-    out = torch.empty((n_out, Pp), dtype=torch.float32, device=dev)
+    out = torch.empty((n_out, P), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.opacity_single_launch(
-            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
-            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
-            amps_d.data_ptr(), win.starts.data_ptr(), win.counts.data_ptr(),
-            None if part is None else part.data_ptr(), out.data_ptr(),
-            n_out, Pp, Lp, n_seg, seg_blocks, cut, stream)
-        LAUNCHES += 1
+    stream = current_stream(dev.index)
+    counters = (None if n_seg == 1 else
+                arrival_counters(_COUNTERS, dev, stream, Pp // TILE_P))
+    rc = lib.opacity_single_launch(
+        dev.index, win.nu_pad.data_ptr(), nu_c.data_ptr(),
+        scale_x.data_ptr(), y.data_ptr(),
+        None if chi_b is None else chi_b.data_ptr(), amps.data_ptr(),
+        win.starts.data_ptr(), win.counts.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(),
+        n_out, P, Pp, L, win.far, n_seg, seg_blocks, cut, stream)
+    LAUNCHES += 1
     if rc != 0:
         msg = lib.opacity_single_error_string(rc).decode()
         raise RuntimeError(f"opacity_single kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
-    return out[:, :P]
+    return out

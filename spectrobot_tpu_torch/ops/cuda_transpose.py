@@ -43,7 +43,7 @@ import torch
 
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, check_windows)
-from spectrobot_tpu_torch.ops.cuda_single import split_blocks
+from spectrobot_tpu_torch.ops.cuda_single import arrival_counters, split_blocks
 from spectrobot_tpu_torch.ops.opacity import tangent_transpose_plain
 
 # The most cotangent rows one kernel call takes (csrc/basis_transpose.cu
@@ -108,17 +108,6 @@ def segments(windows: Windows, n_states: int, n_rows: int = 2) -> tuple:
     return split_blocks(windows.starts_T.shape[0] * max(n_states, 1)
                         * row_chunks(n_rows), windows.max_tiles,
                         TARGET_BLOCKS)
-
-
-def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` zero int32 arrival counters for launches on
-    ``stream`` (each launch leaves them zero), allocated once."""
-    key = (dev, stream)
-    have = _COUNTERS.get(key)
-    if have is None or have.numel() < n:
-        have = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                            device=dev)
-    return have
 
 
 def _check(nu_grid, nu_c, sx, y, ct, chi_b, *, kernel: bool) -> None:
@@ -231,7 +220,8 @@ def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         counters = (None if n_seg == 1 else
-                    _counters(dev, stream, B * n_lblk * row_chunks(R)))
+                    arrival_counters(_COUNTERS, dev, stream,
+                                     B * n_lblk * row_chunks(R)))
         rc = lib.basis_transpose_launch(
             win.nu_pad.data_ptr(), nu_c.data_ptr(), sx.data_ptr(),
             y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),

@@ -18,12 +18,15 @@ A :class:`Ring` is either
   reference's emulated CPU mesh: a test vehicle, never a fallback.
 
 A workspace (layout in ``csrc/peer_ring.cuh``) holds two receive buffers
-(rows from the left and from the right neighbour), one "buffer free" flag
-and one arrival counter per direction.  The host side of the protocol
-lives here: the epoch, counted up once per call and the same on every
-rank, and the running arrival counts the kernels wait for.  On the CPU a
-ring has no workspace (the wrappers run their plain versions), but counts
-its calls alike.
+(rows from the left and from the right neighbour), one "destination free"
+flag per direction and one arrival flag per chunk and direction.  The host
+side of the protocol lives here: the epoch, counted up once per call and
+the same on every rank, which every flag of the call is waited up to (so
+no flag is ever reset), the size of a call's copy items
+(:func:`ring_chunk`), and the ring kernel's launch arguments, kept on the
+workspace between calls (:class:`RingArgs`).  On the CPU a ring has no
+workspace (the wrappers run their plain versions), but counts its calls
+alike.
 """
 
 from __future__ import annotations
@@ -35,9 +38,15 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-# Floats per copy item of the kernels (32 KB): the host counts the chunks
-# each receiver waits for, and passes the size with every launch.
+# Floats per copy item of the kernels: at most CHUNK_FLOATS (32 KB), at
+# least MIN_CHUNK_FLOATS (4 KB: one 16-byte load for each of a block's 256
+# threads; csrc/peer_ring.cuh MIN_CHUNK, checked when the library is
+# loaded).  A ring call cuts its block into about RING_ITEMS items (two for
+# each of the H100's 132 SMs) within those limits; the fused halo kernel's
+# items are CHUNK_FLOATS.
 CHUNK_FLOATS = 8192
+MIN_CHUNK_FLOATS = 1024
+RING_ITEMS = 264
 # A spin on a peer's flag traps after this long, counted from the start of
 # the wait: a lost peer ends in a CUDA error instead of a hang.  So the
 # ranks of a ring launch in step: each rank's launch starts within
@@ -52,6 +61,20 @@ _LIB = None
 _MESH_RINGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+class RingArgs(ctypes.Structure):
+    """The ring kernel's launch arguments (``csrc/dma_ring.cu`` RingArgs,
+    the same layout, checked when the library is loaded).  A workspace
+    keeps one and the wrapper sets the fields that change between calls
+    (x, out, n, d, chunk, epoch, stream)."""
+    _fields_ = [("table", ctypes.c_void_p), ("x", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("cap_floats", ctypes.c_longlong),
+                ("epoch", ctypes.c_ulonglong), ("n_loc", ctypes.c_int),
+                ("d", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("device", ctypes.c_int), ("loopback", ctypes.c_int),
+                ("timeout_s", ctypes.c_float), ("stream", ctypes.c_void_p)]
+
+
 def library() -> ctypes.CDLL:
     """The library of ``csrc/dma_ring.cu`` (the ring kernel and the
     workspace's functions), built and bound on first use."""
@@ -60,22 +83,35 @@ def library() -> ctypes.CDLL:
         from spectrobot_tpu_torch.kernels import build
 
         lib = build.load("dma_ring")
-        ptr, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_ulonglong)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for name, args in (("dma_ws_alloc", [i32, i64, ptr]),
                            ("dma_ws_free", [i32, ptr]),
                            ("dma_ipc_get", [i32, ptr, ptr]),
                            ("dma_ipc_open", [i32, ptr, ptr]),
                            ("dma_ipc_close", [i32, ptr]),
-                           ("dma_ring_launch", [i32, ptr, ptr, ptr, i64, i64,
-                                                i32, i32, i32, u64, u64,
-                                                ctypes.c_float, ptr])):
+                           ("dma_ring_launch", [ctypes.POINTER(RingArgs)])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32
+        lib.dma_ws_bytes.argtypes, lib.dma_ws_bytes.restype = [i64], i64
         lib.dma_ring_error_string.argtypes = [i32]
         lib.dma_ring_error_string.restype = ctypes.c_char_p
+        layout = (lib.dma_ring_args_bytes(), lib.dma_min_chunk())
+        if layout != (ctypes.sizeof(RingArgs), MIN_CHUNK_FLOATS):
+            raise RuntimeError(f"ring kernel's argument bytes and least "
+                               f"chunk {layout} != the host's "
+                               f"{(ctypes.sizeof(RingArgs), MIN_CHUNK_FLOATS)}")
         _LIB = lib
     return _LIB
+
+
+def ring_chunk(n_floats: int, n_loc: int) -> int:
+    """Floats per copy item of a ring call of ``n_loc`` blocks of
+    ``n_floats``: a multiple of ``MIN_CHUNK_FLOATS`` within
+    [MIN_CHUNK_FLOATS, CHUNK_FLOATS], near the size that makes
+    ``RING_ITEMS`` items."""
+    per = -(-n_floats * n_loc // RING_ITEMS)
+    per = -(-per // MIN_CHUNK_FLOATS) * MIN_CHUNK_FLOATS
+    return min(CHUNK_FLOATS, max(MIN_CHUNK_FLOATS, per))
 
 
 def _call(name: str, *args) -> None:
@@ -104,14 +140,21 @@ def check_peer_access(devices: Sequence[int]) -> None:
 
 class PeerWorkspace:
     """The device side of a ring: workspaces of ``cap_floats`` floats per
-    receive buffer, and ``table`` [n_loc, 3] (int64, on the device) with the
-    bases of each local shard's own, left and right workspaces."""
+    receive buffer, ``table`` [n_loc, 3] (int64, on the device) with the
+    bases of each local shard's own, left and right workspaces, and the
+    ring kernel's launch arguments that do not change between calls
+    (``ring_args``; ``loopback``: every shard in this process)."""
 
     def __init__(self, device: torch.device, cap_floats: int, owned: list,
-                 mapped: list, table: torch.Tensor, group=None):
+                 mapped: list, table: torch.Tensor, group=None, *,
+                 loopback: bool):
         self.device, self.cap_floats = device, cap_floats
         self.owned, self.mapped, self.table = owned, mapped, table
         self.group = group
+        self.ring_args = RingArgs(
+            table=table.data_ptr(), cap_floats=cap_floats,
+            n_loc=table.shape[0], device=device.index,
+            loopback=int(loopback), timeout_s=TIMEOUT_S)
 
     def close(self) -> None:
         """Unmap the neighbours' workspaces and free this process's own (on
@@ -134,8 +177,8 @@ class PeerWorkspace:
 
 def _alloc(idx: int, cap_floats: int) -> int:
     p = ctypes.c_void_p()
-    _call("dma_ws_alloc", idx,
-          library().dma_ws_header_bytes() + 8 * cap_floats, ctypes.byref(p))
+    _call("dma_ws_alloc", idx, library().dma_ws_bytes(cap_floats),
+          ctypes.byref(p))
     return int(p.value)
 
 
@@ -149,7 +192,8 @@ def _open_loopback(n: int, device: torch.device,
         owned = [_alloc(device.index, cap_floats) for _ in range(n)]
     rows = [[owned[k], owned[(k - 1) % n], owned[(k + 1) % n]]
             for k in range(n)]
-    return PeerWorkspace(device, cap_floats, owned, [], _table(rows, device))
+    return PeerWorkspace(device, cap_floats, owned, [], _table(rows, device),
+                         loopback=True)
 
 
 def _open_ranks(mesh, device: torch.device,
@@ -182,15 +226,14 @@ def _open_ranks(mesh, device: torch.device,
     dist.barrier(group=group)
     rows = [[own, peers[(k - 1) % n], peers[(k + 1) % n]]]
     return PeerWorkspace(device, cap_floats, [own], mapped,
-                         _table(rows, device), group)
+                         _table(rows, device), group, loopback=False)
 
 
 class Ring:
     """A 1-D ``nu`` ring of ``n`` shards on ``device``: the ranks of
     ``mesh``'s ``nu`` axis, or (``mesh`` None) the loopback of ``n`` shards
-    in this process.  Holds the epoch (calls made), the running arrival
-    counts per direction and, on a card, the peer workspace, grown on
-    demand."""
+    in this process.  Holds the epoch (calls made) and, on a card, the
+    peer workspace, grown on demand."""
 
     def __init__(self, n: int, device, mesh=None):
         self.n, self.mesh = int(n), mesh
@@ -198,7 +241,6 @@ class Ring:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.epoch = 0
-        self.arrived = [0, 0]
         self.workspace: Optional[PeerWorkspace] = None
         self._synced: set = set()
 
@@ -218,14 +260,12 @@ class Ring:
         neighbours coincide, and two hops would count them twice)."""
         return () if self.n == 1 else (0,) if self.n == 2 else (0, 1)
 
-    def begin_call(self, chunks: dict) -> tuple:
-        """Count one call on this ring: the epoch goes up by one, and each
-        direction ``d`` in ``chunks`` receives ``chunks[d]`` more chunks.
-        Returns (epoch, arrival counts after this call)."""
+    def begin_call(self) -> int:
+        """Count one call on this ring and return its epoch: the value every
+        flag of the call (each receiver's "destination free", each chunk's
+        arrival) is set to and waited for."""
         self.epoch += 1
-        for d, c in chunks.items():
-            self.arrived[d] += int(c)
-        return self.epoch, tuple(self.arrived)
+        return self.epoch
 
     def sync_once(self, key: str) -> None:
         """On a ring of ranks, a barrier the first time ``key`` is named:
@@ -250,7 +290,6 @@ class Ring:
             self.workspace = (_open_loopback(self.n, self.device, cap)
                               if self.loopback else
                               _open_ranks(self.mesh, self.device, cap))
-            self.arrived = [0, 0]         # a new workspace counts from 0
         return self.workspace
 
     def close(self) -> None:

@@ -482,7 +482,7 @@ def _single_inputs(device, n_out, n_lines=2000, n_points=3000, seed=3):
     return t(nu), nu0, t(nu_c), t(sx), t(y), t(amps), t(chi)
 
 
-@pytest.mark.parametrize("n_out", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_out", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("cutoff", [25.0, None])
 def test_single_kernel_matches_plain(cuda, n_out, cutoff):
     from spectrobot_tpu_torch.ops import cuda_single as cs
@@ -499,6 +499,33 @@ def test_single_kernel_matches_plain(cuda, n_out, cutoff):
                                          cutoff_cm1=cutoff, chi_b=chi_b)
         assert got.shape == ref.shape == (n_out, nu.shape[0])
         # K1's budget (the reference's Pallas parity budget).
+        torch.testing.assert_close(got, ref, rtol=3e-5,
+                                   atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("n_out", [1, 3, 8])
+@pytest.mark.parametrize("cutoff", [25.0, None])
+def test_single_kernel_takes_rows_of_any_length(cuda, n_out, cutoff):
+    """K3 on L and P that are not multiples of 128 (BLOCK_L, TILE_P), with
+    chi and without: the wrapper allocates the output and the segments'
+    partial sums and launches the kernel once, with no other tensor
+    operation (no padded copies, no slice), and writes [n_out, P] within
+    K1's budget of the plain version."""
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    nu, nu0, nc, sx, y, amps, chi = _single_inputs(cuda, n_out, n_lines=1001,
+                                                   n_points=2999)
+    win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
+    assert cs.segments(win)[0] > 1
+    for chi_b in (None, chi):
+        call = lambda: cs.accumulate_single(nu, win, nc, sx, y, amps,
+                                            cutoff_cm1=cutoff, chi_b=chi_b)
+        before = cs.LAUNCHES
+        assert _tensor_ops(call) == ["aten.empty.memory_format"] * 2
+        assert cs.LAUNCHES == before + 2
+        got = call()
+        ref = cs.accumulate_single_plain(nu, nc, sx, y, amps,
+                                         cutoff_cm1=cutoff, chi_b=chi_b)
+        assert got.shape == (n_out, 2999) and got.is_contiguous()
         torch.testing.assert_close(got, ref, rtol=3e-5,
                                    atol=1e-6 * float(ref.abs().max()))
 
@@ -695,17 +722,19 @@ def test_cli_mesh_on_every_card(cuda, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("direction", [1, -1])
 def test_dma_ring_matches_roll(cuda, n, direction):
     """The ring kernel on the loopback ring: bit-equal to the roll of the
-    blocks, with 16-byte and 4-byte copies and a ragged last chunk, twice
-    in a row (the epoch protocol across calls); one launch per call."""
+    blocks, with 16-byte and 4-byte copies (blocks of 999 and 15005 floats)
+    and a ragged last chunk, across a regrowth of the workspace (the last
+    block), twice in a row (the epoch protocol across calls); one launch
+    per call."""
     from spectrobot_tpu_torch.ops import cuda_dma
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
     ring = loopback_ring(n, cuda)
     g = torch.Generator(device=cuda).manual_seed(n)
-    for shape in ((8, 128), (5, 3001), (64, 4096)):
+    for shape in ((8, 128), (3, 333), (5, 3001), (64, 4096)):
         x = torch.randn((n,) + shape, generator=g, device=cuda)
         for _ in range(2):
             before = cuda_dma.RING_LAUNCHES
@@ -713,6 +742,28 @@ def test_dma_ring_matches_roll(cuda, n, direction):
             torch.cuda.synchronize()
             assert cuda_dma.RING_LAUNCHES == before + 1
             assert torch.equal(got, torch.roll(x, direction, 0))
+    ring.close()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_dma_ring_back_to_back(cuda, n):
+    """50 calls in a row with no synchronisation between them, the two
+    directions in turns, at blocks of 1001 floats (not a multiple of 4 or
+    of a chunk): each call waits for its own epoch's flags, and every
+    result is the roll."""
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel.peer import loopback_ring
+    ring = loopback_ring(n, cuda)
+    g = torch.Generator(device=cuda).manual_seed(10 + n)
+    xs = [torch.randn((n, 7, 143), generator=g, device=cuda)
+          for _ in range(50)]
+    dirs = [1 if i % 2 else -1 for i in range(50)]
+    outs = [cuda_dma.ring_exchange_cuda(ring, x, d)
+            for x, d in zip(xs, dirs)]
+    torch.cuda.synchronize()
+    assert ring.epoch == 50
+    for x, d, got in zip(xs, dirs, outs):
+        assert torch.equal(got, torch.roll(x, d, 0))
     ring.close()
 
 

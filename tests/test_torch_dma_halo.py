@@ -135,6 +135,20 @@ def test_ring_loopback_matches_jax(jax_refs, n, direction):
         n, 8, 128), direction, axis=0).reshape(n * 8, 128))
 
 
+@pytest.mark.parametrize("direction", [1, -1])
+def test_ring_loopback_matches_jax_on_a_ragged_block(direction):
+    """Three shards of 5 x 37 floats (185: not a multiple of 4 or of a
+    copy item): the plain route of the port against the reference's ring
+    kernel in interpret mode, bit for bit."""
+    x = np.random.default_rng(9).normal(size=(15, 37)).astype(np.float32)
+    ref = np.asarray(jdma.ring_exchange(_mesh(3), "nu", direction,
+                                        interpret=True)(jnp.asarray(x)))
+    ring = peer.loopback_ring(3, "cpu")
+    got = dma_halo.ring_exchange(ring, "nu", direction)(torch.as_tensor(x))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ring.epoch == 1
+
+
 @pytest.mark.parametrize("gloo", [2, 4], indirect=True)
 @pytest.mark.parametrize("direction", [1, -1])
 def test_ring_gloo_matches_jax(jax_refs, gloo, direction):
@@ -203,20 +217,66 @@ def test_fused_gloo_matches_jax(jax_refs, gloo):
 
 
 def test_epoch_counts_up_once_per_call():
-    """Every call on a ring counts one epoch (the flags of the next call
-    wait for it), and the arrival counts grow by the chunks each direction
-    receives."""
+    """Every call on a ring counts one epoch, the value each flag of the
+    call (each receiver's destination-free flag, each chunk's arrival
+    flag) is set to and waited for, so no flag is ever reset; the fused
+    sum counts one too."""
     ring = peer.loopback_ring(4, "cpu")
     x = torch.zeros(4, 8, 128)
     for i in range(3):
         cuda_dma.ring_exchange_cuda(ring, x, 1 if i % 2 else -1)
-    assert ring.epoch == 3 and ring.arrived == [1, 2]
+    assert ring.epoch == 3
     nu = torch.linspace(600.0, 640.0, 4 * 64).reshape(4, 64)
     packed = torch.zeros(4, 5, 300)
     packed[:, 0] = 1e9
     cuda_dma.fused_halo_accumulate_cuda(ring, nu, packed, cutoff_cm1=5.0)
-    chunks = -(-5 * 384 // peer.CHUNK_FLOATS)       # lines padded to 384
-    assert ring.epoch == 4 and ring.arrived == [1 + chunks, 2 + chunks]
+    assert ring.epoch == 4
+    assert ring.begin_call() == 5
+
+
+@pytest.mark.parametrize("n_floats,n_loc", [
+    (5 * 8192, 4), (64 * 1000, 2), (64 * 1000, 8), (1001, 3), (1, 1),
+    (16 << 20, 1), (2 * 1024 * 264, 1)])
+def test_ring_chunk_spreads_a_block_over_the_items(n_floats, n_loc):
+    """A ring call's copy items: a multiple of MIN_CHUNK_FLOATS within
+    [MIN_CHUNK_FLOATS, CHUNK_FLOATS] (so the workspace, whose buffers hold
+    a multiple of MIN_CHUNK_FLOATS, has a flag for every chunk), the
+    least such size that makes at most RING_ITEMS items (up to one more a
+    shard for the rounding), unless CHUNK_FLOATS caps it."""
+    c = peer.ring_chunk(n_floats, n_loc)
+    M = peer.MIN_CHUNK_FLOATS
+    assert c % M == 0 and M <= c <= peer.CHUNK_FLOATS
+    items = lambda size: n_loc * -(-n_floats // size)
+    if c < peer.CHUNK_FLOATS:
+        assert items(c) <= peer.RING_ITEMS + n_loc
+    if M < c < peer.CHUNK_FLOATS:
+        assert items(c - M) > peer.RING_ITEMS
+    cap = -(-max(n_floats, 1 << 16) // 4096) * 4096   # workspace_for's
+    assert -(-n_floats // c) <= cap // peer.MIN_CHUNK_FLOATS
+
+
+def test_workspace_keeps_the_ring_launch_arguments():
+    """The ring kernel's arguments that do not change between calls are
+    set once, when the workspace opens, in the kernel's own layout
+    (csrc/dma_ring.cu RingArgs: 80 bytes, the fields in C order)."""
+    import ctypes
+    table = torch.arange(12, dtype=torch.int64).reshape(4, 3)
+    ws = peer.PeerWorkspace(torch.device("cuda", 3), 1 << 16, [], [], table,
+                            loopback=True)
+    a = ws.ring_args
+    assert (a.table, a.cap_floats, a.n_loc, a.device, a.loopback) == (
+        table.data_ptr(), 1 << 16, 4, 3, 1)
+    assert a.timeout_s == pytest.approx(peer.TIMEOUT_S)
+    assert (a.x, a.out, a.n, a.epoch) == (None, None, 0, 0)
+    R = peer.RingArgs
+    assert ctypes.sizeof(R) == 80
+    assert [getattr(R, f).offset for f in (
+        "table", "x", "out", "n", "cap_floats", "epoch", "n_loc", "d",
+        "chunk", "device", "loopback", "timeout_s", "stream")] == [
+        0, 8, 16, 24, 32, 40, 48, 52, 56, 60, 64, 68, 72]
+    ranks = peer.PeerWorkspace(torch.device("cuda", 0), 1 << 20, [], [],
+                               table[:1], object(), loopback=False)
+    assert (ranks.ring_args.n_loc, ranks.ring_args.loopback) == (1, 0)
 
 
 @pytest.mark.parametrize("gloo", [2, 4], indirect=True)
@@ -237,7 +297,7 @@ def test_two_shards_make_one_hop(jax_refs):
     packed = halo.pack_lines(KernelLines(*_torch_skl(skl)))
     got = cuda_dma.fused_halo_accumulate_cuda(ring, nu_t, packed,
                                               cutoff_cm1=CUTOFF)
-    assert ring.arrived[1] == 0          # nothing travels leftward
+    assert ring.epoch == 1               # one call, one exchange
     acc = lambda k, j: accumulate_plain(nu_t[k], halo.unpack_lines(
         packed[j]), cutoff_cm1=CUTOFF)
     for k in range(2):

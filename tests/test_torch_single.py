@@ -129,6 +129,39 @@ def _theta_fn(args):
     return f
 
 
+@pytest.mark.parametrize("n_out", [1, 3, 8])
+@pytest.mark.parametrize("with_chi", [False, True])
+@pytest.mark.parametrize("cutoff", [25.0, None])
+def test_single_wrapper_matches_pallas_interpret(fixture, n_out, with_chi,
+                                                 cutoff):
+    """K3's wrapper (``ops.cuda_single.accumulate_single``, its plain route
+    on the CPU) against the reference's K3 (``accumulate_pallas``, interpret
+    mode) at L = 150 (not a multiple of BLOCK_L) and P = 300 (not one of
+    TILE_P) with ``n_out`` random amplitude rows, float32, within the
+    Pallas parity budget."""
+    from spectrobot_tpu.ops.pallas_opacity import accumulate_pallas
+    from spectrobot_tpu_torch.ops.cuda_single import accumulate_single
+    rng = np.random.default_rng(20 + n_out)
+    fx = fixture
+    amps = (fx["amps"][:1] * rng.uniform(0.5, 1.5, (n_out, fx["nc"].size))
+            ).astype(np.float32)
+    chi = fx["chi"] if with_chi else None
+    ref = np.asarray(accumulate_pallas(
+        jnp.asarray(fx["nu"]), jop.KernelLines(
+            *(jnp.asarray(fx[k]) for k in ("nc", "sx", "y")),
+            jnp.asarray(amps), None if chi is None else jnp.asarray(chi)),
+        cutoff_cm1=cutoff, interpret=True))
+    t = torch.as_tensor
+    win = line_windows(t(fx["nu"]), fx["nu0"], cutoff_cm1=cutoff)
+    got = accumulate_single(t(fx["nu"]), win, t(fx["nc"]), t(fx["sx"]),
+                            t(fx["y"]), t(amps), cutoff_cm1=cutoff,
+                            chi_b=None if chi is None else t(chi)).numpy()
+    assert got.dtype == np.float32
+    assert got.shape == ref.shape == (n_out, 300)
+    np.testing.assert_allclose(got, ref, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("with_chi", [False, True])
 @pytest.mark.parametrize("cutoff", [25.0, None])
 def test_primal_matches_jax(fixture, with_chi, cutoff):
