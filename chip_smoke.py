@@ -70,10 +70,16 @@ Phases, each of which raises (non-zero exit) on failure:
      partitioned lines bit-equal to the roll, fused_halo_accumulate_fn
      against its plain version within K1's budget (the deepest bench state
      at 1, 2 and 4 shards with cutoff 25 and at 8 with cutoff 10; the dense
-     shape at 4 shards with cutoff 10), every call twice in a row; one
-     launch per call; then the ring and the fused kernel timed against
-     their plain versions (and the ring against torch.roll, with both
-     host issue times and the ring's device time);
+     shape at 4 shards with cutoff 10; the bench state with one shard's
+     row shuffled, on 8184 points with rows of the longest shard's length
+     (P_loc and L not multiples of 128), and with 1 and 8 amplitude rows),
+     every call twice in a row and bit-equal; one launch per call and one
+     device kernel (torch.profiler); the blocks each case stages against a
+     walk over every block (the window rule's host mirror); then the ring
+     and the fused kernel timed against their plain versions (the ring
+     against torch.roll, with both host issue times and the ring's device
+     time; the fused kernel's entry point, wrapper, kernel alone and host
+     issue at the dense case);
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
@@ -959,6 +965,30 @@ def host_ms(fn, n: int = 20) -> tuple:
     return 1e3 * (t1 - t0) / n, 1e3 * (t2 - t0) / n
 
 
+def dense_centers(dev, n_lines: int = 20480) -> torch.Tensor:
+    """The unshifted centers of the dense shape's lines (k3_cases')."""
+    from spectrobot_tpu_torch.data.lines import random_lines
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    return device_lines_from_linelist(
+        random_lines(n_lines, 600.0, 740.0, seed=0), [(2, 1)],
+        dtype=torch.float32, device=dev, nu_ref=0.0).nu0
+
+
+def halo_partition(case: K3Case, nu0: torch.Tensor, n: int,
+                   cut: Optional[float], round_to: int = 128):
+    """The case's lines partitioned over ``n`` nu shards of its grid
+    (``ShardedKernelLines``, each shard padded to a common multiple of
+    ``round_to`` lines)."""
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel import halo
+
+    edges = halo.nu_shard_edges(case.nu.double().cpu().numpy(), n, cut)
+    return halo.partition_kernel_lines(
+        KernelLines(case.nu_c, case.sx, case.y, case.amps), nu0, edges,
+        round_to=round_to)
+
+
 def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
               dense_lines=20480) -> dict:
     """Phase 6e: the remote-copy halo tier on the loopback ring of this
@@ -969,29 +999,41 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
     import types
 
     from spectrobot_tpu_torch import dma_halo
-    from spectrobot_tpu_torch.data.lines import random_lines
     from spectrobot_tpu_torch.ops import cuda_dma as cd
     from spectrobot_tpu_torch.ops.opacity import KernelLines
-    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
 
-    dense_nu0 = device_lines_from_linelist(
-        random_lines(dense_lines, 600.0, 740.0, seed=0), [(2, 1)],
-        dtype=torch.float32, device=dev, nu_ref=0.0).nu0
-
-    def partition(case, nu0, n, cut):
-        edges = halo.nu_shard_edges(case.nu.double().cpu().numpy(), n, cut)
-        return halo.partition_kernel_lines(
-            KernelLines(case.nu_c, case.sx, case.y, case.amps), nu0, edges)
-
+    dense_nu0 = dense_centers(dev, dense_lines)
     rings = {n: loopback_ring(n, dev) for n in (1, 2, 3, 4, 8)}
     fused_cases = [("bench state", bench, bench_nu0, n, 25.0)
                    for n in (1, 2, 4)]
     fused_cases += [("bench state", bench, bench_nu0, 8, 10.0),
                     ("dense", dense, dense_nu0, 4, 10.0)]
-    parts = {(name, n, cut): partition(c, nu0, n, cut)
+    parts = {(name, n, cut): halo_partition(c, nu0, n, cut)
              for name, c, nu0, n, cut in fused_cases}
+    # The bench state's lines with shard 1's row shuffled (its padding among
+    # its lines); on 8184 points (P_loc 2046) with L = the longest shard's
+    # lines, neither a multiple of 128; with 1 and 8 amplitude rows.
+    g = np.random.default_rng(62)
+    skl = parts["bench state", 4, 25.0]
+    perm = torch.as_tensor(g.permutation(skl.nu_c.shape[1]), device=dev)
+    parts["bench state, shard 1 shuffled", 4, 25.0] = halo.ShardedKernelLines(
+        *(torch.cat([a[:1], a[1:2][..., perm], a[2:]]) for a in skl))
+    ragged = bench._replace(nu=bench.nu[:8184])
+    parts["bench state, ragged", 4, 25.0] = halo_partition(
+        ragged, bench_nu0, 4, 25.0, round_to=1)
+    w8 = torch.as_tensor(g.uniform(0.5, 1.5, (8, bench.amps.shape[1])),
+                         dtype=torch.float32, device=dev)
+    by_rows = {1: bench._replace(amps=bench.amps[:1].contiguous()),
+               8: bench._replace(amps=(w8 * bench.amps[:1]).contiguous())}
+    for n_out, n in ((1, 2), (8, 4)):
+        parts[f"bench state, n_out {n_out}", n, 25.0] = halo_partition(
+            by_rows[n_out], bench_nu0, n, 25.0)
+    fused_cases += [("bench state, shard 1 shuffled", bench, None, 4, 25.0),
+                    ("bench state, ragged", ragged, None, 4, 25.0),
+                    ("bench state, n_out 1", by_rows[1], None, 2, 25.0),
+                    ("bench state, n_out 8", by_rows[8], None, 4, 25.0)]
     g = torch.Generator(device=dev).manual_seed(60)
     # Blocks of 64 x 1000 floats a shard, and ragged ones of 7 x 143 (1001
     # floats: not a multiple of 4 or of a copy item).
@@ -1052,9 +1094,9 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
     rows = {}
     for name, c, _, n, cut in fused_cases:
         skl = parts[name, n, cut]
+        packed_c = halo.pack_lines(KernelLines(*skl))
         plain = cd.fused_halo_accumulate_plain(
-            rings[n], c.nu.reshape(n, -1),
-            halo.pack_lines(KernelLines(*skl)), cutoff_cm1=cut)
+            rings[n], c.nu.reshape(n, -1), packed_c, cutoff_cm1=cut)
         ref = plain.transpose(0, 1).reshape(plain.shape[1], -1)
         got = fused[name, n, cut]
         check(torch.equal(got[0], got[1]),
@@ -1064,16 +1106,30 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
         err = (got[0] - ref).abs()
         worst = float((err / (RTOL * ref.abs() + ATOL_REL * ref.abs().max()))
                       .max())
+        f = dma_halo.fused_halo_accumulate_fn(rings[n], cutoff_cm1=cut)
+        kernels = device_kernels(lambda: f(c.nu, skl))
         row = rows[name, n, cut] = {
             "case": name, "shards": n, "cutoff": cut,
             "lines": int(c.nu_c.shape[0]), "Lmax": int(skl.nu_c.shape[1]),
-            "points": int(c.nu.shape[0]), "max_abs_err": float(err.max()),
+            "points": int(c.nu.shape[0]), "rows": int(skl.amps.shape[1]),
+            "blocks_visited": cd.blocks_visited(c.nu.reshape(n, -1),
+                                                packed_c, cut),
+            "device_kernels_in_3_calls": len(kernels),
+            "max_abs_err": float(err.max()),
             "max_ref": float(ref.abs().max()),
             "budget": f"{RTOL:g}*|ref| + {ATOL_REL:g}*max|ref|",
             "err_over_budget": worst}
         print(f"dma_halo vs plain: {json.dumps(row)}")
         check(worst <= 1.0, f"{name}, {n} shards: the fused halo sum "
                             f"disagrees with its plain version")
+        check(1 <= len(kernels) <= 3 and all("dma_halo_kernel" in k
+                                             for k in kernels),
+              f"{name}, {n} shards: a fused call ran device kernels other "
+              f"than its one launch: {kernels}")
+    shapes = {(r["Lmax"] % 128, (r["points"] // r["shards"]) % 128)
+              for (name, _, _), r in rows.items() if "ragged" in name}
+    check(all(a and b for a, b in shapes),
+          f"the ragged case is not ragged: {shapes}")
 
     # Times at the dense case on 4 shards (the full-width case), and bounds.
     packed = halo.pack_lines(KernelLines(*dense4)).contiguous()
@@ -1085,10 +1141,15 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
                           cuda_ms(lambda: torch.roll(packed, 1, 0)))}
     f = dma_halo.fused_halo_accumulate_fn(r4, cutoff_cm1=10.0)
     nu4 = dense.nu.reshape(4, -1)
+    entry = lambda: f(dense.nu, dense4)
+    wrapper = lambda: cd.fused_halo_accumulate_cuda(r4, nu4, packed,
+                                                    cutoff_cm1=10.0)
     times["dma_halo"] = (
-        cuda_ms(lambda: f(dense.nu, dense4)),
+        cuda_ms(entry),
         cuda_ms(lambda: cd.fused_halo_accumulate_plain(
             r4, nu4, packed, cutoff_cm1=10.0)), None)
+    fused_split = {"wrapper": cuda_ms(wrapper),
+                   "kernel alone": kernel_ms(entry, "dma_halo_kernel")}
     pairs = dict.fromkeys(REGIONS, 0)
     no_windows = types.SimpleNamespace(cutoff_cm1=10.0)
     for k in range(4):
@@ -1108,8 +1169,8 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
     ring = lambda: cd.ring_exchange_cuda(r4, packed, 1)
     roll = lambda: torch.roll(packed, 1, 0)
     host = {name: host_ms(fn) for name, fn in (
-        ("dma_ring", ring), ("torch.roll", roll),
-        ("dma_halo", lambda: f(dense.nu, dense4)))}
+        ("dma_ring", ring), ("torch.roll", roll), ("dma_halo", entry),
+        ("dma_halo wrapper", wrapper))}
     for name, (issue, total) in host.items():
         print(f"host time {name}: {issue:.4f} ms a call to issue, "
               f"{total:.4f} ms a call to finish (20 calls back to back)")
@@ -1122,11 +1183,16 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
           f"{kernel_ms(roll, 'roll'):.4f} ms, host issue "
           f"{host['torch.roll'][0]:.4f} ms); bound "
           f"{bounds['dma_ring'][0]:.5f} ms (bytes)")
+    visited = rows["dense", 4, 10.0]["blocks_visited"]
     print(f"time dma_halo (loopback, dense shape, 4 shards, cutoff 10): "
-          f"kernel {times['dma_halo'][0]:.3f} ms, plain "
-          f"{times['dma_halo'][1]:.3f} ms; in-cutoff pairs by region "
-          f"{json.dumps(pairs)}; bound {bounds['dma_halo'][0]:.4f} ms "
-          f"({bounds['dma_halo'][1]})")
+          f"entry point {times['dma_halo'][0]:.4f} ms, wrapper "
+          f"{fused_split['wrapper']:.4f} ms (CUDA events around the call), "
+          f"kernel alone {fused_split['kernel alone']:.4f} ms "
+          f"(torch.profiler), host issue {host['dma_halo'][0]:.4f} ms "
+          f"(wrapper {host['dma_halo wrapper'][0]:.4f} ms); plain "
+          f"{times['dma_halo'][1]:.3f} ms; blocks visited {visited[0]} of "
+          f"{visited[1]}; in-cutoff pairs by region {json.dumps(pairs)}; "
+          f"bound {bounds['dma_halo'][0]:.4f} ms ({bounds['dma_halo'][1]})")
     for r in rings.values():
         r.close()
     return {"launches": n_calls, "rows": rows, "times": times,
@@ -1196,6 +1262,22 @@ def kernel_ms(call, kernel: str, n: int = 10) -> float:
     found = [e for e in prof.key_averages() if kernel in e.key]
     return (sum(e.device_time_total for e in found) / 1e3
             / max(sum(e.count for e in found), 1))
+
+
+def device_kernels(call, n: int = 3) -> list:
+    """The names of the device kernels that ``n`` warm calls of ``call``
+    launch (``torch.profiler``, which may miss the event of a launch made
+    through ctypes but adds none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def cuda_ms(fn, n: int = 5) -> float:

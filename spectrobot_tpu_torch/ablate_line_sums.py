@@ -1,9 +1,10 @@
-"""Ablation builds of the line sums (K1, K3), the transpose (K5) and the
-ring exchange on one CUDA GPU, and the audit of K1's and K3's inner loops
-in SASS.
+"""Ablation builds of the line sums (K1, K3), the transpose (K5), the ring
+exchange and the fused halo kernel on one CUDA GPU, and the audit of K1's
+and K3's inner loops in SASS.
 
     python -m spectrobot_tpu_torch.ablate_line_sums [--parent DIR]
-        [--kernels opacity_batch,basis_transpose,opacity_single,dma_ring]
+        [--kernels opacity_batch,basis_transpose,opacity_single,dma_ring,
+                   dma_halo]
         [--parent-only]
 
 Run from the repository root (it reads chip_smoke.py's cases).  Each
@@ -12,9 +13,9 @@ kernel taken out by a text edit (the run fails if an edit no longer
 applies):
 
   full        the kernels as they are;
-  no_voigt    K1 and K3 without the Voigt arithmetic: a pair within the
-              cutoff adds dnu * sx + y; the staging, the cutoff test and
-              the loop remain;
+  no_voigt    K1, K3 and the fused halo kernel without the Voigt
+              arithmetic: a pair within the cutoff adds dnu * sx + y; the
+              staging, the cutoff test and the loop remain;
   pts1        K1 with one grid point per thread (128 threads);
   pts2        K3 with two grid points per thread (64 threads);
   pts4        K1 and K3 with four grid points per thread (32 threads);
@@ -28,6 +29,12 @@ applies):
               remain;
   no_split    K5 with one segment per line block (no split of the tile
               walk);
+  no_windows  the fused kernel walking every line block of every source,
+              as its parent did (its segments cut on all of them);
+  static_deal the fused kernel's items dealt to the blocks in turn (item
+              b + m gridDim.x to block b), not taken from its work counter;
+  free_registers  the fused kernel built without its least resident
+              blocks an SM (ptxas then takes 72 registers, not 64);
   sys_scope   the ring on the loopback with the protocol at system scope
               (.sys, __threadfence_system) as between cards;
   two_pass    the ring on the loopback through the receive buffers (store
@@ -40,17 +47,16 @@ applies):
 
 Of the parent's kernels (``--parent``): full, no_voigt, no_basis, and
 
-  no_sum      K3 without its second pass (the sum of the segments);
-  gpu_scope   the ring's protocol at device scope (.gpu, __threadfence);
-  no_copy     the ring without its copy of the received buffer into the
-              output (the waits remain).
+  no_sum      K3 without the sum of its segments, the fused halo kernel
+              without its second pass (sum_parts_kernel).
 
-``--parent DIR`` adds the sources and wrappers under DIR/spectrobot_tpu_torch
-(``git archive <commit> spectrobot_tpu_torch/csrc spectrobot_tpu_torch/ops
-spectrobot_tpu_torch/parallel | tar -x -C DIR``) as the variants
-``parent/<variant>``, with the edits of ``PARENT_EDITS``, and compares the
-parent's full K1 and K3 with the checkout's on every case, bit for bit,
-and its K5 by the largest difference.
+``--parent DIR`` adds the package under DIR/spectrobot_tpu_torch (``git
+archive <commit> spectrobot_tpu_torch | tar -x -C DIR``) as the variants
+``parent/<variant>``, with the edits of ``PARENT_EDITS`` (written for
+984dc8c, the fused kernel before its redesign), and compares the parent's
+full K1, K3 and fused kernel with the checkout's on every case (K1 and K3
+bit for bit; the fused sums, whose segments moved, by the largest
+difference against K1's budget) and its K5 by the largest difference.
 
 Cases: chip_smoke.py's K1 inputs (the limb, nadir + chi, bench and bench +
 chi cases; the limb's live states alone, which takes the dead-state blocks
@@ -60,18 +66,25 @@ cutoff); K3 on chip_smoke.py's cases (the dense shape, the deepest bench
 state, the deepest nadir state with chi and 4 rows) and on config 1's
 inputs (3001 points); the ring on the loopback ring of this card: 4 shards
 of [5, 8192] floats (chip_smoke.py's timed case) and 2 and 8 shards of
-[64, 1000].  Times, each case over the variants in turns, forward and then
-reverse order: the wrapper call (CUDA events, median of 10 after a
-warm-up), the kernel alone (``torch.profiler``'s device time per launch of
-the kernel, over 10 calls of one launch each; for K3 also the parent's
-segment pass) and, for the ring, the host clock per call over 20 calls
-back to back (until issued, until done).  Prints the card's name and power
-limit, the loops of K1's and K3's kernels in SASS (``cuobjdump -sass``:
-for each loop, its instructions and their kinds), then one JSON line per
-variant with its registers, static shared memory, spills and times.  An
-ablated build computes wrong results by construction: only ``full`` and
-``parent/full`` are results, and each full ring is held bit-equal to
-``torch.roll``.
+[64, 1000]; the fused halo kernel on the loopback ring: the dense shape
+on 4 shards at a 10 cm-1 cutoff (chip_smoke.py's timed case), the deepest
+bench state on 2 and 4 shards at 25 and on 8 at 10.  Times, each case over
+the variants in turns, forward and then reverse order: the wrapper call
+(CUDA events, median of 10 after a warm-up), the kernel alone
+(``torch.profiler``'s device time per launch of the kernel, over 10 calls
+of one launch each; for the parent's K3 and fused kernel also the sum
+pass), for K3, the ring and the fused kernel the host clock per call over
+20 calls back to back (until issued, until done), and for the fused
+kernel its entry point (``dma_halo.fused_halo_accumulate_fn``: events and
+host issue) and, once per case, the two tensor operations the parent's
+entry point ran around the wrapper (``pack_lines`` and the loopback's
+layout of the result).  Prints the card's name and power limit, the
+fused kernel's ptxas report, the loops of K1's and K3's kernels in SASS
+(``cuobjdump -sass``: for each loop, its instructions and their kinds),
+then one JSON line per variant with its registers, static shared memory,
+spills and times.  An ablated build computes wrong results by
+construction: only ``full`` and ``parent/full`` are results, and each full
+ring is held bit-equal to ``torch.roll``.
 """
 
 from __future__ import annotations
@@ -96,11 +109,13 @@ import torch
 KERNELS = {"opacity_batch": ("ops.cuda_opacity", "_library"),
            "basis_transpose": ("ops.cuda_transpose", "_library"),
            "opacity_single": ("ops.cuda_single", "_library"),
-           "dma_ring": ("parallel.peer", "library")}
+           "dma_ring": ("parallel.peer", "library"),
+           "dma_halo": ("ops.cuda_dma", "_library")}
 # The wrapper modules a parent set loads from its own sources, in import
 # order (each later one imports the earlier ones).
 PARENT_MODULES = ("ops.cuda_opacity", "ops.cuda_single",
-                  "ops.cuda_transpose", "parallel.peer", "ops.cuda_dma")
+                  "ops.cuda_transpose", "parallel.peer", "ops.cuda_dma",
+                  "dma_halo")
 SASS_KERNELS = ("opacity_batch", "opacity_single")
 
 # variant -> [(kernel, file in csrc, old text, new text)].
@@ -108,11 +123,18 @@ NO_VOIGT = [(k, "voigt_primal.cuh",
              "  const float x = dnu * sx;\n  if (TIER == FAR) {",
              "  wr = fmaf(dnu, sx, y);\n  return true;\n"
              "  const float x = dnu * sx;\n  if (TIER == FAR) {")
-            for k in ("opacity_batch", "opacity_single")]
+            for k in ("opacity_batch", "opacity_single", "dma_halo")]
 NO_BASIS = [(
     "basis_transpose", "voigt_basis.cuh",
     "  const float x = dnu * sx;\n  basis_pair<TIER>(x, y, K, kx, ky);",
     "  const float x = dnu * sx;\n  K = x;\n  kx = y;\n  ky = x * y;")]
+
+
+# K3 without the sum of its segments (the last block of a tile resets its
+# counter and returns).
+K3_NO_SUM = ("opacity_single", "opacity_single.cu", "  if (!s_last) return;",
+             "  if (threadIdx.x == 0 && s_last) counters[tile] = 0;\n"
+             "  return;")
 
 
 def _both(file: str, old: str, new: str) -> list:
@@ -132,20 +154,28 @@ EDITS = {
              ("opacity_single", "opacity_single.cu",
               "constexpr int PTS = 1;", "constexpr int PTS = 4;")],
     "no_skips": _both("line_sum_item.cuh",
-                      "__ballot_sync(0xffffffffu, real && !(gap > reach))",
-                      "__ballot_sync(0xffffffffu, true)")
+                      "__ballot_sync(0xffffffffu, real && !beyond_reach(c, "
+                      "c, t))", "__ballot_sync(0xffffffffu, true)")
                 + [("basis_transpose", "basis_transpose.cu",
                     "if (gap > reach) continue;",
                     "if (gap > reach && false) continue;")],
-    "no_sum": [("opacity_single", "opacity_single.cu",
-                "  if (!s_last) return;",
-                "  if (threadIdx.x == 0 && s_last) counters[tile] = 0;\n"
-                "  return;")],
+    "no_sum": [K3_NO_SUM],
     "no_basis": NO_BASIS,
     "no_split": [("basis_transpose", "basis_transpose.cu",
                   "  const dim3 grid(n_lblk, B, n_seg * ((R + RR - 1) / RR));",
                   "  n_seg = 1;\n  seg_tiles = 1 << 30;\n"
                   "  const dim3 grid(n_lblk, B, n_seg * ((R + RR - 1) / RR));")],
+    "no_windows": [("dma_halo", "dma_halo.cu",
+                    "const Hull hull = reach_hull(rg, s.nb, t);",
+                    "const Hull hull{0, s.nb, true};")],
+    "static_deal": [("dma_halo", "dma_halo.cu",
+                     "      const int taken = atomicAdd(queue, 1);\n"
+                     "      if (taken == items - 1) *queue = 0;\n"
+                     "      s_item = gridDim.x + taken;",
+                     "      s_item = i + gridDim.x;")],
+    "free_registers": [("dma_halo", "dma_halo.cu",
+                        "__launch_bounds__(THREADS, MIN_BLOCKS)",
+                        "__launch_bounds__(THREADS)")],
     "plain_launch": [("dma_ring", "dma_ring.cu",
                       "cudaLaunchCooperativeKernel(", "cudaLaunchKernel(")],
     "sys_scope": [("dma_ring", "dma_ring.cu",
@@ -155,24 +185,20 @@ EDITS = {
                   "(void*)dma_ring_kernel<GPU_SCOPE, false, VEC>",
                   "(void*)dma_ring_kernel<GPU_SCOPE, true, VEC>")],
 }
-# The ablations of the parent's kernels (7ca61e2: K3 and the ring before
-# their redesign).
+# The ablations of the parent's kernels (984dc8c: the fused halo kernel
+# before its redesign).
 PARENT_EDITS = {
     "full": [],
     "no_voigt": NO_VOIGT,
     "no_basis": NO_BASIS,
-    "no_sum": [("opacity_single", "opacity_single.cu",
-                "  launch_sum_parts(part, out, n_seg, n_out * Pp, 1, s);",
-                "  (void)part;")],
-    "gpu_scope": [("dma_ring", "peer_ring.cuh", old, new) for old, new in (
-        ("ld.acquire.sys.global", "ld.acquire.gpu.global"),
-        ("st.release.sys.global", "st.release.gpu.global"),
-        ("red.release.sys.global", "red.release.gpu.global"),
-        ("    __threadfence_system();", "    __threadfence();"))],
-    "no_copy": [("dma_ring", "dma_ring.cu",
-                 "    block_copy<VEC>(out + (size_t)k * n, ws_recv(own, d, "
-                 "cap_floats), lo,\n                    hi);",
-                 "    (void)lo;\n    (void)hi;")],
+    "no_sum": [K3_NO_SUM,
+               ("dma_halo", "dma_halo.cu",
+                "  sum_parts_kernel<<<(unsigned)((total + SUM_THREADS - 1) / "
+                "SUM_THREADS),\n                     SUM_THREADS, 0, s>>>("
+                "part, out, n_src * n_seg,\n"
+                "                                          n_out * Pp, "
+                "n_loc);",
+                "  (void)total;")],
 }
 # Cases a variant is not timed on.
 SKIP: dict = {}
@@ -369,8 +395,9 @@ def cases(dev, kernels) -> dict:
                 kw["cutoff_cm1"] = None
             out[f"K5 {c.name}, R = {R}"] = ("basis_transpose", (
                 c.nu, c.windows, c.nu_c, c.sx, c.y, ct), kw)
+    k3 = {c.name: c for c in cs.k3_cases(k1, dev)}
     if "opacity_single" in kernels:
-        for c in cs.k3_cases(k1, dev):
+        for c in k3.values():
             out[f"K3 {c.name}"] = ("opacity_single", (
                 c.nu, c.windows, c.nu_c, c.sx, c.y, c.amps),
                 {"chi_b": c.chi_b, "cutoff_cm1": c.windows.cutoff_cm1})
@@ -382,6 +409,16 @@ def cases(dev, kernels) -> dict:
         for n, shape in ((4, (5, 8192)), (2, (64, 1000)), (8, (64, 1000))):
             x = torch.randn((n,) + shape, generator=g, device=dev)
             out[f"ring n={n} {list(shape)}"] = ("dma_ring", (n, x), {})
+    if "dma_halo" in kernels:
+        nu0 = {"dense": cs.dense_centers(dev),
+               "bench state": cs.bench_device_lines(dev).nu0}
+        for name, n, cut in (("dense", 4, 10.0), ("bench state", 2, 25.0),
+                             ("bench state", 4, 25.0),
+                             ("bench state", 8, 10.0)):
+            c = k3[name]
+            skl = cs.halo_partition(c, nu0[name], n, cut)
+            out[f"fused {name}, n={n}, cutoff {cut:g}"] = (
+                "dma_halo", (n, c.nu, skl), {"cutoff_cm1": cut})
     return out
 
 
@@ -429,10 +466,74 @@ def ring_host_split(ring, x, n: int = 1000) -> dict:
     return out
 
 
+def _ring_of(mods: dict, rings: dict, n: int, dev):
+    if n not in rings:
+        rings[n] = mods["parallel.peer"].loopback_ring(n, dev)
+    return rings[n]
+
+
+def fused_host_split(ring, a: tuple, kw: dict, n: int = 1000) -> dict:
+    """Host clock per call [ms] of the checkout's fused entry point and
+    wrapper on the case ``a`` and of their parts, each over ``n`` calls
+    back to back after a warm-up: the two allocations, the workspace and
+    counter lookups, and the launch of the last call's arguments alone."""
+    import time
+
+    from spectrobot_tpu_torch import dma_halo
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.ops.cuda_single import current_stream
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel.halo import pack_lines
+
+    n_sh, nu, skl = a
+    nu_k = nu.reshape(n_sh, -1)
+    packed = pack_lines(KernelLines(*skl[:4])).contiguous()
+    lib = cuda_dma._library()
+    seen = []
+    launch = lib.dma_halo_launch
+    lib.dma_halo_launch = lambda *args: seen.append(args) or launch(*args)
+    entry = dma_halo.fused_halo_accumulate_fn(ring, **kw)
+    keep = entry(nu, skl)                 # the buffers the relaunch writes
+    lib.dma_halo_launch = launch
+    dev = nu.device
+    parts = {
+        "entry point": lambda: entry(nu, skl),
+        "wrapper": lambda: cuda_dma.fused_halo_accumulate_cuda(
+            ring, nu_k, packed, **kw),
+        "torch.empty": lambda: torch.empty((2, 4096), device=dev),
+        "workspace and epoch": lambda: (ring.workspace_for(1),
+                                        ring.begin_call()),
+        "stream and counters": lambda: cuda_dma.arrival_counters(
+            cuda_dma._COUNTERS, dev, current_stream(dev.index), 1),
+        "launch alone": lambda: launch(*seen[-1]),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = 1e3 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+    del keep
+    return out
+
+
 def wrapper_call(kernel: str, mods: dict, rings: dict, a: tuple, kw: dict):
     """The call of ``kernel``'s wrapper in the module set ``mods`` on the
-    case's arguments (the ring's on this set's loopback rings)."""
-    if kernel == "opacity_batch":
+    case's arguments (the ring's and the fused sum's on this set's
+    loopback rings; the fused sum's lines packed outside the call)."""
+    if kernel == "dma_halo":
+        from spectrobot_tpu_torch.ops.opacity import KernelLines
+        from spectrobot_tpu_torch.parallel.halo import pack_lines
+
+        n, nu, skl = a
+        packed = pack_lines(KernelLines(*skl[:4])).contiguous()
+        fn = mods["ops.cuda_dma"].fused_halo_accumulate_cuda
+        args = (_ring_of(mods, rings, n, nu.device), nu.reshape(n, -1),
+                packed)
+    elif kernel == "opacity_batch":
         fn, args = mods["ops.cuda_opacity"].accumulate_batch, a
     elif kernel == "basis_transpose":
         fn, args = mods["ops.cuda_transpose"].basis_transpose_batch, a
@@ -440,10 +541,38 @@ def wrapper_call(kernel: str, mods: dict, rings: dict, a: tuple, kw: dict):
         fn, args = mods["ops.cuda_single"].accumulate_single, a
     else:
         n, x = a
-        if n not in rings:
-            rings[n] = mods["parallel.peer"].loopback_ring(n, x.device)
-        fn, args = mods["ops.cuda_dma"].ring_exchange_cuda, (rings[n], x, 1)
+        fn, args = mods["ops.cuda_dma"].ring_exchange_cuda, (
+            _ring_of(mods, rings, n, x.device), x, 1)
     return lambda: fn(*args, **kw)
+
+
+def entry_call(mods: dict, rings: dict, a: tuple, kw: dict):
+    """The fused sum's call through its entry point
+    (``dma_halo.fused_halo_accumulate_fn`` of the set ``mods``: the lines
+    packed, the wrapper, the shards' sums laid out as the grid's)."""
+    n, nu, skl = a
+    f = mods["dma_halo"].fused_halo_accumulate_fn(
+        _ring_of(mods, rings, n, nu.device), **kw)
+    return lambda: f(nu, skl)
+
+
+def entry_parts(a: tuple, kw: dict) -> dict:
+    """Device time [ms, CUDA events] of the two tensor operations around
+    the fused wrapper in its entry point: the packing of the lines and
+    the loopback's layout of the result."""
+    from spectrobot_tpu_torch.ops.cuda_dma import fused_halo_accumulate_plain
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel.halo import pack_lines
+
+    import chip_smoke as cs
+
+    n, nu, skl = a
+    lines = KernelLines(*skl[:4])
+    out = torch.empty((n, skl.amps.shape[1], nu.shape[0] // n),
+                      device=nu.device)
+    return {"pack_lines ms": cs.cuda_ms(lambda: pack_lines(lines), REPEATS),
+            "layout ms": cs.cuda_ms(lambda: out.transpose(0, 1).reshape(
+                out.shape[1], -1), REPEATS)}
 
 
 def main(argv=None) -> int:
@@ -495,6 +624,10 @@ def main(argv=None) -> int:
         row[f"{kernel} spill bytes"] = max(
             [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
             or [0])
+        if kernel == "dma_halo":
+            for line in log.splitlines():
+                if "dma_halo_kernel" in line or "Used" in line:
+                    print(f"ptxas {v}: {line.strip()}")
         if kernel in SASS_KERNELS and v.endswith("full"):
             for loop in sass_loops(path):
                 print(f"sass {v}: {json.dumps(loop)}")
@@ -520,15 +653,27 @@ def main(argv=None) -> int:
                                                                REPEATS))
             row.setdefault(f"{name} kernel ms", []).append(
                 cs.kernel_ms(call, kernel, REPEATS))
-            if kernel == "opacity_single" and prefix:
+            if kernel in ("opacity_single", "dma_halo") and prefix:
                 row.setdefault(f"{name} sum pass ms", []).append(
                     cs.kernel_ms(call, "sum_parts", REPEATS))
-            if kernel in ("dma_ring", "opacity_single"):
+            if kernel in ("dma_ring", "opacity_single", "dma_halo"):
                 issue, total = cs.host_ms(call)
                 row.setdefault(f"{name} host issue ms", []).append(issue)
                 row.setdefault(f"{name} host total ms", []).append(total)
+            if kernel == "dma_halo":
+                entry = entry_call(mods, rings[prefix], a, kw)
+                row.setdefault(f"{name} entry ms", []).append(
+                    cs.cuda_ms(entry, REPEATS))
+                row.setdefault(f"{name} entry host issue ms", []).append(
+                    cs.host_ms(entry)[0])
             if v.endswith("full") and v not in outs:
                 outs[v] = call()
+        if kernel == "dma_halo":
+            print(f"fused entry point's tensor operations, {name}: "
+                  f"{json.dumps(entry_parts(a, kw))}")
+            if "" in sets:
+                print(f"fused host split, {name}: " + json.dumps(
+                    fused_host_split(rings[""][a[0]], a, kw)))
         if kernel == "dma_ring" and "" in sets:
             print(f"ring host split, {name}: " + json.dumps(
                 ring_host_split(rings[""][a[0]], a[1])))
@@ -541,12 +686,14 @@ def main(argv=None) -> int:
                     raise RuntimeError(f"{v}: the ring is not the roll")
         elif "parent/full" in outs and "full" in outs:
             got, ref = outs["full"], outs["parent/full"]
-            if kernel in ("opacity_batch", "opacity_single"):
+            if kernel in ("opacity_batch", "opacity_single", "dma_halo"):
                 same = bool(torch.equal(got, ref))
-                d = float((got - ref).abs().max())
+                d = (got - ref).abs()
                 m = float(ref.abs().max())
+                budget = cs.RTOL * ref.abs() + cs.ATOL_REL * m
                 print(f"{name} vs parent: bit-equal {same}; max |diff| "
-                      f"{d:.3e} of max {m:.3e}")
+                      f"{float(d.max()):.3e} of max {m:.3e}; "
+                      f"{float((d / budget).max()):.3e} of K1's budget")
             else:
                 d = max(float((g - r).abs().max()) for g, r in zip(got, ref))
                 m = max(float(r.abs().max()) for r in ref)

@@ -37,10 +37,18 @@
 //    order: no atomics, no shared accumulators, deterministic results.
 //  * The rows are read unpadded: lines at or past L take the padding (center
 //    `far`, sx and y 1e6, amplitudes and chi 0) in registers.
+//
+// K1 and K3 walk a range of line blocks the host's window table gives
+// (line_sum_item).  The fused halo kernel cannot have such a table (a
+// neighbour's centers are known only once they have arrived), so it takes
+// the tile's bounds first (tile_span), finds the blocks within reach from
+// a center range per block, and walks them with a mask of the blocks to
+// stage (line_sum_walk with a Walk other than EveryBlock).
 
 #pragma once
 
 #include <cfloat>
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -125,32 +133,38 @@ __device__ __forceinline__ int point_of(int tile, int j) {
   return tile * TILE_P + j * Tile<PTS>::THREADS + threadIdx.x;
 }
 
-// One item with Tile<PTS>::THREADS threads: the sums over the line blocks
-// [b0, b1) of `r` at this thread's PTS points of `tile` of the grid nu
-// (padded to whole tiles), into acc.  Every thread of the block calls it; a
-// caller that runs several items in a row syncs the block between them.
-template <int PTS, int NOUT, bool HAS_CHI, bool L2_ONLY>
-__device__ __forceinline__ void line_sum_item(const LineRows& r,
-                                              const float* __restrict__ nu,
-                                              int tile, int b0, int b1,
-                                              float cutoff,
-                                              float (&acc)[NOUT][PTS]) {
-  constexpr int THREADS = Tile<PTS>::THREADS;
-  constexpr int WARPS = Tile<PTS>::WARPS;
-  __shared__ float4 s_q[BLOCK_L];
-  __shared__ Amps<NOUT> s_a[BLOCK_L];
-  __shared__ int s_run[N_SUB];
-  __shared__ float s_lo[WARPS], s_hi[WARPS];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+// A tile's wavenumber bounds and how far a center may lie from them and
+// still reach one of its points.
+struct TileSpan {
+  float lo, hi, reach;
+};
 
-  // The tile's true wavenumber bounds over the padded grid (as the host's
-  // tier_counts takes them).
-  float nu_p[PTS];
+// Whether no line with a center in [c_lo, c_hi] can reach the tile: then
+// every pair of such a line lies beyond the cutoff.  Exact for a range as
+// for one line (c_lo == c_hi): rounding is monotone, so each line's gap is
+// at least the range's.
+__device__ __forceinline__ bool beyond_reach(float c_lo, float c_hi,
+                                             const TileSpan& t) {
+  const float gap = fmaxf(fmaxf(c_lo - t.hi, t.lo - c_hi), 0.0f);
+  return gap > t.reach;
+}
+
+// This thread's PTS points of `tile` into nu_p, and the tile's span, over
+// the points up to index `last` of the grid nu (a point past it reads the
+// last one: the grid padded with its last point, as the host's tier_counts
+// takes it).  Every thread of the block calls it.
+template <int PTS>
+__device__ __forceinline__ TileSpan tile_span(const float* __restrict__ nu,
+                                              int tile, int last,
+                                              float cutoff,
+                                              float (&nu_p)[PTS]) {
+  constexpr int WARPS = Tile<PTS>::WARPS;
+  __shared__ float s_lo[WARPS], s_hi[WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float lo = INFINITY, hi = -INFINITY;
 #pragma unroll
   for (int j = 0; j < PTS; ++j) {
-    nu_p[j] = nu[point_of<PTS>(tile, j)];
+    nu_p[j] = nu[min(point_of<PTS>(tile, j), last)];
     lo = fminf(lo, nu_p[j]);
     hi = fmaxf(hi, nu_p[j]);
   }
@@ -177,12 +191,48 @@ __device__ __forceinline__ void line_sum_item(const LineRows& r,
   const float reach =
       cutoff + 4.0f * FLT_EPSILON *
                    (cutoff + fmaxf(fabsf(tile_lo), fabsf(tile_hi)));
+  return TileSpan{tile_lo, tile_hi, reach};
+}
+
+// The walk of K1 and K3: every block of the range.
+struct EveryBlock {
+  static constexpr bool ALL = true;
+  __device__ __forceinline__ unsigned mask(int, const TileSpan&) const {
+    return 0xffffffffu;
+  }
+};
+
+// The sums over the line blocks [b0, b1) of `r` at this thread's points
+// nu_p of a tile with span `t`, into acc: the blocks that `walk` marks
+// (walk.mask(b, t): bit i for block b + i, the same in every thread), all
+// of them with EveryBlock.  Every thread of the block calls it; a caller
+// that runs several items in a row syncs the block between them.
+template <int PTS, int NOUT, bool HAS_CHI, bool L2_ONLY, class Walk>
+__device__ __forceinline__ void line_sum_walk(const LineRows& r,
+                                              const float (&nu_p)[PTS],
+                                              const TileSpan& t, int b0,
+                                              int b1, float cutoff,
+                                              const Walk& walk,
+                                              float (&acc)[NOUT][PTS]) {
+  constexpr int THREADS = Tile<PTS>::THREADS;
+  __shared__ float4 s_q[BLOCK_L];
+  __shared__ Amps<NOUT> s_a[BLOCK_L];
+  __shared__ int s_run[N_SUB];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const float tile_lo = t.lo, tile_hi = t.hi;
 
 #pragma unroll
   for (int o = 0; o < NOUT; ++o)
 #pragma unroll
     for (int j = 0; j < PTS; ++j) acc[o][j] = 0.0f;
+  [[maybe_unused]] unsigned marked = 0xffffffffu;
   for (int b = b0; b < b1; ++b) {
+    if constexpr (!Walk::ALL) {
+      const int bit = (b - b0) & 31;
+      if (bit == 0) marked = walk.mask(b, t);
+      if (!((marked >> bit) & 1u)) continue;   // uniform: no barrier
+    }
     __syncthreads();           // everyone is done with the previous block
 #pragma unroll
     for (int h = 0; h < Tile<PTS>::LINES; ++h) {
@@ -204,8 +254,8 @@ __device__ __forceinline__ void line_sum_item(const LineRows& r,
       // Lanes of a warp hold the 32 lines of sub-block i / SUB_L: its tier
       // and its run of lines that can reach the tile.
       const int tier = sub_block_tier(c, sxv, yy, tile_lo, tile_hi);
-      const float gap = fmaxf(fmaxf(c - tile_hi, tile_lo - c), 0.0f);
-      const unsigned in = __ballot_sync(0xffffffffu, real && !(gap > reach));
+      const unsigned in =
+          __ballot_sync(0xffffffffu, real && !beyond_reach(c, c, t));
       if (lane == 0)
         s_run[i / SUB_L] = in == 0u ? SKIP_RUN
                                     : pack_run(tier, __ffs(in) - 1,
@@ -238,6 +288,21 @@ __device__ __forceinline__ void line_sum_item(const LineRows& r,
       }
     }
   }
+}
+
+// One item of K1 or K3: the sums over the line blocks [b0, b1) of `r` at
+// this thread's PTS points of `tile` of the grid nu (padded to whole
+// tiles), into acc.
+template <int PTS, int NOUT, bool HAS_CHI, bool L2_ONLY>
+__device__ __forceinline__ void line_sum_item(const LineRows& r,
+                                              const float* __restrict__ nu,
+                                              int tile, int b0, int b1,
+                                              float cutoff,
+                                              float (&acc)[NOUT][PTS]) {
+  float nu_p[PTS];
+  const TileSpan t = tile_span<PTS>(nu, tile, INT_MAX, cutoff, nu_p);
+  line_sum_walk<PTS, NOUT, HAS_CHI, L2_ONLY>(r, nu_p, t, b0, b1, cutoff,
+                                             EveryBlock{}, acc);
 }
 
 // The amplitude rows a kernel instantiates for n_out rows (1, 2, 4 or 8:

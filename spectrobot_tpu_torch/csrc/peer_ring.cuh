@@ -13,6 +13,10 @@
 //                                           neighbour that this shard sends
 //                                           to in direction d has freed
 //                                           its destination
+//   [16, 24)                    mine        u64: the epoch up to which the
+//                                           fused halo kernel has found
+//                                           the center ranges of this
+//                                           shard's own line blocks
 //   [HEADER, + 4 cap)           recv[0]     rows from the left neighbour
 //   [HEADER + 4 cap, + 4 cap)   recv[1]     rows from the right neighbour
 //   [HEADER + 8 cap, + 8 n_flags)  arrived[0][n_flags]  u64: per chunk c,
@@ -56,6 +60,7 @@ namespace {
 
 constexpr int WS_HEADER = 256;          // bytes before recv[0]
 constexpr int WS_READY = 0;             // u64 offset of ready[2]
+constexpr int WS_MINE = 2;              // u64 offset of mine
 constexpr int MIN_CHUNK = 1024;         // fewest floats of a copy item
 constexpr int RING_THREADS = 256;
 constexpr int COPY_UNROLL = 4;          // 16-byte loads in flight a thread
@@ -75,6 +80,9 @@ inline long long ws_bytes(long long cap_floats) {
 
 __device__ __forceinline__ u64* ws_ready(long long base, int d) {
   return reinterpret_cast<u64*>(base) + WS_READY + d;
+}
+__device__ __forceinline__ u64* ws_mine(long long base) {
+  return reinterpret_cast<u64*>(base) + WS_MINE;
 }
 __device__ __forceinline__ float* ws_recv(long long base, int d,
                                           long long cap_floats) {

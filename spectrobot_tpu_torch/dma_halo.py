@@ -45,7 +45,7 @@ import torch.distributed as dist
 
 from spectrobot_tpu_torch.ops import cuda_dma
 from spectrobot_tpu_torch.ops.cuda_dma import (
-    fused_halo_accumulate_cuda, ring_exchange_cuda)
+    fused_halo_accumulate_lines, ring_exchange_cuda)
 from spectrobot_tpu_torch.ops.opacity import KernelLines
 from spectrobot_tpu_torch.parallel.halo import (
     ShardedKernelLines, pack_lines, unpack_lines)
@@ -114,23 +114,24 @@ def ring_halo_lines(ring, skl):
 
 def fused_halo_accumulate_fn(ring, *, cutoff_cm1: Optional[float] = 25.0):
     """f(nu_grid, skl) -> [n_out, P]: the fused halo, one launch per call
-    (``ops.cuda_dma.fused_halo_accumulate_cuda``).  On the loopback
-    ``nu_grid`` is the whole grid and ``skl`` the ``ShardedKernelLines`` of
-    every shard; on a mesh ``nu_grid`` is this rank's chunk, ``skl`` its
-    ``KernelLines``, and the result its [n_out, P_loc] block."""
+    (``ops.cuda_dma.fused_halo_accumulate_lines``: on the card the kernel
+    reads the line rows where they are and writes the grid's layout).  On
+    the loopback ``nu_grid`` is the whole grid and ``skl`` the
+    ``ShardedKernelLines`` of every shard; on a mesh ``nu_grid`` is this
+    rank's chunk, ``skl`` its ``KernelLines``, and the result its [n_out,
+    P_loc] block."""
     r = _ring(ring)
 
     def apply(nu_grid: torch.Tensor, skl) -> torch.Tensor:
-        packed = pack_lines(KernelLines(*skl[:4])).to(nu_grid.dtype)
+        lines = KernelLines(*skl[:4])
         if not r.loopback:
-            return fused_halo_accumulate_cuda(r, nu_grid, packed,
-                                              cutoff_cm1=cutoff_cm1)
+            return fused_halo_accumulate_lines(r, nu_grid, lines,
+                                               cutoff_cm1=cutoff_cm1)
         if nu_grid.shape[0] % r.n != 0:
             raise ValueError(f"{nu_grid.shape[0]} grid points do not split "
                              f"into {r.n} nu shards")
-        out = fused_halo_accumulate_cuda(r, nu_grid.reshape(r.n, -1), packed,
-                                         cutoff_cm1=cutoff_cm1)
-        return out.transpose(0, 1).reshape(out.shape[1], -1)
+        return fused_halo_accumulate_lines(r, nu_grid.reshape(r.n, -1),
+                                           lines, cutoff_cm1=cutoff_cm1)
 
     return apply
 

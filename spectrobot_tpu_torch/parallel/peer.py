@@ -114,6 +114,13 @@ def ring_chunk(n_floats: int, n_loc: int) -> int:
     return min(CHUNK_FLOATS, max(MIN_CHUNK_FLOATS, per))
 
 
+def workspace_cap(n_floats: int) -> int:
+    """Floats of each receive buffer of a workspace opened for
+    ``n_floats``: at least 64 K, a multiple of 4096 (so of
+    ``MIN_CHUNK_FLOATS``: a whole number of arrival flags)."""
+    return -(-max(int(n_floats), 1 << 16) // 4096) * 4096
+
+
 def _call(name: str, *args) -> None:
     lib = library()
     rc = getattr(lib, name)(*args)
@@ -283,8 +290,7 @@ class Ring:
             raise ValueError(f"a ring on {self.device} has no peer workspace")
         ws = self.workspace
         if ws is None or ws.cap_floats < n_floats:
-            cap = max(int(n_floats), 1 << 16)
-            cap = -(-cap // 4096) * 4096
+            cap = workspace_cap(n_floats)
             if ws is not None:
                 ws.close()
             self.workspace = (_open_loopback(self.n, self.device, cap)

@@ -767,35 +767,55 @@ def test_dma_ring_back_to_back(cuda, n):
     ring.close()
 
 
-def _dma_scene(device, n, cutoff):
+DMA_VARIANTS = ("sorted", "unsorted", "ragged", "one row", "eight rows")
+
+
+def _dma_scene(device, n, cutoff, variant="sorted"):
     """tests/test_dma_halo.py's fused case (500 lines, 1024 points) in the
-    port, partitioned over ``n`` shards."""
+    port, partitioned over ``n`` shards; ``variant``: each shard's row
+    (padding included) shuffled ("unsorted"), P_loc = 1001 and L not a
+    multiple of 128 ("ragged"), or 1 or 8 random amplitude rows."""
     from spectrobot_tpu_torch.data.lines import random_lines
     from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
     from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
     from spectrobot_tpu_torch.parallel import halo
+    rng = np.random.default_rng(20 + n)
     dl = device_lines_from_linelist(random_lines(500, 580.0, 720.0, seed=3),
                                     [(2, 1)], dtype=torch.float32,
                                     device=device, nu_ref=0.0)
-    kl = line_kernel_inputs(dl, 210.0, 120.0, 40.0, amp_weights=torch.ones(
-        2, dl.n_lines, device=device))
-    nu = np.linspace(600.0, 700.0, 1024)
+    n_out = {"one row": 1, "eight rows": 8}.get(variant, 2)
+    w = rng.uniform(0.5, 1.5, (n_out, dl.n_lines)) if n_out != 2 else \
+        np.ones((2, dl.n_lines))
+    kl = line_kernel_inputs(dl, 210.0, 120.0, 40.0,
+                            amp_weights=torch.as_tensor(
+                                w, dtype=torch.float32, device=device))
+    nu = np.linspace(600.0, 700.0, 1001 * n if variant == "ragged" else 1024)
     edges = halo.nu_shard_edges(nu, n, cutoff)
-    skl = halo.partition_kernel_lines(kl, dl.nu0, edges)
+    skl = halo.partition_kernel_lines(
+        kl, dl.nu0, edges, round_to=1 if variant == "ragged" else 128)
+    if variant == "unsorted":
+        perm = torch.as_tensor(np.stack([rng.permutation(skl.nu_c.shape[1])
+                                         for _ in range(n)]), device=device)
+        skl = halo.ShardedKernelLines(
+            *(torch.gather(a, -1, perm if a.dim() == 2 else perm[:, None]
+                           .expand_as(a)) for a in skl))
     return torch.as_tensor(nu, dtype=torch.float32, device=device), skl
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 @pytest.mark.parametrize("cutoff", [10.0, None])
-def test_dma_halo_matches_plain(cuda, n, cutoff):
+@pytest.mark.parametrize("variant", DMA_VARIANTS)
+def test_dma_halo_matches_plain(cuda, n, cutoff, variant):
     """The fused kernel on the loopback ring against its plain version
-    (own lines plus each hop's), within K1's budget; one launch per call,
-    bit-equal from call to call."""
+    (own lines plus each hop's), within K1's budget, on sorted and
+    shuffled rows, ragged lengths and 1, 2 or 8 amplitude rows; one launch
+    per call, bit-equal from call to call, the entry point equal to the
+    wrapper on the packed rows."""
     from spectrobot_tpu_torch import dma_halo
     from spectrobot_tpu_torch.ops import cuda_dma
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
-    nu, skl = _dma_scene(cuda, n, cutoff)
+    nu, skl = _dma_scene(cuda, n, cutoff, variant)
     ring = loopback_ring(n, cuda)
     f = dma_halo.fused_halo_accumulate_fn(ring, cutoff_cm1=cutoff)
     outs = []
@@ -806,11 +826,41 @@ def test_dma_halo_matches_plain(cuda, n, cutoff):
         assert cuda_dma.HALO_LAUNCHES == before + 1
     assert torch.equal(outs[0], outs[1])
     packed = halo.pack_lines(halo.KernelLines(*skl))
+    n_out = packed.shape[1] - 3
     ref = cuda_dma.fused_halo_accumulate_plain(
         ring, nu.reshape(n, -1), packed, cutoff_cm1=cutoff)
-    ref = ref.transpose(0, 1).reshape(2, -1)
+    ref = ref.transpose(0, 1).reshape(n_out, -1)
     torch.testing.assert_close(outs[0], ref, rtol=3e-5,
                                atol=1e-6 * float(ref.abs().max()))
+    got = cuda_dma.fused_halo_accumulate_cuda(ring, nu.reshape(n, -1),
+                                              packed, cutoff_cm1=cutoff)
+    assert torch.equal(got.transpose(0, 1).reshape(n_out, -1), outs[0])
+    ring.close()
+
+
+def test_dma_halo_wrapper_only_allocates(cuda):
+    """On ragged shapes the fused wrappers (packed rows, and rows held
+    apart) allocate the output and launch the kernel once, with no other
+    tensor operation: no pads, no slice, no layout pass (the scratch and
+    the counters are kept per stream); the counters are left zero."""
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel.peer import loopback_ring
+    nu, skl = _dma_scene(cuda, 4, 10.0, "ragged")
+    ring = loopback_ring(4, cuda)
+    nu4 = nu.reshape(4, -1)
+    lines = halo.KernelLines(*skl)
+    packed = halo.pack_lines(lines)
+    for call in (lambda: cuda_dma.fused_halo_accumulate_cuda(
+                     ring, nu4, packed, cutoff_cm1=10.0),
+                 lambda: cuda_dma.fused_halo_accumulate_lines(
+                     ring, nu4, lines, cutoff_cm1=10.0)):
+        before = cuda_dma.HALO_LAUNCHES
+        assert _tensor_ops(call) == ["aten.empty.memory_format"]
+        assert cuda_dma.HALO_LAUNCHES == before + 2
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0
+               for c in cuda_dma._COUNTERS.values())
     ring.close()
 
 

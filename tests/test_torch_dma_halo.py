@@ -7,6 +7,7 @@ loopback ring and on 2 and 4 gloo ranks; and the host side of the
 protocol (the epoch, the one hop of two shards, the peer-access check)."""
 
 import importlib.util
+import math
 import pathlib
 
 import jax
@@ -251,8 +252,140 @@ def test_ring_chunk_spreads_a_block_over_the_items(n_floats, n_loc):
         assert items(c) <= peer.RING_ITEMS + n_loc
     if M < c < peer.CHUNK_FLOATS:
         assert items(c - M) > peer.RING_ITEMS
-    cap = -(-max(n_floats, 1 << 16) // 4096) * 4096   # workspace_for's
+    cap = peer.workspace_cap(n_floats)                # workspace_for's
     assert -(-n_floats // c) <= cap // peer.MIN_CHUNK_FLOATS
+
+
+# ---------------------------------------------------------------------------
+# The fused kernel's host side: its window rule, segments and workspace
+# ---------------------------------------------------------------------------
+
+
+def _window_case(seed, n, L, P, n_pad):
+    """n shards of a grid of n * P points over 610-690 cm-1 (float32 nu [n,
+    P]) and of L lines each (packed [n, 5, L]): shard k's centers random
+    within 5 cm-1 of its own interval, the last ``n_pad`` at the
+    partition's padding center 1e9, then unsorted: the blocks of 128 lines
+    in a random order and the lines shuffled within each block."""
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(610.0, 690.0, n + 1)
+    nuc = np.sort(rng.uniform(edges[:-1, None] - 5.0, edges[1:, None] + 5.0,
+                              (n, L)), axis=1)
+    nuc[:, L - n_pad:] = 1e9
+    nb = -(-L // 128)
+    for row in nuc:
+        blocks = [row[b * 128:(b + 1) * 128].copy() for b in range(nb)]
+        order = list(rng.permutation(nb - 1)) + [nb - 1]
+        row[:] = np.concatenate([rng.permutation(blocks[b]) for b in order])
+    packed = np.ones((n, 5, L))
+    packed[:, 0] = nuc
+    nu = np.linspace(610.0, 690.0, n * P).reshape(n, P)
+    return (torch.as_tensor(nu, dtype=torch.float32),
+            torch.as_tensor(packed, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("n,L,P", [(1, 3000, 1000), (2, 1000, 1001),
+                                   (4, 1290, 383), (3, 640, 256)])
+@pytest.mark.parametrize("cutoff", [0.5, 10.0])
+def test_window_rule_skips_only_blocks_beyond_the_cutoff(n, L, P, cutoff):
+    """The fused kernel's window rule, on unsorted centers with padding
+    among them (L and P ragged): every (point, line) pair of a block it
+    leaves out, for a tile of the shard and a block of any of the shard's
+    sources (own, left, right), lies beyond the cutoff; a block that holds
+    a line within the cutoff of a point of the tile is always in; and with
+    no cutoff every block is in."""
+    nu, packed = _window_case(n * L + P, n, L, P, n_pad=L // 7)
+    within = cuda_dma.blocks_in_reach(nu, packed, cutoff)
+    n_tiles, nb = -(-P // 128), -(-L // 128)
+    srcs = [0] + [shift for shift, _ in halo._hops(n)]
+    assert within.shape == (n, len(srcs), n_tiles, nb)
+    pad_nu = torch.cat([nu, nu[:, -1:].expand(n, n_tiles * 128 - P)], -1)
+    for i, shift in enumerate(srcs):
+        centers = torch.roll(packed[:, 0], shift, 0)
+        for k in range(n):
+            for t in range(n_tiles):
+                pts = pad_nu[k, t * 128:(t + 1) * 128]
+                near = ((pts[:, None] - centers[k][None, :]).abs()
+                        <= cutoff).any(0)
+                near = torch.nn.functional.pad(near, (0, nb * 128 - L))
+                holds = near.reshape(nb, 128).any(1)
+                assert not (holds & ~within[k, i, t]).any()
+    assert within.any() and not within.all()
+    assert cuda_dma.blocks_visited(nu, packed, None) == (within.numel(),) * 2
+
+
+def test_block_ranges_leave_out_lines_past_the_rows():
+    """Each block's range is (min, max) over its own lines; a last block
+    shorter than BLOCK_L ranges over the lines it has."""
+    c = torch.arange(300, dtype=torch.float32).flip(0)
+    rg = cuda_dma.block_ranges(c[None])
+    assert rg.shape == (1, 3, 2)
+    assert rg[0].tolist() == [[172.0, 299.0], [44.0, 171.0], [0.0, 43.0]]
+
+
+def test_window_rule_on_sorted_rows_takes_the_blocks_within_reach():
+    """On sorted centers with no padding (a shard's own rows) the blocks
+    the rule keeps are those that hold a line within the cutoff of the
+    tile, up to the rule's slack of 4 ulps."""
+    nu, packed = _window_case(5, 1, 2000, 1000, n_pad=0)
+    packed[0, 0] = packed[0, 0].sort().values
+    for cutoff in (0.5, 3.0):
+        within = cuda_dma.blocks_in_reach(nu, packed, cutoff)[0, 0]
+        for t in range(within.shape[0]):
+            pts = nu[0, t * 128:(t + 1) * 128]
+            d = (pts[:, None] - packed[0, 0][None, :]).abs().min(0).values
+            d = torch.nn.functional.pad(d, (0, 16 * 128 - 2000),
+                                        value=math.inf)
+            gap = d.reshape(16, 128).min(1).values
+            assert torch.equal(within[t], gap <= cutoff * (1 + 1e-5))
+
+
+@pytest.mark.parametrize("n_out,L", [(1, 1), (2, 8192), (8, 1001),
+                                     (2, 200_000), (8, 70_000)])
+def test_workspace_holds_the_payload_and_its_flags(n_out, L):
+    """A fused call's receive buffer holds its payload (the rows and the
+    block ranges behind them) and has an arrival flag for each copy item
+    of a row and one for the ranges, in a whole number of flags."""
+    q, nb = 3 + n_out, -(-L // 128)
+    cap = peer.workspace_cap(cuda_dma.workspace_floats(n_out, L))
+    assert cap >= q * L + 2 * nb
+    assert cap % peer.MIN_CHUNK_FLOATS == 0
+    n_flags = q * -(-L // peer.CHUNK_FLOATS) + 1
+    assert cap // peer.MIN_CHUNK_FLOATS >= n_flags
+
+
+@pytest.mark.parametrize("n_items,n_blocks,want", [
+    (384, 64, 11), (128, 9, 9), (3, 1, 1), (4096, 64, 1), (1, 1000, 1000),
+    (1000, 64, 5)])
+def test_halo_segments_fill_the_grid(n_items, n_blocks, want):
+    """Each (shard, source, tile) is cut into enough segments that all of
+    them make about HALO_ITEMS items, at most one a block of the rows."""
+    n_seg = cuda_dma.halo_segments(n_items, n_blocks)
+    assert n_seg == want
+    assert 1 <= n_seg <= n_blocks
+
+
+@pytest.mark.parametrize("n", FUSED_SHARDS)
+def test_fused_lines_route_is_the_packed_route(jax_refs, n):
+    """On the CPU the rows-apart route packs the rows and lays the shards'
+    sums out as the grid's: equal to the packed wrapper's result; it
+    counts one epoch, no launch, and refuses rows of unequal length."""
+    nu, skl, _ = jax_refs["fused"][n]
+    ring = peer.loopback_ring(n, "cpu")
+    nu_t = torch.as_tensor(nu).reshape(n, -1)
+    lines = KernelLines(*_torch_skl(skl))
+    before = cuda_dma.HALO_LAUNCHES
+    got = cuda_dma.fused_halo_accumulate_lines(ring, nu_t, lines,
+                                               cutoff_cm1=CUTOFF)
+    want = cuda_dma.fused_halo_accumulate_cuda(ring, nu_t,
+                                               halo.pack_lines(lines),
+                                               cutoff_cm1=CUTOFF)
+    assert cuda_dma.HALO_LAUNCHES == before and ring.epoch == 2
+    assert torch.equal(got, want.transpose(0, 1).reshape(2, -1))
+    with pytest.raises(ValueError, match="scale_x must be"):
+        cuda_dma.fused_halo_accumulate_lines(
+            ring, nu_t, lines._replace(scale_x=lines.scale_x[:, 1:]))
+    assert ring.epoch == 2
 
 
 def test_workspace_keeps_the_ring_launch_arguments():
