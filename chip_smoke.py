@@ -80,10 +80,24 @@ Phases, each of which raises (non-zero exit) on failure:
      against torch.roll, with both host issue times and the ring's device
      time; the fused kernel's entry point, wrapper, kernel alone and host
      issue at the dense case);
+  6f. acceptance config 3 (non-LTE CO2 4.3 um limb, the demo nu3
+     pumping) and the composed features, float32: the small scene of
+     tests/test_nlte_config3.py through K1 against the float64 oracle
+     (config 1's budget); at full width (examples/mars_limb.toml's geometry
+     on 2280-2400 cm-1) K1, K2 and K5 against their plain versions on the
+     scene's own differing rows, Jacobian rows and gradient cotangents; the
+     CLI forward (one K1), the Jacobian (one K1, one K2) against the plain
+     engine's, the CLI retrieve (converged, chi2 falling, one K2 per
+     Jacobian), the reverse gradient (one K1, one K5) against J^T dL/dy;
+     then the composed scene (plus the CIA continuum and a 3 km FOV over 40
+     fine rays): the CLI forward and retrieve, the Jacobian (finite), and
+     the (1, 1, 1) mesh forward in the nu-halo tier against one device;
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
-     per-iteration median; K3 on its bench-state and dense cases; the warm
+     per-iteration median; config 3's warm forward wall, Jacobian and LM
+     iteration, and K1, K2, K5 on its inputs beside their bounds; K3 on its
+     bench-state and dense cases; the warm
      (1, 1, 1) mesh forward against the warm single-device one; K4 on its
      cases and the config-1 Jacobian; each kernel's bound (the larger of its
      bytes over the memory rate and its flops over the FP32 rate, counted
@@ -101,6 +115,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -650,6 +665,7 @@ def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
           "the sharded normal equations disagree with the single-device "
           "Jacobian's")
     out["x_empty"] = x_empty
+    out["mesh"] = mesh
     return out
 
 
@@ -948,6 +964,333 @@ def single_state_phase(dev, cases3: dict, scene, *, dense_lines=20480,
     expect_launches("the single-state reverse gradient", n, K3=1, K5=1)
     check(ratio <= 1.0,
           "the single-state reverse gradient disagrees with the jacfwd row")
+    return out
+
+
+# Acceptance config 3 at full width: examples/mars_limb.toml's geometry
+# (20 rays 5-89 km, 33 levels, n_sub 4, cutoff 25) on the 4.3 um band with
+# prescribed vibrational populations; the composed scene adds the CIA
+# continuum and the field of view (40 fine rays smeared into the 20).
+CONFIG3_CLI = {"grid.nu_min": "2280.0", "grid.nu_max": "2400.0",
+               "lines.source": "synthetic:co2_43um,co2_43um_hot",
+               "nlte.enabled": "true", "nlte.t_vib": "demo:co2_pump"}
+COMPOSED_CLI = {**CONFIG3_CLI, "cia.enabled": "true",
+                "instrument.fov_fwhm_km": "3.0",
+                "instrument.fov_n_fine": "40"}
+
+
+def _cli_args(overrides: dict) -> list:
+    return [a for k, v in overrides.items() for a in ("-o", f"{k}={v}")]
+
+
+def config3_oracle(dev) -> dict:
+    """The small config-3 scene of tests/test_nlte_config3.py (16 levels,
+    801 points over 2320-2360 cm-1, two limb rays) through K1 in float32,
+    against the float64 oracle (tests/golden/numpy_ref.py) under config
+    1's budget."""
+    from spectrobot_tpu_torch.constants import C2
+    from spectrobot_tpu_torch.data import nlte, synth, tips
+    from spectrobot_tpu_torch.data.atmosphere import (
+        MARS, mars_standard_atmosphere)
+    from spectrobot_tpu_torch.forward.geometry import limb_path_cg
+    from spectrobot_tpu_torch.forward.limb import limb_radiance
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    try:
+        from golden import numpy_ref
+    finally:
+        sys.path.pop(0)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    atm = mars_standard_atmosphere(n_lev=16, z_top=90e3, device=dev)
+    ll = synth.co2_43um_band(j_max=15).concat(
+        synth.co2_43um_hot_band(j_max=10))
+    reg = nlte.registry_from_linelist(ll)
+    ll = nlte.match_lines_to_levels(ll, reg)
+    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=torch.float32,
+                                    device=dev)
+    z, T = atm.z.cpu().numpy(), atm.T.cpu().numpy()
+    z_mid = 0.5 * (z[1:] + z[:-1])
+    T_lay = np.interp(z_mid, z, T)
+    t_vib = nlte.lte_t_vib(reg, T_lay)
+    boost = 1.0 + 0.35 * np.clip((z_mid - 50e3) / 40e3, 0.0, 1.0)
+    for i, (_, _, q) in enumerate(reg.keys):
+        if q in ("0001", "0111"):
+            t_vib[i] = T_lay * boost
+    state = nlte.device_nlte(reg, t_vib, dtype=torch.float32, device=dev)
+    nu_host = np.linspace(2320.0, 2360.0, 801)
+    h_t = np.array([40e3, 70e3])
+    cg = limb_path_cg(atm.to(torch.float32), ["CO2"], f32(h_t), MARS, 4)
+    reset_launches()
+    got = limb_radiance(f32(nu_host), dl, cg, nlte=state,
+                        nu_off=f32(nu_host - float(dl.nu_ref)),
+                        cutoff_cm1=25.0)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    got = got.double().cpu().numpy()
+    e_lvl = np.asarray(reg.energies_cm1)
+
+    def q_ratio_fn(name, T_):
+        return np.full(len(ll), tips.q_of_T(2, 1, 296.0)
+                       / tips.q_of_T(2, 1, T_))
+
+    def nlte_weights_fn(name, lay, T_kin):
+        r = np.exp(-C2 * e_lvl * (1 / t_vib[:, lay] - 1 / T_kin))
+        r_u = np.where(ll.level_upper >= 0,
+                       r[np.maximum(ll.level_upper, 0)], 1.0)
+        r_l = np.where(ll.level_lower >= 0,
+                       r[np.maximum(ll.level_lower, 0)], 1.0)
+        E = np.exp(-C2 * ll.nu0 / T_kin)
+        return (r_l - r_u * E) / (1 - E), r_u
+
+    ref = np.stack([numpy_ref.limb_radiance(
+        nu_host, {"CO2": ll}, z, atm.p.cpu().numpy(), T,
+        atm.n.cpu().numpy(), {k: v.cpu().numpy() for k, v in atm.vmr.items()},
+        MARS.radius_m, ht, ["CO2"], q_ratio_fn, cutoff=25.0, n_sub=4,
+        nlte_weights_fn=nlte_weights_fn) for ht in h_t])
+    err = np.abs(got - ref)
+    worst = float((err / (ORACLE_RTOL * np.abs(ref)
+                          + ORACLE_ATOL_REL * np.abs(ref).max())).max())
+    print(f"config 3 (16 levels, 801 points, 2 rays) through K1 vs the "
+          f"float64 oracle: max |err| {float(err.max()):.3e} of max "
+          f"{float(np.abs(ref).max()):.3e}, {worst:.3e} x the budget "
+          f"({ORACLE_RTOL:g}*|ref| + {ORACLE_ATOL_REL:g}*max|ref|); "
+          f"launches {json.dumps(n)}")
+    expect_launches("the config-3 oracle scene", n, K1=1)
+    check(bool(np.isfinite(got).all()), "non-finite config-3 radiances")
+    check(worst <= 1.0, "config 3 disagrees with the float64 oracle")
+    return {"err_over_budget": worst}
+
+
+def recording_engine_rows(seen: dict):
+    """The kernel engine, recording K2's coefficient rows and K5's
+    cotangent rows as the main path gives them (its launches are not
+    counted: the counts are reset before each counted run)."""
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    from spectrobot_tpu_torch.ops.cuda_basis import (
+        KERNELS, basis_contract_batch)
+    from spectrobot_tpu_torch.ops.opacity import Engine
+
+    def contract(nu, windows, nu_c, sx, y, C1, C2, C3, C4, *args, **kw):
+        seen["C"] = tuple(c.detach().contiguous() for c in (C1, C2, C3, C4))
+        return basis_contract_batch(nu, windows, nu_c, sx, y, C1, C2, C3, C4,
+                                    *args, **kw)
+
+    def transpose(nu, windows, nu_c, sx, y, ct, **kw):
+        seen["ct"] = ct.detach().contiguous()
+        return ctr.basis_transpose_batch(nu, windows, nu_c, sx, y, ct, **kw)
+
+    return Engine("record", KERNELS.accumulate, contract, transpose,
+                  KERNELS.transpose_rows)
+
+
+def config3_phase(dev, mesh) -> dict:
+    """Phase 6f: acceptance config 3 and the composed features at full
+    width, float32 on the card.  ``mesh``: the (1, 1, 1) mesh of phase
+    6c.  Returns what phase 7 times and reports."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    out = {"oracle": config3_oracle(dev)}
+    cfg = cli.load_config(SCENE, CONFIG3_CLI)
+    scene = cli.build_scene(cfg, dev)
+    check(scene.nlte is not None
+          and bool((scene.lines.level_upper >= 0).all()),
+          "config 3 staged lines without their level indices")
+
+    # K1, K2 and K5 on the scene's own inputs: the forward's rows (w_abs u
+    # and w_em u), the Jacobian's coefficient rows and the gradient's
+    # cotangent rows (recorded by an engine whose launches are not counted).
+    base = line_sum_inputs(lambda e: cli.run_forward(cfg, scene, e))
+    case = K1Case("config3", *base, None)
+    amps = case.amps
+    live = amps.flatten(1).ne(0).any(1)
+    diff = (amps[:, 0] - amps[:, 1]).abs().amax(dim=1)
+    n_differ = int((diff > 1e-3 * amps.abs().amax(dim=(1, 2))).sum())
+    print(f"config 3 rows: {int(live.sum())} of {amps.shape[0]} states live, "
+          f"{n_differ} with w_abs u != w_em u (> 1e-3 of the state's max), "
+          f"{case.nu_c.shape[1]} lines, {case.nu.shape[0]} points")
+    check(n_differ > 0, "config 3 gave K1 equal absorption and emission rows")
+    out["k1"] = compare_k1(case)
+    seen = {}
+    rec = cli.retrieval_problem(cfg, scene, recording_engine_rows(seen))
+    n_x = int(rec.x0.shape[0])
+    cli.make_jacobian(cfg, rec.fwd_flat, n_x, scene.nu.shape[0])(rec.x0)
+    out["k2"] = compare_k2(case, seen["C"])
+    check(seen["C"][0].shape[1] == 2 * n_x,
+          f"the config-3 Jacobian gave K2 {seen['C'][0].shape[1]} rows")
+
+    # The CLI forward: one K1 launch for the whole scan.
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        cli.main(["forward", SCENE, *_cli_args(CONFIG3_CLI), "-o",
+                  f"run.output_dir={tmp}", "--device", "cuda"])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "forward.npz")) as f:
+            I = f["values"]
+    print(f"config 3 CLI forward: {I.shape} radiances, max {I.max():.4e}; "
+          f"launches {json.dumps(n)}")
+    expect_launches("the config-3 CLI forward", n, K1=1)
+    check(I.shape == (20, 96) and bool(np.isfinite(I).all()
+                                       and (I >= 0).all()),
+          "config-3 radiances not finite and non-negative, or misshapen")
+
+    # The Jacobian at the prior: one K1 and one K2 launch, against the
+    # plain engine's.
+    prob = {e.name: cli.retrieval_problem(cfg, scene, e)
+            for e in (KERNELS, PLAIN)}
+    jac = {k: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0])
+           for k, p in prob.items()}
+    x0 = prob["kernels"].x0
+    reset_launches()
+    J = jac["kernels"](x0)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    J_plain = jac["plain"](x0)
+    err, jmax = float((J - J_plain).abs().max()), float(J_plain.abs().max())
+    print(f"config 3 Jacobian {tuple(J.shape)} kernels vs plain: max |err| "
+          f"{err:.3e} of max |K| {jmax:.3e} ({err / jmax:.3e}); launches "
+          f"{json.dumps(n)}")
+    expect_launches("the config-3 Jacobian", n, K1=1, K2=1)
+    check(bool(torch.isfinite(J).all()), "non-finite config-3 Jacobian")
+    check(err <= K2_REL * jmax,
+          "the config-3 kernel Jacobian disagrees with the plain one")
+    del J_plain
+
+    # The CLI retrieve: converged, chi2 falling, one K2 per Jacobian.
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        cli.main(["retrieve", SCENE, *_cli_args(CONFIG3_CLI), "-o",
+                  f"run.output_dir={tmp}", "--device", "cuda"])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "retrieval.npz")) as f:
+            res = {k: f[k] for k in f.files}
+        with open(os.path.join(tmp, "run.jsonl")) as f:
+            iters = [r for r in map(json.loads, f) if "chi2" in r]
+    n_iter = int(res["n_iter"])
+    print(f"config 3 CLI retrieve: converged {bool(res['converged'])} "
+          f"({res['stop_reason']}), chi2 {iters[0]['chi2']:.6g} at the "
+          f"prior -> {float(res['chi2']):.6g} over {res['y_obs'].size} "
+          f"measurements, {n_iter} LM iterations; launches {json.dumps(n)}")
+    check(bool(res["converged"]), "the config-3 retrieval did not converge")
+    check(float(res["chi2"]) < iters[0]["chi2"], "config-3 chi2 did not fall")
+    check(n["K1"] > 0 and n["K2"] == n_iter + 1 and n["K5"] == 0,
+          "the config-3 retrieve did not run one K2 per Jacobian")
+    check(all(bool(np.isfinite(v).all()) for v in res.values()
+              if v.dtype.kind == "f"), "config-3 retrieval.npz non-finite")
+    out["iter_walls"] = [r["wall_s"] for r in iters]
+
+    # The reverse gradient of the retrieval cost: one K1 and one K5 launch,
+    # against J^T dL/dy; then K5 on the cotangent rows it gave.
+    y_obs = torch.as_tensor(res["y_obs"].reshape(-1), dtype=torch.float32,
+                            device=dev)
+    sigma = torch.as_tensor(res["noise"].reshape(-1), dtype=torch.float32,
+                            device=dev)
+
+    def cost_grad(p):
+        x = p.x0.detach().clone().requires_grad_()
+        r = (p.fwd_flat(x) - y_obs) / sigma
+        return torch.autograd.grad(0.5 * torch.sum(r * r), x)[0]
+
+    rev = cli.retrieval_problem(cfg, scene, KERNELS, analytic_jvp="rev")
+    reset_launches()
+    g = cost_grad(rev)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    # At config 3's prior the residual is mostly noise, so the gradient's
+    # terms J_ij r_i / sigma_i^2 cancel (|g| ~ sqrt(n_y) of their absolute
+    # sum): the float32 roundoff of both sides scales with that sum, which
+    # the budget's absolute part takes as its scale (as the adjoint
+    # identity's does).  J^T dL/dy is formed in float64 from J.
+    w = ((prob["kernels"].fwd_flat(x0) - y_obs) / sigma ** 2).double()
+    g_jac = J.double().T @ w
+    terms = float((J.double().abs().T @ w.abs()).max())
+    g_err = (g.double() - g_jac).abs()
+    ok = bool(torch.all(g_err <= GRAD_RTOL * g_jac.abs()
+                        + GRAD_ATOL_REL * terms))
+    print(f"config 3 reverse gradient vs J^T dL/dy: max |err| "
+          f"{float(g_err.max()):.3e} of max |g| "
+          f"{float(g_jac.abs().max()):.3e}, largest sum of absolute terms "
+          f"{terms:.3e} (budget {GRAD_RTOL:g}*|ref| + {GRAD_ATOL_REL:g}*"
+          f"that sum): {'ok' if ok else 'FAILED'}; launches "
+          f"{json.dumps(n)}")
+    expect_launches("the config-3 reverse gradient", n, K1=1, K5=1)
+    check(ok and bool(torch.isfinite(g).all()),
+          "the config-3 reverse gradient disagrees with J^T dL/dy")
+    cost_grad(cli.retrieval_problem(cfg, scene, recording_engine_rows(seen),
+                                    analytic_jvp="rev"))
+    out["k5"] = compare_k5(case, seen["ct"])
+    out.update(cfg=cfg, scene=scene, jac=jac["kernels"], x0=x0,
+               fwd=prob["kernels"].fwd_flat, n_x=n_x, case=case, C=seen["C"],
+               ct=seen["ct"])
+
+    # The composed scene: non-LTE x CIA x FOV (40 fine rays, 20 observed).
+    cfg_c = cli.load_config(SCENE, COMPOSED_CLI)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        cli.main(["forward", SCENE, *_cli_args(COMPOSED_CLI), "-o",
+                  f"run.output_dir={tmp}", "--device", "cuda"])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "forward.npz")) as f:
+            I_c = f["values"]
+        print(f"composed CLI forward: {I_c.shape} radiances (40 fine rays), "
+              f"max |diff| from config 3 {np.abs(I_c - I).max():.3e} of "
+              f"{I.max():.3e}; launches {json.dumps(n)}")
+        expect_launches("the composed CLI forward", n, K1=1)
+        check(I_c.shape == (20, 96) and bool(np.isfinite(I_c).all()
+                                             and (I_c >= 0).all()),
+              "composed radiances not finite and non-negative, or misshapen")
+        reset_launches()
+        cli.main(["retrieve", SCENE, *_cli_args(COMPOSED_CLI), "-o",
+                  f"run.output_dir={tmp}", "--device", "cuda"])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "retrieval.npz")) as f:
+            res_c = {k: f[k] for k in f.files}
+        with open(os.path.join(tmp, "run.jsonl")) as f:
+            iters_c = [r for r in map(json.loads, f) if "chi2" in r]
+    print(f"composed CLI retrieve: converged {bool(res_c['converged'])} "
+          f"({res_c['stop_reason']}), chi2 {iters_c[0]['chi2']:.6g} -> "
+          f"{float(res_c['chi2']):.6g}, {int(res_c['n_iter'])} LM "
+          f"iterations; launches {json.dumps(n)}")
+    check(float(res_c["chi2"]) < iters_c[0]["chi2"],
+          "composed chi2 did not fall")
+    check(all(bool(np.isfinite(v).all()) for v in res_c.values()
+              if v.dtype.kind == "f"), "composed retrieval.npz non-finite")
+    scene_c = cli.build_scene(cfg_c, dev)
+    prob_c = cli.retrieval_problem(cfg_c, scene_c, KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    J_c = cli.make_jacobian(cfg_c, prob_c.fwd_flat, n_x,
+                            scene_c.nu.shape[0])(prob_c.x0)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"composed Jacobian {tuple(J_c.shape)}: finite "
+          f"{bool(torch.isfinite(J_c).all())}, max |K| "
+          f"{float(J_c.abs().max()):.3e}; peak device memory {peak:.2f} GB; "
+          f"launches {json.dumps(n)}")
+    expect_launches("the composed Jacobian", n, K1=1, K2=1)
+    check(bool(torch.isfinite(J_c).all()), "non-finite composed Jacobian")
+
+    # The (1, 1, 1) mesh in the nu-halo tier against one device.
+    cfg_h = cli.load_config(SCENE, {**COMPOSED_CLI,
+                                    "compute.mesh_halo": "true"})
+    empty = make_state(scene_c.atm, [], retrieve_temperature=False)
+    I_single = cli.run_forward(cfg_c, scene_c).cpu().numpy()
+    oe = cli.sharded_problem(cfg_h, scene_c, mesh, scene_c.atm, empty)
+    reset_launches()
+    I_m = oe.forward_flat(flatten_state(empty)[0]).reshape(I_single.shape)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    I_m = I_m.cpu().numpy()
+    err = float(np.abs(I_m - I_single).max())
+    print(f"composed mesh forward (nu-halo tier) vs single-device: max "
+          f"|err| {err:.3e} of max {float(np.abs(I_single).max()):.3e}; "
+          f"row axes {oe.row_axes}; launches {json.dumps(n)}")
+    expect_launches("the composed mesh forward", n, K1=1)
+    np.testing.assert_allclose(I_m, I_single, rtol=MESH_RTOL,
+                               atol=MESH_RTOL * np.abs(I_single).max())
     return out
 
 
@@ -1566,17 +1909,10 @@ def main() -> int:
     check(bool(torch.isfinite(g_rev).all()), "non-finite reverse gradient")
     # Which states K5 evaluates on this path: those with nonzero cotangent
     # rows (an engine that records them; its launches are not counted).
-    from spectrobot_tpu_torch.ops.opacity import Engine
-
     seen = {}
-
-    def record(nu, windows, nu_c, sx, y, ct, **kw):
-        seen["live"] = ct.flatten(1).ne(0).any(1)
-        return ctr.basis_transpose_batch(nu, windows, nu_c, sx, y, ct, **kw)
-
-    cost_grad(cli.retrieval_problem(
-        cfg, scene, Engine("record", cb.KERNELS.accumulate, cb.KERNELS.contract,
-                           record, ctr.MAX_ROWS), analytic_jvp="rev"))
+    cost_grad(cli.retrieval_problem(cfg, scene, recording_engine_rows(seen),
+                                    analytic_jvp="rev"))
+    seen["live"] = seen["ct"].flatten(1).ne(0).any(1)
     amps_dead = ~cases["limb"].amps.flatten(1).ne(0).any(1)
     print(f"reverse gradient: K5 cotangent rows nonzero in "
           f"{int(seen['live'].sum())} of {seen['live'].numel()} states, "
@@ -1602,6 +1938,18 @@ def main() -> int:
     # Phase 6e: the remote-copy halo tier on the loopback ring.
     dma = dma_phase(dev, cases3["bench state"], bench_device_lines(dev).nu0,
                     cases3["dense"])
+
+    # Phase 6f: acceptance config 3 and the composed features.
+    c3 = config3_phase(dev, mesh["mesh"])
+    # Release the allocator's cache (phase 6f's composed Jacobian alone
+    # peaks near 25 GB): phase 7 times each call's own allocations, not
+    # the allocator freeing and retrying on a full device.
+    reserved = torch.cuda.memory_reserved() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before the timings: reserved {reserved:.2f} GB "
+          f"-> {torch.cuda.memory_reserved() / 1e9:.2f} GB (allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
 
     # Phase 7: timings.
     def k1(case, fn):
@@ -1748,6 +2096,46 @@ def main() -> int:
               f"examples/mars_limb.toml, the (1, 1, 1) mesh for the tiers)")
     print(f"time halo accumulation of the bench state [{card}]: "
           f"{halo_ms:.3f} ms (one K3 call)")
+    walls3 = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        cli.run_forward(c3["cfg"], c3["scene"], cb.KERNELS)
+        torch.cuda.synchronize()
+        walls3.append(time.perf_counter() - t0)
+    jac3_ms = cuda_ms(lambda: c3["jac"](c3["x0"]))
+    print(f"time config 3 [{card}]: warm forward wall "
+          f"{1e3 * np.median(walls3[1:]):.2f} ms (median of 3 after a "
+          f"warm-up, cli.run_forward); warm Jacobian ({c3['n_x']} columns) "
+          f"{jac3_ms:.2f} ms (CUDA events, median of 5); retrieve "
+          f"per-iteration median {1e3 * np.median(c3['iter_walls']):.2f} ms "
+          f"({len(c3['iter_walls'])} LM iterations, run.jsonl)")
+    # K1, K2 and K5 on config 3's own inputs, and their bounds (K1 and K2
+    # over the amplitude-live states, K5 over the cotangent-live ones).
+    c = c3["case"]
+    B3, L3, P3 = c.nu_c.shape[0], c.nu_c.shape[1], c.nu.shape[0]
+    R3 = c3["C"][0].shape[1]
+    lines3 = 4.0 * (P3 + 3 * B3 * L3)
+    t3 = {"K1": (cuda_ms(k1(c, co.accumulate_batch)),
+                 cuda_ms(k1(c, cb.PLAIN.accumulate))),
+          "K2": (cuda_ms(lambda: cb.basis_contract_batch(
+              c.nu, c.windows, c.nu_c, c.sx, c.y, *c3["C"])),),
+          "K5": (cuda_ms(lambda: ctr.basis_transpose_batch(
+              c.nu, c.windows, c.nu_c, c.sx, c.y, c3["ct"])),)}
+    p1 = region_counts(c, c.amps.flatten(1).ne(0).any(1))
+    p5 = region_counts(c, c3["ct"].flatten(1).ne(0).any(1))
+    b3 = {"K1": bound_ms(p1, REGION_FLOPS, 4.0 + 2 * 2, lines3 + 4.0 * (
+              2 * B3 * L3 + 2 * B3 * P3)),
+          "K2": basis_bound_ms(p1, R3, lines3 + 4.0 * (
+              4 * B3 * R3 * L3 + B3 * R3 * P3)),
+          "K5": bound_ms(p5, REGION_FLOPS_GRAD, 4.0 + 8 * 2, lines3 + 4.0 * (
+              B3 * 2 * P3 + 4 * B3 * 2 * L3))}
+    print(f"time config 3 kernels [{card}] ({B3} states x {L3} lines x "
+          f"{P3} points; K2 at R = {R3}, K5 at R = 2): K1 "
+          f"{t3['K1'][0]:.3f} ms (plain {t3['K1'][1]:.3f}) vs "
+          f"{b3['K1'][0]:.4f} ms; K2 {t3['K2'][0]:.3f} ms vs "
+          f"{b3['K2'][0]:.4f} ms ({b3['K2'][2]}); K5 {t3['K5'][0]:.3f} ms "
+          f"vs {b3['K5'][0]:.4f} ms; in-cutoff pairs by region: K1/K2 "
+          f"{json.dumps(p1)}, K5 {json.dumps(p5)}")
     torch.distributed.destroy_process_group()
 
     # Each kernel's bound at its timed limb inputs: K1 and K2 over the

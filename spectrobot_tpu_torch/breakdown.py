@@ -3,9 +3,10 @@ retrieval's warm forward, warm Jacobian and warm reverse gradient at the
 prior of a configured scene (``cli.retrieval_problem``,
 ``cli.make_jacobian``).
 
-    python -m spectrobot_tpu_torch.breakdown [cfg.toml]
+    python -m spectrobot_tpu_torch.breakdown [cfg.toml] [-o section.key=value ...]
 
-Default scene: ``examples/mars_limb.toml``.  The reverse gradient is that of
+Default scene: ``examples/mars_limb.toml``; ``-o`` overrides its keys as
+the CLI's do (e.g. acceptance config 3: the 4.3 um band with ``[nlte]``).  The reverse gradient is that of
 the retrieval cost 1/2 |(y - y_obs) / sigma|^2 with respect to the flat
 state through ``retrieval_problem(analytic_jvp='rev')`` (K1 and K5), with
 y_obs = 1.01 y(x0) and sigma = 0.005 max y(x0) (the self-test retrieval's
@@ -129,12 +130,15 @@ def measure(fn) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="spectrobot_tpu_torch.breakdown")
     p.add_argument("config", nargs="?", default=SCENE)
+    p.add_argument("-o", "--override", action="append", default=[],
+                   metavar="SECTION.KEY=VALUE")
     args = p.parse_args(argv)
     device = cli.resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = cli.load_config(args.config)
+    cfg = cli.load_config(args.config, dict(
+        ov.partition("=")[::2] for ov in args.override))
     engine = cli.select_engine(cfg, device)
     scene = cli.build_scene(cfg, device)
     prob = cli.retrieval_problem(cfg, scene, engine)
@@ -145,7 +149,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"breakdown: {args.config}, {n_x} state parameters, card: {card}")
+    print(f"breakdown: {args.config} {' '.join(args.override)}, {n_x} state "
+          f"parameters, card: {card}")
     y0 = prob.fwd_flat(prob.x0).detach()
     y_obs, sigma = 1.01 * y0, 0.005 * float(y0.max())
 

@@ -11,7 +11,10 @@ It reads the reference's TOML schema (the port's copy of its
 ``config`` module, :mod:`spectrobot_tpu_torch.config`) and writes
 ``run.output_dir/forward.npz``, or ``retrieval.npz`` and ``run.jsonl``, in
 the reference's layout.  The forward is the single-device line-by-line
-limb/nadir path in local thermodynamic equilibrium; ``retrieve`` fits it to
+limb/nadir path, in local thermodynamic equilibrium or with prescribed
+vibrational populations (``[nlte]``), with the collision-induced continuum
+(``[cia]``) and the field of view (``instrument.fov_fwhm_km``: a fine ray
+ladder smeared into the observed rays); ``retrieve`` fits it to
 observations with forward-mode Jacobians and the Levenberg-Marquardt
 optimal-estimation loop.  With ``compute.mesh_ray/line/nu`` set to a mesh
 of more than one rank, both run on the (ray, line, nu) mesh over the ranks
@@ -46,7 +49,7 @@ from spectrobot_tpu_torch.data import atmosphere as atm_mod
 from spectrobot_tpu_torch.data.lines import configured_lines
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
 from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
-from spectrobot_tpu_torch.ops.ils import ils_matrix
+from spectrobot_tpu_torch.ops.ils import fov_matrix, ils_matrix
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
 from spectrobot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
@@ -73,10 +76,6 @@ def check_ported(cfg) -> None:
     this port does not have yet."""
     c = cfg.compute
     unported = [
-        ("nlte.enabled", cfg.nlte.enabled, _item(1)),
-        ("cia.enabled", cfg.cia.enabled, _item(3)),
-        ("instrument.fov_fwhm_km", cfg.instrument.fov_fwhm_km > 0,
-         _item(4)),
         ("compute.use_lut", c.use_lut, _item(5)),
         ("compute.variant", c.variant != "humlicek4", _item(7)),
         ("run.save_optics", cfg.run.save_optics, _item(8)),
@@ -126,6 +125,80 @@ def _build_atmosphere(cfg, device):
     return planet, atm
 
 
+def _build_nlte(cfg, ll, atm, dtype, device):
+    """Non-LTE state from config (reference call stack 4.4): registry from
+    the line list's quanta, t_vib per the ``[nlte]`` section, matched level
+    indices annotated IN PLACE on ``ll``, so this runs before the lines are
+    staged on the device."""
+    from spectrobot_tpu_torch.data.nlte import (
+        demo_pump_t_vib, device_nlte, lte_t_vib, match_lines_to_levels,
+        registry_from_linelist, t_vib_from_npz)
+
+    reg = registry_from_linelist(ll)
+    if reg.n_levels == 0:
+        raise ValueError("[nlte] enabled but the line list carries no "
+                         "global quanta to match levels from")
+    match_lines_to_levels(ll, reg)
+    z_lev = atm.z.cpu().numpy()
+    z_mid = 0.5 * (z_lev[1:] + z_lev[:-1])
+    T_lay = np.interp(z_mid, z_lev, atm.T.cpu().numpy())
+    src = cfg.nlte.t_vib
+    if not src:
+        t_vib = lte_t_vib(reg, T_lay)
+    elif src.startswith("demo:"):
+        if src != "demo:co2_pump":
+            raise KeyError(f"unknown nlte demo {src!r} (have demo:co2_pump)")
+        t_vib = demo_pump_t_vib(reg, z_mid, T_lay)
+    else:
+        t_vib = t_vib_from_npz(reg, src, z_mid, T_lay)
+    return device_nlte(reg, t_vib, dtype=dtype, device=device)
+
+
+def _build_cia(cfg, nu, species_names, dtype, device):
+    """[cia] config -> the staged continuum on ``nu`` (or None if no pair
+    applies)."""
+    from spectrobot_tpu_torch.ops.cia import (
+        demo_co2_cia, parse_cia_text, stage_cia)
+
+    tables = []
+    for entry in cfg.cia.tables or ("demo:co2",):
+        if entry == "demo:co2":
+            tables.append(demo_co2_cia())
+            continue
+        pair, _, path = entry.partition(":")
+        a, _, b = pair.partition("-")
+        if not (a and b and path):
+            raise ValueError(f"cia.tables entry {entry!r} is neither "
+                             f"'demo:co2' nor 'A-B:<path>.cia'")
+        with open(path) as f:
+            tables.append(parse_cia_text(f.read(), a, b))
+    staged = stage_cia(nu, tables, species_names, dtype=dtype, device=device)
+    if staged is None:
+        import warnings
+        warnings.warn("cia.enabled is set but no table matches the scene "
+                      "species: the continuum is off for this run")
+    return staged
+
+
+def _build_fov(cfg, dtype, device):
+    """The limb rays and the FOV smearing: (tangent heights [m] of the rays
+    the forward runs, fov_V or None).  With ``instrument.fov_fwhm_km > 0``
+    the forward runs on a fine ladder of ``instrument.fov_n_fine`` rays
+    spanning the observed tangent heights +- 2 FWHM, and fov_V [n_obs,
+    n_fine] smears the ladder into the observed fields of view."""
+    h_obs_km = np.asarray(cfg.geometry.tangent_heights_km, float)
+    fwhm_km = cfg.instrument.fov_fwhm_km
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    if fwhm_km <= 0:
+        return t(h_obs_km * 1e3), None
+    lo = max(float(h_obs_km.min()) - 2.0 * fwhm_km, 0.0)
+    hi = float(h_obs_km.max()) + 2.0 * fwhm_km
+    h_fine_km = np.linspace(lo, hi, cfg.instrument.fov_n_fine)
+    V = fov_matrix(h_fine_km * 1e3, h_obs_km * 1e3, fwhm_km * 1e3,
+                   cfg.instrument.fov_shape)
+    return t(h_fine_km * 1e3), t(V)
+
+
 def _build_chi(cfg, species_names):
     """[lines] chi -> (ChiProfile, per-species-row apply mask) or None."""
     name = cfg.lines.chi
@@ -156,6 +229,11 @@ class Scene(NamedTuple):
     chans: np.ndarray          # output axis (channels, or the fine grid)
     windows: Windows           # the kernels' window table, built once
     chi: object                # (ChiProfile, row mask) or None (lines.chi)
+    nlte: object               # DeviceNLTE or None ([nlte])
+    cia: object                # DeviceCIA or None ([cia])
+    h_t: object                # [R] limb rays [m] (the fine ladder under
+                               # the FOV), or None (nadir)
+    fov_V: object              # [n_obs, R] FOV matrix or None
 
 
 def build_scene(cfg, device: torch.device) -> Scene:
@@ -166,6 +244,9 @@ def build_scene(cfg, device: torch.device) -> Scene:
     dtype = torch.float64 if cfg.compute.dtype == "float64" else torch.float32
     planet, atm = _build_atmosphere(cfg, device)
     ll = configured_lines(cfg)
+    # The level indices go on the host line list before it is staged.
+    nlte = (_build_nlte(cfg, ll, atm, dtype, device) if cfg.nlte.enabled
+            else None)
     # One species row per (mol, iso) pair present in the line list.
     present = {(int(m), int(i)) for m, i in zip(ll.mol_id, ll.iso_id)}
     pairs = []
@@ -193,26 +274,38 @@ def build_scene(cfg, device: torch.device) -> Scene:
                                        ins.shape), dtype=dtype, device=device)
     windows = line_windows(nu_off, dl.nu0,
                            cutoff_cm1=cfg.compute.cutoff_cm1)
+    cia = (_build_cia(cfg, nu, species_names, dtype, device)
+           if cfg.cia.enabled else None)
+    h_t, fov_V = (_build_fov(cfg, dtype, device)
+                  if cfg.geometry.mode == "limb" else (None, None))
     return Scene(planet, atm, dl, species_names, nu, nu_off, W, chans,
-                 windows, _build_chi(cfg, species_names))
+                 windows, _build_chi(cfg, species_names), nlte, cia, h_t,
+                 fov_V)
 
 
 def n_rays(cfg) -> int:
+    """The observed rays: the rows of the output."""
     g = cfg.geometry
     return len(g.tangent_heights_km if g.mode == "limb" else g.sec_theta)
 
 
+def n_model_rays(cfg) -> int:
+    """The rays the forward runs: the fine ladder under the FOV, else the
+    observed rays."""
+    if cfg.geometry.mode == "limb" and cfg.instrument.fov_fwhm_km > 0:
+        return cfg.instrument.fov_n_fine
+    return n_rays(cfg)
+
+
 def _rays(cfg, scene: Scene) -> dict:
     """The configured rays as ``build_forward`` takes them: tangent heights
-    [R] (limb), or secants [R] and the surface temperature (nadir)."""
+    [R] and the FOV matrix (limb), or secants [R] and the surface
+    temperature (nadir)."""
     g = cfg.geometry
-    dtype, device = scene.nu.dtype, scene.nu.device
     if g.mode == "limb":
-        return {"tangent_heights_m": torch.as_tensor(
-            np.asarray(g.tangent_heights_km, float) * 1e3, dtype=dtype,
-            device=device)}
-    return {"sec_theta": torch.as_tensor(g.sec_theta, dtype=dtype,
-                                         device=device),
+        return {"tangent_heights_m": scene.h_t, "fov_V": scene.fov_V}
+    return {"sec_theta": torch.as_tensor(g.sec_theta, dtype=scene.nu.dtype,
+                                         device=scene.nu.device),
             "T_surface": g.t_surface}
 
 
@@ -230,7 +323,8 @@ def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
                          cutoff_cm1=cfg.compute.cutoff_cm1,
                          nu_off=scene.nu_off, engine=engine,
                          windows=scene.windows, analytic_jvp=analytic_jvp,
-                         chi=scene.chi, **_rays(cfg, scene))
+                         chi=scene.chi, nlte=scene.nlte, cia=scene.cia,
+                         **_rays(cfg, scene))
 
 
 def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
@@ -245,7 +339,7 @@ def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
         cutoff_cm1=cfg.compute.cutoff_cm1, nu_off=scene.nu_off,
         engine=engine, nu_halo=cfg.compute.mesh_halo,
         emissivity=g.emissivity, state_map=state_map, chi=scene.chi,
-        **_rays(cfg, scene))
+        nlte=scene.nlte, cia=scene.cia, **_rays(cfg, scene))
 
 
 def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:
@@ -264,13 +358,14 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _check_mesh_divisibility(cfg, n_rays: int, m_ray: int, m_nu: int) -> None:
-    """The mesh's sharded axes must divide what they cut: a ValueError
-    naming the TOML keys."""
+    """The mesh's sharded axes must divide what they cut (the rays the
+    forward runs, and the grid): a ValueError naming the TOML keys."""
     if n_rays % m_ray != 0:
         raise ValueError(
             f"the ray count ({n_rays}, from geometry.tangent_heights_km / "
-            f"geometry.sec_theta) must be divisible by compute.mesh_ray "
-            f"({m_ray}); pad the ray list or change compute.mesh_ray")
+            f"geometry.sec_theta, or instrument.fov_n_fine with a field of "
+            f"view) must be divisible by compute.mesh_ray ({m_ray}); pad "
+            f"the ray list or change compute.mesh_ray")
     if cfg.grid.n_points % m_nu != 0:
         raise ValueError(
             f"grid.n_points ({cfg.grid.n_points}) must be divisible by "
@@ -314,7 +409,7 @@ def open_mesh(cfg, device: torch.device):
             f"compute.mesh_ray, compute.mesh_line, compute.mesh_nu = {shape} "
             f"is a mesh of {n} ranks, but the run has {world} (WORLD_SIZE): "
             f"start it with torchrun --nproc_per_node={n}")
-    _check_mesh_divisibility(cfg, n_rays(cfg), shape[0], shape[2])
+    _check_mesh_divisibility(cfg, n_model_rays(cfg), shape[0], shape[2])
     made = initialize_multihost(device.type)
     try:
         yield make_mesh(shape, device.type)
@@ -417,7 +512,8 @@ def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int):
     retrieval.jac_chunk > 0) :func:`jacobian_fwd_chunked` bounds it."""
     chunk = cfg.retrieval.jac_chunk
     if chunk == 0:
-        est_bytes = 4.0 * n_x * n_rays(cfg) * (cfg.scene.n_levels - 1) * n_fine
+        est_bytes = (4.0 * n_x * n_model_rays(cfg) * (cfg.scene.n_levels - 1)
+                     * n_fine)
         chunk = 16 if est_bytes > 8e9 else None
     if chunk:
         print(f"jacobian: chunked forward-mode ({chunk} tangent columns)",

@@ -5,10 +5,14 @@ batched opacity line sum over every (ray, layer) state -> source assembly
 ``nadir_radiance`` take the reference's ``analytic_jvp`` switch: analytic
 forward mode (K1 + K2), analytic reverse mode (K1 + K5) or plain autograd.
 
-Only local thermodynamic equilibrium is ported: both per-line amplitude
-weights are 1 (the reference's ``data.nlte.weights_for_layer`` without a
-non-LTE state), so the emission depth equals the absorption depth and the
-source function is B_nu(T_air).
+Each line enters the line sum with two amplitude rows, w_abs u and w_em u:
+in local thermodynamic equilibrium both weights are 1; with a non-LTE state
+(``nlte``, ``data.nlte.DeviceNLTE``) they are the population weights of
+``data.nlte.layer_weights`` at each (ray, layer) state's kinetic
+temperature, and the emission depth differs from the absorption depth.  The
+source assembly forms S_nu = B_nu(T_air) k_em / k_abs.  A collision-induced
+continuum (``cia``, ``ops.cia.DeviceCIA``) is added to both depths before
+it.
 """
 
 from __future__ import annotations
@@ -17,10 +21,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from spectrobot_tpu_torch.data.nlte import DeviceNLTE, layer_weights
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.forward.rt import layer_path_radiance
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.chi import CHI_MAX_CUTOFF
+from spectrobot_tpu_torch.ops.cia import cia_dtau
 from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.opacity import (
     Engine, LineSumOp, ad_mode, line_kernel_inputs, line_sum_plain_ad)
@@ -33,15 +39,20 @@ class LayerOptics(NamedTuple):
     source: torch.Tensor   # [R, NL, P] source-function radiance
 
 
-def _tau_prologue(lines: DeviceLines, cg: PathCG, chi=None):
+def _tau_prologue(lines: DeviceLines, cg: PathCG,
+                  nlte: Optional[DeviceNLTE] = None, chi=None):
     """Stage 1 for every (ray, layer) state at once: CG states -> flat
-    kernel inputs (nu_c, scale_x, y) [B, L], amps [B, 2, L] and the chi
-    slopes [B, L] (None without ``chi``), B = R*NL."""
+    kernel inputs (nu_c, scale_x, y) [B, L], amps [B, 2, L] (the rows
+    w_abs u and w_em u) and the chi slopes [B, L] (None without ``chi``),
+    B = R*NL."""
     R, NL, _ = cg.u.shape
     sp = lines.species_idx
     u_line_cm2 = cg.u[:, :, sp] * 1.0e-4               # [R, NL, L] one side
-    # LTE: absorption and emission weights are both 1.
-    amps = torch.stack([u_line_cm2, u_line_cm2], dim=-2)
+    w = layer_weights(nlte, lines, cg.T_air)
+    if w is None:       # LTE: absorption and emission weights are both 1
+        amps = torch.stack([u_line_cm2, u_line_cm2], dim=-2)
+    else:
+        amps = torch.stack([w[0] * u_line_cm2, w[1] * u_line_cm2], dim=-2)
     kl = line_kernel_inputs(lines, cg.T_sp[:, :, sp], cg.p_sp[:, :, sp],
                             cg.p_self_sp[:, :, sp], amps, chi=chi)
     L = lines.n_lines
@@ -54,7 +65,8 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
                      windows: Windows, *,
                      cutoff_cm1: Optional[float] = 25.0,
                      engine: Engine = KERNELS, analytic_jvp=True,
-                     chunk: int = 256, remat: bool = False, chi=None):
+                     chunk: int = 256, remat: bool = False, chi=None,
+                     nlte: Optional[DeviceNLTE] = None):
     """One batched line sum over the whole (ray x layer) batch (the
     counterpart of the reference's ``layer_tau_pallas``), differentiable
     as ``analytic_jvp`` says (``ops.opacity.ad_mode``):
@@ -75,7 +87,8 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     (``ops.cuda_opacity.line_windows`` of ``nu_off`` and ``lines.nu0``).
     ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
     correction, valid to a cutoff of ``ops.chi.CHI_MAX_CUTOFF``.
-    Returns (dtau, dtau_em), each [R, NL, P].
+    ``nlte``: the non-LTE state (``data.nlte.DeviceNLTE``), or None for
+    LTE.  Returns (dtau, dtau_em), each [R, NL, P].
     """
     if chi is not None and (cutoff_cm1 is None
                             or cutoff_cm1 > CHI_MAX_CUTOFF):
@@ -87,7 +100,7 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     R, NL, _ = cg.u.shape
     dt = nu_off.dtype
     nu_c, sx, y, amps, chi_b = (None if a is None else a.to(dt).contiguous()
-                                for a in _tau_prologue(lines, cg, chi))
+                                for a in _tau_prologue(lines, cg, nlte, chi))
     mode = ad_mode(analytic_jvp)
     if mode is None:
         out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
@@ -128,13 +141,17 @@ def downwelling_radiance(optics: LayerOptics, cg: PathCG) -> torch.Tensor:
                                torch.flip(cg.seg_layer, dims=(0,)), None)
 
 
-def tau_radiance_epilogue(nu_grid, cg: PathCG, dtau, dtau_em,
+def tau_radiance_epilogue(nu_grid, cg: PathCG, dtau, dtau_em, cia=None,
                           I_background: Optional[torch.Tensor] = None,
                           is_limb: bool = True,
                           emissivity: float = 1.0) -> torch.Tensor:
-    """Radiance from line-sum depths [R, NL, P]: assemble sources, and for a
-    nadir path over a grey surface (``is_limb=False``, ``I_background`` =
-    eps B(T_s)) add the Lambertian reflected downwelling."""
+    """Radiance from line-sum depths [R, NL, P]: add the collision-induced
+    continuum ``cia`` (``ops.cia.DeviceCIA``, on the same grid) to both
+    depths, assemble sources, and for a nadir path over a grey surface
+    (``is_limb=False``, ``I_background`` = eps B(T_s)) add the Lambertian
+    reflected downwelling.  Pointwise in (ray, nu): the single-device tails
+    and the mesh bodies share it."""
+    dtau, dtau_em = add_cia(cia, cg, dtau, dtau_em)
     optics = optics_from_tau(nu_grid, cg, dtau, dtau_em)
     if not is_limb and emissivity < 1.0:
         I_background = I_background + (1.0 - emissivity) * \
@@ -142,18 +159,28 @@ def tau_radiance_epilogue(nu_grid, cg: PathCG, dtau, dtau_em,
     return path_radiance(optics, cg, I_background)
 
 
-def radiance_from_tau(nu_grid, cg: PathCG, dtau, dtau_em, T_surface=None,
-                      emissivity: float = 1.0,
+def add_cia(cia, cg: PathCG, dtau, dtau_em):
+    """(dtau, dtau_em) with the continuum of ``cia`` added to both (both
+    unchanged when ``cia`` is None)."""
+    if cia is None:
+        return dtau, dtau_em
+    dc = cia_dtau(cia, cg).to(dtau.dtype)
+    return dtau + dc, dtau_em + dc
+
+
+def radiance_from_tau(nu_grid, cg: PathCG, dtau, dtau_em, cia=None,
+                      T_surface=None, emissivity: float = 1.0,
                       I_background: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """RT epilogue: limb when ``T_surface`` is None (deep space or
-    ``I_background`` behind), nadir over a grey surface otherwise."""
+    ``I_background`` behind), nadir over a grey surface otherwise; ``cia``
+    as :func:`tau_radiance_epilogue` takes it."""
     if T_surface is None:
-        return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em,
+        return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em, cia=cia,
                                      I_background=I_background)
     I_bg = emissivity * planck_nu(nu_grid, T_surface)
     I_bg = torch.broadcast_to(I_bg, (dtau.shape[0], nu_grid.shape[0]))
-    return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em,
+    return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em, cia=cia,
                                  I_background=I_bg, is_limb=False,
                                  emissivity=emissivity)
 
@@ -174,29 +201,37 @@ def _depths(nu_grid, lines: DeviceLines, cg: PathCG, *,
 
 
 def layer_optics(nu_grid, lines: DeviceLines, cg: PathCG,
+                 nlte: Optional[DeviceNLTE] = None, cia=None,
                  **kw) -> LayerOptics:
     """Per-(ray, layer) optical depth and source spectra [R, NL, P] (the
-    reference's ``layer_optics``, LTE).  Keywords: those of
-    :func:`layer_tau_kernel` (``analytic_jvp``, ``engine``, ``cutoff_cm1``,
-    ``chunk``, ``remat``, ``chi``) and ``nu_off``, ``windows`` (defaults
-    from the grid and the lines)."""
-    dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
+    reference's ``layer_optics``): ``nlte`` weights the line sum, ``cia``
+    adds the continuum to both depths before the sources.  Keywords: those
+    of :func:`layer_tau_kernel` (``analytic_jvp``, ``engine``,
+    ``cutoff_cm1``, ``chunk``, ``remat``, ``chi``) and ``nu_off``,
+    ``windows`` (defaults from the grid and the lines)."""
+    dtau, dtau_em = add_cia(cia, cg,
+                            *_depths(nu_grid, lines, cg, nlte=nlte, **kw))
     return optics_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em)
 
 
 def limb_radiance(nu_grid, lines: DeviceLines, cg: PathCG,
+                  nlte: Optional[DeviceNLTE] = None, cia=None,
                   **kw) -> torch.Tensor:
     """Limb scan radiances [R, P], deep space behind (the reference's
-    ``limb_radiance``, LTE).  Keywords as :func:`layer_optics`."""
-    dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
-    return radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em)
+    ``limb_radiance``).  Keywords as :func:`layer_optics`."""
+    dtau, dtau_em = _depths(nu_grid, lines, cg, nlte=nlte, **kw)
+    return radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
+                             cia=cia)
 
 
 def nadir_radiance(nu_grid, lines: DeviceLines, cg: PathCG, T_surface,
-                   emissivity: float = 1.0, **kw) -> torch.Tensor:
+                   emissivity: float = 1.0,
+                   nlte: Optional[DeviceNLTE] = None, cia=None,
+                   **kw) -> torch.Tensor:
     """Nadir radiances [R, P] over a grey surface at ``T_surface``, with the
     reflected downwelling for emissivity < 1 (the reference's
-    ``nadir_radiance``, LTE).  Keywords as :func:`layer_optics`."""
-    dtau, dtau_em = _depths(nu_grid, lines, cg, **kw)
+    ``nadir_radiance``).  Keywords as :func:`layer_optics`."""
+    dtau, dtau_em = _depths(nu_grid, lines, cg, nlte=nlte, **kw)
     return radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
-                             T_surface=T_surface, emissivity=emissivity)
+                             cia=cia, T_surface=T_surface,
+                             emissivity=emissivity)

@@ -1,10 +1,13 @@
-"""Instrument line shape (port of ``spectrobot_tpu.ops.ils``: the host
-channelisation matrix and its application).
+"""Instrument line shape and field of view (port of
+``spectrobot_tpu.ops.ils``: the host matrices and their application).
 
 ``ils_matrix`` builds, host-side in float64 numpy, a dense matrix W
 [n_chan, P] whose rows are area-normalised ILS kernels centred on each
 channel; ``apply_ils`` is one matrix product I_chan = I_mono @ W.T, left to
-``torch.matmul`` as the reference leaves it to XLA.
+``torch.matmul`` as the reference leaves it to XLA.  ``fov_matrix`` is the
+same construction over tangent height: V [n_obs, n_fine] smears a fine
+ladder of limb rays into the observed fields of view, I_obs = V @ I
+(``apply_fov``).
 """
 
 from __future__ import annotations
@@ -56,6 +59,24 @@ def ils_matrix(nu_grid: np.ndarray, nu_channels: np.ndarray, fwhm: float,
     w = w * np.gradient(nu_grid)[None, :]
     norm = w.sum(axis=1, keepdims=True)
     return w / np.maximum(norm, 1e-300)
+
+
+def fov_matrix(h_fine: np.ndarray, h_centers: np.ndarray, fwhm_m: float,
+               shape: str = "gaussian", cutoff_fwhm: float = 6.0
+               ) -> np.ndarray:
+    """Field-of-view smearing matrix V [n_obs, n_fine] over TANGENT HEIGHT:
+    rows are area-normalised FOV responses on the fine tangent-height
+    ladder (:func:`ils_matrix` in the vertical coordinate)."""
+    return ils_matrix(h_fine, h_centers, fwhm_m, shape=shape,
+                      cutoff_fwhm=cutoff_fwhm)
+
+
+def apply_fov(radiances: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """I_obs [n_obs, P] = V [n_obs, n_fine] @ I [n_fine, P], in the
+    promoted dtype of the two (full float32 on the card: TF32 is switched
+    off at the entry points, as the reference pins HIGHEST precision)."""
+    dt = torch.promote_types(radiances.dtype, V.dtype)
+    return torch.matmul(V.to(dt), radiances.to(dt))
 
 
 def apply_ils(spectra: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

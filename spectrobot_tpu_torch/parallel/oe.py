@@ -19,6 +19,10 @@ an ILS each rank sums its chunk's share of every channel, ``W[:, P_loc] @
 I_loc``, and one all-reduce over ``nu`` completes it; every nu rank then
 holds the same rows, and the normal equations sum over ``ray`` alone.
 Without an ILS the rows are (ray, grid point) tiles and sum over both.
+The field of view (FOV) mixes the sharded rays the same way: each rank
+smears its block of the fine ray ladder, ``V[:, R_loc] @ I_loc``, and one
+all-reduce over ``ray`` completes the observed rays, which drops ``ray``
+from the row axes.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from spectrobot_tpu_torch.data.atmosphere import Atmosphere, Planet
 from spectrobot_tpu_torch.forward.geometry import limb_path_cg, nadir_path_cg
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
-from spectrobot_tpu_torch.ops.ils import apply_ils
+from spectrobot_tpu_torch.ops.ils import apply_fov, apply_ils
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.planck import planck_nu
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
@@ -39,7 +43,7 @@ from spectrobot_tpu_torch.parallel.collectives import psum
 from spectrobot_tpu_torch.parallel.retrieval import (
     allgather_jacobian, sharded_normal_equations)
 from spectrobot_tpu_torch.parallel.sharded import (
-    local_lines, pad_lines_for_mesh, partition_lines_by_nu,
+    local_cia, local_lines, pad_lines_for_mesh, partition_lines_by_nu,
     sharded_radiance_fn)
 from spectrobot_tpu_torch.retrieval.state import apply_state, flatten_state
 
@@ -110,6 +114,8 @@ def make_sharded_oe(
     *,
     state_template: Dict,
     ils_W: Optional[torch.Tensor] = None,
+    fov_V: Optional[torch.Tensor] = None,
+    nlte=None,
     n_sub: int = 4,
     cutoff_cm1: Optional[float] = 25.0,
     nu_off: Optional[torch.Tensor] = None,
@@ -121,6 +127,7 @@ def make_sharded_oe(
     lut=None,
     state_map=None,
     chi=None,
+    cia=None,
 ) -> ShardedOE:
     """The sharded retrieval callables of a limb scene (``tangent_heights_m``
     [R]) or a nadir one (``sec_theta`` [R], surface at ``T_surface`` or the
@@ -135,7 +142,12 @@ def make_sharded_oe(
     (or, with ``nu_halo``, owner-partitioned) here.  ``engine``: the line
     sum's kernels (``ops.cuda_basis.KERNELS``) or ``PLAIN``.  ``chi`` =
     (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing correction
-    (each rank's lines compute their own slopes).
+    (each rank's lines compute their own slopes).  ``nlte``
+    (``data.nlte.DeviceNLTE``, replicated) and ``cia``
+    (``ops.cia.DeviceCIA`` on the global grid; each rank takes its ``nu``
+    block) as ``retrieval.state.build_forward`` takes them.  ``fov_V``
+    [n_obs, R] smears the limb rays (the fine ladder
+    ``tangent_heights_m``, sharded over ``ray``) into the observed ones.
     """
     if lut is not None:
         raise NotImplementedError(
@@ -169,6 +181,8 @@ def make_sharded_oe(
     lines_loc = local_lines(mesh, dlp)
     rays_loc = rays[rb]
     W_loc = None if ils_W is None else ils_W[:, nb]
+    V_loc = None if fov_V is None else fov_V[:, rb]
+    cia_loc = local_cia(mesh, cia, P)
 
     def model(x):
         state = unravel(x)
@@ -182,7 +196,12 @@ def make_sharded_oe(
             cg = nadir_path_cg(atm, species, rays_loc, n_sub)
             bg = emissivity * planck_nu(
                 nu_loc, state.get("T_surface", T_surface))
-        I = fwd(nu_loc, nu_off_loc, lines_loc, cg, I_bg=bg)   # [R_loc, P_loc]
+        I = fwd(nu_loc, nu_off_loc, lines_loc, cg, I_bg=bg, nlte=nlte,
+                cia=cia_loc)                                  # [R_loc, P_loc]
+        if V_loc is not None:
+            # The FOV mixes the sharded rays: this block's share of every
+            # observed ray, summed over the ray ranks.
+            I = psum(apply_fov(I, V_loc), mesh, "ray")
         if W_loc is not None:
             # The ILS mixes the sharded grid: this chunk's share of every
             # channel, summed over the nu ranks.
@@ -191,10 +210,15 @@ def make_sharded_oe(
 
     # The rows each rank holds: its (ray, column) tile of the [R, C]
     # measurement grid, columns the channels (replicated over nu) or its
-    # grid chunk.
-    row_axes = ("ray",) if ils_W is not None else ("ray", "nu")
+    # grid chunk, rows the observed rays (replicated over ray under the
+    # FOV) or its block of rays.  The row axes are the axes still sharded.
+    row_axes = tuple(ax for ax, mixed in (("ray", fov_V is not None),
+                                          ("nu", ils_W is not None))
+                     if not mixed)
+    R_obs = R if fov_V is None else fov_V.shape[0]
     C = P if ils_W is None else ils_W.shape[0]
+    ob = rb if fov_V is None else slice(0, R_obs)
     cb = nb if ils_W is None else slice(0, C)
-    rows = np.arange(R * C).reshape(R, C)[rb, cb].reshape(-1)
-    tile = (rb.stop - rb.start, cb.stop - cb.start)
+    rows = np.arange(R_obs * C).reshape(R_obs, C)[ob, cb].reshape(-1)
+    tile = (ob.stop - ob.start, cb.stop - cb.start)
     return ShardedOE(model, mesh, n_x, row_axes, tile, rows)

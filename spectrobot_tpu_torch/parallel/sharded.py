@@ -22,6 +22,10 @@ for the depths, K2 for their tangents under ``torch.func.jacfwd``, on
 window tables built here, on the host, for this rank's (chunk, source,
 line slice).  Every rank runs the same program on its own block
 (:func:`stage_sharded`) and gets its [R_loc, P_loc] block of radiances.
+A non-LTE state is replicated on every rank (its weights follow each
+line, also the halo hops' lines); a collision-induced continuum is
+additive per (ray, layer, nu) and line-free, so its tables are cut by the
+rank's ``nu`` block and added in the epilogue.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from spectrobot_tpu_torch.data.nlte import DeviceNLTE
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.forward.limb import (
     layer_tau_kernel, tau_radiance_epilogue)
+from spectrobot_tpu_torch.ops.cia import DeviceCIA
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.opacity import Engine
@@ -69,6 +75,8 @@ class Staged(NamedTuple):
     lines: DeviceLines        # the rank's line slice, [L_loc] per line
     cg: PathCG                # the rank's rays, [R_loc, ...]
     I_bg: Optional[torch.Tensor]   # [P_loc] background, or None
+    nlte: Optional[DeviceNLTE] = None   # the non-LTE state (replicated)
+    cia: Optional[DeviceCIA] = None     # continuum tables [n_pair, nT, P_loc]
 
 
 def pad_lines_for_mesh(lines: DeviceLines, n_shards: int) -> DeviceLines:
@@ -138,12 +146,24 @@ def local_lines(mesh, lines: DeviceLines) -> DeviceLines:
                              for f in PER_LINE_FIELDS})
 
 
+def local_cia(mesh, cia: Optional[DeviceCIA],
+              n_points: int) -> Optional[DeviceCIA]:
+    """This rank's block of the continuum: the tables' grid axis cut by its
+    ``nu`` block of the ``n_points``-point grid."""
+    if cia is None:
+        return None
+    return cia._replace(tables=cia.tables[:, :, mesh.block(n_points, "nu")])
+
+
 def stage_sharded(mesh, nu_grid: torch.Tensor, lines: DeviceLines,
                   cg: PathCG, I_bg: Optional[torch.Tensor] = None,
-                  nu_off: Optional[torch.Tensor] = None) -> Staged:
+                  nu_off: Optional[torch.Tensor] = None,
+                  nlte: Optional[DeviceNLTE] = None,
+                  cia: Optional[DeviceCIA] = None) -> Staged:
     """This rank's block of the forward's inputs: its grid chunk (and of
     ``nu_off``, default ``nu_grid - lines.nu_ref``), its rays, its line
-    slice (:func:`local_lines`) and its chunk of ``I_bg`` [P]."""
+    slice (:func:`local_lines`), its chunk of ``I_bg`` [P] and of the
+    continuum's tables (:func:`local_cia`), and the whole non-LTE state."""
     if nu_off is None:
         nu_off = nu_grid - lines.nu_ref.to(nu_grid.dtype)
     nb = mesh.block(nu_grid.shape[0], "nu")
@@ -153,7 +173,8 @@ def stage_sharded(mesh, nu_grid: torch.Tensor, lines: DeviceLines,
                                         "T_air", "u_air", "uu_air")
         if getattr(cg, f) is not None})
     return Staged(nu_grid[nb], nu_off[nb], local_lines(mesh, lines), cg_loc,
-                  None if I_bg is None else I_bg[nb])
+                  None if I_bg is None else I_bg[nb], nlte,
+                  local_cia(mesh, cia, nu_grid.shape[0]))
 
 
 def _shift_lines(lines: DeviceLines, mesh, shift: int) -> DeviceLines:
@@ -197,8 +218,11 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                         is_limb: bool = True, emissivity: float = 1.0,
                         analytic_jvp=True, chi=None):
     """Build the sharded radiance function of this rank:
-    f(nu_loc, nu_off_loc, lines_loc, cg_loc, I_bg=None) -> I_loc [R_loc,
-    P_loc], the arguments as :func:`stage_sharded` gives them.
+    f(nu_loc, nu_off_loc, lines_loc, cg_loc, I_bg=None, nlte=None,
+    cia=None) -> I_loc [R_loc, P_loc], the arguments as
+    :func:`stage_sharded` gives them (``nlte``: the non-LTE state, which
+    weights every line sum, the halo hops' too; ``cia``: the rank's block
+    of the continuum, added in the epilogue).
 
     ``win_grid``/``win_lines``: the global offset grid [P] and line centers
     (psum tier: the padded sorted list [Lp]; nu-halo tier:
@@ -215,11 +239,14 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
     windows = _rank_windows(mesh, win_grid, win_lines, nu_halo, cutoff_cm1)
 
     def apply(nu_loc, nu_off_loc, lines_loc: DeviceLines, cg_loc: PathCG,
-              I_bg: Optional[torch.Tensor] = None) -> torch.Tensor:
+              I_bg: Optional[torch.Tensor] = None,
+              nlte: Optional[DeviceNLTE] = None,
+              cia: Optional[DeviceCIA] = None) -> torch.Tensor:
         def tau(lines, s_i):
             return layer_tau_kernel(nu_off_loc, lines, cg_loc, windows[s_i],
                                     cutoff_cm1=cutoff_cm1, engine=engine,
-                                    analytic_jvp=analytic_jvp, chi=chi)
+                                    analytic_jvp=analytic_jvp, chi=chi,
+                                    nlte=nlte)
 
         dtau, dtau_em = tau(lines_loc, 0)
         if nu_halo:
@@ -232,7 +259,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
         # Complete the line sums across the line axis: one all-reduce.
         dtau, dtau_em = psum(torch.stack([dtau, dtau_em]), mesh, "line")
         return tau_radiance_epilogue(nu_loc.to(dtau.dtype), cg_loc, dtau,
-                                     dtau_em, I_background=I_bg,
+                                     dtau_em, cia=cia, I_background=I_bg,
                                      is_limb=is_limb, emissivity=emissivity)
 
     return apply

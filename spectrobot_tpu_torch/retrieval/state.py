@@ -9,7 +9,9 @@ same thing in both packages.  The forward model is one function state -> y
 mode: :func:`jacobian_fwd` is ``torch.func.jacfwd``, whose tangent batch the
 line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``).  With
 ``analytic_jvp='rev'`` it is differentiable in reverse mode instead: the
-gradient of a retrieval cost costs one transpose-kernel call.
+gradient of a retrieval cost costs one transpose-kernel call.  A non-LTE
+state, a collision-induced continuum and a field of view (a fine ladder of
+limb rays smeared into the observed ones) are options of the forward.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from spectrobot_tpu_torch.forward.limb import (
     layer_tau_kernel, radiance_from_tau)
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
-from spectrobot_tpu_torch.ops.ils import apply_ils
+from spectrobot_tpu_torch.ops.ils import apply_fov, apply_ils
 from spectrobot_tpu_torch.ops.opacity import Engine, ad_mode
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 
@@ -141,6 +143,8 @@ def build_forward(
     T_surface: Optional[float] = None,
     emissivity: float = 1.0,
     ils_W: Optional[torch.Tensor] = None,
+    fov_V: Optional[torch.Tensor] = None,
+    nlte=None,
     n_sub: int = 4,
     *,
     cutoff_cm1: Optional[float] = 25.0,
@@ -148,6 +152,7 @@ def build_forward(
     engine: Engine = KERNELS,
     windows=None,
     analytic_jvp=True,
+    cia=None,
     chi=None,
 ) -> Callable[[Dict], torch.Tensor]:
     """Build F: state -> y (the port's counterpart of the reference's
@@ -155,7 +160,11 @@ def build_forward(
 
     Limb mode when ``tangent_heights_m`` is given (deep space behind), nadir
     when ``sec_theta`` is (grey surface at ``T_surface``, or the state's
-    "T_surface").  ``ils_W`` maps the fine grid to instrument channels.
+    "T_surface").  ``ils_W`` maps the fine grid to instrument channels;
+    ``fov_V`` [n_obs, n_ray] smears the ray ladder ``tangent_heights_m``
+    into the observed fields of view (``ops.ils.fov_matrix``), before the
+    ILS.  ``nlte`` (``data.nlte.DeviceNLTE``): the non-LTE state;
+    ``cia`` (``ops.cia.DeviceCIA``): the collision-induced continuum.
     ``nu_off``: the grid in offset coordinates (default: staged from
     float64 here); ``windows``: the scene's window table (default: built
     once here).  ``engine``: ``ops.cuda_basis.KERNELS`` or ``PLAIN``.
@@ -163,7 +172,7 @@ def build_forward(
     'rev' (reverse mode: ``torch.autograd.grad``, ``torch.func.jacrev``) or
     False (plain autograd), as ``forward.limb.layer_tau_kernel`` takes it.
     ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
-    correction.  Output y is flattened [n_ray * n_chan].
+    correction.  Output y is flattened [n_obs_ray * n_chan].
     """
     if nu_off is None:
         nu_off = torch.as_tensor(
@@ -184,9 +193,12 @@ def build_forward(
         dtau, dtau_em = layer_tau_kernel(nu_off, lines, cg, windows,
                                          cutoff_cm1=cutoff_cm1,
                                          engine=engine,
-                                         analytic_jvp=analytic_jvp, chi=chi)
+                                         analytic_jvp=analytic_jvp, chi=chi,
+                                         nlte=nlte)
         I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
-                              T_surface=ts, emissivity=emissivity)
+                              cia=cia, T_surface=ts, emissivity=emissivity)
+        if fov_V is not None:
+            I = apply_fov(I, fov_V)
         if ils_W is not None:
             I = apply_ils(I, ils_W)
         return I.reshape(-1)

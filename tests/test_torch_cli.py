@@ -60,11 +60,21 @@ def _torch_forward(toml, overrides, out_dir):
     return np.load(os.path.join(out_dir, "forward.npz"))
 
 
+# Acceptance config 3 in small: the tiny scene moved to the 4.3 um band
+# (fundamental and hot band) with the demo nu3 pumping aloft.
+CONFIG3 = {"grid.nu_min": "2320.0", "grid.nu_max": "2360.0",
+           "scene.z_top_m": "90e3",
+           "lines.source": "synthetic:co2_43um,co2_43um_hot",
+           "nlte.enabled": "true", "nlte.t_vib": "demo:co2_pump",
+           "geometry.tangent_heights_km": "40.0,70.0"}
+
+
 @pytest.mark.parametrize("overrides,rtol,atol_rel", [
     ({}, 5e-5, 1e-5),
     ({"compute.dtype": "float64"}, 1e-9, 0.0),
     ({"geometry.mode": "nadir", "geometry.sec_theta": "1.0,1.4"}, 5e-5,
      1e-5),
+    ({**CONFIG3, "compute.dtype": "float64"}, 0.0, 1e-10),
 ])
 def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
                                  atol_rel):
@@ -88,10 +98,7 @@ def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
 
 
 @pytest.mark.parametrize("override,key", [
-    ("nlte.enabled=true", "nlte.enabled"),
-    ("cia.enabled=true", "cia.enabled"),
     ("lines.chi=co2_mars", "lines.chi"),
-    ("instrument.fov_fwhm_km=3.0", "instrument.fov_fwhm_km"),
     ("compute.use_lut=true", "compute.use_lut"),
     ("compute.mesh_nu=2", "compute.mesh_nu"),
     ("run.save_optics=true", "run.save_optics"),
@@ -111,9 +118,6 @@ def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"nlte.enabled": "true"}, 1),
-    ({"cia.enabled": "true"}, 3),
-    ({"instrument.fov_fwhm_km": "3.0"}, 4),
     ({"compute.use_lut": "true"}, 5),
     ({"scene.atmosphere": "mars_zonal"}, 6),
     ({"compute.variant": "weideman"}, 7),
@@ -123,6 +127,40 @@ def test_each_refusal_names_its_roadmap_item(tiny_toml, override, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\b"):
         cli.check_ported(load_config(tiny_toml, override))
+    # Items 1, 3 and 4 (non-LTE, the continuum, the field of view) are
+    # ported: none of their keys is refused.
+    cli.check_ported(load_config(tiny_toml, {
+        "nlte.enabled": "true", "cia.enabled": "true",
+        "instrument.fov_fwhm_km": "3.0"}))
+
+
+def test_config3_scene_stages_differing_rows(tiny_toml):
+    """The non-LTE levels are matched on the host line list before it is
+    staged: every config-3 line carries its level indices, and the rows the
+    forward gives the line sum (w_abs u and w_em u) differ on the pumped
+    rays aloft.  On a CUDA device that is not there the same run raises."""
+    from spectrobot_tpu_torch.ops.opacity import Engine
+
+    cfg = load_config(tiny_toml, {**CONFIG3, "compute.dtype": "float64"})
+    scene = cli.build_scene(cfg, torch.device("cpu"))
+    assert bool((scene.lines.level_upper >= 0).all())
+    assert bool((scene.lines.level_lower >= 0).all())
+    seen = []
+
+    def record(nu, windows, nu_c, sx, y, amps, **kw):
+        seen.append(amps)
+        return torch.zeros(amps.shape[:-1] + nu.shape, dtype=nu.dtype)
+
+    cli.run_forward(cfg, scene, Engine("record", record, None))
+    (amps,) = seen
+    rows = amps.reshape(2, -1, 2, amps.shape[-1])      # [ray, layer, 2, L]
+    top = rows[1, -4:]                                 # 70 km ray, aloft
+    assert float((top[:, 0] - top[:, 1]).abs().max()) > \
+        0.1 * float(top.abs().max())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["forward", tiny_toml, *[a for k, v in CONFIG3.items()
+                                              for a in ("-o", f"{k}={v}")]])
 
 
 def test_sharded_lut_refusal_names_its_roadmap_item():
@@ -291,7 +329,53 @@ source = "{npz}"
 [retrieval]
 max_iter = 6
 [compute]"""),
+    # config 3 in small: non-LTE 4.3 um limb, the demo nu3 pumping
+    "config3_nlte": TINY_TOML.replace("nu_min = 660.0", "nu_min = 2320.0")
+    .replace("nu_max = 674.0", "nu_max = 2360.0")
+    .replace("z_top_m = 60e3", "z_top_m = 90e3")
+    .replace("[geometry]", """\
+[lines]
+source = "synthetic:co2_43um,co2_43um_hot"
+[nlte]
+enabled = true
+t_vib = "demo:co2_pump"
+[geometry]""").replace("[8.0, 25.0]", "[40.0, 70.0]")
+    .replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]"""),
+    # a CO2-CO2 continuum from a HITRAN-format .cia file, in band
+    "cia_table": TINY_TOML.replace("[geometry]", """\
+[cia]
+enabled = true
+tables = ["CO2-CO2:{cia}"]
+[geometry]""").replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]"""),
+    # the field of view: 6 fine rays smeared into the 2 observed
+    "fov": TINY_TOML.replace("n_channels = 32", """\
+n_channels = 32
+fov_fwhm_km = 6.0
+fov_n_fine = 6""").replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]"""),
 }
+
+
+def _cia_file(path) -> str:
+    """A HITRAN-format .cia file of a CO2-CO2 continuum over the tiny
+    scene's band (three temperatures; test data)."""
+    nu = np.linspace(640.0, 700.0, 61)
+    out = []
+    for T in (150.0, 200.0, 300.0):
+        k = 1e-43 * (200.0 / T) * np.exp(-0.5 * ((nu - 668.0) / 20.0) ** 2)
+        out.append(f"CO2-CO2 {nu[0]:.3f} {nu[-1]:.3f} {len(nu)} {T:.1f} "
+                   f"{k.max():.3e}")
+        out += [f"{x:.4f} {v:.6e}" for x, v in zip(nu, k)]
+    path.write_text("\n".join(out) + "\n")
+    return str(path)
 
 
 @pytest.mark.parametrize("case", sorted(RETRIEVAL_CASES))
@@ -313,6 +397,8 @@ def test_retrieval_paths_match_jax_cli_f64(tmp_path, capsys, case):
         ll.save_npz(str(path))
         assert set(LineList.load_npz(str(path)).iso_id.tolist()) == {1, 2}
         text = text.replace("{npz}", str(path))
+    if "{cia}" in text:
+        text = text.replace("{cia}", _cia_file(tmp_path / "co2.cia"))
     toml = tmp_path / f"{case}.toml"
     toml.write_text(text)
     ov = {"compute.dtype": "float64"}

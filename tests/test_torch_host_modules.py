@@ -1,6 +1,7 @@
 """The port's copies of the reference's jax-free host modules behave as the
 originals: the TOML schema parses to the same values, the partition sums,
-the synthetic line lists and an Observation round trip agree."""
+the synthetic line lists, an Observation round trip, the host half of the
+non-LTE module and the continuum tables' host functions agree."""
 
 import dataclasses
 import glob
@@ -59,6 +60,65 @@ def _check_synth():
                      j_synth.co2_15um_band(j_max=80))
 
 
+def _check_nlte(tmp_path):
+    """The host half of data/nlte.py: registry, matching and the t_vib
+    profiles (LTE, the demo pumping, an .npz round trip)."""
+    from spectrobot_tpu.data import nlte as j_nlte
+    from spectrobot_tpu_torch.data import nlte as t_nlte
+    lists = {}
+    for mod, syn in ((j_nlte, j_synth), (t_nlte, t_synth)):
+        ll = syn.co2_43um_band(j_max=20).concat(
+            syn.co2_43um_hot_band(j_max=12)).concat(syn.co2_15um_band(8))
+        reg = mod.registry_from_linelist(ll)
+        lists[mod] = (mod.match_lines_to_levels(ll, reg), reg)
+    (jll, jreg), (tll, treg) = lists[j_nlte], lists[t_nlte]
+    _same_line_lists(tll, jll)
+    assert treg.keys == jreg.keys and treg.energies_cm1 == jreg.energies_cm1
+    assert treg.lookup(2, 1, " 0001 ") == jreg.lookup(2, 1, "0001") >= 0
+    z_mid = np.linspace(2e3, 88e3, 12)
+    T_lay = np.linspace(210.0, 140.0, 12)
+    np.testing.assert_array_equal(t_nlte.lte_t_vib(treg, T_lay),
+                                  j_nlte.lte_t_vib(jreg, T_lay))
+    np.testing.assert_array_equal(t_nlte.demo_pump_t_vib(treg, z_mid, T_lay),
+                                  j_nlte.demo_pump_t_vib(jreg, z_mid, T_lay))
+    keys = [f"2:1:{q}" for q in ("0001", "0111")]
+    t_vib = np.stack([np.linspace(200.0, 260.0, 7)] * 2)
+    z_file = np.linspace(0.0, 100e3, 7)
+    for writer, reader, r in ((j_nlte, t_nlte, treg), (t_nlte, j_nlte, jreg)):
+        path = str(tmp_path / f"tvib_{writer.__name__[:16]}.npz")
+        writer.save_t_vib_npz(path, z_file, keys, t_vib)
+        np.testing.assert_array_equal(
+            reader.t_vib_from_npz(r, path, z_mid, T_lay),
+            j_nlte.t_vib_from_npz(jreg, path, z_mid, T_lay))
+    with pytest.raises(ValueError, match="no key matches"):
+        path = str(tmp_path / "other.npz")
+        t_nlte.save_t_vib_npz(path, z_file, ["5:1:1"], t_vib[:1])
+        t_nlte.t_vib_from_npz(treg, path, z_mid, T_lay)
+
+
+def _check_cia():
+    """The host functions of ops/cia.py: the demo table, the array
+    constructor and the HITRAN-format parser."""
+    from spectrobot_tpu.ops import cia as j_cia
+    from spectrobot_tpu_torch.ops import cia as t_cia
+    for args in ((), (600.0, 700.0)):
+        for a, b in zip(t_cia.demo_co2_cia(*args), j_cia.demo_co2_cia(*args)):
+            np.testing.assert_array_equal(a, b)
+    tab = t_cia.cia_from_arrays("N2", "CH4", [1.0, 2.0, 3.0], [100.0, 200.0],
+                                [[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
+    ref = j_cia.cia_from_arrays("N2", "CH4", [1.0, 2.0, 3.0], [100.0, 200.0],
+                                [[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
+    for a, b in zip(tab, ref):
+        np.testing.assert_array_equal(a, b)
+    text = "\n".join(
+        [f"X-Y 10.0 30.0 3 {T} 1e-45\n" + "\n".join(
+            f"{10.0 + 10 * i + off} {k * (i + 1)}e-46" for i in range(3))
+         for T, off, k in ((300.0, 1.0, 2), (150.0, 0.0, 3))])
+    for a, b in zip(t_cia.parse_cia_text(text, "X", "Y"),
+                    j_cia.parse_cia_text(text, "X", "Y")):
+        np.testing.assert_array_equal(a, b)
+
+
 def _check_obs(tmp_path):
     rng = np.random.default_rng(0)
     y = rng.uniform(1.0, 2.0, (3, 40))
@@ -85,7 +145,7 @@ def _check_obs(tmp_path):
 
 @pytest.mark.parametrize("case", [f"config:{n}" for n in EXAMPLES]
                          + ["config:tiny", "config:defaults", "tips",
-                            "synth", "obs"])
+                            "synth", "obs", "nlte", "cia"])
 def test_copied_host_module_matches_original(case, tmp_path):
     if case == "config:tiny":
         path = tmp_path / "tiny.toml"
@@ -99,5 +159,9 @@ def test_copied_host_module_matches_original(case, tmp_path):
         _check_tips()
     elif case == "synth":
         _check_synth()
+    elif case == "nlte":
+        _check_nlte(tmp_path)
+    elif case == "cia":
+        _check_cia()
     else:
         _check_obs(tmp_path)

@@ -1,5 +1,5 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
-halo,sharded,mesh_retrieval,dma_halo}.py).  :func:`run` starts ``world``
+halo,sharded,mesh_retrieval,dma_halo,cia,composed}.py).  :func:`run` starts ``world``
 gloo ranks with ``torch.multiprocessing.spawn``; each runs one case
 function of this module on numpy inputs made by the calling test and saves
 what it returns.
@@ -123,6 +123,20 @@ def halo_case(rank, world, nu, nu0, kl, cutoff, edges, origins, kl32):
 # ---------------------------------------------------------------------------
 
 
+def _cia_nlte(sc):
+    """The scene dict's continuum ("cia": DeviceCIA fields as numpy) and
+    non-LTE state ("nlte": DeviceNLTE fields), or None for each."""
+    from spectrobot_tpu_torch.data.nlte import DeviceNLTE
+    from spectrobot_tpu_torch.ops.cia import DeviceCIA
+    c, n = sc.get("cia"), sc.get("nlte")
+    cia = None if c is None else DeviceCIA(
+        torch.as_tensor(c["tables"]), torch.as_tensor(c["T_grid"]),
+        tuple(c["pair_a"]), tuple(c["pair_b"]))
+    nlte = None if n is None else DeviceNLTE(
+        *(torch.as_tensor(n[k]) for k in DeviceNLTE._fields))
+    return cia, nlte
+
+
 def sharded_case(rank, world, cases):
     """Each case: (name, mesh shape, nu_halo, scene dict); returns each
     rank's [R_loc, P_loc] block and its mesh coordinates."""
@@ -145,12 +159,15 @@ def sharded_case(rank, world, cases):
         is_limb = sc["T_surface"] is None
         I_bg = (None if is_limb
                 else sc["emissivity"] * planck_nu(nu, sc["T_surface"]))
-        st = sh.stage_sharded(mesh, nu, dlp, cg, I_bg=I_bg, nu_off=nu_off)
+        cia, nlte = _cia_nlte(sc)
+        st = sh.stage_sharded(mesh, nu, dlp, cg, I_bg=I_bg, nu_off=nu_off,
+                              nlte=nlte, cia=cia)
         f = sh.sharded_radiance_fn(
             mesh, win_grid=nu_off.numpy(), win_lines=dlp.nu0.numpy(),
             cutoff_cm1=sc["cutoff"], nu_halo=nu_halo, is_limb=is_limb,
             emissivity=sc["emissivity"])
-        out[name] = (f(st.nu, st.nu_off, st.lines, st.cg, st.I_bg),
+        out[name] = (f(st.nu, st.nu_off, st.lines, st.cg, st.I_bg,
+                       nlte=st.nlte, cia=st.cia),
                      dict(mesh.coord), tuple(dlp.nu0.shape))
     return out
 
@@ -184,6 +201,99 @@ def mesh_retrieval_case(rank, world, cases):
         oe.bind_observation(y, sigma)
         out[name] = (oe.forward_flat(x0), oe.normal_eqs(x0),
                      oe.jacobian(x0), oe.row_axes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the composed scene: non-LTE x CIA x FOV through the mesh
+# ---------------------------------------------------------------------------
+
+
+def composed_scene(n_lev=12, n_nu=2048, n_fine=6, j_max=10, *,
+                   dtype=torch.float32, device=CPU):
+    """The port's copy of the host part of the reference's composed
+    feature-matrix scene (``__graft_entry__._composed_scene``): non-LTE
+    (the CO2 4.3 um fundamental and hot band, nu3 pumped aloft) x a
+    synthetic CO2-CO2 continuum x FOV tangent-height smearing, built with
+    the port's modules.
+
+    Returns (atm, dl, nlte, cia, nu, h_fine, fov_V, n_obs)."""
+    import numpy as np
+
+    from spectrobot_tpu_torch.data.atmosphere import mars_standard_atmosphere
+    from spectrobot_tpu_torch.data.nlte import (
+        device_nlte, lte_t_vib, match_lines_to_levels,
+        registry_from_linelist)
+    from spectrobot_tpu_torch.data.synth import (
+        co2_43um_band, co2_43um_hot_band)
+    from spectrobot_tpu_torch.ops.cia import CIATable, stage_cia
+    from spectrobot_tpu_torch.ops.ils import fov_matrix
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    atm = mars_standard_atmosphere(n_lev=n_lev, z_top=100e3, device=device)
+    ll = co2_43um_band(j_max=j_max).concat(co2_43um_hot_band(j_max=j_max - 2))
+    reg = registry_from_linelist(ll)
+    ll = match_lines_to_levels(ll, reg)
+    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=dtype, device=device)
+    # nu3-pumped vibrational stack above ~50 km (prescribed populations).
+    z_lev = atm.z.cpu().numpy()
+    z_mid = 0.5 * (z_lev[1:] + z_lev[:-1])
+    T_lay = np.interp(z_mid, z_lev, atm.T.cpu().numpy())
+    t_vib = lte_t_vib(reg, T_lay)
+    boost = 1.0 + 0.3 * np.clip((z_mid - 50e3) / 40e3, 0.0, 1.0)
+    for i, (m, iso, q) in enumerate(reg.keys):
+        if q in ("0001", "0111"):
+            t_vib[i] = T_lay * boost
+    nlte = device_nlte(reg, t_vib, dtype=dtype, device=device)
+    nu = torch.as_tensor(np.linspace(2320.0, 2360.0, n_nu), dtype=dtype,
+                         device=device)
+    # A synthetic continuum with support in band, sized to be a visible
+    # radiance term on the low rays (test data).
+    nu_t = np.linspace(2250.0, 2450.0, 201)
+    T_t = np.array([120.0, 180.0, 240.0, 300.0])
+    k_t = (4e-44 * np.exp(-0.5 * ((nu_t - 2340.0) / 30.0) ** 2)[None, :]
+           * (200.0 / T_t[:, None]))
+    cia = stage_cia(nu, [CIATable("CO2", "CO2", nu_t, T_t, k_t)], ["CO2"],
+                    dtype=dtype, device=device)
+    # FOV: a fine tangent ladder smeared into fewer observed rays.
+    h_fine = np.linspace(15e3, 70e3, n_fine)
+    h_obs = np.array([28e3, 55e3])
+    fov_V = torch.as_tensor(fov_matrix(h_fine, h_obs, fwhm_m=8e3),
+                            dtype=dtype, device=device)
+    return (atm, dl, nlte, cia, nu,
+            torch.as_tensor(h_fine, dtype=dtype, device=device), fov_V,
+            len(h_obs))
+
+
+COMPOSED = dict(n_sub=2, cutoff_cm1=8.0)
+
+
+def composed_case(rank, world, shape, scene_kw, y_obs, sigma, x0, S_a,
+                  max_iter):
+    """make_sharded_oe on the composed scene (float64) in the nu-halo tier:
+    its forward and Jacobian at the truth (the atmosphere's state), and
+    the LM retrieval of ``y_obs`` from ``x0``."""
+    import numpy as np
+
+    from spectrobot_tpu_torch.data.atmosphere import MARS
+    from spectrobot_tpu_torch.parallel.oe import make_sharded_oe
+    from spectrobot_tpu_torch.retrieval.oe import OEConfig, retrieve
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+    mesh = _mesh(shape)
+    atm, dl, nlte, cia, nu, h_fine, fov_V, _ = composed_scene(
+        **scene_kw, dtype=torch.float64)
+    state0 = make_state(atm, [])
+    oe = make_sharded_oe(mesh, atm, dl, nu, ["CO2"], MARS, h_fine,
+                         state_template=state0, fov_V=fov_V, nlte=nlte,
+                         cia=cia, nu_halo=True, **COMPOSED)
+    x_true = flatten_state(state0)[0]
+    out = {"y": oe.forward_flat(x_true), "K": oe.jacobian(x_true),
+           "row_axes": oe.row_axes}
+    oe.bind_observation(y_obs, sigma)
+    x0 = torch.as_tensor(np.asarray(x0))
+    res = retrieve(oe.forward_flat, oe.jacobian, y_obs, x0, x0, S_a, sigma,
+                   OEConfig(max_iter=max_iter), normal_eqs=oe.normal_eqs)
+    out["res"] = (res.x, bool(res.converged), res.history)
     return out
 
 
