@@ -92,6 +92,22 @@ Phases, each of which raises (non-zero exit) on failure:
      then the composed scene (plus the CIA continuum and a 3 km FOV over 40
      fine rays): the CLI forward and retrieve, the Jacobian (finite), and
      the (1, 1, 1) mesh forward in the nu-halo tier against one device;
+  6g. the (P, T) table tier and the 2-D climatology, float32: the LTE
+     table of examples/mars_limb.toml (21 x 25 lattice) and config 3's
+     non-LTE tables, each built in one K1 launch and held at every node to
+     K1's budget against the plain build; the CLI forward through each
+     table (one K1 launch, the build) within the reference's LUT budget of
+     the direct CLI forward, and again from compute.lut_path (no launch);
+     the 33-column Jacobian through each table (no launch; the LTE one
+     within 0.05 of max |J| of the direct K1 + K2 Jacobian; its peak
+     memory beside the direct one's); the CLI retrieve through each table
+     (one K1 launch, the build, none per LM iteration; converged); on the
+     (1, 1, 1) mesh the table built over the process group bit-equal to
+     the serial one (also through the CLI's compute.lut_build_mesh), the
+     mesh table forward within 1e-5 of one device's
+     and its sharded normal equations against the table Jacobian's; the
+     mars_zonal climatology at 45 deg N through the CLI forward and
+     retrieve, line by line (K1, K2) and through its table;
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
@@ -105,7 +121,10 @@ Phases, each of which raises (non-zero exit) on failure:
      over the FP32 rate, the contraction's three TF32 passes over the TF32
      rate and the bytes, with the bound of an FP32-core contraction beside
      it); K1's and K5's bounds also at the bench scale and K5's at R = 66,
-     beside their times.
+     beside their times; each table build (CUDA events) with its K1
+     call's share and the plain build's time, and the forward wall, the
+     Jacobian (and its peak memory) and the LM iteration through each
+     table beside the direct ones.
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON are the two lines before the last; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -1143,6 +1162,7 @@ def config3_phase(dev, mesh) -> dict:
     jac = {k: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0])
            for k, p in prob.items()}
     x0 = prob["kernels"].x0
+    out["jac_peak"] = peak_memory(lambda: jac["kernels"](x0))
     reset_launches()
     J = jac["kernels"](x0)
     torch.cuda.synchronize()
@@ -1223,7 +1243,7 @@ def config3_phase(dev, mesh) -> dict:
     out["k5"] = compare_k5(case, seen["ct"])
     out.update(cfg=cfg, scene=scene, jac=jac["kernels"], x0=x0,
                fwd=prob["kernels"].fwd_flat, n_x=n_x, case=case, C=seen["C"],
-               ct=seen["ct"])
+               ct=seen["ct"], I=I, J=J)
 
     # The composed scene: non-LTE x CIA x FOV (40 fine rays, 20 observed).
     cfg_c = cli.load_config(SCENE, COMPOSED_CLI)
@@ -1292,6 +1312,296 @@ def config3_phase(dev, mesh) -> dict:
     np.testing.assert_allclose(I_m, I_single, rtol=MESH_RTOL,
                                atol=MESH_RTOL * np.abs(I_single).max())
     return out
+
+
+# The (P, T) table tier (phase 6g): examples/mars_limb.toml and config 3
+# through their tables; the 2-D climatology sliced at 45 deg N.
+LUT_CLI = {"compute.use_lut": "true"}
+ZONAL_CLI = {"scene.atmosphere": "mars_zonal", "scene.latitude_deg": "45.0"}
+# A table forward against the direct one: the reference's LUT budget
+# (tests/test_cli_config.py:224-226), max |I_lut - I_dir| / max(I_dir,
+# 1e-3 max I_dir) < LUT_REL.  The table's Jacobian against the direct one:
+# max |dJ| <= LUT_JAC_REL max |J_dir| (tests/test_torch_lut.py measured
+# 0.0128 in float64 on the CPU, on a 128-point cut of the scene).
+LUT_REL = 0.05
+LUT_JAC_REL = 0.05
+
+
+def lut_rel(I_lut: np.ndarray, I_dir: np.ndarray) -> float:
+    return float(np.max(np.abs(I_lut - I_dir)
+                        / np.maximum(I_dir, 1e-3 * I_dir.max())))
+
+
+def cli_run(cmd: str, overrides: dict, tmp: str) -> tuple:
+    """``cmd`` of the CLI on examples/mars_limb.toml with ``overrides`` on
+    the card: (the output .npz's arrays, the kernels' launches, the LM
+    iterations' records of run.jsonl)."""
+    from spectrobot_tpu_torch import cli
+
+    reset_launches()
+    cli.main([cmd, SCENE, *_cli_args(overrides), "-o",
+              f"run.output_dir={tmp}", "--device", "cuda"])
+    torch.cuda.synchronize()
+    n = launch_counts()
+    name = "forward.npz" if cmd == "forward" else "retrieval.npz"
+    with np.load(os.path.join(tmp, name)) as f:
+        res = {k: f[k] for k in f.files}
+    iters = []
+    if cmd == "retrieve":
+        with open(os.path.join(tmp, "run.jsonl")) as f:
+            iters = [r for r in map(json.loads, f) if "chi2" in r]
+    return res, n, iters
+
+
+def peak_memory(fn) -> tuple:
+    """(peak, resident) device memory [GB] of one call of ``fn``: the
+    allocator's peak over the call, and what was allocated before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9, resident / 1e9
+
+
+def table_error(built, plain) -> tuple:
+    """(max |err|, the worst ratio to K1's budget) of a table against its
+    plain build, over every node of every table; the budget's scale is
+    the largest entry of them all (the build's one K1 call)."""
+    from spectrobot_tpu_torch.ops import lut
+
+    fields = (("sigma_l", "sigma_u", "sigma_e")
+              if isinstance(built, lut.NLTELUT) else ("sigma",))
+    scale = max(float(getattr(plain, f).abs().max()) for f in fields)
+    err = worst = 0.0
+    for f in fields:
+        got, ref = getattr(built, f), getattr(plain, f)
+        e = (got - ref).abs()
+        err = max(err, float(e.max()))
+        worst = max(worst, float((e / (RTOL * ref.abs()
+                                       + ATOL_REL * scale)).max()))
+    return err, worst
+
+
+def lut_phase(dev, mesh, direct: dict) -> dict:
+    """Phase 6g: the (P, T) table tier at full width, float32 on the card.
+    ``direct``: the direct paths' outputs for each tier ("LTE": phase 5's
+    CLI forward radiances and phase 6's Jacobian; "non-LTE": phase 6f's);
+    ``mesh``: the (1, 1, 1) mesh of phase 6c.  Returns what phase 7
+    times."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops import lut
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    out = {}
+    for tier, ov in (("LTE", LUT_CLI), ("non-LTE", {**CONFIG3_CLI,
+                                                    **LUT_CLI})):
+        t = out[tier] = {"cfg": cli.load_config(SCENE, ov)}
+        cfg = t["cfg"]
+        # The build: one K1 launch, against the plain build at every node.
+        reset_launches()
+        scene = t["scene"] = cli.build_scene(cfg, dev)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        t["build"] = (lut.build_nlte_lut if scene.nlte is not None
+                      else lut.build_lut)
+        t["args"] = (scene.nu, scene.lines, len(scene.species_names))
+        t["lattice"] = cli.lut_lattice(cfg, scene.atm, scene.species_names,
+                                       scene.chi, scene.nu_off)
+        t0 = time.perf_counter()
+        plain = t["build"](*t["args"], engine=PLAIN, **t["lattice"])
+        torch.cuda.synchronize()
+        t["plain_s"] = time.perf_counter() - t0
+        err, worst = table_error(scene.lut, plain)
+        del plain
+        t["k1"] = K1Case(f"{tier} table", *line_sum_inputs(
+            lambda e: t["build"](*t["args"], engine=e, **t["lattice"])),
+            None)
+        B, L = t["k1"].nu_c.shape
+        print(f"{tier} table build ({scene.lut_src}): {B} K1 states x {L} "
+              f"lines x {scene.nu.shape[0]} points; vs the plain build at "
+              f"every node max |err| {err:.3e}, {worst:.3e} x K1's budget; "
+              f"launches {json.dumps(n)}")
+        expect_launches(f"the {tier} table build", n, K1=1)
+        check(worst <= 1.0, f"the {tier} table disagrees with its plain "
+                            f"build")
+        # The CLI forward (the build: one K1) against the direct one, then
+        # again from the file it wrote (no launch at all).
+        with tempfile.TemporaryDirectory() as tmp:
+            ovp = {**ov, "compute.lut_path": os.path.join(tmp, "lut.npz")}
+            res, n, _ = cli_run("forward", ovp, tmp)
+            I = t["I"] = res["values"]
+            rel = lut_rel(I, direct[tier]["I"])
+            print(f"{tier} table CLI forward: {I.shape}, max {I.max():.4e}, "
+                  f"vs the direct CLI forward {rel:.4f} (budget {LUT_REL}); "
+                  f"launches {json.dumps(n)}")
+            expect_launches(f"the {tier} table CLI forward", n, K1=1)
+            check(bool(np.isfinite(I).all() and (I >= 0).all()),
+                  f"{tier} table radiances not finite and non-negative")
+            check(rel < LUT_REL, f"the {tier} table forward is off the "
+                                 f"direct one")
+            res, n, _ = cli_run("forward", ovp, tmp)
+            print(f"{tier} table CLI forward from compute.lut_path: "
+                  f"launches {json.dumps(n)}, radiances equal "
+                  f"{bool(np.array_equal(res['values'], I))}")
+            expect_launches(f"the {tier} cached-table CLI forward", n)
+            check(bool(np.array_equal(res["values"], I)),
+                  "the cached table gave other radiances")
+        # The Jacobian through the table: no kernel, finite, its peak
+        # memory beside the direct Jacobian's.
+        prob = cli.retrieval_problem(cfg, scene, KERNELS)
+        t["x0"] = prob.x0
+        t["jac"] = cli.make_jacobian(cfg, prob.fwd_flat,
+                                     int(prob.x0.shape[0]), scene.nu.shape[0])
+        t["fwd"] = prob.fwd_flat
+        reset_launches()
+        J = t["jac"](prob.x0)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        t["jac_peak"] = peak_memory(lambda: t["jac"](prob.x0))
+        J_dir = direct[tier]["J"]
+        jrel = float((J - J_dir).abs().max() / J_dir.abs().max())
+        print(f"{tier} table Jacobian {tuple(J.shape)}: finite "
+              f"{bool(torch.isfinite(J).all())}, vs the direct K1 + K2 "
+              f"Jacobian max |dJ| {jrel:.4f} of max |J| (budget "
+              f"{LUT_JAC_REL} for LTE); peak device memory "
+              f"{t['jac_peak'][0]:.2f} GB ({t['jac_peak'][1]:.2f} GB "
+              f"resident before it), the direct Jacobian's "
+              f"{direct[tier]['jac_peak'][0]:.2f} GB "
+              f"({direct[tier]['jac_peak'][1]:.2f} GB resident); launches "
+              f"{json.dumps(n)}")
+        expect_launches(f"the {tier} table Jacobian", n)
+        check(bool(torch.isfinite(J).all()), f"non-finite {tier} table "
+                                             f"Jacobian")
+        check(tier != "LTE" or jrel <= LUT_JAC_REL,
+              "the table Jacobian is off the direct one")
+        # The CLI retrieve: K1 for the build alone, none per LM iteration.
+        with tempfile.TemporaryDirectory() as tmp:
+            res, n, iters = cli_run("retrieve", ov, tmp)
+        print(f"{tier} table CLI retrieve: converged "
+              f"{bool(res['converged'])} ({res['stop_reason']}), chi2 "
+              f"{iters[0]['chi2']:.6g} at the prior -> "
+              f"{float(res['chi2']):.6g}, {int(res['n_iter'])} LM "
+              f"iterations; launches {json.dumps(n)}")
+        expect_launches(f"the {tier} table CLI retrieve", n, K1=1)
+        check(bool(res["converged"]), f"the {tier} table retrieval did not "
+                                      f"converge")
+        check(float(res["chi2"]) < iters[0]["chi2"],
+              f"{tier} table chi2 did not fall")
+        t["iter_walls"] = [r["wall_s"] for r in iters]
+        t["obs"] = (res["y_obs"].reshape(-1), res["noise"].reshape(-1))
+
+    # The (1, 1, 1) mesh: the lattice build over the group (NCCL) equal to
+    # the serial table; the mesh table forward and normal equations
+    # against one device.
+    t = out["LTE"]
+    cfg, scene = t["cfg"], t["scene"]
+    reset_launches()
+    shared = lut.build_lut(*t["args"], mesh=lut.lut_mesh(), **t["lattice"])
+    torch.cuda.synchronize()
+    n = launch_counts()
+    same = bool(torch.equal(shared.sigma, scene.lut.sigma))
+    world = torch.distributed.get_world_size()
+    print(f"table build over the process group ({world} rank): bit-equal "
+          f"to the serial table {same}; launches {json.dumps(n)}")
+    expect_launches("the table build over the group", n, K1=1)
+    check(same, "the group's table differs from the serial one")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n, _ = cli_run("forward", {**LUT_CLI,
+                                        "compute.lut_build_mesh": "true"}, tmp)
+    same = bool(np.array_equal(res["values"], t["I"]))
+    print(f"table CLI forward with compute.lut_build_mesh: radiances equal "
+          f"to the serial table's {same}; launches {json.dumps(n)}")
+    expect_launches("the CLI forward with compute.lut_build_mesh", n, K1=1)
+    check(same, "compute.lut_build_mesh changed the radiances")
+    empty = make_state(scene.atm, [], retrieve_temperature=False)
+    I_single = cli.run_forward(cfg, scene).cpu().numpy()
+    oe = cli.sharded_problem(cfg, scene, mesh, scene.atm, empty)
+    reset_launches()
+    I_m = oe.forward_flat(flatten_state(empty)[0]).reshape(I_single.shape)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    I_m = I_m.cpu().numpy()
+    print(f"mesh table forward vs single-device: max |err| "
+          f"{float(np.abs(I_m - I_single).max()):.3e} of max "
+          f"{float(np.abs(I_single).max()):.3e}; launches {json.dumps(n)}")
+    expect_launches("the mesh table forward", n)
+    np.testing.assert_allclose(I_m, I_single, rtol=MESH_RTOL,
+                               atol=MESH_RTOL * np.abs(I_single).max())
+    prob = cli.retrieval_problem(cfg, scene, KERNELS)
+    oe = cli.sharded_problem(cfg, scene, mesh, prob.atm, prob.init(prob.atm))
+    y_obs, sigma = t["obs"]
+    oe.bind_observation(y_obs, sigma)
+    reset_launches()
+    F, H, g = oe.normal_eqs(prob.x0)
+    torch.cuda.synchronize()
+    n = launch_counts()
+    J64 = t["jac"](prob.x0).double().cpu().numpy()
+    w = 1.0 / sigma.astype(np.float64) ** 2
+    y0 = prob.fwd_flat(prob.x0).double().cpu().numpy()
+    H_ref = (J64.T * w) @ J64
+    g_ref = (J64.T * w) @ (y_obs.astype(np.float64) - y0)
+    errs = {"F": float(np.abs(F.double().cpu().numpy() - y0).max()
+                       / np.abs(y0).max()),
+            "H": float(np.abs(H.cpu().numpy() - H_ref).max()
+                       / np.abs(H_ref).max()),
+            "g": float(np.abs(g.cpu().numpy() - g_ref).max()
+                       / np.abs(g_ref).max())}
+    print(f"sharded table normal equations vs the single-device table "
+          f"Jacobian: max |err| / max |ref| {json.dumps(errs)}; launches "
+          f"{json.dumps(n)}")
+    expect_launches("the sharded table normal equations", n)
+    check(all(v <= MESH_RTOL for v in errs.values()),
+          "the sharded table normal equations disagree with one device's")
+
+    # The 2-D climatology at 45 deg N: forward and retrieve through the
+    # line sums (K1, K2) and through its table.
+    zonal = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, ov in (("direct", ZONAL_CLI),
+                         ("table", {**ZONAL_CLI, **LUT_CLI})):
+            res, n_f, _ = cli_run("forward", ov, tmp)
+            zonal[name] = I = res["values"]
+            res, n_r, iters = cli_run("retrieve", ov, tmp)
+            n_iter = int(res["n_iter"])
+            print(f"mars_zonal at 45 N, {name}: forward {I.shape}, max "
+                  f"{I.max():.4e}, launches {json.dumps(n_f)}; retrieve "
+                  f"converged {bool(res['converged'])}, chi2 "
+                  f"{iters[0]['chi2']:.6g} -> {float(res['chi2']):.6g}, "
+                  f"{n_iter} LM iterations, launches {json.dumps(n_r)}")
+            expect_launches(f"the 2-D {name} CLI forward", n_f, K1=1)
+            check(bool(np.isfinite(I).all() and (I >= 0).all()),
+                  f"2-D {name} radiances not finite and non-negative")
+            check(bool(res["converged"]), f"the 2-D {name} retrieval did "
+                                          f"not converge")
+            if name == "direct":
+                check(n_r["K1"] > 0 and n_r["K2"] == n_iter + 1,
+                      "the 2-D retrieve did not run K1 and one K2 per "
+                      "Jacobian")
+            else:
+                expect_launches("the 2-D table CLI retrieve", n_r, K1=1)
+    rel = lut_rel(zonal["table"], zonal["direct"])
+    print(f"mars_zonal at 45 N: table vs direct forward {rel:.4f}; vs the "
+          f"1-D mars_standard forward max |diff| "
+          f"{float(np.abs(zonal['direct'] - direct['LTE']['I']).max()):.3e}")
+    check(rel < LUT_REL, "the 2-D table forward is off the direct one")
+    return out
+
+
+def wall_ms(fn, n: int = 3) -> float:
+    """Median host wall of ``fn`` (to the device's end) over ``n`` calls
+    after a warm-up [ms]."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
 
 
 def host_ms(fn, n: int = 20) -> tuple:
@@ -1826,16 +2136,15 @@ def main() -> int:
     jac = {name: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0])
            for name, p in prob.items()}
     x0 = prob["kernels"].x0
-    torch.cuda.reset_peak_memory_stats()
+    jac_peak = peak_memory(lambda: jac["kernels"](x0))
     J = jac["kernels"](x0)
-    torch.cuda.synchronize()
-    jac_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     J_plain = jac["plain"](x0)
     jac_err = float((J - J_plain).abs().max())
     jac_max = float(J_plain.abs().max())
     print(f"Jacobian {tuple(J.shape)} kernels vs plain: max |err| "
           f"{jac_err:.3e} of max |K| {jac_max:.3e} "
-          f"({jac_err / jac_max:.3e}); peak device memory {jac_peak_gb:.2f} GB")
+          f"({jac_err / jac_max:.3e}); peak device memory {jac_peak[0]:.2f} "
+          f"GB ({jac_peak[1]:.2f} GB resident before it)")
     check(bool(torch.isfinite(J).all()), "non-finite Jacobian")
     check(jac_err <= K2_REL * jac_max,
           "the kernel Jacobian disagrees with the plain one")
@@ -1941,6 +2250,11 @@ def main() -> int:
 
     # Phase 6f: acceptance config 3 and the composed features.
     c3 = config3_phase(dev, mesh["mesh"])
+
+    # Phase 6g: the (P, T) table tier and the 2-D climatology.
+    tables = lut_phase(dev, mesh["mesh"], {
+        "LTE": {"I": I, "J": J, "jac_peak": jac_peak},
+        "non-LTE": {k: c3[k] for k in ("I", "J", "jac_peak")}})
     # Release the allocator's cache (phase 6f's composed Jacobian alone
     # peaks near 25 GB): phase 7 times each call's own allocations, not
     # the allocator freeing and retrying on a full device.
@@ -2136,6 +2450,41 @@ def main() -> int:
           f"{b3['K2'][0]:.4f} ms ({b3['K2'][2]}); K5 {t3['K5'][0]:.3f} ms "
           f"vs {b3['K5'][0]:.4f} ms; in-cutoff pairs by region: K1/K2 "
           f"{json.dumps(p1)}, K5 {json.dumps(p5)}")
+    # The table tier: each build (its K1 call's share) beside the plain
+    # build, and the forward wall, Jacobian and LM iteration through the
+    # table beside the direct ones (the forwards timed in turns).
+    direct = {"LTE": (lambda: cli.run_forward(cfg, scene, cb.KERNELS),
+                      jac_ms, it_walls, jac_peak),
+              "non-LTE": (lambda: cli.run_forward(c3["cfg"], c3["scene"],
+                                                  cb.KERNELS),
+                          jac3_ms, c3["iter_walls"], c3["jac_peak"])}
+    for tier, t in tables.items():
+        build_ms = cuda_ms(lambda: t["build"](*t["args"], **t["lattice"]))
+        k1_ms = cuda_ms(k1(t["k1"], co.accumulate_batch))
+        fwd_dir, jac_dir_ms, walls_dir, peak_dir = direct[tier]
+        fwd_lut = lambda: cli.run_forward(t["cfg"], t["scene"], cb.KERNELS)
+        fw = {"table": [], "direct": []}
+        for _ in range(2):
+            fw["table"].append(wall_ms(fwd_lut))
+            fw["direct"].append(wall_ms(fwd_dir))
+        jac_lut_ms = cuda_ms(lambda: t["jac"](t["x0"]))
+        B, L = t["k1"].nu_c.shape
+        print(f"time {tier} table [{card}]: build {build_ms:.3f} ms (CUDA "
+              f"events, median of 5), of which its one K1 call "
+              f"{k1_ms:.3f} ms ({100 * k1_ms / build_ms:.1f} %; {B} states "
+              f"x {L} lines x {t['k1'].nu.shape[0]} points); plain build "
+              f"{1e3 * t['plain_s']:.1f} ms (one run, host clock)")
+        print(f"time {tier} table vs direct [{card}]: warm forward wall "
+              f"{np.median(fw['table']):.2f} vs {np.median(fw['direct']):.2f}"
+              f" ms (cli.run_forward, median of 3 after a warm-up, 2 rounds "
+              f"in turns: table {', '.join(f'{v:.2f}' for v in fw['table'])}"
+              f", direct {', '.join(f'{v:.2f}' for v in fw['direct'])}); "
+              f"Jacobian {jac_lut_ms:.2f} vs "
+              f"{jac_dir_ms:.2f} ms (CUDA events, median of 5), peak device "
+              f"memory {t['jac_peak'][0]:.2f} vs "
+              f"{peak_dir[0]:.2f} GB; LM "
+              f"iteration median {1e3 * np.median(t['iter_walls']):.2f} vs "
+              f"{1e3 * np.median(walls_dir):.2f} ms (run.jsonl)")
     torch.distributed.destroy_process_group()
 
     # Each kernel's bound at its timed limb inputs: K1 and K2 over the

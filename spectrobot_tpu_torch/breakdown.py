@@ -6,12 +6,14 @@ prior of a configured scene (``cli.retrieval_problem``,
     python -m spectrobot_tpu_torch.breakdown [cfg.toml] [-o section.key=value ...]
 
 Default scene: ``examples/mars_limb.toml``; ``-o`` overrides its keys as
-the CLI's do (e.g. acceptance config 3: the 4.3 um band with ``[nlte]``).  The reverse gradient is that of
-the retrieval cost 1/2 |(y - y_obs) / sigma|^2 with respect to the flat
-state through ``retrieval_problem(analytic_jvp='rev')`` (K1 and K5), with
-y_obs = 1.01 y(x0) and sigma = 0.005 max y(x0) (the self-test retrieval's
-default noise).  It prints the card's name and power limit (as nvidia-smi
-gives them), then one JSON object for each of the three calls:
+the CLI's do (e.g. acceptance config 3: the 4.3 um band with ``[nlte]``;
+the (P, T) table tier: ``-o compute.use_lut=true``).  The reverse gradient
+is that of the retrieval cost 1/2 |(y - y_obs) / sigma|^2 with respect to
+the flat state through ``retrieval_problem(analytic_jvp='rev')`` (K1 and
+K5), with y_obs = 1.01 y(x0) and sigma = 0.005 max y(x0) (the self-test
+retrieval's default noise).  It prints the card's name and power limit
+(as nvidia-smi gives them), then one JSON object for each of the three
+calls:
 
 - ``wall_ms``: host wall time of one call, ending in a device synchronise,
   over 20 unprofiled calls after a warm-up (median and quartiles);

@@ -14,9 +14,13 @@ the reference's layout.  The forward is the single-device line-by-line
 limb/nadir path, in local thermodynamic equilibrium or with prescribed
 vibrational populations (``[nlte]``), with the collision-induced continuum
 (``[cia]``) and the field of view (``instrument.fov_fwhm_km``: a fine ray
-ladder smeared into the observed rays); ``retrieve`` fits it to
+ladder smeared into the observed rays), over a 1-D atmosphere or a 2-D
+climatology sliced at ``scene.latitude_deg``; ``retrieve`` fits it to
 observations with forward-mode Jacobians and the Levenberg-Marquardt
-optimal-estimation loop.  With ``compute.mesh_ray/line/nu`` set to a mesh
+optimal-estimation loop.  With ``compute.use_lut`` both run through a
+(P, T) table of the scene's cross sections (``ops.lut``), built once
+through K1 (or loaded from ``compute.lut_path``) and interpolated per
+call.  With ``compute.mesh_ray/line/nu`` set to a mesh
 of more than one rank, both run on the (ray, line, nu) mesh over the ranks
 ``torchrun`` starts (:mod:`spectrobot_tpu_torch.parallel`: NCCL, one card
 per rank, or gloo on the CPU), and rank 0 writes the outputs.  Every
@@ -55,8 +59,8 @@ from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
 from spectrobot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
 from spectrobot_tpu_torch.parallel.oe import ShardedOE, make_sharded_oe
 from spectrobot_tpu_torch.retrieval.state import (
-    NodeBasis, build_forward, flatten_state, jacobian_fwd_chunked,
-    make_state)
+    NodeBasis, build_forward, build_forward_lut, flatten_state,
+    jacobian_fwd_chunked, make_state)
 from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
 # Where each unported feature will come from: its item of ROADMAP.md,
@@ -76,7 +80,6 @@ def check_ported(cfg) -> None:
     this port does not have yet."""
     c = cfg.compute
     unported = [
-        ("compute.use_lut", c.use_lut, _item(5)),
         ("compute.variant", c.variant != "humlicek4", _item(7)),
         ("run.save_optics", cfg.run.save_optics, _item(8)),
     ]
@@ -85,14 +88,6 @@ def check_ported(cfg) -> None:
             section, name = key.split(".")
             raise _not_ported(key, getattr(getattr(cfg, section), name),
                               item)
-    src = cfg.scene.atmosphere
-    is_2d = src == "mars_zonal"
-    if src.endswith(".npz"):
-        with np.load(src) as z:
-            is_2d = "lat_deg" in z.files
-    if is_2d:
-        raise _not_ported("scene.atmosphere", src,
-                          _item(6) + ", 2-D atmospheres")
 
 
 def select_engine(cfg, device: torch.device) -> Engine:
@@ -112,16 +107,26 @@ def select_engine(cfg, device: torch.device) -> Engine:
 
 
 def _build_atmosphere(cfg, device):
+    """(planet, the 1-D atmosphere): a built-in profile, or a .npz; a 2-D
+    climatology ("mars_zonal", or a .npz with lat_deg) sliced at
+    scene.latitude_deg."""
     planet = atm_mod.PLANETS[cfg.scene.planet.lower()]
     src = cfg.scene.atmosphere
+    size = dict(n_lev=cfg.scene.n_levels, z_top=cfg.scene.z_top_m,
+                device=device)
     if src == "mars_standard":
-        atm = atm_mod.mars_standard_atmosphere(
-            n_lev=cfg.scene.n_levels, z_top=cfg.scene.z_top_m, device=device)
+        atm = atm_mod.mars_standard_atmosphere(**size)
     elif src == "titan_standard":
-        atm = atm_mod.titan_standard_atmosphere(
-            n_lev=cfg.scene.n_levels, z_top=cfg.scene.z_top_m, device=device)
+        atm = atm_mod.titan_standard_atmosphere(**size)
+    elif src == "mars_zonal":
+        atm = atm_mod.mars_zonal_atmosphere(**size)
     else:
-        atm = atm_mod.Atmosphere.load_npz(src, device=device)
+        with np.load(src) as z:
+            is_2d = "lat_deg" in z.files
+        atm = (atm_mod.Atmosphere2D if is_2d else atm_mod.Atmosphere
+               ).load_npz(src, device=device)
+    if isinstance(atm, atm_mod.Atmosphere2D):
+        atm = atm.at_lat(cfg.scene.latitude_deg)
     return planet, atm
 
 
@@ -234,6 +239,8 @@ class Scene(NamedTuple):
     h_t: object                # [R] limb rays [m] (the fine ladder under
                                # the FOV), or None (nadir)
     fov_V: object              # [n_obs, R] FOV matrix or None
+    lut: object = None         # the (P, T) table (compute.use_lut) or None
+    lut_src: str = ""          # where the table came from
 
 
 def build_scene(cfg, device: torch.device) -> Scene:
@@ -278,9 +285,49 @@ def build_scene(cfg, device: torch.device) -> Scene:
            if cfg.cia.enabled else None)
     h_t, fov_V = (_build_fov(cfg, dtype, device)
                   if cfg.geometry.mode == "limb" else (None, None))
+    chi = _build_chi(cfg, species_names)
+    lut, lut_src = (_get_lut(cfg, nu, nu_off, dl, species_names, atm, nlte,
+                             chi) if cfg.compute.use_lut else (None, ""))
     return Scene(planet, atm, dl, species_names, nu, nu_off, W, chans,
-                 windows, _build_chi(cfg, species_names), nlte, cia, h_t,
-                 fov_V)
+                 windows, chi, nlte, cia, h_t, fov_V, lut, lut_src)
+
+
+def lut_lattice(cfg, atm, species_names, chi, nu_off) -> dict:
+    """The table's lattice and build keywords for the scene
+    (``ops.lut.build_lut``'s): T spans the atmosphere's (+-30 K), p its
+    (x0.5, x2), each species self-broadened at its surface VMR; the grid's
+    offset coordinates ``nu_off`` staged from float64, as the line-by-line
+    path takes them."""
+    c = cfg.compute
+    T_arr, p_arr = atm.T.cpu().numpy(), atm.p.cpu().numpy()
+    return dict(
+        T_min=max(80.0, float(T_arr.min()) - 30.0),
+        T_max=float(T_arr.max()) + 30.0, n_T=c.lut_n_T,
+        p_min=max(float(p_arr.min()) * 0.5, 1e-6),
+        p_max=float(p_arr.max()) * 2.0, n_p=c.lut_n_p,
+        vmr_self=[float(atm.vmr[name][0]) for name in species_names],
+        variant=c.variant, cutoff_cm1=c.cutoff_cm1, chunk=c.chunk, chi=chi,
+        nu_off=nu_off)
+
+
+def _get_lut(cfg, nu, nu_off, lines, species_names, atm, nlte, chi):
+    """The (P, T) table of the scene (:func:`lut_lattice`), built through
+    K1, or loaded from compute.lut_path when its fingerprint matches; the
+    non-LTE tier with ``nlte``.  With compute.lut_build_mesh and a process
+    group, its ranks share the build.  Returns (lut, where it came
+    from)."""
+    from spectrobot_tpu_torch.ops.lut import get_or_build_lut, lut_mesh
+
+    c = cfg.compute
+    mesh = lut_mesh() if c.lut_build_mesh else None
+    lut, cached = get_or_build_lut(
+        c.lut_path, nu, lines, len(species_names), nlte=nlte is not None,
+        mesh=mesh, **lut_lattice(cfg, atm, species_names, chi, nu_off))
+    tier = "non-LTE per-level tables" if nlte is not None else "LTE"
+    src = ("cached " + c.lut_path if cached else
+           f"built on {dist.get_world_size(mesh)} ranks" if mesh is not None
+           else "built")
+    return lut, f"{tier}, {src}"
 
 
 def n_rays(cfg) -> int:
@@ -314,9 +361,18 @@ def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
     """F: state -> y (``retrieval.state.build_forward``) of the configured
     rays over ``atm`` (default: the scene's), the line sum on ``engine``,
     differentiable as ``analytic_jvp`` says (True: forward mode, 'rev':
-    reverse mode, False: plain autograd)."""
+    reverse mode, False: plain autograd).  With the scene's table
+    (compute.use_lut) it interpolates the table instead
+    (``build_forward_lut``: no line sum, plain autograd in both
+    directions)."""
     g = cfg.geometry
     atm = scene.atm if atm is None else atm
+    if scene.lut is not None:
+        return build_forward_lut(atm, scene.lut, scene.species_names,
+                                 scene.planet, emissivity=g.emissivity,
+                                 ils_W=scene.W, nlte=scene.nlte,
+                                 n_sub=g.n_sub, cia=scene.cia,
+                                 **_rays(cfg, scene))
     return build_forward(atm, scene.lines, scene.nu, scene.species_names,
                          scene.planet, emissivity=g.emissivity,
                          ils_W=scene.W, n_sub=g.n_sub,
@@ -339,7 +395,7 @@ def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
         cutoff_cm1=cfg.compute.cutoff_cm1, nu_off=scene.nu_off,
         engine=engine, nu_halo=cfg.compute.mesh_halo,
         emissivity=g.emissivity, state_map=state_map, chi=scene.chi,
-        nlte=scene.nlte, cia=scene.cia, **_rays(cfg, scene))
+        nlte=scene.nlte, cia=scene.cia, lut=scene.lut, **_rays(cfg, scene))
 
 
 def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:
@@ -442,10 +498,12 @@ def _forward(cfg, device: torch.device, mesh) -> dict:
     wall = time.time() - t0
 
     out_path = os.path.join(cfg.run.output_dir, "forward.npz")
+    halo = cfg.compute.mesh_halo and scene.lut is None
     where = str(device) if mesh is None else (
         f"a {tuple(mesh.shape.values())} (ray, line, nu) mesh of "
-        f"{mesh.size} {device.type} ranks"
-        f"{', nu-halo' if cfg.compute.mesh_halo else ''}")
+        f"{mesh.size} {device.type} ranks{', nu-halo' if halo else ''}")
+    if scene.lut is not None:
+        where += f" (LUT runtime: {scene.lut_src})"
     if _is_rank0(mesh):
         os.makedirs(cfg.run.output_dir, exist_ok=True)
         # After ILS channelisation the spectral axis is the channel centers.

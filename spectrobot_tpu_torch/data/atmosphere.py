@@ -1,5 +1,6 @@
 """Atmosphere model and planets (port of ``spectrobot_tpu.data.atmosphere``:
-the 1-D :class:`Atmosphere` and the standard Mars/Titan profiles).
+the 1-D :class:`Atmosphere`, the latitude x altitude :class:`Atmosphere2D`,
+and the standard Mars/Titan profiles and the zonal Mars climatology).
 
 Profiles are built host-side in float64 numpy and held as float64 tensors on
 the device; interpolation in altitude is plain torch (:func:`interp`, the
@@ -116,6 +117,81 @@ class Atmosphere:
                 device=device)
 
 
+@dataclasses.dataclass(frozen=True)
+class Atmosphere2D:
+    """Latitude x altitude atmosphere (level quantities, SI units):
+    lat_deg [NLAT] ascending, z [NZ], p/T/n [NLAT, NZ], vmr {name: [NLAT,
+    NZ]}.  :meth:`at_lat` slices it at an observation latitude into a 1-D
+    :class:`Atmosphere`, so one climatology serves a limb campaign."""
+
+    lat_deg: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    T: torch.Tensor
+    n: torch.Tensor
+    vmr: Dict[str, torch.Tensor]
+
+    @property
+    def n_lat(self) -> int:
+        return int(self.lat_deg.shape[0])
+
+    def at_lat(self, lat_q) -> Atmosphere:
+        """The 1-D atmosphere at latitude ``lat_q`` [deg] (a number or a
+        tensor; clamped to the grid): linear in T and the VMRs, log-linear
+        in p and n, differentiable in ``lat_q``.  On a grid latitude the
+        slice takes the cell below it at weight 1, and its derivative is
+        that cell's slope (the reference's clip passes half of it there)."""
+        lat_q = torch.as_tensor(lat_q, dtype=self.lat_deg.dtype,
+                                device=self.lat_deg.device)
+        idx = torch.clamp(torch.searchsorted(self.lat_deg, lat_q) - 1, 0,
+                          self.n_lat - 2)
+        lo, hi = self.lat_deg[idx], self.lat_deg[idx + 1]
+        w = torch.clamp((lat_q - lo) / (hi - lo), 0.0, 1.0)
+
+        def mix(a):
+            return (1.0 - w) * a[idx] + w * a[idx + 1]
+
+        def mix_log(a):
+            return torch.exp((1.0 - w) * torch.log(a[idx])
+                             + w * torch.log(a[idx + 1]))
+
+        return Atmosphere(z=self.z, p=mix_log(self.p), T=mix(self.T),
+                          n=mix_log(self.n),
+                          vmr={k: mix(v) for k, v in self.vmr.items()})
+
+    @staticmethod
+    def from_profiles(lats_deg, atms) -> "Atmosphere2D":
+        """Stack 1-D atmospheres on one altitude grid into a climatology."""
+        z0 = atms[0].z
+        for a in atms[1:]:
+            if not torch.equal(a.z, z0):
+                raise ValueError("the profiles' altitude grids differ")
+        return Atmosphere2D(
+            lat_deg=torch.as_tensor(np.asarray(lats_deg, np.float64),
+                                    device=z0.device),
+            z=z0, p=torch.stack([a.p for a in atms]),
+            T=torch.stack([a.T for a in atms]),
+            n=torch.stack([a.n for a in atms]),
+            vmr={k: torch.stack([a.vmr[k] for a in atms])
+                 for k in sorted(atms[0].vmr)})
+
+    def save_npz(self, path: str) -> None:
+        """The reference's layout (lat_deg, z, p, T, n, vmr_<name>)."""
+        host = lambda t: t.detach().cpu().numpy()
+        arrays = {k: host(getattr(self, k))
+                  for k in ("lat_deg", "z", "p", "T", "n")}
+        arrays.update({f"vmr_{k}": host(v) for k, v in self.vmr.items()})
+        np.savez_compressed(path, **arrays)
+
+    @staticmethod
+    def load_npz(path: str, *, device) -> "Atmosphere2D":
+        with np.load(path) as z:
+            t = lambda k: torch.tensor(z[k], device=device)
+            return Atmosphere2D(
+                lat_deg=t("lat_deg"), z=t("z"), p=t("p"), T=t("T"), n=t("n"),
+                vmr={k[4:]: t(k) for k in z.files if k.startswith("vmr_")})
+
+
 def hydrostatic_atmosphere(planet: Planet, z: np.ndarray, T_of_z,
                            p_surface: float, vmr: Dict[str, np.ndarray], *,
                            device) -> Atmosphere:
@@ -179,3 +255,31 @@ def mars_standard_atmosphere(n_lev: int = 51, z_top: float = 100e3, *,
     }
     return hydrostatic_atmosphere(MARS, z, T_of_z, p_surface=610.0, vmr=vmr,
                                   device=device)
+
+
+def mars_zonal_atmosphere(n_lat: int = 7, n_lev: int = 51,
+                          z_top: float = 100e3, *, device) -> Atmosphere2D:
+    """A smooth zonal-mean Mars climatology: equator-to-pole cooling (~30 K
+    at the surface), drier and lower-pressure high latitudes."""
+    lats = np.linspace(-90.0, 90.0, n_lat)
+    z = np.linspace(0.0, z_top, n_lev)
+    atms = []
+    for lat in lats:
+        cosl = np.cos(np.radians(lat))
+        dT = 30.0 * (cosl - 1.0)            # 0 at the equator, -30 K at poles
+
+        def T_of_z(zz, dT=dT):
+            return (145.0 + dT * np.exp(-zz / 25e3)
+                    + 65.0 * np.exp(-zz / 35e3)
+                    + 8.0 * np.exp(-((zz - 70e3) / 12e3) ** 2))
+
+        vmr = {
+            "CO2": np.full(n_lev, 0.9532),
+            "CO": np.full(n_lev, 7.0e-4),
+            "H2O": (0.3 + 0.7 * cosl) * 2.0e-4 * np.exp(-z / 20e3),
+            "N2": np.full(n_lev, 0.027),
+        }
+        atms.append(hydrostatic_atmosphere(
+            MARS, z, T_of_z, p_surface=610.0 * (0.85 + 0.15 * cosl), vmr=vmr,
+            device=device))
+    return Atmosphere2D.from_profiles(lats, atms)

@@ -23,6 +23,11 @@ The field of view (FOV) mixes the sharded rays the same way: each rank
 smears its block of the fine ray ladder, ``V[:, R_loc] @ I_loc``, and one
 all-reduce over ``ray`` completes the observed rays, which drops ``ray``
 from the row axes.
+
+With a (P, T) table (``lut=``) the forward interpolates the table on each
+rank's ``nu`` chunk and ray block (:mod:`.sharded_lut`); no line sum and
+no line-axis collective runs, and the rest (FOV, ILS, the normal
+equations) is the same.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from spectrobot_tpu_torch.data.atmosphere import Atmosphere, Planet
 from spectrobot_tpu_torch.forward.geometry import limb_path_cg, nadir_path_cg
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.ils import apply_fov, apply_ils
+from spectrobot_tpu_torch.ops.lut import NLTELUT
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.planck import planck_nu
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
@@ -45,6 +51,8 @@ from spectrobot_tpu_torch.parallel.retrieval import (
 from spectrobot_tpu_torch.parallel.sharded import (
     local_cia, local_lines, pad_lines_for_mesh, partition_lines_by_nu,
     sharded_radiance_fn)
+from spectrobot_tpu_torch.parallel.sharded_lut import (
+    sharded_lut_radiance_fn, stage_lut_sharded)
 from spectrobot_tpu_torch.retrieval.state import apply_state, flatten_state
 
 
@@ -148,38 +156,54 @@ def make_sharded_oe(
     block) as ``retrieval.state.build_forward`` takes them.  ``fov_V``
     [n_obs, R] smears the limb rays (the fine ladder
     ``tangent_heights_m``, sharded over ``ray``) into the observed ones.
+    ``lut`` (``ops.lut.OpacityLUT``, or ``NLTELUT`` with ``nlte``) runs
+    the forward through the table runtime (``parallel.sharded_lut``): the
+    tables cut over ``nu``, each call table lookups instead of line sums;
+    ``lines``, ``engine``, ``nu_halo`` and ``chi`` are then not used.
     """
-    if lut is not None:
-        raise NotImplementedError(
-            "compute.use_lut with a mesh is not ported to "
-            "spectrobot_tpu_torch yet (ROADMAP Queue 1 item 5)")
     is_limb = tangent_heights_m is not None
     if not is_limb and sec_theta is None:
         raise ValueError("pass tangent_heights_m (limb) or sec_theta (nadir)")
     x0, unravel = flatten_state(state_template)
     n_x = int(x0.shape[0])
 
-    nu_host = nu_grid.detach().cpu().double().numpy()
-    if nu_off is None:
-        nu_off = torch.as_tensor(nu_host - float(lines.nu_ref),
-                                 dtype=nu_grid.dtype, device=nu_grid.device)
-    dlp = (partition_lines_by_nu(lines, nu_host, mesh.shape["nu"],
-                                 cutoff_cm1=cutoff_cm1,
-                                 line_shards=mesh.shape["line"])
-           if nu_halo else pad_lines_for_mesh(lines, mesh.shape["line"]))
-    fwd = sharded_radiance_fn(
-        mesh, win_grid=nu_off.detach().cpu().double().numpy(),
-        win_lines=dlp.nu0.detach().cpu().double().numpy(),
-        cutoff_cm1=cutoff_cm1, engine=engine, nu_halo=nu_halo,
-        is_limb=is_limb, emissivity=emissivity, chi=chi)
-
     P = nu_grid.shape[0]
     rays = tangent_heights_m if is_limb else sec_theta
     R = rays.shape[0]
     nb, rb = mesh.block(P, "nu"), mesh.block(R, "ray")
-    nu_loc, nu_off_loc = nu_grid[nb], nu_off[nb]
-    lines_loc = local_lines(mesh, dlp)
+    nu_loc = nu_grid[nb]
     rays_loc = rays[rb]
+    if lut is not None:
+        if isinstance(lut, NLTELUT) != (nlte is not None):
+            raise ValueError("pass nlte together with an NLTELUT (and only "
+                             "then)")
+        lut_loc = stage_lut_sharded(mesh, lut)
+        fwd_lut = sharded_lut_radiance_fn(is_limb=is_limb,
+                                          emissivity=emissivity)
+
+        def radiance(cg, bg, cia):
+            return fwd_lut(lut_loc, cg, nlte=nlte, I_bg=bg, cia=cia)
+    else:
+        nu_host = nu_grid.detach().cpu().double().numpy()
+        if nu_off is None:
+            nu_off = torch.as_tensor(nu_host - float(lines.nu_ref),
+                                     dtype=nu_grid.dtype,
+                                     device=nu_grid.device)
+        dlp = (partition_lines_by_nu(lines, nu_host, mesh.shape["nu"],
+                                     cutoff_cm1=cutoff_cm1,
+                                     line_shards=mesh.shape["line"])
+               if nu_halo else pad_lines_for_mesh(lines, mesh.shape["line"]))
+        fwd = sharded_radiance_fn(
+            mesh, win_grid=nu_off.detach().cpu().double().numpy(),
+            win_lines=dlp.nu0.detach().cpu().double().numpy(),
+            cutoff_cm1=cutoff_cm1, engine=engine, nu_halo=nu_halo,
+            is_limb=is_limb, emissivity=emissivity, chi=chi)
+        nu_off_loc = nu_off[nb]
+        lines_loc = local_lines(mesh, dlp)
+
+        def radiance(cg, bg, cia):
+            return fwd(nu_loc, nu_off_loc, lines_loc, cg, I_bg=bg,
+                       nlte=nlte, cia=cia)
     W_loc = None if ils_W is None else ils_W[:, nb]
     V_loc = None if fov_V is None else fov_V[:, rb]
     cia_loc = local_cia(mesh, cia, P)
@@ -196,8 +220,7 @@ def make_sharded_oe(
             cg = nadir_path_cg(atm, species, rays_loc, n_sub)
             bg = emissivity * planck_nu(
                 nu_loc, state.get("T_surface", T_surface))
-        I = fwd(nu_loc, nu_off_loc, lines_loc, cg, I_bg=bg, nlte=nlte,
-                cia=cia_loc)                                  # [R_loc, P_loc]
+        I = radiance(cg, bg, cia_loc)                         # [R_loc, P_loc]
         if V_loc is not None:
             # The FOV mixes the sharded rays: this block's share of every
             # observed ray, summed over the ray ranks.

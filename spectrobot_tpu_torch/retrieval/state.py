@@ -12,6 +12,8 @@ line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``).  With
 gradient of a retrieval cost costs one transpose-kernel call.  A non-LTE
 state, a collision-induced continuum and a field of view (a fine ladder of
 limb rays smeared into the observed ones) are options of the forward.
+:func:`build_forward_lut` is the same forward through a (P, T) table
+(``ops.lut``): no line sum per call.
 """
 
 from __future__ import annotations
@@ -195,6 +197,51 @@ def build_forward(
                                          engine=engine,
                                          analytic_jvp=analytic_jvp, chi=chi,
                                          nlte=nlte)
+        I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
+                              cia=cia, T_surface=ts, emissivity=emissivity)
+        if fov_V is not None:
+            I = apply_fov(I, fov_V)
+        if ils_W is not None:
+            I = apply_ils(I, ils_W)
+        return I.reshape(-1)
+
+    return forward
+
+
+def build_forward_lut(
+    base_atm: Atmosphere,
+    lut,
+    species: Sequence[str],
+    planet: Planet,
+    tangent_heights_m: Optional[torch.Tensor] = None,
+    sec_theta: Optional[torch.Tensor] = None,
+    T_surface: Optional[float] = None,
+    emissivity: float = 1.0,
+    ils_W: Optional[torch.Tensor] = None,
+    fov_V: Optional[torch.Tensor] = None,
+    nlte=None,
+    n_sub: int = 4,
+    cia=None,
+) -> Callable[[Dict], torch.Tensor]:
+    """Build F: state -> y through the (P, T) table runtime (the reference's
+    ``build_forward_lut``): the bilinear interpolation is differentiable in
+    (T, log p) and in the VMR state, so ``torch.func.jacfwd`` gives the
+    Jacobian with no line sum per call.  ``lut``: an ``ops.lut.OpacityLUT``
+    or ``NLTELUT`` (with ``nlte``, whose populations contract against the
+    tables).  The other arguments as :func:`build_forward`."""
+    from spectrobot_tpu_torch.ops.lut import table_depths
+
+    nu_grid = lut.nu_grid
+
+    def forward(state: Dict) -> torch.Tensor:
+        atm = apply_state(base_atm, state)
+        if tangent_heights_m is not None:
+            cg = limb_path_cg(atm, species, tangent_heights_m, planet, n_sub)
+            ts = None
+        else:
+            cg = nadir_path_cg(atm, species, sec_theta, n_sub)
+            ts = state.get("T_surface", T_surface)
+        dtau, dtau_em = table_depths(lut, cg, nlte)
         I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
                               cia=cia, T_surface=ts, emissivity=emissivity)
         if fov_V is not None:

@@ -99,10 +99,8 @@ def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
 
 @pytest.mark.parametrize("override,key", [
     ("lines.chi=co2_mars", "lines.chi"),
-    ("compute.use_lut=true", "compute.use_lut"),
     ("compute.mesh_nu=2", "compute.mesh_nu"),
     ("run.save_optics=true", "run.save_optics"),
-    ("scene.atmosphere=mars_zonal", "scene.atmosphere"),
 ])
 def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
     # The mesh keys and lines.chi are ported: a mesh of more ranks than the
@@ -118,8 +116,6 @@ def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"compute.use_lut": "true"}, 5),
-    ({"scene.atmosphere": "mars_zonal"}, 6),
     ({"compute.variant": "weideman"}, 7),
     ({"run.save_optics": "true"}, 8),
 ])
@@ -127,11 +123,13 @@ def test_each_refusal_names_its_roadmap_item(tiny_toml, override, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\b"):
         cli.check_ported(load_config(tiny_toml, override))
-    # Items 1, 3 and 4 (non-LTE, the continuum, the field of view) are
-    # ported: none of their keys is refused.
+    # Items 1, 3, 4, 5 and 6 (non-LTE, the continuum, the field of view,
+    # the LUT tier, 2-D atmospheres) are ported: none of their keys is
+    # refused.
     cli.check_ported(load_config(tiny_toml, {
         "nlte.enabled": "true", "cia.enabled": "true",
-        "instrument.fov_fwhm_km": "3.0"}))
+        "instrument.fov_fwhm_km": "3.0", "compute.use_lut": "true",
+        "compute.lut_build_mesh": "true", "scene.atmosphere": "mars_zonal"}))
 
 
 def test_config3_scene_stages_differing_rows(tiny_toml):
@@ -161,14 +159,6 @@ def test_config3_scene_stages_differing_rows(tiny_toml):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["forward", tiny_toml, *[a for k, v in CONFIG3.items()
                                               for a in ("-o", f"{k}={v}")]])
-
-
-def test_sharded_lut_refusal_names_its_roadmap_item():
-    from spectrobot_tpu_torch.parallel.oe import make_sharded_oe
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP Queue 1 item 5\b"):
-        make_sharded_oe(None, None, None, None, [], None, state_template={},
-                        lut=object())
 
 
 def _jax_retrieve(toml, overrides, out_dir, x64=True):
@@ -361,7 +351,67 @@ fov_n_fine = 6""").replace("[compute]", """\
 [retrieval]
 max_iter = 6
 [compute]"""),
+    # the (P, T) table tier: the forward and every LM iteration through a
+    # 7 x 9 table, built once
+    "lut": TINY_TOML.replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]
+use_lut = true
+lut_n_T = 7
+lut_n_p = 9"""),
+    # the table tier in nadir, ln VMR(CO2) with T
+    "lut_nadir_vmr": TINY_TOML.replace("[geometry]", """\
+[geometry]
+mode = "nadir"
+sec_theta = [1.0, 1.4]""").replace("[compute]", """\
+[retrieval]
+retrieve_vmr = ["CO2"]
+max_iter = 6
+[compute]
+use_lut = true
+lut_n_T = 7
+lut_n_p = 9"""),
+    # config 3 in small through the non-LTE tables (4 x 5), the vibrational
+    # temperatures from a profile file (tests/test_cli_config.py:274)
+    "lut_nlte_tvib_file": TINY_TOML
+    .replace("nu_min = 660.0", "nu_min = 2320.0")
+    .replace("nu_max = 674.0", "nu_max = 2360.0")
+    .replace("z_top_m = 60e3", "z_top_m = 90e3")
+    .replace("[geometry]", """\
+[lines]
+source = "synthetic:co2_43um,co2_43um_hot"
+[nlte]
+enabled = true
+t_vib = "{tvib}"
+[geometry]""").replace("[8.0, 25.0]", "[40.0, 65.0]")
+    .replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]
+use_lut = true
+lut_n_T = 4
+lut_n_p = 5"""),
+    # a 2-D climatology sliced at 45 deg N
+    "zonal_45N": TINY_TOML.replace("[scene]", """\
+[scene]
+atmosphere = "mars_zonal"
+latitude_deg = 45.0""").replace("[compute]", """\
+[retrieval]
+max_iter = 6
+[compute]"""),
 }
+
+
+def _tvib_file(path) -> str:
+    """Vibrational temperatures of the two nu3 levels, 1.3 x the kinetic
+    profile for the upper one (tests/test_cli_config.py's file)."""
+    from spectrobot_tpu.data.nlte import save_t_vib_npz
+    z = np.linspace(0.0, 90e3, 10)
+    t_kin = np.linspace(210.0, 150.0, 10)
+    save_t_vib_npz(str(path), z, ["2:1:0001", "2:1:0111"],
+                   t_kin[None, :] * np.array([[1.0], [1.3]]))
+    return str(path)
 
 
 def _cia_file(path) -> str:
@@ -399,6 +449,8 @@ def test_retrieval_paths_match_jax_cli_f64(tmp_path, capsys, case):
         text = text.replace("{npz}", str(path))
     if "{cia}" in text:
         text = text.replace("{cia}", _cia_file(tmp_path / "co2.cia"))
+    if "{tvib}" in text:
+        text = text.replace("{tvib}", _tvib_file(tmp_path / "tvib.npz"))
     toml = tmp_path / f"{case}.toml"
     toml.write_text(text)
     ov = {"compute.dtype": "float64"}
@@ -415,3 +467,22 @@ def test_retrieval_paths_match_jax_cli_f64(tmp_path, capsys, case):
     assert got["x"].shape == ref["x"].shape
     np.testing.assert_allclose(got["x"], ref["x"], rtol=0,
                                atol=X_TOL * np.abs(ref["x"]).max())
+
+
+def test_lut_cache_through_the_cli(tiny_toml, tmp_path, capsys):
+    """compute.lut_path: the first forward builds and writes the table, the
+    second loads it (the same radiances), and a changed lattice misses the
+    cache; the stderr line names where the table came from."""
+    path = str(tmp_path / "lut.npz")
+    ov = {"compute.dtype": "float64", "compute.use_lut": "true",
+          "compute.lut_n_T": "5", "compute.lut_n_p": "6",
+          "compute.lut_path": path}
+    runs = []
+    for extra in ({}, {}, {"compute.lut_n_T": "6"}):
+        capsys.readouterr()
+        out = _torch_forward(tiny_toml, {**ov, **extra}, tmp_path / "o")
+        runs.append((out["values"], capsys.readouterr().err))
+    assert "(LUT runtime: LTE, built)" in runs[0][1]
+    assert f"(LUT runtime: LTE, cached {path})" in runs[1][1]
+    assert "(LUT runtime: LTE, built)" in runs[2][1]
+    np.testing.assert_array_equal(runs[1][0], runs[0][0])

@@ -912,3 +912,52 @@ def test_dma_tier_on_every_card(cuda):
     assert proc.returncode != 0
     assert "ended in a CUDA error" in proc.stdout, proc.stderr[-3000:]
     assert elapsed < 120
+
+
+# ---------------------------------------------------------------------------
+# The (P, T) table tier (ops/lut.py): its builds run K1
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tier", ["lte", "nlte"])
+def test_lut_build_runs_k1(cuda, tier):
+    """A table build on the card is one K1 launch (two rows a state: two
+    species, or 3G non-LTE rows), within K1's budget of the plain build;
+    the table forward and its Jacobian launch no line-sum kernel."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops import lut
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    ov = {"grid.nu_min": "2320.0", "grid.nu_max": "2360.0",
+          "grid.n_points": "512", "scene.n_levels": "9",
+          "scene.species": "CO2,CO",       # CO: a row with no lines here
+          "lines.source": "synthetic:co2_43um,co2_43um_hot",
+          "geometry.tangent_heights_km": "40.0,70.0",
+          "compute.use_lut": "true", "compute.lut_n_T": "6",
+          "compute.lut_n_p": "7"}
+    if tier == "nlte":
+        ov.update({"nlte.enabled": "true", "nlte.t_vib": "demo:co2_pump"})
+    cfg = cli.load_config(None, ov)
+    before = co.LAUNCHES
+    scene = cli.build_scene(cfg, cuda)
+    torch.cuda.synchronize()
+    assert co.LAUNCHES == before + 1
+    build = lut.build_nlte_lut if tier == "nlte" else lut.build_lut
+    plain = build(scene.nu, scene.lines, 2, engine=cb.PLAIN,
+                  **cli.lut_lattice(cfg, scene.atm, scene.species_names,
+                                    scene.chi, scene.nu_off))
+    tables = ("sigma_l", "sigma_u", "sigma_e") if tier == "nlte" else (
+        "sigma",)
+    for f in tables:
+        got, ref = getattr(scene.lut, f), getattr(plain, f)
+        assert float(ref.abs().max()) > 0.0
+        torch.testing.assert_close(got, ref, rtol=3e-5,
+                                   atol=1e-6 * float(ref.abs().max()))
+    atm = scene.atm.to(torch.float32)
+    x0, unravel = flatten_state(make_state(atm, []))
+    fwd = cli.scene_forward(cfg, scene, atm)
+    k1, k2 = co.LAUNCHES, cb.LAUNCHES
+    J = torch.func.jacfwd(lambda x: fwd(unravel(x)))(x0)
+    torch.cuda.synchronize()
+    assert (co.LAUNCHES, cb.LAUNCHES) == (k1, k2)
+    assert bool(torch.isfinite(J).all()) and float(J.abs().max()) > 0.0

@@ -4,7 +4,8 @@ retrieval.py) in gloo ranks, in float64: the forward, the normal equations
 JAX package's single-device Jacobian and the port's, on limb (with and
 without the ILS, psum and nu-halo tiers) and nadir scenes; then the CLI
 (``cli.main``) forward and retrieve under 2 ranks with compute.mesh_nu = 2
-against the single-device CLI."""
+against the single-device CLI, line by line and through the (P, T)
+table."""
 
 import json
 
@@ -214,8 +215,33 @@ def test_cli_mesh_without_its_ranks_raises(tiny_toml, tmp_path,
         cli.main(argv)
 
 
-def test_cli_mesh_lut_not_ported(tiny_toml, tmp_path):
-    with pytest.raises(NotImplementedError, match="compute.use_lut"):
-        cli.main(["forward", tiny_toml, "--device", "cpu", "-o",
-                  f"run.output_dir={tmp_path}", "-o", "compute.mesh_nu=2",
-                  "-o", "compute.use_lut=true"])
+LUT_OVERRIDES = ["-o", "compute.use_lut=true", "-o", "compute.lut_n_T=5",
+                 "-o", "compute.lut_n_p=6"]
+
+
+def test_cli_mesh_lut_matches_single_device(tiny_toml, tmp_path):
+    """compute.use_lut on the mesh: forward and retrieve under 2 gloo ranks
+    with compute.mesh_nu = 2 (the tables cut over nu) and the lattice
+    build shared over the ranks (compute.lut_build_mesh), against the
+    single-device table CLI."""
+    single = tmp_path / "single"
+    for cmd in ("forward", "retrieve"):
+        assert cli.main([cmd, tiny_toml, "--device", "cpu", "-o",
+                         f"run.output_dir={single}", *CLI_OVERRIDES,
+                         *LUT_OVERRIDES]) == 0
+    out = tmp_path / "mesh"
+    mesh = ["-o", f"run.output_dir={out}", "-o", "compute.mesh_nu=2", "-o",
+            "compute.lut_build_mesh=true", *CLI_OVERRIDES, *LUT_OVERRIDES]
+    cases.run(tmp_path / "ranks", 2, cases.cli_case, tiny_toml,
+              [(["forward", *mesh], _free_port()),
+               (["retrieve", *mesh], _free_port())], join_group=False)
+    ref = np.load(single / "forward.npz")
+    got = np.load(out / "forward.npz")
+    np.testing.assert_allclose(got["values"], ref["values"], rtol=1e-10,
+                               atol=np.abs(ref["values"]).max() * 1e-12)
+    ref = np.load(single / "retrieval.npz")
+    got = np.load(out / "retrieval.npz")
+    np.testing.assert_allclose(got["x"], ref["x"], rtol=1e-8)
+    np.testing.assert_allclose(got["chi2"], ref["chi2"], rtol=1e-8)
+    assert int(got["n_iter"]) == int(ref["n_iter"])
+    assert bool(got["converged"]) and bool(ref["converged"])

@@ -1,7 +1,8 @@
 """The port runs where JAX and the JAX package are not installed: every
 module of spectrobot_tpu_torch (the mesh's parallel/, K3's
 ops/cuda_single.py, K4's ops/cuda_basis_single.py and the remote-copy
-tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py among them),
+tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py, the table
+tier's ops/lut.py and parallel/sharded_lut.py among them),
 chip_smoke.py and ablate_basis.py import, and the tiny forward and retrieval (``python -m
 spectrobot_tpu_torch``), a config-1 Jacobian and the adjoint tool
 (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
@@ -30,7 +31,8 @@ for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
 for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "parallel.sharded", "parallel.retrieval", "parallel.oe",
              "ops.cuda_single", "ops.cuda_basis_single", "ops.chi",
-             "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer"):
+             "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer",
+             "ops.lut", "parallel.sharded_lut"):
     assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
 import ablate_basis

@@ -1,8 +1,8 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
-halo,sharded,mesh_retrieval,dma_halo,cia,composed}.py).  :func:`run` starts ``world``
-gloo ranks with ``torch.multiprocessing.spawn``; each runs one case
-function of this module on numpy inputs made by the calling test and saves
-what it returns.
+halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut}.py).  :func:`run`
+starts ``world`` gloo ranks with ``torch.multiprocessing.spawn``; each runs
+one case function of this module on numpy inputs made by the calling test
+and saves what it returns.
 This module imports torch and the port only (never jax), so the ranks start
 light."""
 
@@ -201,6 +201,42 @@ def mesh_retrieval_case(rank, world, cases):
         oe.bind_observation(y, sigma)
         out[name] = (oe.forward_flat(x0), oe.normal_eqs(x0),
                      oe.jacobian(x0), oe.row_axes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the (P, T) table tier
+# ---------------------------------------------------------------------------
+
+
+def lut_mesh_case(rank, world, sc, obs):
+    """The lattice build shared over the ranks (an LTE and a non-LTE
+    table), then on a (1, 1, world) and a (world, 1, 1) mesh the sharded
+    table forward and make_sharded_oe(lut=)'s normal equations and
+    Jacobian of the limb scene over T and ln VMR(CO)."""
+    from spectrobot_tpu_torch import interop
+    from spectrobot_tpu_torch.data.atmosphere import MARS
+    from spectrobot_tpu_torch.ops import lut
+    from spectrobot_tpu_torch.parallel.oe import make_sharded_oe
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+    nu = torch.as_tensor(sc["nu"])
+    lines = interop.device_lines_from_numpy(sc["lines"], device=CPU)
+    atm = interop.atmosphere_from_numpy(sc["atm"], device=CPU)
+    S = len(sc["species"])
+    tbl = lut.build_lut(nu, lines, S, mesh=lut.lut_mesh(), **sc["lattice"])
+    nl = lut.build_nlte_lut(nu, lines, S, mesh=lut.lut_mesh(),
+                            **sc["lattice"])
+    out = {"sigma": tbl.sigma, "sigma_l": nl.sigma_l, "sigma_u": nl.sigma_u,
+           "sigma_e": nl.sigma_e}
+    state0 = make_state(atm, ["CO"])
+    x0 = flatten_state(state0)[0]
+    for shape in ((1, 1, world), (world, 1, 1)):
+        oe = make_sharded_oe(_mesh(shape), atm, lines, nu, sc["species"],
+                             MARS, torch.as_tensor(sc["h_t"]),
+                             state_template=state0, n_sub=2, lut=tbl)
+        oe.bind_observation(*obs)
+        out[shape] = (oe.forward_flat(x0), oe.normal_eqs(x0),
+                      oe.jacobian(x0))
     return out
 
 
