@@ -108,6 +108,20 @@ Phases, each of which raises (non-zero exit) on failure:
      and its sharded normal equations against the table Jacobian's; the
      mars_zonal climatology at 45 deg N through the CLI forward and
      retrieve, line by line (K1, K2) and through its table;
+  6h. the Weideman evaluator (compute.variant = "weideman": plain PyTorch
+     in float64 on the card; no kernel evaluates it): config 1
+     (forward.model.nadir_single_layer, 3001 points) against the float64
+     oracle within the reference's 5e-4; the CLI forward of
+     examples/mars_limb.toml against phase 5's kernel radiances within the
+     two approximants' gap; the Jacobian at the prior (its peak memory)
+     against phase 6's; the CLI retrieve with retrieval.max_iter = 2 (chi2
+     below the prior's); the reverse gradient against J^T dL/dy; no kernel
+     launches in any of them; then run.save_optics on the humlicek4 CLI
+     forward (one K1 launch, optics.npz with the reference's keys,
+     transmittance = exp(-values), the line-of-sight depths against the
+     plain engine's within K1's budget); utils.profiling.trace around one
+     forward (the trace holds the annotate name and K1's kernel); each
+     sub-phase's wall time beside the card's name and power limit;
   7. timings with CUDA events (median of 5 after a warm-up): each kernel
      against its plain version, the warm forward, one warm Jacobian, one
      warm reverse gradient, and the retrieval's wall time and
@@ -1590,6 +1604,206 @@ def lut_phase(dev, mesh, direct: dict) -> dict:
     return out
 
 
+# Phase 6h: the Weideman evaluator (compute.variant = "weideman": plain
+# PyTorch on the card, in float64; no kernel evaluates it, as no Pallas
+# kernel does in the reference), run.save_optics and the profiling
+# utilities.
+WEIDEMAN_CLI = {"compute.variant": "weideman", "compute.dtype": "float64"}
+# Config 1 through Weideman in float64 against the float64 oracle: the
+# reference's golden budget for that evaluator
+# (tests/test_config1_golden.py:40).
+WEIDEMAN_ORACLE_RTOL = 5e-4
+# Weideman in float64 against Humlicek w4 through the kernels in float32,
+# radiances and Jacobians: max |diff| <= WEIDEMAN_GAP max |Weideman|.  The
+# gap is the two approximants' (w4 is good to about 1e-4 relative of w,
+# tests/test_voigt.py) and the kernels' float32 roundoff: 5.0e-5 of the
+# radiances and 6.3e-5 of the Jacobian on an H100 (PERF.md section 6).
+WEIDEMAN_GAP = 2e-4
+# The float64 reverse gradient against J^T dL/dy from the float64
+# Jacobian: |err| <= WEIDEMAN_GRAD_REL x the largest sum of absolute terms
+# sum_i |J_ij r_i / sigma_i^2| (the terms cancel at the prior).
+WEIDEMAN_GRAD_REL = 1e-9
+# optics.npz's keys as the reference writes them
+# (spectrobot_tpu/cli.py:459-474 through Spectrum.save_npz).
+OPTICS_KEYS = ["kind", "nu", "transmittance", "units", "values"]
+
+
+def weideman_phase(dev, cfg, scene, I, J, card: str) -> None:
+    """Phase 6h on the card: config 1, the CLI forward, the Jacobian, the
+    CLI retrieve and the reverse gradient with compute.variant =
+    "weideman" in float64 (no kernel launch); run.save_optics on the
+    humlicek4 CLI forward (one K1 launch); ``utils.profiling.trace``
+    around one forward.  ``I``: phase 5's CLI radiances and ``J`` phase
+    6's Jacobian, both through the kernels.  Prints each sub-phase's wall
+    time [ms] beside ``card`` and the float64 peak memories."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.forward.model import nadir_single_layer
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN, WEIDEMAN
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    from spectrobot_tpu_torch.utils.profiling import annotate, trace
+
+    f64 = torch.float64
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = 1e3 * (time.perf_counter() - t0)
+        print(f"time 6h {name} [{card}]: {walls[name]:.1f} ms")
+        return out
+
+    # (a) Config 1 in float64 against the oracle, no kernel launch.
+    ll, _, nu = config1_scene(dev)
+    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=f64, device=dev)
+    nu = nu.to(f64)
+    x = [torch.tensor(v, dtype=f64, device=dev) for v in CONFIG1.values()]
+    reset_launches()
+    I1 = timed("(a) config 1", lambda: nadir_single_layer(
+        nu, dl, *x, variant="weideman").cpu().numpy())
+    expect_launches("config 1 with Weideman", launch_counts())
+    oracle = config1_oracle(ll, np.linspace(630.0, 705.0, 3001))
+    rel = float(np.max(np.abs(I1 - oracle) / np.abs(oracle)))
+    print(f"6h (a) config 1, Weideman float64 vs the float64 oracle: max "
+          f"rel err {rel:.3e} (budget {WEIDEMAN_ORACLE_RTOL:g})")
+    check(rel <= WEIDEMAN_ORACLE_RTOL,
+          "config 1 with Weideman misses the oracle's budget")
+
+    # (b) The CLI forward, against phase 5's kernel radiances.
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n, _ = timed("(b) CLI forward", lambda: cli_run(
+            "forward", WEIDEMAN_CLI, tmp))
+    expect_launches("the Weideman CLI forward", n)
+    I_w = res["values"]
+    check(I_w.shape == I.shape and I_w.dtype == np.float64
+          and bool(np.isfinite(I_w).all()),
+          f"Weideman radiances {I_w.shape} {I_w.dtype} not finite float64 "
+          f"of shape {I.shape}")
+    gap = float(np.abs(I_w - I).max() / np.abs(I_w).max())
+    print(f"6h (b) CLI forward, Weideman float64 vs humlicek4 K1 float32: "
+          f"max |diff| {gap:.3e} of max radiance (budget {WEIDEMAN_GAP:g})")
+    check(gap <= WEIDEMAN_GAP, "the Weideman forward is off the kernels'")
+
+    # (c) The Jacobian at the prior, and the CLI retrieve.
+    cfg_w = cli.load_config(SCENE, WEIDEMAN_CLI)
+    scene_w = cli.build_scene(cfg_w, dev)
+    check(cli.select_engine(cfg_w, dev) is WEIDEMAN,
+          "compute.variant = weideman did not select the WEIDEMAN engine")
+    prob = cli.retrieval_problem(cfg_w, scene_w, WEIDEMAN)
+    jac = cli.make_jacobian(cfg_w, prob.fwd_flat, int(prob.x0.shape[0]),
+                            int(scene_w.nu.shape[0]))
+    out = []
+    reset_launches()
+    peak = timed("(c) Jacobian", lambda: peak_memory(
+        lambda: out.append(jac(prob.x0))))
+    expect_launches("the Weideman Jacobian", launch_counts())
+    J_w = out.pop()
+    jgap = float((J_w - J.to(f64)).abs().max() / J_w.abs().max())
+    print(f"6h (c) Jacobian {tuple(J_w.shape)} float64 Weideman vs "
+          f"humlicek4 K1 + K2 float32: max |diff| {jgap:.3e} of max |K| "
+          f"(budget {WEIDEMAN_GAP:g}); peak device memory {peak[0]:.2f} GB "
+          f"({peak[1]:.2f} GB resident before it)")
+    check(bool(torch.isfinite(J_w).all()), "non-finite Weideman Jacobian")
+    check(jgap <= WEIDEMAN_GAP, "the Weideman Jacobian is off the kernels'")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n, iters = timed("(c) CLI retrieve", lambda: cli_run(
+            "retrieve", {**WEIDEMAN_CLI, "retrieval.max_iter": "2"}, tmp))
+    expect_launches("the Weideman CLI retrieve", n)
+    chi2 = float(res["chi2"])
+    print(f"6h (c) CLI retrieve (max_iter 2): chi2 {iters[0]['chi2']:.6g} "
+          f"at the prior -> {chi2:.6g} after {int(res['n_iter'])} LM "
+          f"iterations ({res['stop_reason']})")
+    check(np.isfinite(chi2) and chi2 < iters[0]["chi2"],
+          "the Weideman retrieval's chi2 did not fall below the prior's")
+
+    # (d) The reverse gradient of the retrieval cost, against J^T dL/dy.
+    y_obs = torch.as_tensor(res["y_obs"].reshape(-1), dtype=f64, device=dev)
+    sig = torch.as_tensor(res["noise"].reshape(-1), dtype=f64, device=dev)
+    rev = cli.retrieval_problem(cfg_w, scene_w, WEIDEMAN, analytic_jvp="rev")
+
+    def grad():
+        x = rev.x0.detach().clone().requires_grad_()
+        r = (rev.fwd_flat(x) - y_obs) / sig
+        return torch.autograd.grad(0.5 * torch.sum(r * r), x)[0]
+
+    reset_launches()
+    g = timed("(d) reverse gradient", grad)
+    expect_launches("the Weideman reverse gradient", launch_counts())
+    w = (prob.fwd_flat(prob.x0) - y_obs) / sig ** 2
+    g_jac = J_w.T @ w
+    scale = float((J_w.abs().T @ w.abs()).max())
+    gerr = float((g - g_jac).abs().max())
+    print(f"6h (d) reverse gradient vs J^T dL/dy (float64): max |err| "
+          f"{gerr:.3e}, {gerr / scale:.3e} of the largest absolute sum "
+          f"{scale:.3e} (budget {WEIDEMAN_GRAD_REL:g})")
+    check(gerr <= WEIDEMAN_GRAD_REL * scale,
+          "the Weideman reverse gradient disagrees with J^T dL/dy")
+
+    # (e) run.save_optics on the humlicek4 CLI forward: the same K1 call.
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        timed("(e) CLI forward with save_optics", lambda: cli.main([
+            "forward", SCENE, "-o", "run.save_optics=true", "-o",
+            f"run.output_dir={tmp}", "--device", "cuda"]))
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "optics.npz")) as f:
+            optics = {k: f[k] for k in f.files}
+    expect_launches("the CLI forward with run.save_optics", n, K1=1)
+    check(sorted(optics) == OPTICS_KEYS,
+          f"optics.npz keys {sorted(optics)} != {OPTICS_KEYS}")
+    check(str(optics["kind"]) == "optical_depth", "optics.npz kind")
+    tau = optics["values"]
+    check(np.array_equal(optics["transmittance"], np.exp(-tau)),
+          "optics.npz transmittance != exp(-values)")
+    taps = []
+    cli.run_forward(cfg, scene, PLAIN,
+                    depths_tap=lambda cg, d: taps.append((cg, d)))
+    cg, d = taps[0]
+    tau_plain = d[:, cg.seg_layer, :].sum(dim=1).cpu().numpy()
+    err = np.abs(tau - tau_plain)
+    ok = bool(np.all(err <= RTOL * np.abs(tau_plain)
+                     + ATOL_REL * np.abs(tau_plain).max()))
+    print(f"6h (e) save_optics: K1 launches {n['K1']}; LOS depth "
+          f"{tau.shape} vs the plain engine's max |err| {err.max():.3e} of "
+          f"max {np.abs(tau_plain).max():.3e} (K1 budget): "
+          f"{'ok' if ok else 'FAILED'}")
+    check(ok, "the save_optics depths disagree with the plain engine's")
+
+    # (f) utils.profiling.trace around one forward: up to three traces, as
+    # torch.profiler may record none of a window's ctypes launches
+    # (device_kernels).
+    cli.run_forward(cfg, scene, KERNELS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for tries in range(1, 4):
+            reset_launches()
+            with trace(tmp):
+                with annotate("chip_smoke_forward"):
+                    cli.run_forward(cfg, scene, KERNELS)
+            n = launch_counts()
+            with open(os.path.join(tmp, "trace.json")) as f:
+                text = f.read()
+            found = {k: k in text for k in ("chip_smoke_forward",
+                                            "opacity_batch_kernel")}
+            if all(found.values()):
+                break
+    print(f"6h (f) torch.profiler trace of one forward ({len(text)} bytes, "
+          f"trace {tries} of at most 3): {json.dumps(found)}; launches "
+          f"{json.dumps(n)}")
+    check(all(found.values()), f"the trace lacks {found}")
+    expect_launches("the traced forward", n, K1=1)
+    fwd_peak = peak_memory(lambda: cli.run_forward(cfg_w, scene_w, WEIDEMAN))
+    print(f"6h peak device memory of one Weideman forward: {fwd_peak[0]:.2f}"
+          f" GB ({fwd_peak[1]:.2f} GB resident before it; the plain slabs "
+          f"of 2^25 pairs in float64)")
+    walls["warm Weideman forward"] = wall_ms(
+        lambda: cli.run_forward(cfg_w, scene_w, WEIDEMAN), n=2)
+    print(f"time 6h warm Weideman forward [{card}]: "
+          f"{walls['warm Weideman forward']:.1f} ms (float64, "
+          f"examples/mars_limb.toml, cli.run_forward, median of 2 after a "
+          f"warm-up)")
+
+
 def wall_ms(fn, n: int = 3) -> float:
     """Median host wall of ``fn`` (to the device's end) over ``n`` calls
     after a warm-up [ms]."""
@@ -1917,20 +2131,27 @@ def kernel_ms(call, kernel: str, n: int = 10) -> float:
             / max(sum(e.count for e in found), 1))
 
 
-def device_kernels(call, n: int = 3) -> list:
+def device_kernels(call, n: int = 3, windows: int = 3) -> list:
     """The names of the device kernels that ``n`` warm calls of ``call``
-    launch (``torch.profiler``, which may miss the event of a launch made
-    through ctypes but adds none)."""
+    launch, from the first of up to ``windows`` profiler windows that
+    records any (``torch.profiler`` may miss the event of a launch made
+    through ctypes, and once recorded none of three short launches in a
+    window, but adds none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def cuda_ms(fn, n: int = 5) -> float:
@@ -2255,6 +2476,10 @@ def main() -> int:
     tables = lut_phase(dev, mesh["mesh"], {
         "LTE": {"I": I, "J": J, "jac_peak": jac_peak},
         "non-LTE": {k: c3[k] for k in ("I", "J", "jac_peak")}})
+
+    # Phase 6h: the Weideman evaluator, run.save_optics and the profiling
+    # utilities.
+    weideman_phase(dev, cfg, scene, I, J, card)
     # Release the allocator's cache (phase 6f's composed Jacobian alone
     # peaks near 25 GB): phase 7 times each call's own allocations, not
     # the allocator freeing and retrying on a full device.

@@ -23,15 +23,19 @@ through K1 (or loaded from ``compute.lut_path``) and interpolated per
 call.  With ``compute.mesh_ray/line/nu`` set to a mesh
 of more than one rank, both run on the (ray, line, nu) mesh over the ranks
 ``torchrun`` starts (:mod:`spectrobot_tpu_torch.parallel`: NCCL, one card
-per rank, or gloo on the CPU), and rank 0 writes the outputs.  Every
-configuration feature outside that raises ``NotImplementedError`` naming
-its key.
+per rank, or gloo on the CPU), and rank 0 writes the outputs.  With
+``run.save_optics`` the single-device line-by-line forward also writes
+``optics.npz``: each ray's line-of-sight optical depth and transmittance,
+from the same line sum as the radiances.
 
-Engine rule: on CUDA the opacity line sum runs in the CUDA kernels (K1 for
-the primal, K2 for the Jacobian; ``compute.use_pallas = true`` with
-``compute.variant = "humlicek4"`` in float32); on the CPU their plain
-PyTorch versions run.  ``--device cuda`` without a GPU raises; nothing falls
-back to the CPU.
+Engine rule (:func:`select_engine`): with ``compute.variant = "humlicek4"``
+the opacity line sum runs in the CUDA kernels on CUDA (K1 for the primal,
+K2 for the Jacobian; ``compute.use_pallas = true``, float32), and in their
+plain PyTorch versions on the CPU.  With ``compute.variant = "weideman"``
+it runs in plain PyTorch on either device, in the configured dtype
+(``ops.cuda_basis.WEIDEMAN``), as the reference runs that variant only on
+its XLA engine: no kernel evaluates it.  ``--device cuda`` without a GPU
+raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ import torch.distributed as dist
 from spectrobot_tpu_torch.config import Config, load_config
 from spectrobot_tpu_torch.data import atmosphere as atm_mod
 from spectrobot_tpu_torch.data.lines import configured_lines
-from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
+from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN, engine_for
 from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.ils import fov_matrix, ils_matrix
 from spectrobot_tpu_torch.ops.opacity import Engine
@@ -61,44 +65,26 @@ from spectrobot_tpu_torch.parallel.oe import ShardedOE, make_sharded_oe
 from spectrobot_tpu_torch.retrieval.state import (
     NodeBasis, build_forward, build_forward_lut, flatten_state,
     jacobian_fwd_chunked, make_state)
+from spectrobot_tpu_torch.spectra import optical_depth as optical_depth_spectrum
 from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
-
-# Where each unported feature will come from: its item of ROADMAP.md,
-# Queue 1.
-def _item(n: int) -> str:
-    return f"ROADMAP Queue 1 item {n}"
-
-
-def _not_ported(key: str, value, roadmap_item: str):
-    return NotImplementedError(
-        f"{key} = {value!r} is not ported to spectrobot_tpu_torch yet "
-        f"({roadmap_item})")
-
-
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError naming the first config key whose feature
-    this port does not have yet."""
-    c = cfg.compute
-    unported = [
-        ("compute.variant", c.variant != "humlicek4", _item(7)),
-        ("run.save_optics", cfg.run.save_optics, _item(8)),
-    ]
-    for key, used, item in unported:
-        if used:
-            section, name = key.split(".")
-            raise _not_ported(key, getattr(getattr(cfg, section), name),
-                              item)
 
 
 def select_engine(cfg, device: torch.device) -> Engine:
-    """The engine rule: the line sum's kernels (K1 and K2), checked against
-    the configuration on CUDA.  Their wrappers themselves send CPU tensors
-    to the plain versions, in any dtype."""
+    """The engine rule, chosen by ``compute.variant`` alone, as the
+    reference's ``_engine`` chooses its XLA engine: "weideman" takes
+    ``WEIDEMAN`` (plain PyTorch on either device, in the configured dtype);
+    "humlicek4" the line sum's kernels (K1 and K2), checked against the
+    configuration on CUDA (their wrappers themselves send CPU tensors to
+    the plain versions, in any dtype).  Any other variant raises a
+    ValueError."""
+    if cfg.compute.variant != "humlicek4":
+        return engine_for(cfg.compute.variant)
     if device.type != "cpu" and not cfg.compute.use_pallas:
         raise NotImplementedError(
             "compute.use_pallas = false on CUDA: the CUDA opacity kernels "
-            "are the port's only CUDA engine (set compute.use_pallas = "
-            "true, or run the plain versions with --device cpu)")
+            "are the port's only humlicek4 engine on CUDA (set "
+            "compute.use_pallas = true, or run the plain versions with "
+            "--device cpu)")
     if device.type != "cpu" and cfg.compute.dtype != "float32":
         raise NotImplementedError(
             f"compute.dtype = {cfg.compute.dtype!r} on CUDA: the CUDA "
@@ -247,7 +233,6 @@ def build_scene(cfg, device: torch.device) -> Scene:
     """Config -> the forward's inputs on ``device``."""
     from spectrobot_tpu_torch.data.molparams import MOLECULES, molecule_by_name
 
-    check_ported(cfg)
     dtype = torch.float64 if cfg.compute.dtype == "float64" else torch.float32
     planet, atm = _build_atmosphere(cfg, device)
     ll = configured_lines(cfg)
@@ -357,14 +342,14 @@ def _rays(cfg, scene: Scene) -> dict:
 
 
 def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
-                  analytic_jvp=True):
+                  analytic_jvp=True, depths_tap=None):
     """F: state -> y (``retrieval.state.build_forward``) of the configured
     rays over ``atm`` (default: the scene's), the line sum on ``engine``,
     differentiable as ``analytic_jvp`` says (True: forward mode, 'rev':
-    reverse mode, False: plain autograd).  With the scene's table
-    (compute.use_lut) it interpolates the table instead
-    (``build_forward_lut``: no line sum, plain autograd in both
-    directions)."""
+    reverse mode, False: plain autograd); ``depths_tap`` as
+    ``build_forward`` takes it.  With the scene's table (compute.use_lut)
+    it interpolates the table instead (``build_forward_lut``: no line sum,
+    plain autograd in both directions)."""
     g = cfg.geometry
     atm = scene.atm if atm is None else atm
     if scene.lut is not None:
@@ -380,7 +365,7 @@ def scene_forward(cfg, scene: Scene, atm=None, engine: Engine = KERNELS,
                          nu_off=scene.nu_off, engine=engine,
                          windows=scene.windows, analytic_jvp=analytic_jvp,
                          chi=scene.chi, nlte=scene.nlte, cia=scene.cia,
-                         **_rays(cfg, scene))
+                         depths_tap=depths_tap, **_rays(cfg, scene))
 
 
 def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
@@ -398,10 +383,12 @@ def sharded_problem(cfg, scene: Scene, mesh, atm, state_template,
         nlte=scene.nlte, cia=scene.cia, lut=scene.lut, **_rays(cfg, scene))
 
 
-def run_forward(cfg, scene: Scene, engine: Engine = KERNELS) -> torch.Tensor:
+def run_forward(cfg, scene: Scene, engine: Engine = KERNELS,
+                depths_tap=None) -> torch.Tensor:
     """Radiances of the configured rays ([R, n_chan] with the instrument,
-    else [R, P]), with the line sum on ``engine``."""
-    fwd = scene_forward(cfg, scene, engine=engine)
+    else [R, P]), with the line sum on ``engine``; ``depths_tap(cg, dtau)``
+    receives the line sum's layer depths (``build_forward``)."""
+    fwd = scene_forward(cfg, scene, engine=engine, depths_tap=depths_tap)
     return fwd(make_state(scene.atm, [], retrieve_temperature=False)
                ).reshape(n_rays(cfg), -1)
 
@@ -479,26 +466,65 @@ def _is_rank0(mesh) -> bool:
 
 
 def cmd_forward(cfg, device: torch.device) -> dict:
-    check_ported(cfg)
+    use_mesh, _ = mesh_plan(cfg, int(os.environ.get("WORLD_SIZE", 1)))
+    if cfg.run.save_optics and (use_mesh or cfg.compute.use_lut):
+        # The reference's refusal: the optics reuse the single-device
+        # line-by-line branch's depths.
+        raise ValueError(
+            "run.save_optics currently requires the single-device "
+            "line-by-line forward — disable compute.mesh_* and "
+            "compute.use_lut, or drop run.save_optics")
     with open_mesh(cfg, device) as mesh:
         return _forward(cfg, device, mesh)
+
+
+def save_optics(cfg, scene: Scene, cg, dtau: torch.Tensor) -> str:
+    """Write ``optics.npz`` (the reference's ``run.save_optics``): each
+    ray's line-of-sight optical depth [R, P], the segment sum of the layer
+    depths ``dtau`` [R, NL, P] (the forward's own line sum, with the
+    continuum added when ``[cia]`` is on), as an optical-depth Spectrum on
+    the fine grid with its transmittance exp(-tau).  Returns the path."""
+    from spectrobot_tpu_torch.ops.cia import cia_dtau
+
+    dtau = dtau.detach()
+    if scene.cia is not None:
+        dtau = dtau + cia_dtau(scene.cia, cg).to(dtau.dtype)
+    tau_los = dtau[:, cg.seg_layer, :].sum(dim=1).cpu().numpy()
+    sp = optical_depth_spectrum(scene.nu.cpu().numpy().astype(np.float64),
+                                tau_los)
+    path = os.path.join(cfg.run.output_dir, "optics.npz")
+    os.makedirs(cfg.run.output_dir, exist_ok=True)
+    sp.save_npz(path, transmittance=np.exp(-tau_los))
+    print(f"optics: LOS tau + transmittance -> {path}", file=sys.stderr)
+    return path
 
 
 def _forward(cfg, device: torch.device, mesh) -> dict:
     engine = select_engine(cfg, device)
     scene = build_scene(cfg, device)
+    halo = cfg.compute.mesh_halo and scene.lut is None
     t0 = time.time()
     if mesh is None:
-        I = run_forward(cfg, scene, engine)
+        taps = []
+        tap = ((lambda cg, dtau: taps.append((cg, dtau)))
+               if cfg.run.save_optics else None)
+        I = run_forward(cfg, scene, engine, depths_tap=tap)
+        if taps:
+            save_optics(cfg, scene, *taps[0])
     else:
         empty = make_state(scene.atm, [], retrieve_temperature=False)
         oe = sharded_problem(cfg, scene, mesh, scene.atm, empty, engine)
         I = oe.forward_flat(flatten_state(empty)[0]).reshape(n_rays(cfg), -1)
+        if _is_rank0(mesh):
+            axes = dict(zip(("ray", "line", "nu"), mesh.shape.values()))
+            print(f"mesh LUT forward over {axes} ({scene.lut_src})"
+                  if scene.lut is not None else
+                  f"mesh forward over {axes} engine={engine.name}"
+                  f"{' nu-halo' if halo else ''}", file=sys.stderr)
     I = I.cpu().numpy()                 # waits for the device
     wall = time.time() - t0
 
     out_path = os.path.join(cfg.run.output_dir, "forward.npz")
-    halo = cfg.compute.mesh_halo and scene.lut is None
     where = str(device) if mesh is None else (
         f"a {tuple(mesh.shape.values())} (ray, line, nu) mesh of "
         f"{mesh.size} {device.type} ranks{', nu-halo' if halo else ''}")
@@ -645,7 +671,6 @@ def cmd_retrieve(cfg, device: torch.device) -> dict:
     dtype (:func:`retrieval_problem`), the LM algebra in float64 on the
     host.  On a mesh every rank runs the LM loop on the same numbers (the
     sharded normal equations, ``parallel.oe``) and rank 0 writes."""
-    check_ported(cfg)
     with open_mesh(cfg, device) as mesh:
         return _retrieve(cfg, device, mesh)
 

@@ -77,13 +77,14 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
       per ``torch.func.jacrev`` while the folded rows fit one call);
     - False: plain autograd through the plain line sum in ``chunk``-line
       slabs on any device (``ops.opacity.line_sum_plain_ad``; ``remat``
-      recomputes each slab in the backward pass).  ``engine`` and
-      ``windows`` are not used.
+      recomputes each slab in the backward pass), with the evaluator of
+      ``engine.variant``.  ``windows`` is not used.
 
     ``nu_off``: the grid in offset coordinates (nu - lines.nu_ref), staged
     from float64 by the caller.  The kernel inputs are cast to its dtype.
-    ``engine``: ``ops.cuda_basis.KERNELS`` (the kernels on CUDA tensors) or
-    ``PLAIN`` (their plain versions).  ``windows``: the scene's window table
+    ``engine``: ``ops.cuda_basis.KERNELS`` (the kernels on CUDA tensors),
+    ``PLAIN`` (their plain versions) or ``WEIDEMAN`` (the plain versions
+    with the Weideman evaluator, on any device).  ``windows``: the scene's window table
     (``ops.cuda_opacity.line_windows`` of ``nu_off`` and ``lines.nu0``).
     ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
     correction, valid to a cutoff of ``ops.chi.CHI_MAX_CUTOFF``.
@@ -105,7 +106,7 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     if mode is None:
         out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
                                 chunk=chunk, cutoff_cm1=cutoff_cm1,
-                                remat=remat)
+                                remat=remat, variant=engine.variant)
     else:
         out = LineSumOp(engine, windows, cutoff_cm1, mode)(
             nu_off, nu_c, sx, y, amps, chi_b)          # [B, 2, P]

@@ -1,6 +1,5 @@
 """Line-of-sight radiative-transfer integrator (port of
-``spectrobot_tpu.forward.rt.layer_path_radiance``, in its gather + cumsum
-form).
+``spectrobot_tpu.forward.rt``).
 
 Emission-only RT along a ray whose segments are ordered from the observer
 outward:
@@ -14,6 +13,29 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def radiance_along_ray(dtau: torch.Tensor, source: torch.Tensor,
+                       I_background: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Radiance [..., P] at the observer of one or many rays: per-segment
+    optical depth ``dtau`` and source radiance ``source`` [..., n_seg, P]
+    in observer-first order, ``I_background`` [..., P] entering the far end
+    (default 0: deep space).
+
+    The cumulative depth is ``torch.cumsum`` over the segment axis: the
+    same function as the reference's, which takes a lower-triangular
+    matrix product instead on the TPU only (its cumsum lowered to a
+    sequential loop there)."""
+    t_after = torch.exp(-torch.cumsum(dtau, dim=-2))
+    # The transmittance before segment k is t_after of segment k-1 (1 at
+    # the observer): a shift, not a second exp.
+    t_before = torch.cat([torch.ones_like(t_after[..., :1, :]),
+                          t_after[..., :-1, :]], dim=-2)
+    emitted = torch.sum(source * (t_before - t_after), dim=-2)
+    if I_background is not None:
+        emitted = emitted + I_background * t_after[..., -1, :]
+    return emitted
 
 
 def layer_path_radiance(dtau_layers: torch.Tensor,
@@ -39,3 +61,9 @@ def layer_path_radiance(dtau_layers: torch.Tensor,
     if I_background is not None:
         emitted = emitted + I_background * t_after[..., -1, :]
     return emitted
+
+
+def transmittance(dtau: torch.Tensor) -> torch.Tensor:
+    """Total transmittance along the ray [..., P] of per-segment depths
+    [..., n_seg, P]."""
+    return torch.exp(-torch.sum(dtau, dim=-2))

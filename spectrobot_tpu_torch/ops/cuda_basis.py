@@ -1,7 +1,7 @@
 """Batched basis contraction on the card: the wrapper of the hand-written
-CUDA kernel ``csrc/basis_batch.cu``, its plain PyTorch version, and the two
-engines of the differentiable line sum (K1, K2, K5, K3 and K4, or their
-plain versions).
+CUDA kernel ``csrc/basis_batch.cu``, its plain PyTorch version, and the
+three engines of the differentiable line sum (K1, K2, K5, K3 and K4; their
+plain versions; their plain versions with the Weideman evaluator).
 
 The kernel replaces the TPU kernel
 ``spectrobot_tpu/ops/pallas_opacity.py:_basis_batch_kernel`` (K2), reached
@@ -62,14 +62,15 @@ _LIB = None
 
 def basis_contract_batch_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
                                cutoff_cm1: Optional[float] = 25.0,
-                               chi_b: Optional[torch.Tensor] = None
-                               ) -> torch.Tensor:
+                               chi_b: Optional[torch.Tensor] = None,
+                               variant: str = "humlicek4") -> torch.Tensor:
     """The plain PyTorch version of :func:`basis_contract_batch`, any dtype
     and device: nu_c/sx/y [B, L], C1..C4 [B, R, L], chi_b [B, L] or None ->
     [B, R, P] in ``nu_grid``'s dtype.
 
-    Every line is evaluated at every point (pointwise w4 gradient, cutoff
-    mask) and contracted with ``torch.matmul``.  States are taken in groups
+    Every line is evaluated at every point (pointwise gradient of the
+    ``variant`` evaluator, cutoff mask) and contracted with
+    ``torch.matmul``.  States are taken in groups
     so that one (state, line, point) slab holds at most ``_PLAIN_SLAB``
     elements.
     """
@@ -87,7 +88,7 @@ def basis_contract_batch_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
             basis = _basis(nu_grid, nu_c[sl].to(dt), sx[sl].to(dt),
                            y[sl].to(dt),
                            None if chi_b is None else chi_b[sl].to(dt),
-                           cutoff_cm1=cutoff_cm1)
+                           cutoff_cm1=cutoff_cm1, variant=variant)
             for C, b in zip((C1, C2, C3, C4), basis):
                 out[g] += torch.matmul(C[g, :, lo:lo + chunk].to(dt), b)
     return out
@@ -224,34 +225,50 @@ def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
     return out[:, :, :P]
 
 
-def _plain_accumulate(nu_grid, windows, *args, **kw):
-    return accumulate_batch_plain(nu_grid, *args, **kw)
+def _plain_engine(name: str, variant: str) -> Engine:
+    """The plain versions of the five kernels as an engine, Re w by the
+    ``variant`` evaluator; they need no window table."""
+    def accumulate(nu_grid, windows, *args, **kw):
+        return accumulate_batch_plain(nu_grid, *args, variant=variant, **kw)
 
+    def contract(nu_grid, windows, nu_c, sx, y, C1, C2, C3, C4, active=None,
+                 **kw):
+        return basis_contract_batch_plain(nu_grid, nu_c, sx, y, C1, C2, C3,
+                                          C4, variant=variant, **kw)
 
-def _plain_contract(nu_grid, windows, nu_c, sx, y, C1, C2, C3, C4,
-                    active=None, **kw):
-    return basis_contract_batch_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4,
-                                      **kw)
+    def transpose(nu_grid, windows, *args, **kw):
+        return basis_transpose_batch_plain(nu_grid, *args, variant=variant,
+                                           **kw)
 
+    def accumulate_single(nu_grid, windows, *args, **kw):
+        return accumulate_single_plain(nu_grid, *args, variant=variant, **kw)
 
-def _plain_transpose(nu_grid, windows, *args, **kw):
-    return basis_transpose_batch_plain(nu_grid, *args, **kw)
+    def contract_single(nu_grid, windows, *args, **kw):
+        return basis_contract_single_plain(nu_grid, *args, variant=variant,
+                                           **kw)
 
-
-def _plain_accumulate_single(nu_grid, windows, *args, **kw):
-    return accumulate_single_plain(nu_grid, *args, **kw)
-
-
-def _plain_contract_single(nu_grid, windows, *args, **kw):
-    return basis_contract_single_plain(nu_grid, *args, **kw)
+    return Engine(name, accumulate, contract, transpose, None,
+                  accumulate_single, contract_single, variant)
 
 
 # The line sum's engines (ops.opacity.LineSumOp, AccumulateOp): the five
-# kernels (their plain versions on CPU tensors), and the plain versions on
-# any device, which need no window table (the reference for the kernels on
-# the card).
+# kernels (their plain versions on CPU tensors); the plain versions on any
+# device, which need no window table (the reference for the kernels on the
+# card); and the plain versions with the Weideman evaluator on any device,
+# the one engine that runs plain PyTorch on CUDA tensors: the reference
+# runs that variant only on its XLA engine, and no kernel evaluates it.
 KERNELS = Engine("kernels", accumulate_batch, basis_contract_batch,
                  basis_transpose_batch, TRANSPOSE_ROWS, accumulate_single,
                  basis_contract_single)
-PLAIN = Engine("plain", _plain_accumulate, _plain_contract, _plain_transpose,
-               None, _plain_accumulate_single, _plain_contract_single)
+PLAIN = _plain_engine("plain", "humlicek4")
+WEIDEMAN = _plain_engine("weideman", "weideman")
+
+
+def engine_for(variant: str) -> Engine:
+    """The engine of an evaluator: ``KERNELS`` for humlicek4, ``WEIDEMAN``
+    for weideman (the reference's ``_engine`` takes its Pallas kernels only
+    for humlicek4); any other variant raises a ValueError."""
+    engines = {"humlicek4": KERNELS, "weideman": WEIDEMAN}
+    if variant not in engines:
+        raise ValueError(f"unknown voigt variant {variant!r}")
+    return engines[variant]

@@ -57,12 +57,13 @@ _LIB = None
 def basis_contract_single_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
                                 cutoff_cm1: Optional[float] = 25.0,
                                 chi_b: Optional[torch.Tensor] = None,
-                                chunk: int = 256) -> torch.Tensor:
+                                chunk: int = 256,
+                                variant: str = "humlicek4") -> torch.Tensor:
     """The plain PyTorch version of :func:`basis_contract_single`, any dtype
     and device: nu_c/sx/y [L], C1..C4 [R, L], chi_b [L] or None -> [R, P]
     in ``nu_grid``'s dtype.  Every line is evaluated at every point
-    (pointwise w4 gradient, cutoff mask) in ``chunk``-line slabs and
-    contracted with ``torch.matmul``."""
+    (pointwise gradient of the ``variant`` evaluator, cutoff mask) in
+    ``chunk``-line slabs and contracted with ``torch.matmul``."""
     dt = nu_grid.dtype
     L = nu_c.shape[0]
     out = torch.zeros((C1.shape[0],) + nu_grid.shape, dtype=dt,
@@ -71,7 +72,7 @@ def basis_contract_single_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
         sl = slice(lo, lo + chunk)
         basis = _basis(nu_grid, nu_c[sl].to(dt), sx[sl].to(dt), y[sl].to(dt),
                        None if chi_b is None else chi_b[sl].to(dt),
-                       cutoff_cm1=cutoff_cm1)
+                       cutoff_cm1=cutoff_cm1, variant=variant)
         for C, b in zip((C1, C2, C3, C4), basis):
             out += torch.matmul(C[:, sl].to(dt), b)
     return out

@@ -305,14 +305,15 @@ def tier_counts(windows: Windows, nu_c, scale_x, y, amps) -> dict:
 
 def accumulate_batch_plain(nu_grid, nu_c, scale_x, y, amps, *,
                            cutoff_cm1: Optional[float] = 25.0,
-                           chi_b: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           chi_b: Optional[torch.Tensor] = None,
+                           variant: str = "humlicek4") -> torch.Tensor:
     """The plain PyTorch version of :func:`accumulate_batch`, any dtype and
     device: nu_c/scale_x/y [B, L], amps [B, n_out, L], chi_b [B, L] or
     None -> [B, n_out, P] in ``nu_grid``'s dtype.
 
-    Every line is evaluated at every point (pointwise w4, cutoff mask), so
-    it needs no window table.  States are taken in groups so that one
+    Every line is evaluated at every point (pointwise Re w of ``variant``,
+    w4 as the kernel or Weideman's, cutoff mask), so it needs no window
+    table.  States are taken in groups so that one
     (state, line, point) slab holds at most ``_PLAIN_SLAB`` elements, which
     keeps a full-size limb scan within a few GB on the card.
     """
@@ -323,7 +324,7 @@ def accumulate_batch_plain(nu_grid, nu_c, scale_x, y, amps, *,
         accumulate_plain(
             nu_grid, KernelLines(nu_c[g], scale_x[g], y[g], amps[g],
                                  None if chi_b is None else chi_b[g]),
-            chunk=chunk, cutoff_cm1=cutoff_cm1)
+            chunk=chunk, cutoff_cm1=cutoff_cm1, variant=variant)
         for g in (slice(b0, b0 + group) for b0 in range(0, B, group))])
 
 

@@ -54,15 +54,15 @@ _COUNTERS: dict = {}
 
 def accumulate_single_plain(nu_grid, nu_c, scale_x, y, amps, *,
                             cutoff_cm1: Optional[float] = 25.0,
-                            chi_b: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            chi_b: Optional[torch.Tensor] = None,
+                            variant: str = "humlicek4") -> torch.Tensor:
     """The plain PyTorch version of :func:`accumulate_single`, any dtype and
     device: lines [L], amps [n_out, L] -> [n_out, P] in ``nu_grid``'s dtype
-    (``ops.opacity.accumulate_plain`` on one state; every line at every
-    point, so no window table)."""
+    (``ops.opacity.accumulate_plain`` on one state with the ``variant``
+    evaluator; every line at every point, so no window table)."""
     return accumulate_plain(nu_grid, KernelLines(nu_c, scale_x, y, amps,
                                                  chi_b),
-                            cutoff_cm1=cutoff_cm1)
+                            cutoff_cm1=cutoff_cm1, variant=variant)
 
 
 def split_blocks(n_items: int, n_blocks: int,

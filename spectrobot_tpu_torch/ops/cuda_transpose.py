@@ -72,14 +72,15 @@ Projections = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 def basis_transpose_batch_plain(nu_grid, nu_c, sx, y, ct, *,
                                 cutoff_cm1: Optional[float] = 25.0,
-                                chi_b: Optional[torch.Tensor] = None
-                                ) -> Projections:
+                                chi_b: Optional[torch.Tensor] = None,
+                                variant: str = "humlicek4") -> Projections:
     """The plain PyTorch version of :func:`basis_transpose_batch`, any dtype
     and device: nu_c/sx/y [B, L], ct [B, R, P], chi_b [B, L] or None ->
     (AbK, AbKx, AbxKx, AbKy), each [B, R, L] in ``nu_grid``'s dtype.
 
-    Every line is evaluated at every point (pointwise w4 gradient, cutoff
-    mask) and projected with ``torch.matmul``.  States are taken in groups
+    Every line is evaluated at every point (pointwise gradient of the
+    ``variant`` evaluator, cutoff mask) and projected with
+    ``torch.matmul``.  States are taken in groups
     so that one (state, line, point) slab holds at most ``_PLAIN_SLAB``
     elements."""
     B, L = nu_c.shape
@@ -88,7 +89,7 @@ def basis_transpose_batch_plain(nu_grid, nu_c, sx, y, ct, *,
     parts = [tangent_transpose_plain(
                  nu_grid, nu_c[g], sx[g], y[g], ct[g],
                  None if chi_b is None else chi_b[g], chunk=chunk,
-                 cutoff_cm1=cutoff_cm1)
+                 cutoff_cm1=cutoff_cm1, variant=variant)
              for g in (slice(b0, b0 + group) for b0 in range(0, B, group))]
     return tuple(torch.cat(o) for o in zip(*parts))
 

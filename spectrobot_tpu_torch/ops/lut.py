@@ -18,7 +18,9 @@ masks (LTE), or the 3G rows (A_l, A_u, M) of the groups (non-LTE).  That
 is exactly the batched line sum K1 computes, two amplitude rows a state,
 so a build pairs the rows into K1 states and makes one ``engine.accumulate``
 call (``ops.cuda_basis.KERNELS``: K1 on the card, its plain version on CPU
-tensors), or one per block of whole T rows when the states grow large.
+tensors; with ``variant="weideman"`` ``WEIDEMAN``, the plain version with
+the Weideman evaluator on any device), or one per block of whole T rows
+when the states grow large.
 The reference builds through its plain XLA line sum (``accumulate_jnp``);
 the function is the same.  A table needs no gradient, so the build takes
 no derivative route.  With a process group (:func:`lut_mesh`) each rank
@@ -51,10 +53,10 @@ import torch
 import torch.distributed as dist
 
 from spectrobot_tpu_torch.constants import C2
-from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     all_block_windows, line_windows)
-from spectrobot_tpu_torch.ops.opacity import Engine, line_kernel_inputs
+from spectrobot_tpu_torch.ops.opacity import (
+    Engine, engine_of, line_kernel_inputs)
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 
 # The most states one build call takes (K1's grid limit), and the most
@@ -197,13 +199,6 @@ def _line_sums(nu_off, windows, lines: DeviceLines, T, p, p_self_line,
     return out.reshape(n, 2 * J, -1)[:, :R]
 
 
-def _check_variant(variant: str) -> None:
-    if variant != "humlicek4":
-        raise NotImplementedError(
-            f"variant {variant!r}: the port's line sum evaluates Humlicek's "
-            f"w4 only (ROADMAP Queue 1 item 7)")
-
-
 def build_lut(
     nu_grid: torch.Tensor,
     lines: DeviceLines,
@@ -217,7 +212,7 @@ def build_lut(
     chunk: int = 256,
     mesh=None,
     chi=None,
-    engine: Engine = KERNELS,
+    engine: Optional[Engine] = None,
     nu_off: Optional[torch.Tensor] = None,
 ) -> OpacityLUT:
     """The LTE table of the line list on ``nu_grid`` over the (T, log10 p)
@@ -225,14 +220,19 @@ def build_lut(
     row s (self-broadened at ``vmr_self[s]`` x p), through
     ``engine.accumulate`` with two species rows a K1 state.  ``chi`` =
     (``ops.chi.ChiProfile``, row_mask): the wing correction, baked into the
-    table (its slope follows the lattice T).  ``mesh``: a process group
+    table (its slope follows the lattice T).  ``variant``: the evaluator
+    of Re w; ``engine`` defaults to its engine
+    (``ops.cuda_basis.engine_for``: K1 for humlicek4, the plain versions
+    with the Weideman evaluator for weideman, as the reference builds that
+    variant through its XLA line sum), and one of another variant raises a
+    ValueError.  ``mesh``: a process group
     (:func:`lut_mesh`) to share the build over its ranks.  ``nu_off``: the
     grid in offset coordinates staged from float64 (``nu_grid - nu_ref``
     otherwise; a float32 ``nu_grid`` is rounded to ~3e-5 cm-1 near 650
     cm-1, a tenth of a Doppler width aloft, and the reference's float32
     tables carry that error).  ``chunk`` is the reference's slab size,
     kept for the cache key (the line sums here choose their own)."""
-    _check_variant(variant)
+    engine = engine_of(variant, engine)
     S = n_species
     vs = np.ones(S) if vmr_self is None else np.asarray(vmr_self, float)
     dt, dev = nu_grid.dtype, nu_grid.device
@@ -288,7 +288,7 @@ def build_nlte_lut(
     chunk: int = 256,
     mesh=None,
     chi=None,
-    engine: Engine = KERNELS,
+    engine: Optional[Engine] = None,
     nu_off: Optional[torch.Tensor] = None,
 ) -> NLTELUT:
     """The three per-group tables in one line sum per lattice point: the
@@ -296,7 +296,7 @@ def build_nlte_lut(
     work, paired into K1 states (``engine.accumulate``).  E = exp(-c2
     nu0 / T) uses the absolute centers, as the reference does.  Arguments
     as :func:`build_lut`."""
-    _check_variant(variant)
+    engine = engine_of(variant, engine)
     S = n_species
     vs = np.ones(S) if vmr_self is None else np.asarray(vmr_self, float)
     dt, dev = nu_grid.dtype, nu_grid.device

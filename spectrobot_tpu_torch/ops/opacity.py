@@ -17,6 +17,13 @@ K4 at one state), reverse mode through its transpose (K5), or plain
 autograd through :func:`line_sum_plain_ad`; :func:`ad_mode` reads the
 reference's ``analytic_jvp`` switch.  :func:`cross_sections` is the
 reference's public per-state interface on top of them.
+
+The evaluator of Re w is ``variant``: Humlicek's w4 (``"humlicek4"``, what
+the kernels evaluate) or Weideman's approximation (``"weideman"``, plain
+PyTorch only, as the reference runs it only on its XLA engine).  An
+:class:`Engine` carries its variant, so every path a line sum takes
+(forward, ``jacfwd``, reverse mode, one state, the mesh, the table builds)
+follows the engine it is given.
 """
 
 from __future__ import annotations
@@ -33,7 +40,19 @@ from spectrobot_tpu_torch.ops.strengths import (
     DeviceLines, doppler_hwhm, line_strength, lorentz_hwhm,
     pressure_shifted_center,
 )
-from spectrobot_tpu_torch.ops.voigt import wofz_humlicek4, wofz_humlicek4_grad
+from spectrobot_tpu_torch.ops.voigt import (
+    wofz_humlicek4, wofz_humlicek4_grad, wofz_weideman, wofz_weideman_grad)
+
+
+def _evaluator(variant: str, grad: bool):
+    """The Faddeeva evaluator of ``variant``: (x, y) -> (wr, wi), or with
+    ``grad`` -> (wr, wi, dK/dx, dK/dy)."""
+    if variant == "humlicek4":
+        return wofz_humlicek4_grad if grad else wofz_humlicek4
+    if variant == "weideman":
+        return wofz_weideman_grad if grad else wofz_weideman
+    raise ValueError(f"unknown voigt variant {variant!r}")
+
 
 class KernelLines(NamedTuple):
     """Flat per-line inputs of the accumulation ([..., L], amps
@@ -72,12 +91,14 @@ def line_kernel_inputs(lines: DeviceLines, T, p_pa, p_self_pa=0.0,
                        y=SQRT_LN2 * gl * inv_ad, amps=amps, chi_b=chi_b)
 
 
-def _line_sum(nu, nu_c, sx, y, amps, chi_b=None, *, cutoff_cm1):
+def _line_sum(nu, nu_c, sx, y, amps, chi_b=None, *, cutoff_cm1,
+              variant: str = "humlicek4"):
     """One dense slab of the line sum: lines [..., c], amps [..., n_out, c]
-    -> [..., n_out, P], pointwise w4 over the (c x P) pairs."""
+    -> [..., n_out, P], Re w of ``variant`` at each of the (c x P) pairs."""
     dnu = nu - nu_c.unsqueeze(-1)                      # [..., c, P]
     x = sx.unsqueeze(-1) * dnu
-    wr, _ = wofz_humlicek4(x, torch.broadcast_to(y.unsqueeze(-1), x.shape))
+    wr, _ = _evaluator(variant, False)(
+        x, torch.broadcast_to(y.unsqueeze(-1), x.shape))
     if chi_b is not None:
         wr = wr * torch.exp(-chi_b.unsqueeze(-1) * torch.clamp(
             torch.abs(dnu) - CHI_DELTA1, min=0.0))
@@ -88,11 +109,12 @@ def _line_sum(nu, nu_c, sx, y, amps, chi_b=None, *, cutoff_cm1):
 
 def accumulate_plain(nu_grid: torch.Tensor, kl: KernelLines, *,
                      chunk: int = 256,
-                     cutoff_cm1: Optional[float] = 25.0) -> torch.Tensor:
+                     cutoff_cm1: Optional[float] = 25.0,
+                     variant: str = "humlicek4") -> torch.Tensor:
     """Stage-2 line sum in plain torch, any dtype: lines [..., L], amps
-    [..., n_out, L] -> [..., n_out, P] in ``nu_grid``'s dtype.  The line
-    axis is cut into ``chunk``-line slabs to bound the (chunk x P)
-    intermediates."""
+    [..., n_out, L] -> [..., n_out, P] in ``nu_grid``'s dtype, Re w by the
+    ``variant`` evaluator.  The line axis is cut into ``chunk``-line slabs
+    to bound the (chunk x P) intermediates."""
     dt = nu_grid.dtype
     nu_c, sx, y, amps, chi_b = (None if a is None else a.to(dt) for a in kl)
     out = torch.zeros(amps.shape[:-1] + nu_grid.shape, dtype=dt,
@@ -101,7 +123,8 @@ def accumulate_plain(nu_grid: torch.Tensor, kl: KernelLines, *,
         sl = slice(lo, lo + chunk)
         out += _line_sum(nu_grid, nu_c[..., sl], sx[..., sl], y[..., sl],
                         amps[..., sl], None if chi_b is None else
-                        chi_b[..., sl], cutoff_cm1=cutoff_cm1)
+                        chi_b[..., sl], cutoff_cm1=cutoff_cm1,
+                        variant=variant)
     return out
 
 
@@ -118,17 +141,20 @@ def accumulate_plain(nu_grid: torch.Tensor, kl: KernelLines, *,
 #
 # so under torch.func.jacfwd the basis is evaluated once and every Jacobian
 # column is a contraction against it.  The partials come from the
-# closed-form derivative of the w4 approximant (voigt.wofz_humlicek4_grad),
-# which is per-pair stable in float32; chi scales all four basis values and
-# is constant in the tangent (the reference's frozen-chi convention).
+# closed-form derivative of the approximant the primal evaluates
+# (voigt.wofz_humlicek4_grad or wofz_weideman_grad), which is per-pair
+# stable in float32; chi scales all four basis values and is constant in
+# the tangent (the reference's frozen-chi convention).
 
 
-def _basis(nu_grid, nc, s, yy, cb=None, *, cutoff_cm1):
+def _basis(nu_grid, nc, s, yy, cb=None, *, cutoff_cm1,
+           variant: str = "humlicek4"):
     """The basis (K, Kx, xKx, Ky) of lines [..., c] at every point of
-    ``nu_grid`` [P] -> four [..., c, P] tensors."""
+    ``nu_grid`` [P] -> four [..., c, P] tensors, by the ``variant``
+    evaluator's closed-form gradient."""
     dnu = nu_grid - nc.unsqueeze(-1)
     x = s.unsqueeze(-1) * dnu
-    wr, _, kx, ky = wofz_humlicek4_grad(
+    wr, _, kx, ky = _evaluator(variant, True)(
         x, torch.broadcast_to(yy.unsqueeze(-1), x.shape))
     if cb is not None:
         ch = torch.exp(-cb.unsqueeze(-1) * torch.clamp(
@@ -142,7 +168,8 @@ def _basis(nu_grid, nc, s, yy, cb=None, *, cutoff_cm1):
 
 def tangent_transpose_plain(nu_grid, nu_c, sx, y, ct, chi_b=None, *,
                             chunk: int = 256,
-                            cutoff_cm1: Optional[float] = 25.0):
+                            cutoff_cm1: Optional[float] = 25.0,
+                            variant: str = "humlicek4"):
     """The cotangent projections of the basis, plain PyTorch, any dtype:
     lines [..., L], cotangent rows ct [..., R, P] -> (AbK, AbKx, AbxKx,
     AbKy), each [..., R, L], with Ab_k[r, i] = sum_p ct[r, p] basis_k(p, i)
@@ -158,7 +185,7 @@ def tangent_transpose_plain(nu_grid, nu_c, sx, y, ct, chi_b=None, *,
         basis = _basis(nu_grid, nu_c[..., sl].to(dt), sx[..., sl].to(dt),
                        y[..., sl].to(dt),
                        None if chi_b is None else chi_b[..., sl].to(dt),
-                       cutoff_cm1=cutoff_cm1)
+                       cutoff_cm1=cutoff_cm1, variant=variant)
         for o, b in zip(outs, basis):
             o.append(torch.matmul(ct, b.transpose(-1, -2)))
     return tuple(torch.cat(o, dim=-1) for o in outs)
@@ -179,11 +206,13 @@ def transpose_epilogue(sx, amps, AbK, AbKx, AbxKx, AbKy):
 
 def line_sum_plain_ad(nu_grid, nu_c, sx, y, amps, chi_b=None, *,
                       chunk: int = 256, cutoff_cm1: Optional[float] = 25.0,
-                      remat: bool = False) -> torch.Tensor:
+                      remat: bool = False,
+                      variant: str = "humlicek4") -> torch.Tensor:
     """The line sum for plain autograd (the reference's plain-AD path,
     ``analytic_jvp=False``), any dtype and device: lines [..., L], amps
     [..., n_out, L] -> [..., n_out, P], summed out of place over
-    ``chunk``-line slabs so both AD directions and ``torch.func`` trace it.
+    ``chunk``-line slabs so both AD directions and ``torch.func`` trace it;
+    Re w by the ``variant`` evaluator.
 
     Autograd keeps about 390 bytes per (state, line, point) of each slab
     for its backward pass.  ``remat=True`` recomputes each slab there
@@ -197,10 +226,10 @@ def line_sum_plain_ad(nu_grid, nu_c, sx, y, amps, chi_b=None, *,
         sl = slice(lo, lo + chunk)
         args = (nu_grid, nu_c[..., sl], sx[..., sl], y[..., sl],
                 amps[..., sl], None if chi_b is None else chi_b[..., sl])
+        kw = dict(cutoff_cm1=cutoff_cm1, variant=variant)
         part = (torch.utils.checkpoint.checkpoint(
-                    _line_sum, *args, cutoff_cm1=cutoff_cm1,
-                    use_reentrant=False)
-                if remat else _line_sum(*args, cutoff_cm1=cutoff_cm1))
+                    _line_sum, *args, use_reentrant=False, **kw)
+                if remat else _line_sum(*args, **kw))
         out = part if out is None else out + part
     return out
 
@@ -214,7 +243,8 @@ def basis_coefficients(sx, amps, d_nu_c, d_sx, d_y, d_amps):
 
 def _tangent_via_basis(nu_grid, nu_c, sx, y, amps, d_nu_c, d_sx, d_y,
                        d_amps, chb=None, *, chunk: int = 256,
-                       cutoff_cm1: Optional[float] = 25.0):
+                       cutoff_cm1: Optional[float] = 25.0,
+                       variant: str = "humlicek4"):
     """Plain tangent of the line sum for one tangent vector, any dtype:
     lines [..., L], amps [..., n_out, L] -> [..., n_out, P].  A tangent
     given as None is zero."""
@@ -227,7 +257,7 @@ def _tangent_via_basis(nu_grid, nu_c, sx, y, amps, d_nu_c, d_sx, d_y,
         sl = slice(lo, lo + chunk)
         basis = _basis(nu_grid, nu_c[..., sl], sx[..., sl], y[..., sl],
                        None if chb is None else chb[..., sl],
-                       cutoff_cm1=cutoff_cm1)
+                       cutoff_cm1=cutoff_cm1, variant=variant)
         for c, b in zip(C, basis):
             out += torch.matmul(c[..., sl], b)
     return out
@@ -273,9 +303,11 @@ class Engine:
                     cutoff_cm1, chi_b) -> [R, P]
 
     (``ops.cuda_basis.KERNELS``: K1, K2, K5, K3 and K4;
-    ``ops.cuda_basis.PLAIN``: their plain PyTorch versions).
-    ``transpose_rows``: the most cotangent rows one ``transpose`` call
-    takes (None: any)."""
+    ``ops.cuda_basis.PLAIN``: their plain PyTorch versions;
+    ``ops.cuda_basis.WEIDEMAN``: the plain versions with the Weideman
+    evaluator).  ``transpose_rows``: the most cotangent rows one
+    ``transpose`` call takes (None: any).  ``variant``: the evaluator of
+    Re w its primitives use."""
     name: str
     accumulate: Callable
     contract: Callable
@@ -283,6 +315,25 @@ class Engine:
     transpose_rows: Optional[int] = None
     accumulate_single: Optional[Callable] = None
     contract_single: Optional[Callable] = None
+    variant: str = "humlicek4"
+
+
+def engine_of(variant: str, engine: Optional[Engine] = None) -> Engine:
+    """The engine of a line sum evaluating ``variant``: ``engine``, which
+    must evaluate it (else a ValueError, as the reference refuses
+    ``engine='pallas'`` for any variant but humlicek4, so that primal and
+    tangent share one evaluator), or by default the variant's own
+    (``ops.cuda_basis.engine_for``)."""
+    if engine is None:
+        from spectrobot_tpu_torch.ops.cuda_basis import engine_for
+        return engine_for(variant)
+    _evaluator(variant, False)
+    if engine.variant != variant:
+        raise ValueError(
+            f"engine {engine.name!r} evaluates {engine.variant} only; use "
+            f"ops.cuda_basis.engine_for({variant!r}) for variant="
+            f"{variant!r} so primal and tangent share one evaluator")
+    return engine
 
 
 def _windows(op, nu_grid, nu_c):
@@ -564,7 +615,8 @@ def make_accumulate_op(*, cutoff_cm1: Optional[float] = 25.0,
                        mode: str = "fwd", windows=None,
                        has_chi: bool = False,
                        engine: Optional[Engine] = None,
-                       centers=None) -> AccumulateOp:
+                       centers=None,
+                       variant: str = "humlicek4") -> AccumulateOp:
     """The single-state line sum acc(nu_grid, nu_c, sx, y, amps,
     chi_b=None) -> [n_out, P] with analytic derivatives (the counterpart of
     the reference's ``make_accumulate_op(engine='pallas')`` at one state;
@@ -576,13 +628,15 @@ def make_accumulate_op(*, cutoff_cm1: Optional[float] = 25.0,
     lines' unshifted centers (``line_windows``); without it each call
     builds the table from ``centers`` (those centers [L], ascending), or,
     without them too, visits every line block (exact but slower).
-    ``engine``: ``ops.cuda_basis.KERNELS`` (default: the kernels on CUDA
-    tensors, their plain versions on the CPU) or ``PLAIN``."""
+    ``engine``: the engine of ``variant`` (default ``ops.cuda_basis.
+    engine_for(variant)``: for humlicek4 ``KERNELS``, the kernels on CUDA
+    tensors and their plain versions on the CPU; for weideman
+    ``WEIDEMAN``), or ``PLAIN``; an engine of another variant raises a
+    ValueError."""
     if mode not in ("fwd", "rev"):
         raise ValueError(f"mode must be 'fwd' or 'rev', got {mode!r}")
-    if engine is None:
-        from spectrobot_tpu_torch.ops.cuda_basis import KERNELS as engine
-    return AccumulateOp(engine, windows, cutoff_cm1, mode, centers, has_chi)
+    return AccumulateOp(engine_of(variant, engine), windows, cutoff_cm1,
+                        mode, centers, has_chi)
 
 
 def _contiguous(*tensors):
@@ -734,15 +788,15 @@ def cross_sections(nu_grid, lines: DeviceLines, T, p_pa, p_self_pa=0.0,
     ``vmap`` (:func:`cross_sections_batch`) the op runs the batched kernels
     (K1, K2, K5).  ``nu_off``: the grid in offset coordinates staged from
     float64 (default ``nu_grid - lines.nu_ref``, exact only for a float64
-    grid); the line inputs are cast to its dtype.  ``engine``: the op's
-    engine (default ``ops.cuda_basis.KERNELS``: on CUDA tensors the
-    kernels, on CPU tensors their plain versions).  The kernels' window
-    table is built on the host at each call from the grid and
-    ``lines.nu0``.  Only ``variant='humlicek4'`` is ported."""
-    if variant != "humlicek4":
-        raise NotImplementedError(
-            f"variant={variant!r} is not ported (the port evaluates "
-            f"humlicek4 only)")
+    grid); the line inputs are cast to its dtype.  ``variant``: the
+    evaluator of Re w, 'humlicek4' or 'weideman'.  ``engine``: the op's
+    engine (default ``ops.cuda_basis.engine_for(variant)``: for humlicek4
+    ``KERNELS``, on CUDA tensors the kernels, on CPU tensors their plain
+    versions; for weideman ``WEIDEMAN``, plain PyTorch on any device); an
+    engine of another variant raises a ValueError, as the reference's
+    ``engine='pallas'`` does for weideman.  The kernels' window table is
+    built on the host at each call from the grid and ``lines.nu0``."""
+    engine = engine_of(variant, engine)
     ones = torch.ones(lines.n_lines, dtype=lines.sw.dtype,
                       device=lines.sw.device)
     wa = ones if w_abs is None else w_abs
@@ -756,11 +810,12 @@ def cross_sections(nu_grid, lines: DeviceLines, T, p_pa, p_self_pa=0.0,
     mode = ad_mode(analytic_jvp)
     if mode is None:
         out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
-                                chunk=chunk, cutoff_cm1=cutoff_cm1)
+                                chunk=chunk, cutoff_cm1=cutoff_cm1,
+                                variant=variant)
     else:
         op = make_accumulate_op(cutoff_cm1=cutoff_cm1, mode=mode,
                                 has_chi=chi_b is not None, engine=engine,
-                                centers=lines.nu0)
+                                centers=lines.nu0, variant=variant)
         out = op(nu_off, nu_c, sx, y, amps, chi_b)
     return out[0], out[1]
 

@@ -140,11 +140,13 @@ def _hops(n_shards: int):
 
 
 def halo_accumulate_fn(mesh, *, chunk: int = 256,
+                       variant: str = "humlicek4",
                        cutoff_cm1: Optional[float] = 25.0,
                        origins: Optional[np.ndarray] = None):
     """Build f(nu_loc, mine) -> [n_out, P_loc] over the mesh's ``nu`` axis
     with the neighbour halo exchange, the line sum in plain PyTorch
-    (``ops.opacity.accumulate_plain``, any dtype).  ``nu_loc``: this rank's
+    (``ops.opacity.accumulate_plain``, any dtype, Re w by the ``variant``
+    evaluator).  ``nu_loc``: this rank's
     grid chunk; ``mine``: the lines it owns (:func:`shard_lines`).
 
     With ``origins``, the grid and the centers are shard-local coordinates
@@ -159,7 +161,7 @@ def halo_accumulate_fn(mesh, *, chunk: int = 256,
 
     def acc(nu_loc, kl):
         return accumulate_plain(nu_loc, kl, chunk=chunk,
-                                cutoff_cm1=cutoff_cm1)
+                                cutoff_cm1=cutoff_cm1, variant=variant)
 
     def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
         out = acc(nu_loc, mine)

@@ -148,7 +148,8 @@ def make_sharded_oe(
     array on this rank's device; each rank takes its block.  The ray count
     must split over ``ray``, the grid over ``nu``; the line axis is padded
     (or, with ``nu_halo``, owner-partitioned) here.  ``engine``: the line
-    sum's kernels (``ops.cuda_basis.KERNELS``) or ``PLAIN``.  ``chi`` =
+    sum's kernels (``ops.cuda_basis.KERNELS``), ``PLAIN`` or ``WEIDEMAN``.
+    ``chi`` =
     (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing correction
     (each rank's lines compute their own slopes).  ``nlte``
     (``data.nlte.DeviceNLTE``, replicated) and ``cia``

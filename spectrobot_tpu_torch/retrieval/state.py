@@ -156,6 +156,7 @@ def build_forward(
     analytic_jvp=True,
     cia=None,
     chi=None,
+    depths_tap: Optional[Callable] = None,
 ) -> Callable[[Dict], torch.Tensor]:
     """Build F: state -> y (the port's counterpart of the reference's
     ``build_forward`` on its single-device line-by-line path).
@@ -169,12 +170,16 @@ def build_forward(
     ``cia`` (``ops.cia.DeviceCIA``): the collision-induced continuum.
     ``nu_off``: the grid in offset coordinates (default: staged from
     float64 here); ``windows``: the scene's window table (default: built
-    once here).  ``engine``: ``ops.cuda_basis.KERNELS`` or ``PLAIN``.
+    once here).  ``engine``: ``ops.cuda_basis.KERNELS``, ``PLAIN`` or
+    ``WEIDEMAN``.
     ``analytic_jvp``: True/'fwd' (forward mode: ``torch.func.jacfwd``),
     'rev' (reverse mode: ``torch.autograd.grad``, ``torch.func.jacrev``) or
     False (plain autograd), as ``forward.limb.layer_tau_kernel`` takes it.
     ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
-    correction.  Output y is flattened [n_obs_ray * n_chan].
+    correction.  ``depths_tap(cg, dtau)``, if given, receives each call's
+    path and layer absorption depths [R, NL, P] straight from the line sum
+    (the CLI's ``run.save_optics`` reuses them; no second line sum).
+    Output y is flattened [n_obs_ray * n_chan].
     """
     if nu_off is None:
         nu_off = torch.as_tensor(
@@ -197,6 +202,8 @@ def build_forward(
                                          engine=engine,
                                          analytic_jvp=analytic_jvp, chi=chi,
                                          nlte=nlte)
+        if depths_tap is not None:
+            depths_tap(cg, dtau)
         I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
                               cia=cia, T_surface=ts, emissivity=emissivity)
         if fov_V is not None:

@@ -75,6 +75,8 @@ CONFIG3 = {"grid.nu_min": "2320.0", "grid.nu_max": "2360.0",
     ({"geometry.mode": "nadir", "geometry.sec_theta": "1.0,1.4"}, 5e-5,
      1e-5),
     ({**CONFIG3, "compute.dtype": "float64"}, 0.0, 1e-10),
+    ({"compute.dtype": "float64", "compute.variant": "weideman"}, 0.0,
+     1e-10),
 ])
 def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
                                  atol_rel):
@@ -100,36 +102,74 @@ def test_forward_matches_jax_cli(tiny_toml, tmp_path, overrides, rtol,
 @pytest.mark.parametrize("override,key", [
     ("lines.chi=co2_mars", "lines.chi"),
     ("compute.mesh_nu=2", "compute.mesh_nu"),
-    ("run.save_optics=true", "run.save_optics"),
 ])
 def test_unported_key_raises_naming_it(tiny_toml, tmp_path, override, key):
-    # The mesh keys and lines.chi are ported: a mesh of more ranks than the
-    # run has (one, here) raises a ValueError naming them, and so does chi
+    # Every key is ported; what a run cannot do raises a ValueError naming
+    # its key: a mesh of more ranks than the run has (one, here), and chi
     # beyond the cutoff its single-segment form is valid to.
-    ported = key.startswith("compute.mesh_") or key == "lines.chi"
-    err = ValueError if ported else NotImplementedError
     extra = ["-o", "compute.cutoff_cm1=40"] if key == "lines.chi" else []
-    with pytest.raises(err, match=key.replace(".", r"\.")):
+    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         cli.main(["forward", tiny_toml, "--device", "cpu", "-o", override,
                   "-o", f"run.output_dir={tmp_path}", *extra])
     assert not os.path.exists(os.path.join(tmp_path, "forward.npz"))
 
 
-@pytest.mark.parametrize("override,item", [
-    ({"compute.variant": "weideman"}, 7),
-    ({"run.save_optics": "true"}, 8),
+@pytest.mark.parametrize("overrides", [
+    {"compute.dtype": "float64"},
+    {"compute.dtype": "float64", "compute.variant": "weideman",
+     "cia.enabled": "true", "geometry.mode": "nadir",
+     "geometry.sec_theta": "1.0,1.4"},
+    {},
 ])
-def test_each_refusal_names_its_roadmap_item(tiny_toml, override, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP Queue 1 item {item}\b"):
-        cli.check_ported(load_config(tiny_toml, override))
-    # Items 1, 3, 4, 5 and 6 (non-LTE, the continuum, the field of view,
-    # the LUT tier, 2-D atmospheres) are ported: none of their keys is
-    # refused.
-    cli.check_ported(load_config(tiny_toml, {
-        "nlte.enabled": "true", "cia.enabled": "true",
-        "instrument.fov_fwhm_km": "3.0", "compute.use_lut": "true",
-        "compute.lut_build_mesh": "true", "scene.atmosphere": "mars_zonal"}))
+def test_save_optics_matches_jax_cli(tiny_toml, tmp_path, capsys, overrides):
+    """run.save_optics: the same files as the JAX CLI, optics.npz with the
+    reference's keys, each ray's LOS optical depth on the fine grid within
+    1e-10 of max in float64 (the float32 run within K1's float32 budget)
+    and its transmittance exp(-tau); the stderr line; forward.npz equal to
+    a run without the flag."""
+    ov = {**overrides, "run.save_optics": "true"}
+    _jax_forward(tiny_toml, ov, tmp_path / "jax")
+    capsys.readouterr()
+    _torch_forward(tiny_toml, ov, tmp_path / "torch")
+    err = capsys.readouterr().err
+    assert (f"optics: LOS tau + transmittance -> "
+            f"{tmp_path / 'torch' / 'optics.npz'}") in err
+    assert sorted(os.listdir(tmp_path / "torch")) == sorted(
+        os.listdir(tmp_path / "jax"))
+    ref = np.load(tmp_path / "jax" / "optics.npz")
+    got = np.load(tmp_path / "torch" / "optics.npz")
+    assert sorted(got.files) == sorted(ref.files) == [
+        "kind", "nu", "transmittance", "units", "values"]
+    assert str(got["kind"]) == "optical_depth" and str(got["units"]) == "1"
+    np.testing.assert_array_equal(got["nu"], ref["nu"])
+    tol = 1e-10 if overrides else 1e-5
+    for key in ("values", "transmittance"):
+        assert got[key].shape == ref[key].shape == (2, 256)
+        np.testing.assert_allclose(got[key], ref[key], rtol=0,
+                                   atol=tol * np.abs(ref[key]).max())
+    np.testing.assert_array_equal(got["transmittance"],
+                                  np.exp(-got["values"]))
+    plain = _torch_forward(tiny_toml, overrides, tmp_path / "no_optics")
+    with np.load(tmp_path / "torch" / "forward.npz") as f:
+        np.testing.assert_array_equal(f["values"], plain["values"])
+
+
+@pytest.mark.parametrize("override", ["compute.use_lut=true",
+                                      "compute.mesh_nu=2"])
+def test_save_optics_off_the_direct_forward(tiny_toml, tmp_path, override):
+    """run.save_optics with the table tier or a mesh: the reference refuses
+    it (its optics reuse the single-device line-by-line depths), and so
+    does the port, before writing anything: the same (empty) file set."""
+    from spectrobot_tpu.cli import main as jax_main
+    argv = ["forward", tiny_toml, "-o", "run.save_optics=true", "-o",
+            override]
+    with pytest.raises(ValueError, match="run.save_optics"):
+        jax_main(argv + ["-o", f"run.output_dir={tmp_path / 'jax'}"])
+    with pytest.raises(ValueError, match="run.save_optics"):
+        cli.main(argv + ["--device", "cpu", "-o",
+                         f"run.output_dir={tmp_path / 'torch'}"])
+    assert not os.path.exists(tmp_path / "jax")
+    assert not os.path.exists(tmp_path / "torch")
 
 
 def test_config3_scene_stages_differing_rows(tiny_toml):
@@ -240,13 +280,34 @@ def test_info_reports_the_reference_keys():
 
 def test_cuda_device_rule(tiny_toml):
     """--device cuda never falls back: without a GPU it raises; the engine
-    rule on CUDA takes only the float32 kernel configuration, while on the
-    CPU the same wrappers run their plain versions in any configuration."""
+    rule on CUDA takes only the float32 kernel configuration for
+    humlicek4, while on the CPU the same wrappers run their plain versions
+    in any configuration.  compute.variant = "weideman" takes the WEIDEMAN
+    engine on both devices, in either dtype, and the kernels refuse it."""
     import torch
+
+    from spectrobot_tpu_torch.data.synth import co2_15um_band
+    from spectrobot_tpu_torch.ops.cuda_basis import WEIDEMAN
+    from spectrobot_tpu_torch.ops.opacity import cross_sections
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cfg = load_config(tiny_toml)
     assert cli.select_engine(cfg, cuda) is cli.KERNELS
+    for dev in (cuda, cpu):
+        for dtype in ("float32", "float64"):
+            for pallas in ("true", "false"):
+                assert cli.select_engine(load_config(tiny_toml, {
+                    "compute.variant": "weideman", "compute.dtype": dtype,
+                    "compute.use_pallas": pallas}), dev) is WEIDEMAN
+        with pytest.raises(ValueError, match="unknown voigt variant"):
+            cli.select_engine(load_config(tiny_toml, {
+                "compute.variant": "voigt"}), dev)
+    dl = device_lines_from_linelist(co2_15um_band(j_max=4), [(2, 1)],
+                                    dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="evaluates humlicek4 only"):
+        cross_sections(torch.linspace(660.0, 670.0, 64), dl, 200.0, 300.0,
+                       variant="weideman", engine=cli.KERNELS)
     for override in ({}, {"compute.use_pallas": "false"},
                      {"compute.dtype": "float64"}):
         assert cli.select_engine(load_config(tiny_toml, override),
@@ -304,6 +365,14 @@ emissivity = 0.9""").replace("[compute]", """\
 retrieve_vmr = ["CO2"]
 max_iter = 8
 [compute]"""),
+    # the Weideman evaluator (compute.variant), T and ln VMR(CO2)
+    "weideman_vmr": TINY_TOML.replace("[compute]", """\
+[retrieval]
+retrieve_vmr = ["CO2"]
+max_iter = 6
+[compute]
+variant = "weideman"
+"""),
     # T and ln VMR(CO2) on 3 altitude nodes
     "nodes_vmr": TINY_TOML.replace("[compute]", """\
 [retrieval]

@@ -2,9 +2,11 @@
 module of spectrobot_tpu_torch (the mesh's parallel/, K3's
 ops/cuda_single.py, K4's ops/cuda_basis_single.py and the remote-copy
 tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py, the table
-tier's ops/lut.py and parallel/sharded_lut.py among them),
+tier's ops/lut.py and parallel/sharded_lut.py, and the Weideman
+evaluator's ops/voigt.py, the Spectrum family's spectra.py, forward/rt.py,
+ops/planck.py and utils/profiling.py and utils/debug.py among them),
 chip_smoke.py and ablate_basis.py import, and the tiny forward and retrieval (``python -m
-spectrobot_tpu_torch``), a config-1 Jacobian and the adjoint tool
+spectrobot_tpu_torch``, and a Weideman forward with run.save_optics), a config-1 Jacobian and the adjoint tool
 (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
 interpreter that holds no jax and no module of spectrobot_tpu."""
 
@@ -32,7 +34,8 @@ for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "parallel.sharded", "parallel.retrieval", "parallel.oe",
              "ops.cuda_single", "ops.cuda_basis_single", "ops.chi",
              "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer",
-             "ops.lut", "parallel.sharded_lut"):
+             "ops.lut", "parallel.sharded_lut", "ops.voigt", "ops.planck",
+             "forward.rt", "spectra", "utils.profiling", "utils.debug"):
     assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
 import ablate_basis
@@ -46,9 +49,12 @@ J = torch.func.jacfwd(lambda T: nadir_single_layer(
     torch.linspace(660.0, 670.0, 64, dtype=torch.float64), dl, T, 500.0,
     2e27, 0.95, 260.0))(torch.tensor(215.0, dtype=torch.float64))
 assert bool(torch.isfinite(J).all()) and J.shape == (64,)
-for cmd in ("forward", "retrieve"):
+for cmd, extra in (("forward", []), ("retrieve", []),
+                   ("forward", ["-o", "compute.variant=weideman", "-o",
+                                "run.save_optics=true"])):
     sys.argv = ["spectrobot_tpu_torch", cmd, {toml!r}, "--device", "cpu",
-                "-o", "run.output_dir=" + {out!r}, "-o", "retrieval.max_iter=2"]
+                "-o", "run.output_dir=" + {out!r}, "-o", "retrieval.max_iter=2",
+                *extra]
     try:
         runpy.run_module("spectrobot_tpu_torch", run_name="__main__")
     except SystemExit as e:
@@ -87,3 +93,4 @@ def test_port_runs_without_jax(tmp_path, block):
     assert "max rel grad diff" in proc.stdout       # the adjoint tool ran
     assert (out / "forward.npz").exists()
     assert (out / "retrieval.npz").exists() and (out / "run.jsonl").exists()
+    assert (out / "optics.npz").exists()

@@ -1,5 +1,5 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
-halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut}.py).  :func:`run`
+halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut,weideman}.py).  :func:`run`
 starts ``world`` gloo ranks with ``torch.multiprocessing.spawn``; each runs
 one case function of this module on numpy inputs made by the calling test
 and saves what it returns.
@@ -343,6 +343,25 @@ def cli_case(rank, world, toml, runs):
                           MASTER_PORT=str(port))
         assert cli.main([argv[0], toml, "--device", "cpu", *argv[1:]]) == 0
     return None
+
+
+def weideman_halo_case(rank, world, toml):
+    """The CLI's scene of ``toml`` (compute.variant = "weideman", the
+    nu-halo tier) on a (1, 1, world) mesh: the sharded forward and
+    temperature Jacobian at the prior through the engine ``select_engine``
+    gives, and that engine's name."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.config import load_config
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+    cfg = load_config(toml)
+    engine = cli.select_engine(cfg, CPU)
+    scene = cli.build_scene(cfg, CPU)
+    atm = scene.atm.to(scene.nu.dtype)
+    state = make_state(atm, [])
+    oe = cli.sharded_problem(cfg, scene, _mesh((1, 1, world)), atm, state,
+                             engine)
+    x0 = flatten_state(state)[0]
+    return oe.forward_flat(x0), oe.jacobian(x0), engine.name
 
 
 # ---------------------------------------------------------------------------
