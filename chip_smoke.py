@@ -6,8 +6,9 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: the seven kernels from spectrobot_tpu_torch/csrc (one nvcc
-     each, started together), with their ptxas reports;
+  2. build: the seven kernels and the FMA measurement kernel from
+     spectrobot_tpu_torch/csrc (one nvcc each, started together), with
+     their ptxas reports;
   3. K1 (the line sum) against its plain PyTorch version on the card, in
      float32: the forward's own limb and nadir inputs
      (examples/mars_limb.toml) and the reference bench's production scale
@@ -139,16 +140,40 @@ Phases, each of which raises (non-zero exit) on failure:
      call's share and the plain build's time, and the forward wall, the
      Jacobian (and its peak memory) and the LM iteration through each
      table beside the direct ones.
+  6i. (run after phase 7, on phase 6c's process group) the measurement
+     tools at the reference's TPU sizes: first the bench's limb-scan and
+     fused scenes through the kernels against the plain engine on the
+     same state (radiances within K1's budget, the Jacobians, K2 at R =
+     64, within K2_REL of max|ref|); the six measurements of
+     spectrobot_tpu_torch.bench (every value finite and positive; K1 once
+     a forward, K1 and K2 once a Jacobian, K3 once a dense call; the (1,
+     1, 1) mesh forward within MESH_RTOL of one device; the FMA ceiling at
+     most FMA_SLACK x the data sheet's 67 TFLOP/s and the dense kernel at
+     most FMA_SLACK x 100 % of it); the FMA measurement kernel
+     (csrc/fma_peak.cu) bit-equal to its plain chain (fmaf emulated
+     exactly) at depths 64 and 256 on the bench's 2^24 ones and on 2^24
+     random values; jac_kernel_bench's line; scaling at n = 1 in both
+     tiers with its 1-device overhead record; trace_summary of the fused
+     Jacobian (K2's kernel among its families); run_demo (converged, mean
+     |dT| below the 7 K start, its spectrum file and, where matplotlib is
+     installed, its two figures written); each sub-phase's wall time
+     beside the card.
+With --profiler-misses ROUNDS, phase 6e also counts how often a profiler
+window misses the fused-halo kernel, with and without the host wait of
+its check (profiler_misses).
 The card's name and power limit (as nvidia-smi prints them) and the kernel
-table as JSON are the two lines before the last; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
+table as JSON (the seven ports under "kernels", the FMA measurement kernel
+apart under "measurement_kernels") are the two lines before the last; the
+last line is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -161,6 +186,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from spectrobot_tpu_torch.roofline import (
+    HBM_BYTES_S, REGION_FLOPS, REGION_FLOPS_GRAD, REGIONS, basis_batch_bytes,
+    basis_bound_ms, bound_ms, line_sum_inputs, region_counts)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(REPO, "examples", "mars_limb.toml")
@@ -180,6 +209,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "dma_halo": ("spectrobot_tpu_torch/csrc/dma_halo.cu",
                  "benchmarks/dma_halo.py:102"),
 }
+# Measurement kernels: no TPU kernel is ported (bench.bench_roofline's FMA
+# ceiling).
+MEASUREMENT_KERNELS = {
+    "fma_peak": ("spectrobot_tpu_torch/csrc/fma_peak.cu", None)}
 # K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
 RTOL, ATOL_REL = 3e-5, 1e-6
@@ -199,25 +232,6 @@ ADJ_REL = 1e-5
 # The reverse gradient of the retrieval cost against J^T dL/dy and against
 # the plain engine's: rtol, and atol as a share of max |g|.
 GRAD_RTOL, GRAD_ATOL_REL = 2e-5, 1e-5
-# The bound of a kernel: the flops its inputs need over the H100's
-# 67 TFLOP/s FP32 rate, or its bytes over 3.35 TB/s (NVIDIA's SXM data
-# sheet), whichever is larger.  Flops: every (point, line) pair within the
-# cutoff of a live state evaluates the one Humlicek region its (x, y) lies
-# in; a region's cost is the step between consecutive tiers of the
-# reference's per-pair audit (bench.py:335-336, TIER_FLOPS = far 14, mid
-# 55, near3 165, near4 300 and TIER_FLOPS_GRAD = 30, 80, 360, 550, one
-# transcendental = 8 flops; each tier adds one region to the branchless
-# evaluation); plus 4 pipeline flops a pair (dnu, x, broadcast, mask) and
-# 2 per FMA of the contraction.  K2 and K4 contract on the tensor cores
-# in three TF32 passes: their bound is the largest of the basis flops (4
-# per pair and the region's) over the FP32 rate, the contraction's flops
-# (2 per FMA, 4 R FMAs a pair) times TF32_PASSES over the TF32 rate (495
-# TFLOP/s dense, the same sheet) and the bytes over the memory rate.
-REGIONS = ("I", "II", "III", "IV")
-REGION_FLOPS = dict(zip(REGIONS, (14.0, 41.0, 110.0, 135.0)))
-REGION_FLOPS_GRAD = dict(zip(REGIONS, (30.0, 50.0, 280.0, 190.0)))
-FP32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
-TF32_PASSES = 3
 # Acceptance config 1 (tests/test_config1_golden.py: co2_15um_band(j_max=30),
 # 3001 points over 630-705 cm-1): one layer over a blackbody surface.
 CONFIG1 = dict(T_layer=215.0, p_layer_pa=500.0, column_m2=2.0e27,
@@ -230,10 +244,10 @@ ORACLE_RTOL, ORACLE_ATOL_REL = 5e-3, 1e-4
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_dma, cuda_opacity, cuda_single,
-        cuda_transpose)
+        cuda_basis, cuda_basis_single, cuda_dma, cuda_fma, cuda_opacity,
+        cuda_single, cuda_transpose)
     for m in (cuda_opacity, cuda_basis, cuda_transpose, cuda_single,
-              cuda_basis_single):
+              cuda_basis_single, cuda_fma):
         m.LAUNCHES = 0
     cuda_dma.RING_LAUNCHES = cuda_dma.HALO_LAUNCHES = 0
 
@@ -241,13 +255,14 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     """Each kernel's launches since the last :func:`reset_launches`."""
     from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_dma, cuda_opacity, cuda_single,
-        cuda_transpose)
+        cuda_basis, cuda_basis_single, cuda_dma, cuda_fma, cuda_opacity,
+        cuda_single, cuda_transpose)
     return {"K1": cuda_opacity.LAUNCHES, "K2": cuda_basis.LAUNCHES,
             "K5": cuda_transpose.LAUNCHES, "K3": cuda_single.LAUNCHES,
             "K4": cuda_basis_single.LAUNCHES,
             "dma_ring": cuda_dma.RING_LAUNCHES,
-            "dma_halo": cuda_dma.HALO_LAUNCHES}
+            "dma_halo": cuda_dma.HALO_LAUNCHES,
+            "fma_peak": cuda_fma.LAUNCHES}
 
 
 def expect_launches(what: str, n: dict, **want) -> None:
@@ -272,25 +287,6 @@ class K1Case(NamedTuple):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip smoke failed: {what}")
-
-
-def line_sum_inputs(run) -> tuple:
-    """The line sum's inputs as a forward gives them to K1: ``run(engine)``
-    drives the forward on an engine that records them and returns zeros.
-    Returns (nu_off, windows, nu_c, sx, y, amps), states float32."""
-    from spectrobot_tpu_torch.ops.opacity import Engine
-
-    seen = []
-
-    def record(nu, windows, nu_c, sx, y, amps, **kw):
-        seen.append((nu, windows) + tuple(
-            a.detach().float().contiguous() for a in (nu_c, sx, y, amps)))
-        return torch.zeros(amps.shape[:-1] + nu.shape, dtype=nu.dtype,
-                           device=nu.device)
-
-    run(Engine("record", record, None))
-    (inputs,) = seen
-    return inputs
 
 
 def _chi(nu_c, seed):
@@ -1804,6 +1800,201 @@ def weideman_phase(dev, cfg, scene, I, J, card: str) -> None:
           f"warm-up)")
 
 
+# Phase 6i: the measurement tools (bench, jac_kernel_bench, scaling,
+# trace_summary, run_demo) on the card, at the reference's TPU sizes.
+# The launches per call each bench scene must make.
+FWD_JAC_LAUNCHES = {"forward": {"K1": 1, "K2": 0, "K3": 0},
+                    "jacobian": {"K1": 1, "K2": 1, "K3": 0}}
+BENCH_LAUNCHES = {
+    "limb_scan_forward_jacobian_wall_s": FWD_JAC_LAUNCHES,
+    "fused_pallas_forward_jacobian_wall_s": FWD_JAC_LAUNCHES,
+    "voigt_opacity_dense_evals_per_s_per_chip": {"K1": 0, "K2": 0, "K3": 1}}
+# FP32 peak of the H100 SXM data sheet; a measured FMA ceiling may not
+# pass it by more than FMA_SLACK (clocks above base), nor the dense
+# kernel's required flops the measured ceiling.
+FMA_SLACK = 1.05
+
+
+def tools_phase(dev, mesh, card: str) -> dict:
+    """Phase 6i on the card: the bench's limb-scan and fused scenes
+    through the kernels against the plain engine; (a) ``bench.run``'s six
+    measurements at the reference's TPU sizes (every value finite and
+    positive; the launches per call of each scene; the mesh forward within
+    MESH_RTOL of one device; the FMA ceiling and the dense kernel's share
+    of it); then the FMA kernel bit-equal to its plain chain; (b)
+    ``jac_kernel_bench``'s line; (c) ``scaling`` at n = 1 in both tiers on
+    ``mesh`` (phase 6c's (1, 1, 1) mesh) with its 1-device overhead
+    record; (d) ``trace_summary``'s families of the fused Jacobian (K2's
+    kernel among them); (e) ``run_demo`` into a temporary directory
+    (converged, mean |dT| below the 7 K start, its spectrum file and, where
+    matplotlib is installed, its figures written).  Each sub-phase's wall
+    time beside ``card``.  Returns the bench's launches, the FMA kernel's
+    row and its times."""
+    from spectrobot_tpu_torch import (
+        bench, jac_kernel_bench, run_demo, scaling, trace_summary)
+    from spectrobot_tpu_torch.ops import cuda_fma
+    from spectrobot_tpu_torch.ops.cuda_basis import PLAIN
+    from spectrobot_tpu_torch.roofline import FP32_FLOPS
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"time 6i {name} [{card}]: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    # The bench's two limb scenes through the kernels (K1 in the forward,
+    # K1 and K2 at R = 2 n_x in the Jacobian) against the plain engine on
+    # the same x0, before any timing: K1's budget on the radiances, K2's
+    # on the Jacobian.
+    for name, scene in (("limb scan", bench.limb_scan_scene),
+                        ("fused", bench.fused_scene)):
+        got, ref = timed(f"{name} scene vs plain", lambda: [
+            (fwd(x0), jac(x0)) for fwd, jac, x0 in (
+                scene(dev), scene(dev, engine=PLAIN))])
+        (I, J), (I_ref, J_ref) = got, ref
+        worst = float(((I - I_ref).abs() / (
+            RTOL * I_ref.abs() + ATOL_REL * I_ref.abs().max())).max())
+        j_err, j_max = float((J - J_ref).abs().max()), float(
+            J_ref.abs().max())
+        print(f"bench {name} scene, kernels vs plain: radiances "
+              f"{tuple(I.shape)} at {worst:.3e} of K1's budget; Jacobian "
+              f"{tuple(J.shape)} max |err| {j_err:.3e} of max |ref| "
+              f"{j_max:.3e} ({j_err / (K2_REL * j_max):.3e} of K2's budget)")
+        check(bool(torch.isfinite(I).all() and torch.isfinite(J).all()),
+              f"the bench {name} scene: non-finite output")
+        check(worst <= 1.0, f"the bench {name} scene's radiances disagree "
+                            f"with the plain engine's")
+        check(j_err <= K2_REL * j_max, f"the bench {name} scene's Jacobian "
+                                       f"disagrees with the plain engine's")
+        del got, ref, I, J, I_ref, J_ref
+
+    # (a) The six measurements; one timed chain each (the sizes stay).
+    reset_launches()
+    records = timed("bench", lambda: bench.run(dev, n_rep=1))
+    n = launch_counts()
+    print(f"bench launches: {json.dumps(n)}")
+    for r in records:
+        check(math.isfinite(r["value"]) and r["value"] > 0,
+              f"bench {r['metric']}: value {r['value']}")
+        want = BENCH_LAUNCHES.get(r["metric"])
+        if want is not None:
+            got = r["launches_per_call"]
+            check(got == want, f"bench {r['metric']} launched {got} a "
+                               f"call, not {want}")
+    check(all(n[k] > 0 for k in ("K1", "K2", "K3", "fma_peak")),
+          f"the bench did not launch every kernel of its path: {n}")
+    by = {r["metric"]: r for r in records}
+    diff = by["sharded_pallas_forward_wall_s"]["max_rel_diff_vs_single"]
+    check(diff <= MESH_RTOL, f"the bench's mesh forward is {diff:.3e} of "
+                             f"max off the single device's")
+    roof = by["kernel_roofline_pct_of_fp32_peak"]
+    check(roof["fma_ceiling_flops"] <= FMA_SLACK * FP32_FLOPS,
+          f"FMA ceiling {roof['fma_ceiling_flops']:.4g} FLOP/s above the "
+          f"data sheet's {FP32_FLOPS:.4g}")
+    check(roof["value"] <= 100 * FMA_SLACK,
+          f"the dense kernel at {roof['value']:.1f} % of the FMA ceiling")
+
+    # The FMA kernel against its plain chain (fmaf emulated exactly), bit
+    # for bit at both timed depths, on the bench's own input (ones) and on
+    # random values of the same size.
+    N = roof["fma_elements"]
+    ones = torch.ones(N, device=dev)
+    fma_err = 0.0
+    for name, x in (("ones", ones), ("random", torch.rand(
+            N, device=dev, generator=torch.Generator(dev).manual_seed(70))
+            + 0.5)):
+        for depth in (64, 256):
+            got = cuda_fma.fma_chain(x, bench.FMA_A, bench.FMA_B, depth)
+            ref = cuda_fma.fma_chain_plain(x, bench.FMA_A, bench.FMA_B,
+                                           depth)
+            err = float((got - ref).abs().max())
+            fma_err = max(fma_err, err)
+            print(f"FMA kernel vs plain chain, {N} {name} floats, depth "
+                  f"{depth}: max |err| {err:.3e}, "
+                  f"{int(got.ne(ref).sum())} elements differ")
+            check(torch.equal(got, ref), f"the FMA kernel is not bit-equal "
+                                         f"to its plain chain at depth "
+                                         f"{depth} ({name})")
+    depth = max(int(k) for k in roof["fma_ceiling_by_depth"])
+    fma_ms = 1e3 * 2.0 * depth * N / roof["fma_ceiling_by_depth"][str(depth)]
+    fma_plain_ms = cuda_ms(lambda: cuda_fma.fma_chain_plain(
+        ones, bench.FMA_A, bench.FMA_B, depth), n=3)
+    t_ops, t_bytes = 2.0 * depth * N / FP32_FLOPS, 8.0 * N / HBM_BYTES_S
+    fma_bound = (1e3 * max(t_ops, t_bytes),
+                 "operations" if t_ops >= t_bytes else "bytes")
+    print(f"time FMA kernel [{card}]: depth {depth} on {N} floats "
+          f"{fma_ms:.4f} ms (bench's chain), plain chain {fma_plain_ms:.3f} "
+          f"ms, bound {fma_bound[0]:.4f} ms ({fma_bound[1]})")
+
+    # (b) The Jacobian timer.
+    timed("jac_kernel_bench", lambda: jac_kernel_bench.main(
+        ["chip_smoke", "--n-rep", "1"]))
+
+    # (c) Weak scaling at n = 1 in both tiers, and the overhead record.
+    dl, cg = scaling.scene(dev, torch.float32)
+    over = timed("scaling overhead", lambda: scaling.overhead_record(
+        mesh, dl, cg, 2048, reps=5))
+    print(json.dumps(over))
+    for halo in (False, True):
+        (rec,) = scaling.with_efficiency([timed(
+            f"scaling {'nu-halo' if halo else 'psum'}",
+            lambda: scaling.scaling_record(mesh, dl, cg, 2048, 5, halo))])
+        print(json.dumps(rec))
+        check(math.isfinite(rec["wall_s"]) and rec["wall_s"] > 0,
+              f"scaling: wall {rec['wall_s']}")
+    check(all(math.isfinite(over[k]) and over[k] > 0
+              for k in ("t_plain_s", "t_mesh_s")),
+          f"scaling overhead record {over}")
+
+    # (d) The fused Jacobian's device time by family.
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = timed("trace_summary", lambda: trace_summary.capture(
+            dev, "jac", reps=3, log_dir=tmp))
+    total = sum(r[0] for r in rows)
+    print(f"trace_summary jac: device total per call {total:.3f} ms")
+    for row in rows[:trace_summary.TOP]:
+        flag = ("  <-- per-segment loop?"
+                if trace_summary.flagged(row, total) else "")
+        print(f"  {row[0]:10.3f} ms  x{row[1]:8.1f}  {row[2][:100]}{flag}")
+    check(any("basis_batch_kernel" in r[2] for r in rows),
+          "the fused Jacobian's trace holds no K2 (basis_batch_kernel)")
+
+    # (e) The library walkthrough.
+    # The two figures need matplotlib, which a machine may lack (the
+    # figures are optional, as the CLI's are); the spectrum file does not.
+    want = ["limb_spectrum.npz"] + (
+        ["limb_radiances.png", "retrieved_T.png"]
+        if importlib.util.find_spec("matplotlib") else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        demo = timed("run_demo", lambda: run_demo.run(dev, tmp))
+        files = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in os.listdir(tmp)}
+    dT = float(np.abs(demo["res"].x - demo["x_true"]).mean())
+    print(f"run_demo: converged {demo['res'].converged} in "
+          f"{demo['res'].n_iter} LM iterations, mean |dT| {dT:.3f} K; files "
+          f"{json.dumps(files)}")
+    check(demo["res"].converged, "run_demo's retrieval did not converge")
+    check(dT < 7.0, f"run_demo's mean |dT| {dT:.3f} K is not below 7 K")
+    check(sorted(files) == sorted(want)
+          and all(v > 0 for v in files.values()),
+          f"run_demo wrote {files}, not {want}")
+    return {"fma": {"launches": n["fma_peak"], "max_abs_err": fma_err,
+                    "ms": fma_ms, "plain_ms": fma_plain_ms,
+                    "bound": fma_bound}}
+
+
+def release_cache(before: str) -> None:
+    """Free the allocator's cached blocks and print what it held."""
+    reserved = torch.cuda.memory_reserved() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before {before}: reserved {reserved:.2f} GB "
+          f"-> {torch.cuda.memory_reserved() / 1e9:.2f} GB (allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+
+
 def wall_ms(fn, n: int = 3) -> float:
     """Median host wall of ``fn`` (to the device's end) over ``n`` calls
     after a warm-up [ms]."""
@@ -1857,12 +2048,13 @@ def halo_partition(case: K3Case, nu0: torch.Tensor, n: int,
 
 
 def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
-              dense_lines=20480) -> dict:
+              dense_lines=20480, miss_rounds: int = 0) -> dict:
     """Phase 6e: the remote-copy halo tier on the loopback ring of this
     card, through spectrobot_tpu_torch.dma_halo's entry points.  Each call
     runs twice in a row (the epoch protocol across calls).  Returns the
     launch counts, the errors, the times and the bounds of the ring and
-    fused kernels."""
+    fused kernels.  ``miss_rounds`` > 0 also measures the profiler's miss
+    rate on the fused cases (:func:`profiler_misses`)."""
     import types
 
     from spectrobot_tpu_torch import dma_halo
@@ -1958,6 +2150,15 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
           f"1, 2, 3, 4, 8 at 7 x 143, both directions, twice each; 50 calls "
           f"back to back at n = 3) and ring_halo_lines (dense case, 4 "
           f"shards, twice): {len(rolls)} results bit-equal to the roll")
+    if miss_rounds:
+        def maker(c, n, cut, skl):
+            def make():
+                f = dma_halo.fused_halo_accumulate_fn(rings[n],
+                                                      cutoff_cm1=cut)
+                return lambda: f(c.nu, skl)
+            return make
+        profiler_misses([maker(c, n, cut, parts[name, n, cut])
+                         for name, c, _, n, cut in fused_cases], miss_rounds)
     rows = {}
     for name, c, _, n, cut in fused_cases:
         skl = parts[name, n, cut]
@@ -2024,8 +2225,8 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
                             packed[(k + 1) % 4]], dim=-1)
         one = K1Case("dense shard", nu4[k], no_windows, rows_k[0][None],
                      rows_k[1][None], rows_k[2][None], rows_k[3:][None], None)
-        for r, v in region_counts(one, torch.ones(1, dtype=torch.bool,
-                                                  device=dev)).items():
+        for r, v in case_region_counts(one, torch.ones(
+                1, dtype=torch.bool, device=dev)).items():
             pairs[r] += v
     n_out, P = packed.shape[1] - 3, dense.nu.shape[0]
     bounds = {
@@ -2066,52 +2267,14 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
             "bounds": bounds, "ring_err": ring_err}
 
 
-def region_counts(case: K1Case, live: torch.Tensor) -> dict:
-    """The (point, line) pairs within the cutoff of the ``live`` states [B]
-    of the case, by the Humlicek region their (x, y) lies in (s = |x| + y:
-    I s >= 15, II s >= 5.5, IV y < 0.195 |x| - 0.176, else III), counted on
-    the card."""
-    cut = math.inf if case.windows.cutoff_cm1 is None \
-        else case.windows.cutoff_cm1
-    n = torch.zeros(4, dtype=torch.int64, device=case.nu.device)
-    for g in torch.nonzero(live)[:, 0].split(8):
-        dnu = case.nu[None, None, :] - case.nu_c[g][:, :, None]
-        x = dnu * case.sx[g][:, :, None]
-        y = case.y[g][:, :, None].expand_as(x)
-        s_ = x.abs() + y
-        inside = dnu.abs() <= cut
-        r1, r2 = s_ >= 15.0, (s_ >= 5.5) & (s_ < 15.0)
-        r4 = (s_ < 5.5) & (y < 0.195 * x.abs() - 0.176)
-        r3 = (s_ < 5.5) & ~r4
-        n += torch.stack([(r & inside).sum() for r in (r1, r2, r3, r4)])
-    return dict(zip(REGIONS, (int(v) for v in n.cpu())))
+def case_region_counts(case: K1Case, live: torch.Tensor) -> dict:
+    """``roofline.region_counts`` of the ``live`` states [B] of a case."""
+    return region_counts(case.nu, case.nu_c, case.sx, case.y, live,
+                         case.windows.cutoff_cm1)
 
 
-def bound_ms(pairs: dict, flops: dict, per_pair: float,
-             n_bytes: float) -> tuple:
-    """(bound in ms, what bounds it): the larger of the pairs' flops (by
-    region, plus ``per_pair`` flops each) over the FP32 rate and ``n_bytes``
-    over the memory rate."""
-    ops = sum(n * (flops[r] + per_pair) for r, n in pairs.items())
-    t_ops, t_bytes = ops / FP32_FLOPS, n_bytes / HBM_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def basis_bound_ms(pairs: dict, R: int, n_bytes: float) -> tuple:
-    """(bound in ms, what bounds it, which term) of K2 or K4 at ``R`` rows:
-    the largest of the basis's flops over the FP32 rate, the contraction's
-    TF32_PASSES passes over the TF32 rate, and ``n_bytes`` over the memory
-    rate."""
-    n = sum(pairs.values())
-    terms = {
-        "FP32 basis": sum(v * (REGION_FLOPS_GRAD[r] + 4.0)
-                          for r, v in pairs.items()) / FP32_FLOPS,
-        "TF32 contraction": TF32_PASSES * n * 8.0 * R / TF32_FLOPS,
-        "bytes": n_bytes / HBM_BYTES_S}
-    term = max(terms, key=terms.get)
-    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
-            term)
+# Host seconds a profiler window waits before the calls it records.
+PROFILER_SETTLE_S = 0.05
 
 
 def kernel_ms(call, kernel: str, n: int = 10) -> float:
@@ -2131,27 +2294,69 @@ def kernel_ms(call, kernel: str, n: int = 10) -> float:
             / max(sum(e.count for e in found), 1))
 
 
-def device_kernels(call, n: int = 3, windows: int = 3) -> list:
-    """The names of the device kernels that ``n`` warm calls of ``call``
-    launch, from the first of up to ``windows`` profiler windows that
-    records any (``torch.profiler`` may miss the event of a launch made
-    through ctypes, and once recorded none of three short launches in a
-    window, but adds none)."""
+def profiler_window(call, n: int, settle: float) -> list:
+    """The names of the device kernels that one torch.profiler window
+    records over ``n`` calls of ``call``, begun after ``settle`` seconds of
+    host wait inside the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle)
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_kernels(call, n: int = 3, windows: int = 3) -> list:
+    """The names of the device kernels that ``n`` warm calls of ``call``
+    launch, from the first of up to ``windows`` profiler windows that
+    records any (``torch.profiler`` may miss the events of a window's
+    ctypes launches, but adds none).  Each window waits
+    ``PROFILER_SETTLE_S`` on the host before its calls: windows that began
+    their calls at once recorded no launch in 8 of 720, those that waited
+    in none of 720 (``profiler_misses``, 20 and 60 rounds in two runs on
+    the card)."""
     call()
     torch.cuda.synchronize()
     for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                call()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        names = profiler_window(call, n, PROFILER_SETTLE_S)
         if names:
             break
     return names
+
+
+def profiler_misses(makers: list, rounds: int) -> None:
+    """How often a profiler window misses the fused-halo kernel (``python3
+    chip_smoke.py --profiler-misses ROUNDS``, in phase 6e): for each case
+    (``makers``: each makes a fresh call) and round, a fresh call and
+    its warm-up, then one window of 3 calls with no wait and one with
+    ``PROFILER_SETTLE_S`` (in turns, the first alternating by round).  Per
+    wait: windows, windows that record no launch, windows that record
+    fewer than 3, and the longest run of windows without a record."""
+    stats = {w: {"windows": 0, "none": 0, "short": 0, "longest_none_run": 0,
+                 "_run": 0} for w in (0.0, PROFILER_SETTLE_S)}
+    for r in range(rounds):
+        for make in makers:
+            call = make()
+            call()
+            torch.cuda.synchronize()
+            order = (0.0, PROFILER_SETTLE_S)
+            for w in (order if r % 2 else order[::-1]):
+                k = sum("dma_halo_kernel" in name
+                        for name in profiler_window(call, 3, w))
+                st = stats[w]
+                st["windows"] += 1
+                st["none"] += k == 0
+                st["short"] += k < 3
+                st["_run"] = st["_run"] + 1 if k == 0 else 0
+                st["longest_none_run"] = max(st["longest_none_run"],
+                                             st["_run"])
+    out = {f"settle {w} s": {k: v for k, v in st.items() if k != "_run"}
+           for w, st in stats.items()}
+    print(f"profiler misses over {len(makers)} fused-halo cases x {rounds} "
+          f"rounds: {json.dumps(out)}")
 
 
 def cuda_ms(fn, n: int = 5) -> float:
@@ -2180,14 +2385,23 @@ def build_kernels() -> None:
         path, log = build.build(name)
         return name, path, log, time.time() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for name, path, log, secs in pool.map(one, KERNELS):
+    names = [*KERNELS, *MEASUREMENT_KERNELS]
+    with ThreadPoolExecutor(len(names)) as pool:
+        for name, path, log, secs in pool.map(one, names):
             print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s")
             for line in log.splitlines():
                 print(f"  nvcc {name}: {line}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                            "CUDA GPU.")
+    p.add_argument("--profiler-misses", type=int, default=0, metavar="ROUNDS",
+                   help="in phase 6e, also measure how often a profiler "
+                        "window misses the fused-halo kernel, with and "
+                        "without its host wait (ROUNDS windows of each a "
+                        "case)")
+    args = p.parse_args(argv)
     # Phase 1: environment.
     if not torch.cuda.is_available():
         print("chip smoke: no CUDA device", file=sys.stderr)
@@ -2198,6 +2412,7 @@ def main() -> int:
     from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
     from spectrobot_tpu_torch.ops import cuda_dma as cd
+    from spectrobot_tpu_torch.ops import cuda_fma
     from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
@@ -2222,6 +2437,7 @@ def main() -> int:
     cbs._library()
     peer.library()
     cd._library()
+    cuda_fma._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -2467,7 +2683,7 @@ def main() -> int:
 
     # Phase 6e: the remote-copy halo tier on the loopback ring.
     dma = dma_phase(dev, cases3["bench state"], bench_device_lines(dev).nu0,
-                    cases3["dense"])
+                    cases3["dense"], miss_rounds=args.profiler_misses)
 
     # Phase 6f: acceptance config 3 and the composed features.
     c3 = config3_phase(dev, mesh["mesh"])
@@ -2481,14 +2697,9 @@ def main() -> int:
     # utilities.
     weideman_phase(dev, cfg, scene, I, J, card)
     # Release the allocator's cache (phase 6f's composed Jacobian alone
-    # peaks near 25 GB): phase 7 times each call's own allocations, not
-    # the allocator freeing and retrying on a full device.
-    reserved = torch.cuda.memory_reserved() / 1e9
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"device memory before the timings: reserved {reserved:.2f} GB "
-          f"-> {torch.cuda.memory_reserved() / 1e9:.2f} GB (allocated "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    # peaks near 25 GB): phases 7 and 6i time each call's own allocations,
+    # not the allocator freeing and retrying on a full device.
+    release_cache("the timings")
 
     # Phase 7: timings.
     def k1(case, fn):
@@ -2572,8 +2783,8 @@ def main() -> int:
         L, P, n_out = c.nu_c.shape[0], c.nu.shape[0], c.amps.shape[0]
         times["K3", name] = (cuda_ms(k3(c, cs.accumulate_single)),
                              cuda_ms(k3(c, plain3)))
-        pairs = region_counts(c.as_batch(), torch.ones(1, dtype=torch.bool,
-                                                       device=dev))
+        pairs = case_region_counts(c.as_batch(), torch.ones(
+            1, dtype=torch.bool, device=dev))
         k3_bounds[name] = bound_ms(pairs, REGION_FLOPS, 4.0 + 2 * n_out,
                                    4.0 * (P + 3 * L + n_out * (L + P)))
         print(f"time K3 {name} [{card}]: kernel {times['K3', name][0]:.3f} "
@@ -2598,8 +2809,8 @@ def main() -> int:
         L, P, R = c.nu_c.shape[0], c.nu.shape[0], c.C[0].shape[0]
         times["K4", name] = (cuda_ms(k4(c, cbs.basis_contract_single)),
                              cuda_ms(k4(c, plain4)))
-        pairs = region_counts(c.as_batch(), torch.ones(1, dtype=torch.bool,
-                                                       device=dev))
+        pairs = case_region_counts(c.as_batch(), torch.ones(
+            1, dtype=torch.bool, device=dev))
         n_bytes = 4.0 * (P + 3 * L + 4 * R * L + R * P
                          + (0 if c.chi_b is None else L))
         k4_bounds[name] = basis_bound_ms(pairs, R, n_bytes)
@@ -2660,12 +2871,11 @@ def main() -> int:
               c.nu, c.windows, c.nu_c, c.sx, c.y, *c3["C"])),),
           "K5": (cuda_ms(lambda: ctr.basis_transpose_batch(
               c.nu, c.windows, c.nu_c, c.sx, c.y, c3["ct"])),)}
-    p1 = region_counts(c, c.amps.flatten(1).ne(0).any(1))
-    p5 = region_counts(c, c3["ct"].flatten(1).ne(0).any(1))
+    p1 = case_region_counts(c, c.amps.flatten(1).ne(0).any(1))
+    p5 = case_region_counts(c, c3["ct"].flatten(1).ne(0).any(1))
     b3 = {"K1": bound_ms(p1, REGION_FLOPS, 4.0 + 2 * 2, lines3 + 4.0 * (
               2 * B3 * L3 + 2 * B3 * P3)),
-          "K2": basis_bound_ms(p1, R3, lines3 + 4.0 * (
-              4 * B3 * R3 * L3 + B3 * R3 * P3)),
+          "K2": basis_bound_ms(p1, R3, basis_batch_bytes(B3, L3, P3, R3)),
           "K5": bound_ms(p5, REGION_FLOPS_GRAD, 4.0 + 8 * 2, lines3 + 4.0 * (
               B3 * 2 * P3 + 4 * B3 * 2 * L3))}
     print(f"time config 3 kernels [{card}] ({B3} states x {L3} lines x "
@@ -2710,6 +2920,12 @@ def main() -> int:
               f"{peak_dir[0]:.2f} GB; LM "
               f"iteration median {1e3 * np.median(t['iter_walls']):.2f} vs "
               f"{1e3 * np.median(walls_dir):.2f} ms (run.jsonl)")
+
+    # Phase 6i: the measurement tools at the reference's TPU sizes, after
+    # phase 7's timings (its FMA chains at full load and its plain scenes
+    # stay out of them), on phase 6c's process group.
+    release_cache("the tools")
+    tools = tools_phase(dev, mesh["mesh"], card)
     torch.distributed.destroy_process_group()
 
     # Each kernel's bound at its timed limb inputs: K1 and K2 over the
@@ -2718,14 +2934,15 @@ def main() -> int:
     B, L, P = c.nu_c.shape[0], c.nu_c.shape[1], c.nu.shape[0]
     lines_in = 4.0 * (P + 3 * B * L)                 # nu; nu_c, sx, y
     amps_live = c.amps.flatten(1).ne(0).any(1)
-    k1_pairs = region_counts(c, amps_live)
-    k5_pairs = region_counts(c, cots["limb", 2].flatten(1).ne(0).any(1))
+    k1_pairs = case_region_counts(c, amps_live)
+    k5_pairs = case_region_counts(c,
+                                  cots["limb", 2].flatten(1).ne(0).any(1))
     R2 = 2 * K2_COLUMNS
     bounds = {
         "opacity_batch": bound_ms(k1_pairs, REGION_FLOPS, 4.0 + 2 * 2,
                                   lines_in + 4.0 * (2 * B * L + 2 * B * P)),
-        "basis_batch": basis_bound_ms(k1_pairs, R2, lines_in + 4.0 * (
-            4 * B * R2 * L + B * R2 * P)),
+        "basis_batch": basis_bound_ms(k1_pairs, R2,
+                                      basis_batch_bytes(B, L, P, R2)),
         "basis_transpose": bound_ms(k5_pairs, REGION_FLOPS_GRAD,
                                     4.0 + 8 * 2,
                                     lines_in + 4.0 * (B * 2 * P
@@ -2735,7 +2952,7 @@ def main() -> int:
         **dma["bounds"],
     }
     k2_fp32 = bound_ms(k1_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * R2,
-                       lines_in + 4.0 * (4 * B * R2 * L + B * R2 * P))
+                       basis_batch_bytes(B, L, P, R2))
     print(f"K2 (limb, R = {R2}) bound {bounds['basis_batch'][0]:.4f} ms "
           f"({bounds['basis_batch'][2]}); FP32-core bound "
           f"{k2_fp32[0]:.4f} ms; K4 (dense, R = 6) bound "
@@ -2750,8 +2967,9 @@ def main() -> int:
     c = cases["bench"]
     Bb, Lb, Pb = c.nu_c.shape[0], c.nu_c.shape[1], c.nu.shape[0]
     lines_b = 4.0 * (Pb + 3 * Bb * Lb)
-    k1b_pairs = region_counts(c, c.amps.flatten(1).ne(0).any(1))
-    k5b_pairs = region_counts(c, cots["bench", 2].flatten(1).ne(0).any(1))
+    k1b_pairs = case_region_counts(c, c.amps.flatten(1).ne(0).any(1))
+    k5b_pairs = case_region_counts(c,
+                                   cots["bench", 2].flatten(1).ne(0).any(1))
     k1b = bound_ms(k1b_pairs, REGION_FLOPS, 4.0 + 2 * 2,
                    lines_b + 4.0 * (2 * Bb * Lb + 2 * Bb * Pb))
     k5b = bound_ms(k5b_pairs, REGION_FLOPS_GRAD, 4.0 + 8 * 2,
@@ -2786,7 +3004,16 @@ def main() -> int:
             ("dma_ring", dma["launches"]["dma_ring"],
              {"max_abs_err": dma["ring_err"]}, dma["times"]["dma_ring"]),
             ("dma_halo", dma["launches"]["dma_halo"],
-             dma["rows"]["dense", 4, 10.0], dma["times"]["dma_halo"]))]}))
+             dma["rows"]["dense", 4, 10.0], dma["times"]["dma_halo"]))],
+        "measurement_kernels": [
+            {"name": "fma_peak", "route": "cuda",
+             "source": MEASUREMENT_KERNELS["fma_peak"][0],
+             "replaces": MEASUREMENT_KERNELS["fma_peak"][1],
+             "launches": tools["fma"]["launches"],
+             "max_abs_err": tools["fma"]["max_abs_err"],
+             "ms": tools["fma"]["ms"], "plain_ms": tools["fma"]["plain_ms"],
+             "bound_ms": tools["fma"]["bound"][0],
+             "bound_by": tools["fma"]["bound"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

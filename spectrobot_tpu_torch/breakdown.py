@@ -48,6 +48,8 @@ from spectrobot_tpu_torch import cli
 
 # Calls per profiled window (and 4x as many unprofiled calls).
 N_CALLS = 5
+# The name of the profiled window's range.
+WINDOW = "breakdown_window"
 SCENE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "mars_limb.toml")
 
@@ -75,10 +77,34 @@ def _sync_wall_ms(fn, n: int) -> np.ndarray:
     return np.asarray(walls)
 
 
+def window_work(events, window: str = WINDOW, cuda: bool = True) -> tuple:
+    """The work a profiler recorded inside the range ``window`` (a
+    ``torch.profiler.record_function`` around the calls): (work, (start,
+    end)), ``work`` as [(name, start_us, end_us)] clipped to the window.
+    With ``cuda`` the device's kernels, copies and sets (not the device
+    side of a ``record_function`` range); else (a CPU run, no device
+    events) the operators the window called directly."""
+    from torch.autograd import DeviceType
+
+    # The window's own range (its device-side annotation is not work).
+    (win,) = [e for e in events if e.name == window
+              and e.device_type == DeviceType.CPU]
+    w0, w1 = win.time_range.start, win.time_range.end
+    if cuda:
+        found = [e for e in events if e.device_type == DeviceType.CUDA
+                 and e.name != window
+                 and not getattr(e, "is_user_annotation", False)]
+    else:
+        found = [e for e in events if e.cpu_parent is not None
+                 and e.cpu_parent.id == win.id]
+    work = [(e.name, max(e.time_range.start, w0), min(e.time_range.end, w1))
+            for e in found]
+    return work, (w0, w1)
+
+
 def measure(fn) -> dict:
     """The breakdown of ``fn`` (one warm call) described in the module
     docstring."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     n = N_CALLS
@@ -90,27 +116,19 @@ def measure(fn) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("breakdown_window"):
+        with record_function(WINDOW):
             for _ in range(n):
                 fn()
                 torch.cuda.synchronize()
-    events = prof.events()
-    # The window's own range (its device-side annotation is not work).
-    (window,) = [e for e in events if e.name == "breakdown_window"
-                 and e.device_type == DeviceType.CPU]
-    w0, w1 = window.time_range.start, window.time_range.end
-    work = [e for e in events if e.device_type == DeviceType.CUDA
-            and e.name != "breakdown_window"]
+    work, (w0, w1) = window_work(prof.events())
     if not work:
         raise RuntimeError("the profiler recorded no device events: no "
                            "device time to report")
-    device = [(max(e.time_range.start, w0), min(e.time_range.end, w1))
-              for e in work]
-    busy = busy_us(device) / n
+    busy = busy_us([(s, t) for _, s, t in work]) / n
     by_name = {}
-    for e, (s, t) in zip(work, device):
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + max(t - s, 0.0), count + 1)
+    for name, s, t in work:
+        us, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + max(t - s, 0.0), count + 1)
     window_ms = (w1 - w0) / 1e3 / n
     q1, med, q3 = np.percentile(walls, [25, 50, 75])
     return {
@@ -120,7 +138,7 @@ def measure(fn) -> dict:
         "device_busy_ms_per_call": busy / 1e3,
         "idle_share_profiled": 1.0 - busy / 1e3 / window_ms,
         "busy_over_unprofiled_wall": busy / 1e3 / float(med),
-        "device_events_per_call": len(device) / n,
+        "device_events_per_call": len(work) / n,
         "top_kernels": [{"name": k[:100], "ms_per_call": us / 1e3 / n,
                          "launches_per_call": count / n}
                         for k, (us, count) in sorted(

@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1, K2, K5, K3, K4 and the remote-copy tier's ring and
-fused halo kernels) on the card, and the CLI's mesh route and the
+"""The CUDA kernels (K1, K2, K5, K3, K4, the remote-copy tier's ring and
+fused halo kernels, and the FMA measurement kernel) on the card, and the CLI's mesh route and the
 remote-copy tier across the machine's cards (marker ``cuda``; skips without
 a GPU and nvcc, the multi-card tests without a second card).  Run on the
 card with ``python -m pytest -m cuda tests/``."""
@@ -961,3 +961,22 @@ def test_lut_build_runs_k1(cuda, tier):
     torch.cuda.synchronize()
     assert (co.LAUNCHES, cb.LAUNCHES) == (k1, k2)
     assert bool(torch.isfinite(J).all()) and float(J.abs().max()) > 0.0
+
+
+def test_fma_peak_runs(cuda):
+    """The measurement kernel csrc/fma_peak.cu: one launch a call,
+    bit-equal to its plain chain (fmaf emulated exactly), and a finite
+    FP32 FMA ceiling from the bench's timing."""
+    from spectrobot_tpu_torch import bench
+    from spectrobot_tpu_torch.ops import cuda_fma
+
+    x = torch.rand(1 << 16, device=cuda) + 0.5
+    for depth in cuda_fma.DEPTHS:
+        before = cuda_fma.LAUNCHES
+        got = cuda_fma.fma_chain(x, bench.FMA_A, bench.FMA_B, depth)
+        torch.cuda.synchronize()
+        assert cuda_fma.LAUNCHES == before + 1
+        ref = cuda_fma.fma_chain_plain(x, bench.FMA_A, bench.FMA_B, depth)
+        assert torch.equal(got, ref)
+    peak, rates, n = bench.fma_ceiling(cuda, n_rep=1)
+    assert np.isfinite(peak) and peak > 0 and set(rates) == {64, 256}

@@ -1,5 +1,6 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
-halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut,weideman}.py).  :func:`run`
+halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut,weideman,
+scaling}.py).  :func:`run`
 starts ``world`` gloo ranks with ``torch.multiprocessing.spawn``; each runs
 one case function of this module on numpy inputs made by the calling test
 and saves what it returns.
@@ -397,3 +398,14 @@ def dma_case(rank, world, ring_xs, halo_skl, fused):
         mesh, cutoff_cm1=cutoff)(nu_loc, mine(skl))
     out["epoch"] = mesh_ring(mesh).epoch
     return out
+
+
+def scaling_case(rank, world, n_points, n_lines, n_rays):
+    """Each rank's block of spectrobot_tpu_torch.scaling's mesh forward on
+    the (1, 1, world) mesh over ``n_points`` points, float64, in the psum
+    and the nu-halo tier."""
+    from spectrobot_tpu_torch import scaling
+    mesh = _mesh((1, 1, world))
+    dl, cg = scaling.scene(CPU, torch.float64, n_lines, n_rays)
+    return {halo: scaling.mesh_forward(mesh, dl, cg, n_points, halo)()
+            for halo in (False, True)}
