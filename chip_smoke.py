@@ -158,6 +158,11 @@ Phases, each of which raises (non-zero exit) on failure:
      |dT| below the 7 K start, its spectrum file and, where matplotlib is
      installed, its two figures written); each sub-phase's wall time
      beside the card.
+  6j. (after 6i, on phase 6c's process group) the nu-halo forward on the
+     (1, 1, 1) mesh: one K1 launch and no exchange (one nu shard), within
+     MESH_RTOL of the single-device forward; the trace tool's analysis
+     (spectrobot_tpu_torch.halo_overlap.measure) of its one-card trace:
+     device events in every forward and 0 exchange launches.
 With --profiler-misses ROUNDS, phase 6e also counts how often a profiler
 window misses the fused-halo kernel, with and without the host wait of
 its check (profiler_misses).
@@ -1985,6 +1990,38 @@ def tools_phase(dev, mesh, card: str) -> dict:
                     "bound": fma_bound}}
 
 
+def halo_overlap_phase(dev, cfg, scene, mesh: dict, card: str) -> None:
+    """Phase 6j on phase 6c's (1, 1, 1) mesh: the nu-halo forward issues
+    no exchange (one nu shard, no hop), launches K1 once and equals the
+    single-device forward within MESH_RTOL; the trace tool's analysis
+    (spectrobot_tpu_torch.halo_overlap.measure) of its one-card trace
+    finds device events and 0 exchange launches in every forward."""
+    from spectrobot_tpu_torch import cli, halo_overlap
+
+    oe, x = mesh["fwd_nu-halo"], mesh["x_empty"]
+    I_single = cli.run_forward(cfg, scene).cpu().numpy()
+    fwd = lambda: oe.forward_flat(x)
+    reset_launches()
+    I = fwd()
+    torch.cuda.synchronize()
+    n = launch_counts()
+    I = I.reshape(I_single.shape).cpu().numpy()
+    print(f"6j: (1, 1, 1) nu-halo forward vs single-device: max |err| "
+          f"{float(np.abs(I - I_single).max()):.3e} of max "
+          f"{float(np.abs(I_single).max()):.3e}; launches {json.dumps(n)}")
+    expect_launches("the (1, 1, 1) nu-halo forward", n, K1=1)
+    np.testing.assert_allclose(I, I_single, rtol=MESH_RTOL,
+                               atol=MESH_RTOL * np.abs(I_single).max())
+    res = halo_overlap.measure(fwd, dev, n_forwards=3, n_walls=5)
+    print(f"6j: halo_overlap.measure of the (1, 1, 1) nu-halo forward "
+          f"[{card}]: wall {json.dumps(res['forward_wall_ms'])}; summary "
+          f"{json.dumps(res['summary'])}")
+    check(all(f["busy_us"] for f in res["forwards"]),
+          "a traced (1, 1, 1) nu-halo forward holds no device event")
+    check(all(f["n_exchange_launches"] == 0 for f in res["forwards"]),
+          "the (1, 1, 1) nu-halo forward launched an exchange")
+
+
 def release_cache(before: str) -> None:
     """Free the allocator's cached blocks and print what it held."""
     reserved = torch.cuda.memory_reserved() / 1e9
@@ -2926,6 +2963,8 @@ def main(argv=None) -> int:
     # stay out of them), on phase 6c's process group.
     release_cache("the tools")
     tools = tools_phase(dev, mesh["mesh"], card)
+    # Phase 6j: the nu-halo forward's exchange schedule on the same group.
+    halo_overlap_phase(dev, cfg, scene, mesh, card)
     torch.distributed.destroy_process_group()
 
     # Each kernel's bound at its timed limb inputs: K1 and K2 over the

@@ -17,12 +17,22 @@ collective is a ``torch.autograd.Function`` with a forward, a ``jvp``, a
 
 Every rank must make the same collective calls in the same order: each
 function here is called by all ranks of the axis's group.
+
+Beside them, :func:`ring_exchange_start` and :meth:`Pending.wait` split a
+ring exchange of constants in two, as XLA schedules the reference's
+``collective-permute-start``/``-done`` pairs: every hop's messages are
+issued at once, the caller runs independent work, and only then does the
+current stream wait for the exchange.  They carry no tangent rule: the
+nu-halo tier's line parameters are constants on every path.
 """
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 import torch.distributed as dist
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 
 class _AllReduce(torch.autograd.Function):
@@ -142,3 +152,69 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     if dim < 0:
         raise ValueError("all_gather takes a non-negative dim")
     return _AllGather.apply(x, mesh.groups[axis], int(dim))
+
+
+class Pending:
+    """A ring exchange in flight (:func:`ring_exchange_start`).  It holds
+    the send buffers until :meth:`wait`: the exchange reads them on its
+    own stream (NCCL) or thread (gloo)."""
+
+    def __init__(self, works, sends, recvs):
+        self._works, self._sends, self._recvs = works, sends, recvs
+
+    def wait(self) -> List[List[torch.Tensor]]:
+        """Make the current stream (gloo: the host) wait for the exchange;
+        the received messages, by hop and by message, each a stack of the
+        sender's parts."""
+        with torch._C._DisableFuncTorch():
+            for work in self._works:
+                work.wait()
+        self._works = self._sends = ()
+        return self._recvs
+
+
+def _check_constant(t: torch.Tensor) -> None:
+    if (is_functorch_wrapped_tensor(t) or t.requires_grad
+            or torch.autograd.forward_ad.unpack_dual(t).tangent is not None):
+        raise ValueError(
+            "ring_exchange_start takes constants only: this input carries a "
+            "tangent, a vmap batch or requires grad (use ring_shift, which "
+            "differentiates)")
+
+
+def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
+                        axis: str, shifts: Sequence[int]) -> Pending:
+    """Issue the ring shifts ``shifts`` of every message at once and return
+    without blocking the host; :meth:`Pending.wait` gives, for each shift,
+    each message as ``ring_shift`` would (the message of the rank ``shift``
+    places before this one on the ring of ``axis``).
+
+    A message is a sequence of tensors of one dtype and shape, sent as
+    their stack: one send and one receive a message and hop, all in one
+    ``batch_isend_irecv`` (one grouped launch on NCCL, whose stream waits
+    for the packing).  Every rank of the ring must call it with the same
+    shifts and messages of the same shapes, in the same order.  The parts
+    must be constants (no ``torch.func`` wrapper, no ``requires_grad``):
+    a ValueError otherwise.  No shift gives no exchange at all."""
+    if not shifts:
+        return Pending((), (), [])
+    for msg in tensors:
+        for t in msg:
+            _check_constant(t)
+    group = mesh.groups[axis]
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    peer = lambda k: dist.get_global_rank(group, k % n)
+    with torch._C._DisableFuncTorch():
+        sends = [torch.stack(tuple(msg)) for msg in tensors]
+        ops, recvs = [], []
+        for shift in shifts:
+            if shift % n == 0:
+                recvs.append([x.clone() for x in sends])
+                continue
+            got = [torch.empty_like(x) for x in sends]
+            for x, out in zip(sends, got):
+                ops += [dist.P2POp(dist.isend, x, peer(r + shift), group),
+                        dist.P2POp(dist.irecv, out, peer(r - shift), group)]
+            recvs.append(got)
+        works = dist.batch_isend_irecv(ops) if ops else []
+    return Pending(works, sends, recvs)

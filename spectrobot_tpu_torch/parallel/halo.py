@@ -5,9 +5,12 @@ The fine grid is cut over the mesh's ``nu`` axis; every line is OWNED by the
 shard whose grid interval holds its center (a host-side partition of the
 sorted list).  A line within ``cutoff`` of a shard boundary also reaches the
 neighbouring shard, so each shard receives its two ring neighbours' line
-parameters (a ring shift, :func:`.collectives.ring_shift`) and sums its own
-and their lines on its chunk with the usual |dnu| <= cutoff mask.  Exact
-when the cutoff is at most one chunk wide (:func:`nu_shard_edges` checks).
+parameters by ring shifts and sums its own and their lines on its chunk
+with the usual |dnu| <= cutoff mask.  Exact when the cutoff is at most one
+chunk wide (:func:`nu_shard_edges` checks).  The shifts of every hop are
+issued before the shard's own line sum and waited on after it
+(:func:`.collectives.ring_exchange_start`), so the exchange overlaps the
+local accumulation, as XLA schedules the reference's permutes.
 
 Every rank runs the same program on its own block: the functions built
 here take the rank's grid chunk and its own row of a
@@ -25,7 +28,7 @@ import torch
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.cuda_single import accumulate_single
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
-from spectrobot_tpu_torch.parallel.collectives import ring_shift
+from spectrobot_tpu_torch.parallel.collectives import ring_exchange_start
 
 
 class ShardedKernelLines(NamedTuple):
@@ -123,10 +126,13 @@ def unpack_lines(packed: torch.Tensor) -> KernelLines:
                        packed[..., 2, :], packed[..., 3:, :])
 
 
-def _exchange(lines: KernelLines, mesh, shift: int) -> KernelLines:
-    """The ``KernelLines`` of the rank ``shift`` places before this one on
-    the ``nu`` ring, in one message (:func:`pack_lines`)."""
-    return unpack_lines(ring_shift(pack_lines(lines), mesh, "nu", shift))
+def _start_halo(lines: KernelLines, mesh, n_shards: int):
+    """Issue the halo's ring shifts of this shard's ``KernelLines``, one
+    message each (the rows of :func:`pack_lines`); ``wait()`` gives, for
+    each hop of :func:`_hops`, the neighbour's packed rows."""
+    rows = [lines.nu_c, lines.scale_x, lines.y, *lines.amps]
+    return ring_exchange_start([rows], mesh, "nu",
+                               [shift for shift, _ in _hops(n_shards)])
 
 
 def _hops(n_shards: int):
@@ -164,9 +170,10 @@ def halo_accumulate_fn(mesh, *, chunk: int = 256,
                                 cutoff_cm1=cutoff_cm1, variant=variant)
 
     def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
+        pending = _start_halo(mine, mesh, n_shards)
         out = acc(nu_loc, mine)
-        for shift, src in _hops(n_shards):
-            got = _exchange(mine, mesh, shift)
+        for (_, src), (rows,) in zip(_hops(n_shards), pending.wait()):
+            got = unpack_lines(rows)
             d = torch.as_tensor(delta[src], dtype=got.nu_c.dtype,
                                 device=got.nu_c.device)
             out = out + acc(nu_loc, got._replace(nu_c=got.nu_c + d))
@@ -206,9 +213,10 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
                                  cutoff_cm1=cutoff_cm1)
 
     def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
+        pending = _start_halo(mine, mesh, n_shards)
         out = acc(nu_loc, mine, 0)
-        for shift, s_i in _hops(n_shards):
-            out = out + acc(nu_loc, _exchange(mine, mesh, shift), s_i)
+        for (_, s_i), (rows,) in zip(_hops(n_shards), pending.wait()):
+            out = out + acc(nu_loc, unpack_lines(rows), s_i)
         return out
 
     return apply

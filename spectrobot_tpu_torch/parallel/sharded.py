@@ -15,7 +15,10 @@ Two line distributions:
 * ``nu_halo=True``: lines are OWNED by the nu shard holding their center
   (:func:`partition_lines_by_nu`); each rank adds its ring neighbours' line
   PARAMETERS, received by a ring shift, to its own.  Exact when the cutoff
-  is at most one chunk wide (``halo.nu_shard_edges`` checks).
+  is at most one chunk wide (``halo.nu_shard_edges`` checks).  The shift
+  of every hop is issued before the rank's own line sum and waited on
+  after it (``collectives.ring_exchange_start``), as XLA overlaps the
+  reference's permutes with its local accumulation.
 
 Each rank's line sums are the port's ``forward.limb.layer_tau_kernel``: K1
 for the depths, K2 for their tangents under ``torch.func.jacfwd``, on
@@ -44,7 +47,8 @@ from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
-from spectrobot_tpu_torch.parallel.collectives import psum, ring_shift
+from spectrobot_tpu_torch.parallel.collectives import (
+    psum, ring_exchange_start)
 from spectrobot_tpu_torch.parallel.halo import _hops, nu_shard_edges
 
 # Per-line DeviceLines fields (leading [L] axis); the trailing three
@@ -177,13 +181,18 @@ def stage_sharded(mesh, nu_grid: torch.Tensor, lines: DeviceLines,
                   local_cia(mesh, cia, nu_grid.shape[0]))
 
 
-def _shift_lines(lines: DeviceLines, mesh, shift: int) -> DeviceLines:
-    """The line slice of the rank ``shift`` places before this one on the
-    ``nu`` ring: the per-line fields in two messages (reals, integers)."""
-    real = ring_shift(torch.stack([getattr(lines, f) for f in _REAL_FIELDS]),
-                      mesh, "nu", shift)
-    ints = ring_shift(torch.stack([getattr(lines, f) for f in _INT_FIELDS]),
-                      mesh, "nu", shift)
+def _line_messages(lines: DeviceLines) -> list:
+    """The nu-halo tier's messages of a line slice: its per-line fields in
+    two (reals, integers), each a sequence of [L] rows
+    (``collectives.ring_exchange_start``)."""
+    return [[getattr(lines, f) for f in _REAL_FIELDS],
+            [getattr(lines, f) for f in _INT_FIELDS]]
+
+
+def _received_lines(lines: DeviceLines, got) -> DeviceLines:
+    """``lines`` with the per-line fields of the received messages
+    ``got`` (:func:`_line_messages`' layout)."""
+    real, ints = got
     return lines._replace(**dict(zip(_REAL_FIELDS, real)),
                           **dict(zip(_INT_FIELDS, ints)))
 
@@ -235,7 +244,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
     downwelling is added from the same layer optics.  Nadir needs no
     collective beyond the line all-reduce.
     """
-    n_nu = mesh.shape["nu"]
+    hops = _hops(mesh.shape["nu"]) if nu_halo else ()
     windows = _rank_windows(mesh, win_grid, win_lines, nu_halo, cutoff_cm1)
 
     def apply(nu_loc, nu_off_loc, lines_loc: DeviceLines, cg_loc: PathCG,
@@ -248,14 +257,17 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                                     analytic_jvp=analytic_jvp, chi=chi,
                                     nlte=nlte)
 
+        # Wing halos: neighbour-owned lines within the cutoff of this
+        # chunk's edges; far (wrap-around) lines fall outside the mask.
+        # Centers are global-origin offsets, so they need no shift.  The
+        # exchange is issued before this rank's own line sum (K1, and K2
+        # under jacfwd) and waited on after it, so the two overlap.
+        pending = ring_exchange_start(_line_messages(lines_loc), mesh, "nu",
+                                      [shift for shift, _ in hops])
         dtau, dtau_em = tau(lines_loc, 0)
-        if nu_halo:
-            # Wing halos: neighbour-owned lines within the cutoff of this
-            # chunk's edges; far (wrap-around) lines fall outside the mask.
-            # Centers are global-origin offsets, so they need no shift.
-            for shift, s_i in _hops(n_nu):
-                d2, d2e = tau(_shift_lines(lines_loc, mesh, shift), s_i)
-                dtau, dtau_em = dtau + d2, dtau_em + d2e
+        for (_, s_i), got in zip(hops, pending.wait()):
+            d2, d2e = tau(_received_lines(lines_loc, got), s_i)
+            dtau, dtau_em = dtau + d2, dtau_em + d2e
         # Complete the line sums across the line axis: one all-reduce.
         dtau, dtau_em = psum(torch.stack([dtau, dtau_em]), mesh, "line")
         return tau_radiance_epilogue(nu_loc.to(dtau.dtype), cg_loc, dtau,

@@ -1,8 +1,9 @@
 """The CUDA kernels (K1, K2, K5, K3, K4, the remote-copy tier's ring and
-fused halo kernels, and the FMA measurement kernel) on the card, and the CLI's mesh route and the
-remote-copy tier across the machine's cards (marker ``cuda``; skips without
-a GPU and nvcc, the multi-card tests without a second card).  Run on the
-card with ``python -m pytest -m cuda tests/``."""
+fused halo kernels, and the FMA measurement kernel) on the card, and the
+CLI's mesh route, the nu-halo exchange's overlap and the remote-copy tier
+across the machine's cards (marker ``cuda``; skips without a GPU and nvcc,
+the multi-card tests without a second card).  Run on the card with
+``python -m pytest -m cuda tests/``."""
 
 import os
 import subprocess
@@ -714,6 +715,41 @@ def test_cli_mesh_on_every_card(cuda, tmp_path):
     assert bool(got["converged"]) and bool(one["converged"])
     np.testing.assert_allclose(got["x"], one["x"], rtol=1e-4)
     np.testing.assert_allclose(got["chi2"], one["chi2"], rtol=1e-4)
+
+
+def test_halo_exchange_overlaps_on_every_card(cuda, tmp_path):
+    """``python -m spectrobot_tpu_torch.halo_overlap --scene slice`` on the
+    machine's n cards (one rank a card; the slice at a 10 cm-1 cutoff on
+    (1, 1, n) and, from 4 cards, (1, 2, n/2)): every traced forward makes
+    one exchange launch (every hop's messages in one batch), and every
+    rank ran it on another stream than its line sums, started before its
+    own line sum ended and with a compute kernel in its in-flight window;
+    the radiances equal one card's within chip_smoke.py's MESH_RTOL."""
+    import json
+    mesh_rtol = 1e-5
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the exchange across cards needs two cards or more")
+    out = tmp_path / "halo_overlap.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "spectrobot_tpu_torch.halo_overlap",
+         "--scene", "slice", "--json-out", str(out)], cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
+        text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(out.read_text())
+    print(res["topology"])
+    assert res["n_ranks"] == n
+    for run in res["runs"]:
+        assert len(run["ranks"]) == n
+        for r in run["ranks"]:
+            print(run["mesh"], r["rank"], json.dumps(r["summary"]),
+                  json.dumps(r["vs_single_device"]))
+            assert [f["n_exchange_launches"] for f in r["forwards"]] == [
+                1] * len(r["forwards"])
+            assert r["summary"]["kernels_overlapped_in_flight_window"] >= 1
+            assert r["summary"]["async_pairs_emitted"] is True
+            assert r["vs_single_device"]["worst_ratio"] <= mesh_rtol
 
 
 # ---------------------------------------------------------------------------

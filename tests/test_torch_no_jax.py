@@ -4,7 +4,8 @@ ops/cuda_single.py, K4's ops/cuda_basis_single.py and the remote-copy
 tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py, the table
 tier's ops/lut.py and parallel/sharded_lut.py, and the Weideman
 evaluator's ops/voigt.py, the Spectrum family's spectra.py, forward/rt.py,
-ops/planck.py and utils/profiling.py and utils/debug.py among them),
+ops/planck.py and utils/profiling.py and utils/debug.py, and the
+exchange's trace tool halo_overlap.py among them),
 chip_smoke.py and ablate_basis.py import, and the tiny forward and retrieval (``python -m
 spectrobot_tpu_torch``, and a Weideman forward with run.save_optics), a config-1 Jacobian and the adjoint tool
 (``python -m spectrobot_tpu_torch.adjoint``) run on CPU, in a fresh
@@ -35,7 +36,8 @@ for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "ops.cuda_single", "ops.cuda_basis_single", "ops.chi",
              "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer",
              "ops.lut", "parallel.sharded_lut", "ops.voigt", "ops.planck",
-             "forward.rt", "spectra", "utils.profiling", "utils.debug"):
+             "forward.rt", "spectra", "utils.profiling", "utils.debug",
+             "halo_overlap"):
     assert "spectrobot_tpu_torch." + name in sys.modules, name
 import chip_smoke
 import ablate_basis

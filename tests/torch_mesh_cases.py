@@ -1,6 +1,6 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
 halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut,weideman,
-scaling}.py).  :func:`run`
+scaling,halo_overlap}.py).  :func:`run`
 starts ``world`` gloo ranks with ``torch.multiprocessing.spawn``; each runs
 one case function of this module on numpy inputs made by the calling test
 and saves what it returns.
@@ -170,6 +170,164 @@ def sharded_case(rank, world, cases):
         out[name] = (f(st.nu, st.nu_off, st.lines, st.cg, st.I_bg,
                        nlte=st.nlte, cia=st.cia),
                      dict(mesh.coord), tuple(dlp.nu0.shape))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the early-issued halo exchange against the synchronous ring shift
+# ---------------------------------------------------------------------------
+
+
+def _parent_sharded(mesh, st, windows, cutoff, is_limb, emissivity):
+    """The nu-halo sharded forward in the order of the synchronous shift:
+    the own line sum, then per hop two ring shifts (reals, integers) and
+    the hop's line sum, the line all-reduce and the epilogue."""
+    from spectrobot_tpu_torch.forward.limb import (
+        layer_tau_kernel, tau_radiance_epilogue)
+    from spectrobot_tpu_torch.parallel import sharded as sh
+    from spectrobot_tpu_torch.parallel.collectives import psum, ring_shift
+    from spectrobot_tpu_torch.parallel.halo import _hops
+
+    def tau(lines, s_i):
+        return layer_tau_kernel(st.nu_off, lines, st.cg, windows[s_i],
+                                cutoff_cm1=cutoff)
+
+    def shifted(fields, shift):
+        return ring_shift(torch.stack([getattr(st.lines, f) for f in fields]),
+                          mesh, "nu", shift)
+
+    dtau, dtau_em = tau(st.lines, 0)
+    for shift, s_i in _hops(mesh.shape["nu"]):
+        got = st.lines._replace(
+            **dict(zip(sh._REAL_FIELDS, shifted(sh._REAL_FIELDS, shift))),
+            **dict(zip(sh._INT_FIELDS, shifted(sh._INT_FIELDS, shift))))
+        d2, d2e = tau(got, s_i)
+        dtau, dtau_em = dtau + d2, dtau_em + d2e
+    dtau, dtau_em = psum(torch.stack([dtau, dtau_em]), mesh, "line")
+    return tau_radiance_epilogue(st.nu.to(dtau.dtype), st.cg, dtau, dtau_em,
+                                 I_background=st.I_bg, is_limb=is_limb,
+                                 emissivity=emissivity)
+
+
+def _parent_halo(mesh, nu_loc, mine, cutoff, nu_host, skl_nu0):
+    """halo_accumulate_fn and halo_accumulate_pallas_fn (K3's plain version
+    here) in the order of the synchronous shift: the own sum, then per hop
+    one ring shift of the packed lines and the hop's sum."""
+    import numpy as np
+
+    from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
+    from spectrobot_tpu_torch.ops.cuda_single import accumulate_single
+    from spectrobot_tpu_torch.ops.opacity import accumulate_plain
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel.collectives import ring_shift
+    n, k = mesh.shape["nu"], mesh.coord["nu"]
+    hops = halo._hops(n)
+    got = {s_i: halo.unpack_lines(ring_shift(halo.pack_lines(mine), mesh,
+                                             "nu", shift))
+           for shift, s_i in hops}
+    plain = accumulate_plain(nu_loc, mine, chunk=256, cutoff_cm1=cutoff,
+                             variant="humlicek4")
+    for _, s_i in hops:
+        d = torch.as_tensor(0.0, dtype=got[s_i].nu_c.dtype)
+        plain = plain + accumulate_plain(
+            nu_loc, got[s_i]._replace(nu_c=got[s_i].nu_c + d), chunk=256,
+            cutoff_cm1=cutoff, variant="humlicek4")
+    grid_k = np.asarray(nu_host, np.float64)[mesh.block(len(nu_host), "nu")]
+    src = (k, (k - 1) % n, (k + 1) % n)
+
+    def k3(kl, s_i):
+        win = line_windows(grid_k, np.asarray(skl_nu0)[src[s_i]],
+                           cutoff_cm1=cutoff, device=mesh.device)
+        f32 = lambda a: a.to(torch.float32).contiguous()
+        return accumulate_single(f32(nu_loc), win, f32(kl.nu_c),
+                                 f32(kl.scale_x), f32(kl.y), f32(kl.amps),
+                                 cutoff_cm1=cutoff)
+
+    kernel = k3(mine, 0)
+    for _, s_i in hops:
+        kernel = kernel + k3(got[s_i], s_i)
+    return plain, kernel
+
+
+def exchange_case(rank, world, msgs, sharded_cases, halo_in, oe_cases):
+    """On the (1, 1, world) mesh: ring_exchange_start/wait of this rank's
+    messages ``msgs`` [rank] (reals, ints) at shifts 1, -1 and 2 beside
+    ring_shift's; whether it refuses a jvp tangent, a vmap batch and a
+    requires_grad input; the sharded forward of each (name, shape, scene)
+    of ``sharded_cases`` and, on the (1, 1, world) mesh, in the order of
+    the synchronous shift; the halo accumulations of ``halo_in`` (nu, nu0,
+    kernel lines, cutoff) and in that order; mesh_retrieval_case of
+    ``oe_cases``."""
+    from spectrobot_tpu_torch import interop
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.ops.planck import planck_nu
+    from spectrobot_tpu_torch.parallel import collectives as C
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel import sharded as sh
+    mesh = _mesh((1, 1, world))
+    out = {}
+    parts = [list(torch.as_tensor(m[rank])) for m in msgs]
+    shifts = [1, -1, 2]
+    got = C.ring_exchange_start(parts, mesh, "nu", shifts).wait()
+    out["exchange"] = got
+    out["ring_shift"] = [[C.ring_shift(torch.stack(p), mesh, "nu", s)
+                          for p in parts] for s in shifts]
+    x = torch.as_tensor(msgs[0][rank][0])
+
+    def refuses(call):
+        try:
+            call()
+        except ValueError as e:
+            return "constants only" in str(e)
+        return False
+
+    start = lambda v: C.ring_exchange_start([[v]], mesh, "nu", [1])
+    out["refuses"] = {
+        "jvp": refuses(lambda: torch.func.jvp(
+            lambda v: start(v).wait()[0][0], (x,), (torch.ones_like(x),))),
+        "vmap": refuses(lambda: torch.func.vmap(
+            lambda v: start(v).wait()[0][0])(x[None].repeat(3, 1))),
+        "requires_grad": refuses(
+            lambda: start(x.clone().requires_grad_()))}
+
+    out["sharded"] = {}
+    for name, shape, sc in sharded_cases:
+        m = _mesh(shape)
+        nu = torch.as_tensor(sc["nu"])
+        lines = interop.device_lines_from_numpy(sc["lines"], device=CPU)
+        cg = interop.path_cg_from_numpy(sc["cg"], device=CPU)
+        nu_off = torch.as_tensor(sc["nu"] - float(lines.nu_ref))
+        dlp = sh.partition_lines_by_nu(lines, sc["nu"], shape[2],
+                                       cutoff_cm1=sc["cutoff"],
+                                       line_shards=shape[1])
+        is_limb = sc["T_surface"] is None
+        I_bg = (None if is_limb
+                else sc["emissivity"] * planck_nu(nu, sc["T_surface"]))
+        st = sh.stage_sharded(m, nu, dlp, cg, I_bg=I_bg, nu_off=nu_off)
+        f = sh.sharded_radiance_fn(
+            m, win_grid=nu_off.numpy(), win_lines=dlp.nu0.numpy(),
+            cutoff_cm1=sc["cutoff"], nu_halo=True, is_limb=is_limb,
+            emissivity=sc["emissivity"])
+        I = f(st.nu, st.nu_off, st.lines, st.cg, st.I_bg)
+        windows = sh._rank_windows(m, nu_off.numpy(), dlp.nu0.numpy(), True,
+                                   sc["cutoff"])
+        out["sharded"][name] = (I, dict(m.coord), _parent_sharded(
+            m, st, windows, sc["cutoff"], is_limb, sc["emissivity"]))
+
+    nu, nu0, kl, cutoff = halo_in
+    nu = torch.as_tensor(nu)
+    kl = KernelLines(*(torch.as_tensor(a) for a in kl))
+    edges = halo.nu_shard_edges(nu.numpy(), world, cutoff)
+    skl = halo.partition_kernel_lines(kl, nu0, edges)
+    mine = halo.shard_lines(skl, mesh.coord["nu"])
+    nu_loc = nu[mesh.block(nu.shape[0], "nu")]
+    out["halo"] = (
+        halo.halo_accumulate_fn(mesh, cutoff_cm1=cutoff)(nu_loc, mine),
+        halo.halo_accumulate_pallas_fn(mesh, nu.numpy(), skl.nu_c.numpy(),
+                                       cutoff_cm1=cutoff)(nu_loc, mine),
+        _parent_halo(mesh, nu_loc, mine, cutoff, nu.numpy(),
+                     skl.nu_c.numpy()))
+    out["oe"] = mesh_retrieval_case(rank, world, oe_cases)
     return out
 
 
