@@ -163,6 +163,19 @@ Phases, each of which raises (non-zero exit) on failure:
      MESH_RTOL of the single-device forward; the trace tool's analysis
      (spectrobot_tpu_torch.halo_overlap.measure) of its one-card trace:
      device events in every forward and 0 exchange launches.
+  6k. (after 6h, before phase 7) K2 past its row limit: at R = 228 and 450
+     on the slice's states against its plain version (K2_REL), one launch
+     a row group (2 and 3), its time beside its bound; acceptance config 5
+     (examples/multispecies_retrieval.toml, CO2 + CO limb, n_x = 50): the
+     CLI forward (one K1), the Jacobian at the prior (one K1, one K2)
+     against the plain engine's, the CLI retrieve with max_iter 2 (chi2
+     below the prior's); config 5 at 38 levels retrieving both species
+     (n_x = 114): the unchunked Jacobian (one K1, K2 in two row groups)
+     against the plain engine's; then the Jacobian's memory guard: the
+     counted bytes (cli.jacobian_bytes) of the slice, config 3, the
+     composed scene and the float64 Weideman slice within GUARD_RATIO of
+     the measured increase of their peak memory (peak - resident), each
+     unchunked; each sub-phase's wall time beside the card.
 With --profiler-misses ROUNDS, phase 6e also counts how often a profiler
 window misses the fused-halo kernel, with and without the host wait of
 its check (profiler_misses).
@@ -1150,7 +1163,8 @@ def config3_phase(dev, mesh) -> dict:
     seen = {}
     rec = cli.retrieval_problem(cfg, scene, recording_engine_rows(seen))
     n_x = int(rec.x0.shape[0])
-    cli.make_jacobian(cfg, rec.fwd_flat, n_x, scene.nu.shape[0])(rec.x0)
+    cli.make_jacobian(cfg, rec.fwd_flat, n_x, scene.nu.shape[0],
+                      dev)(rec.x0)
     out["k2"] = compare_k2(case, seen["C"])
     check(seen["C"][0].shape[1] == 2 * n_x,
           f"the config-3 Jacobian gave K2 {seen['C'][0].shape[1]} rows")
@@ -1174,7 +1188,7 @@ def config3_phase(dev, mesh) -> dict:
     # plain engine's.
     prob = {e.name: cli.retrieval_problem(cfg, scene, e)
             for e in (KERNELS, PLAIN)}
-    jac = {k: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0])
+    jac = {k: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0], dev)
            for k, p in prob.items()}
     x0 = prob["kernels"].x0
     out["jac_peak"] = peak_memory(lambda: jac["kernels"](x0))
@@ -1294,17 +1308,19 @@ def config3_phase(dev, mesh) -> dict:
               if v.dtype.kind == "f"), "composed retrieval.npz non-finite")
     scene_c = cli.build_scene(cfg_c, dev)
     prob_c = cli.retrieval_problem(cfg_c, scene_c, KERNELS)
-    torch.cuda.reset_peak_memory_stats()
+    jac_c = cli.make_jacobian(cfg_c, prob_c.fwd_flat, n_x,
+                              scene_c.nu.shape[0], dev)
+    got = []
     reset_launches()
-    J_c = cli.make_jacobian(cfg_c, prob_c.fwd_flat, n_x,
-                            scene_c.nu.shape[0])(prob_c.x0)
-    torch.cuda.synchronize()
+    peak = out["composed_jac_peak"] = peak_memory(
+        lambda: got.append(jac_c(prob_c.x0)))
     n = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    J_c = got.pop()
     print(f"composed Jacobian {tuple(J_c.shape)}: finite "
           f"{bool(torch.isfinite(J_c).all())}, max |K| "
-          f"{float(J_c.abs().max()):.3e}; peak device memory {peak:.2f} GB; "
-          f"launches {json.dumps(n)}")
+          f"{float(J_c.abs().max()):.3e}; peak device memory {peak[0]:.2f} "
+          f"GB ({peak[1]:.2f} GB resident before it); launches "
+          f"{json.dumps(n)}")
     expect_launches("the composed Jacobian", n, K1=1, K2=1)
     check(bool(torch.isfinite(J_c).all()), "non-finite composed Jacobian")
 
@@ -1469,7 +1485,8 @@ def lut_phase(dev, mesh, direct: dict) -> dict:
         prob = cli.retrieval_problem(cfg, scene, KERNELS)
         t["x0"] = prob.x0
         t["jac"] = cli.make_jacobian(cfg, prob.fwd_flat,
-                                     int(prob.x0.shape[0]), scene.nu.shape[0])
+                                     int(prob.x0.shape[0]), scene.nu.shape[0],
+                                     dev)
         t["fwd"] = prob.fwd_flat
         reset_launches()
         J = t["jac"](prob.x0)
@@ -1629,14 +1646,15 @@ WEIDEMAN_GRAD_REL = 1e-9
 OPTICS_KEYS = ["kind", "nu", "transmittance", "units", "values"]
 
 
-def weideman_phase(dev, cfg, scene, I, J, card: str) -> None:
+def weideman_phase(dev, cfg, scene, I, J, card: str) -> dict:
     """Phase 6h on the card: config 1, the CLI forward, the Jacobian, the
     CLI retrieve and the reverse gradient with compute.variant =
     "weideman" in float64 (no kernel launch); run.save_optics on the
     humlicek4 CLI forward (one K1 launch); ``utils.profiling.trace``
     around one forward.  ``I``: phase 5's CLI radiances and ``J`` phase
     6's Jacobian, both through the kernels.  Prints each sub-phase's wall
-    time [ms] beside ``card`` and the float64 peak memories."""
+    time [ms] beside ``card`` and the float64 peak memories; returns the
+    Jacobian's (peak, resident) memory [GB]."""
     from spectrobot_tpu_torch import cli
     from spectrobot_tpu_torch.forward.model import nadir_single_layer
     from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN, WEIDEMAN
@@ -1693,7 +1711,7 @@ def weideman_phase(dev, cfg, scene, I, J, card: str) -> None:
           "compute.variant = weideman did not select the WEIDEMAN engine")
     prob = cli.retrieval_problem(cfg_w, scene_w, WEIDEMAN)
     jac = cli.make_jacobian(cfg_w, prob.fwd_flat, int(prob.x0.shape[0]),
-                            int(scene_w.nu.shape[0]))
+                            int(scene_w.nu.shape[0]), dev)
     out = []
     reset_launches()
     peak = timed("(c) Jacobian", lambda: peak_memory(
@@ -1803,6 +1821,173 @@ def weideman_phase(dev, cfg, scene, I, J, card: str) -> None:
           f"{walls['warm Weideman forward']:.1f} ms (float64, "
           f"examples/mars_limb.toml, cli.run_forward, median of 2 after a "
           f"warm-up)")
+    return {"jac_peak": peak}
+
+
+# Phase 6k: K2 past its row limit, acceptance config 5 and the Jacobian's
+# memory guard.  K2's row-group cases on the slice's states (two groups of
+# 114, three of 150).
+K2_GROUP_ROWS = (228, 450)
+CONFIG5 = os.path.join(REPO, "examples", "multispecies_retrieval.toml")
+# Config 5 at 38 levels retrieving both species: n_x = 38 + 2 x 38 = 114,
+# so its unchunked Jacobian gives K2 R = 228 rows (two groups).
+CONFIG5_WIDE = {"scene.n_levels": "38", "retrieval.retrieve_vmr": "CO2,CO"}
+# The guard's counted bytes over the measured increase of a Jacobian's
+# peak memory (peak - resident) must lie in this range.
+GUARD_RATIO = (0.8, 2.0)
+
+
+def k2_rows_phase(cases: dict, card: str) -> None:
+    """Phase 6k (a): K2 at ``K2_GROUP_ROWS`` rows on the slice's states
+    against its plain version (K2_REL), one launch a row group; its time
+    (CUDA events) beside the bound of the same work and beside one
+    launch of one group's rows."""
+    from spectrobot_tpu_torch.ops import cuda_basis as cb
+
+    t0 = time.perf_counter()
+    case = cases["limb"]
+    B, L, P = case.nu_c.shape[0], case.nu_c.shape[1], case.nu.shape[0]
+    live = case.amps.flatten(1).ne(0).any(1)
+    pairs = case_region_counts(case, live)
+    for seed, R in enumerate(K2_GROUP_ROWS, 300):
+        C = coefficient_rows(case, R // 2, seed)
+        reset_launches()
+        compare_k2(case, C)
+        n = launch_counts()["K2"]
+        groups = cb.row_spans(R)
+        check(n == len(groups), f"K2 at R = {R} launched {n} times, not "
+                                f"once for each of its {len(groups)} row "
+                                f"groups")
+        call = lambda C: lambda: cb.basis_contract_batch(
+            case.nu, case.windows, case.nu_c, case.sx, case.y, *C,
+            chi_b=case.chi_b)
+        ms = cuda_ms(call(C))
+        # One group's rows in one launch: the split costs each group's
+        # launch (the basis evaluated again) and the copy of its rows into
+        # the output.
+        G = groups[0][1]
+        ms_group = cuda_ms(call([c[:, :G].contiguous() for c in C]))
+        bound = basis_bound_ms(pairs, R, basis_batch_bytes(B, L, P, R))
+        print(f"K2 at R = {R} [{card}]: {len(groups)} row groups "
+              f"{[b - a for a, b in groups]}, {n} launches; {ms:.3f} ms "
+              f"(CUDA events, median of 5; one launch of {G} rows "
+              f"{ms_group:.3f} ms) vs bound {bound[0]:.4f} ms "
+              f"({bound[2]}); {B} states x {L} lines x {P} points")
+        del C
+    print(f"time 6k (a) K2 row groups [{card}]: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def config5_phase(dev, card: str) -> dict:
+    """Phase 6k (b): acceptance config 5 (examples/multispecies_retrieval
+    .toml, CO2 + CO limb) through the kernels: the CLI forward (one K1),
+    the Jacobian at the prior against the plain engine's (K2_REL), the CLI
+    retrieve with retrieval.max_iter = 2 (chi2 below the prior's); then at
+    38 levels retrieving both species (n_x = 114): the unchunked Jacobian
+    (one K1, K2 in two row groups) against the plain engine's.  Returns
+    each Jacobian's (cfg, n_x, (peak, resident) memory)."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN, row_spans
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        cli.main(["forward", CONFIG5, "-o", f"run.output_dir={tmp}",
+                  "--device", "cuda"])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "forward.npz")) as f:
+            I5 = f["values"]
+    print(f"config 5 CLI forward: {I5.shape}, max {I5.max():.4e}; launches "
+          f"{json.dumps(n)}")
+    expect_launches("the config 5 CLI forward", n, K1=1)
+    check(bool(np.isfinite(I5).all() and (I5 >= 0).all()),
+          "config 5 radiances not finite and non-negative")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        cli.main(["retrieve", CONFIG5, "-o", "retrieval.max_iter=2", "-o",
+                  f"run.output_dir={tmp}", "--device", "cuda"])
+        n = launch_counts()
+        with np.load(os.path.join(tmp, "retrieval.npz")) as f:
+            res = {k: f[k] for k in f.files}
+        with open(os.path.join(tmp, "run.jsonl")) as f:
+            iters = [r for r in map(json.loads, f) if "chi2" in r]
+    chi2 = float(res["chi2"])
+    print(f"config 5 CLI retrieve (max_iter 2): {res['x'].size} parameters, "
+          f"chi2 {iters[0]['chi2']:.6g} at the prior -> {chi2:.6g} after "
+          f"{int(res['n_iter'])} LM iterations ({res['stop_reason']}); "
+          f"launches {json.dumps(n)}")
+    check(res["x"].size == 50, f"config 5 retrieves {res['x'].size} "
+                               f"parameters, not 50")
+    check(n["K1"] > 0 and n["K2"] >= int(res["n_iter"]) and n["K5"] == 0,
+          "the config 5 retrieve did not run K1 and K2 (one a Jacobian)")
+    check(np.isfinite(chi2) and chi2 < iters[0]["chi2"],
+          "the config 5 retrieval's chi2 did not fall")
+    for name, ov in (("config 5", {}), ("config 5, 38 levels, CO2 + CO",
+                                        CONFIG5_WIDE)):
+        cfg = cli.load_config(CONFIG5, ov)
+        scene = cli.build_scene(cfg, dev)
+        prob = {e.name: cli.retrieval_problem(cfg, scene, e)
+                for e in (KERNELS, PLAIN)}
+        x0 = prob["kernels"].x0
+        n_x, n_fine = int(x0.shape[0]), int(scene.nu.shape[0])
+        chunk = cli.jacobian_chunk(cfg, n_x, n_fine, dev)
+        jac = {k: cli.make_jacobian(cfg, p.fwd_flat, n_x, n_fine, dev)
+               for k, p in prob.items()}
+        got = []
+        reset_launches()
+        peak = peak_memory(lambda: got.append(jac["kernels"](x0)))
+        n = launch_counts()
+        J = got.pop()
+        J_plain = jac["plain"](x0)
+        err = float((J - J_plain).abs().max())
+        scale = float(J_plain.abs().max())
+        print(f"{name} Jacobian {tuple(J.shape)} (n_x {n_x}, chunk "
+              f"{chunk}): kernels vs plain max |err| {err:.3e} of max |K| "
+              f"{scale:.3e} ({err / scale:.3e}); peak device memory "
+              f"{peak[0]:.2f} GB ({peak[1]:.2f} GB resident before it); "
+              f"launches {json.dumps(n)}")
+        check(chunk is None, f"{name}: the guard chunked the Jacobian")
+        expect_launches(f"the {name} Jacobian", n, K1=1,
+                        K2=len(row_spans(2 * n_x)))
+        check(bool(torch.isfinite(J).all()), f"{name}: non-finite Jacobian")
+        check(err <= K2_REL * scale, f"{name}: the kernel Jacobian "
+                                     f"disagrees with the plain one")
+        out[name] = (cfg, n_x, peak)
+        del J, J_plain, got
+    check(out["config 5, 38 levels, CO2 + CO"][1] == 114,
+          "config 5 at 38 levels with CO2 and CO is not n_x = 114")
+    print(f"time 6k (b) config 5 [{card}]: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def guard_phase(dev, card: str, scenes: dict, extra: dict) -> None:
+    """Phase 6k (c): the Jacobian's memory guard against this run's peaks.
+    ``scenes``: name -> (cfg, n_x, (peak, resident) GB) of the slice,
+    config 3, the composed scene and the float64 Weideman slice, each
+    unchunked, whose counted bytes (``cli.jacobian_bytes``) must lie
+    within GUARD_RATIO of the measured increase (peak - resident);
+    ``extra``: more such Jacobians, printed beside them."""
+    from spectrobot_tpu_torch import cli
+
+    limit = cli.jacobian_limit(dev)
+    print(f"6k (c) Jacobian guard [{card}]: limit {limit / 1e9:.2f} GB, "
+          f"{cli.JAC_LIVE_TANGENTS:g} live tangents counted")
+    for name, (cfg, n_x, peak) in {**scenes, **extra}.items():
+        n_fine = cfg.grid.n_points
+        counted = cli.jacobian_bytes(cfg, n_x, n_fine)
+        grown = (peak[0] - peak[1]) * 1e9
+        ratio = counted / grown
+        chunk = cli.jacobian_chunk(cfg, n_x, n_fine, dev)
+        print(f"6k (c) {name}: counted {counted / 1e9:.2f} GB, measured "
+              f"increase {grown / 1e9:.2f} GB (peak {peak[0]:.2f} - "
+              f"resident {peak[1]:.2f}), ratio {ratio:.3f}; chunk {chunk}")
+        if name in scenes:
+            check(GUARD_RATIO[0] <= ratio <= GUARD_RATIO[1],
+                  f"{name}: the guard counts {ratio:.3f} x the measured "
+                  f"increase, outside {GUARD_RATIO}")
+            check(chunk is None, f"{name}: the guard chunks the Jacobian")
 
 
 # Phase 6i: the measurement tools (bench, jac_kernel_bench, scaling,
@@ -2607,7 +2792,8 @@ def main(argv=None) -> int:
     prob = {e.name: cli.retrieval_problem(cfg, scene, e)
             for e in (cb.KERNELS, cb.PLAIN)}
     n_x = int(prob["kernels"].x0.shape[0])
-    jac = {name: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0])
+    jac = {name: cli.make_jacobian(cfg, p.fwd_flat, n_x, scene.nu.shape[0],
+                                   dev)
            for name, p in prob.items()}
     x0 = prob["kernels"].x0
     jac_peak = peak_memory(lambda: jac["kernels"](x0))
@@ -2732,7 +2918,18 @@ def main(argv=None) -> int:
 
     # Phase 6h: the Weideman evaluator, run.save_optics and the profiling
     # utilities.
-    weideman_phase(dev, cfg, scene, I, J, card)
+    weid = weideman_phase(dev, cfg, scene, I, J, card)
+
+    # Phase 6k: K2 past its row limit, config 5 and the memory guard.
+    k2_rows_phase(cases, card)
+    c5 = config5_phase(dev, card)
+    guard_phase(dev, card, {
+        "slice": (cfg, n_x, jac_peak),
+        "config 3": (cli.load_config(SCENE, CONFIG3_CLI), n_x, c3["jac_peak"]),
+        "composed": (cli.load_config(SCENE, COMPOSED_CLI), n_x,
+                     c3["composed_jac_peak"]),
+        "Weideman float64 slice": (cli.load_config(SCENE, WEIDEMAN_CLI), n_x,
+                                   weid["jac_peak"])}, c5)
     # Release the allocator's cache (phase 6f's composed Jacobian alone
     # peaks near 25 GB): phases 7 and 6i time each call's own allocations,
     # not the allocator freeing and retrying on a full device.

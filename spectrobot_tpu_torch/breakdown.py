@@ -164,7 +164,8 @@ def main(argv=None) -> int:
     prob = cli.retrieval_problem(cfg, scene, engine)
     rev = cli.retrieval_problem(cfg, scene, engine, analytic_jvp="rev")
     n_x = int(prob.x0.shape[0])
-    jac = cli.make_jacobian(cfg, prob.fwd_flat, n_x, int(scene.nu.shape[0]))
+    jac = cli.make_jacobian(cfg, prob.fwd_flat, n_x, int(scene.nu.shape[0]),
+                            device)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -589,20 +589,64 @@ def _check_obs_consistency(cfg, obs, chans, n_chan):
             f"chan_min / chan_max (or grid.*) to match the file")
 
 
-def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int):
-    """The Jacobian callable, with the reference's memory guard: the
-    unchunked ``torch.func.jacfwd`` carries an (n_x x n_y)-sized tangent
-    batch through the line sum; above ~8 GB of float32 tangents (or when
-    retrieval.jac_chunk > 0) :func:`jacobian_fwd_chunked` bounds it."""
-    chunk = cfg.retrieval.jac_chunk
-    if chunk == 0:
-        est_bytes = (4.0 * n_x * n_model_rays(cfg) * (cfg.scene.n_levels - 1)
-                     * n_fine)
-        chunk = 16 if est_bytes > 8e9 else None
+# The Jacobian's memory guard.  ``torch.func.jacfwd`` carries an n_x-column
+# tangent of every (ray, layer, point) array through the forward, and at
+# its peak the port holds about JAC_LIVE_TANGENTS such tangent-sized
+# buffers (K2's [B, 2 n_x, P] output, the two depths and the vmapped
+# epilogue's temporaries).  Measured as (peak - resident memory) over
+# n_x x rays x layers x points x the dtype's size (chip_smoke.py phase
+# 6k; NVIDIA H100 80GB HBM3 at 700 W): examples/mars_limb.toml 13.33 at
+# n_x = 33, 13.17 at 66, 13.65 at 17 levels; config 3 13.33; the composed
+# scene (CIA, a FOV over 40 rays) 15.40; the float64 Weideman slice 13.33;
+# config 5 13.25 at n_x = 50 and 13.10 at 114.
+JAC_LIVE_TANGENTS = 14.0
+# The CPU's limit: the reference's 8 GB, half of the 16 GB of the v5e it
+# was set on (spectrobot_tpu/cli.py:560-564).
+JAC_HOST_LIMIT = 8e9
+# Columns a chunk once the count passes the limit (the reference's).
+JAC_AUTO_CHUNK = 16
+
+
+def jacobian_bytes(cfg, n_x: int, n_fine: int) -> float:
+    """The unchunked Jacobian's counted bytes: JAC_LIVE_TANGENTS tangent
+    buffers of n_x x the forward's rays (the fine ladder under a FOV) x
+    layers x ``n_fine`` points, in the compute dtype (8 bytes in float64,
+    as the Weideman route runs, else 4)."""
+    size = 8 if cfg.compute.dtype == "float64" else 4
+    return (JAC_LIVE_TANGENTS * size * n_x * n_model_rays(cfg)
+            * (cfg.scene.n_levels - 1) * n_fine)
+
+
+def jacobian_limit(device) -> float:
+    """The counted bytes above which the Jacobian is chunked: half of the
+    card's memory on a CUDA device, JAC_HOST_LIMIT on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 2
+    return JAC_HOST_LIMIT
+
+
+def jacobian_chunk(cfg, n_x: int, n_fine: int, device) -> Optional[int]:
+    """The tangent columns a chunk, or None for one ``jacfwd``:
+    ``retrieval.jac_chunk`` when it is set, else JAC_AUTO_CHUNK where
+    :func:`jacobian_bytes` passes :func:`jacobian_limit`."""
+    if cfg.retrieval.jac_chunk:
+        return int(cfg.retrieval.jac_chunk)
+    if jacobian_bytes(cfg, n_x, n_fine) > jacobian_limit(device):
+        return JAC_AUTO_CHUNK
+    return None
+
+
+def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int, device):
+    """The Jacobian callable, with the reference's memory guard on the
+    port's own bytes: the unchunked ``torch.func.jacfwd``, or
+    :func:`jacobian_fwd_chunked` (the same values, a bounded tangent batch)
+    in the columns of :func:`jacobian_chunk`."""
+    chunk = jacobian_chunk(cfg, n_x, n_fine, device)
     if chunk:
         print(f"jacobian: chunked forward-mode ({chunk} tangent columns)",
               file=sys.stderr)
-        return lambda x: jacobian_fwd_chunked(fwd_flat, x, chunk=int(chunk))
+        return lambda x: jacobian_fwd_chunked(fwd_flat, x, chunk=chunk)
     return torch.func.jacfwd(fwd_flat)
 
 
@@ -707,7 +751,7 @@ def _retrieve(cfg, device: torch.device, mesh) -> dict:
     n_fine = int(scene.nu.shape[0])
     oe = None
     if mesh is None:
-        jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine)
+        jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine, device)
     else:
         oe = sharded_problem(cfg, scene, mesh, atm, init(atm), engine,
                              None if nb is None else nb.expand)

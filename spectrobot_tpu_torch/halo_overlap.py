@@ -40,7 +40,12 @@ running); ``async_pairs_emitted`` (the exchange ran on another stream than
 the line sums and started before the first line sum ended); the device's
 busy time, the idle share of the forward's range and the ``line``
 all-reduce's device time.  Each is null where the trace holds no device
-event (the CPU).  Each rank also reports its radiances against the
+event (the CPU).  Beside them the host marks (:func:`host_marks`, from
+the forward's range start on the profiler's clock): when the own line sum
+began and launched its first kernel, when the exchange's issue began and
+launched its kernel, when that kernel began on the device and the own
+sum's last kernel ended, and the own prologue's and line sum's device
+time.  Each rank also reports its radiances against the
 single-device forward of the same scene (``vs_single_device``).
 
 Rank 0 prints one JSON object: the runs by mesh and rank, ``traffic`` (the
@@ -95,6 +100,15 @@ SCHEDULE_KEYS = ("n_exchange_launches", "exchange_start_us",
                  "exposed_exchange_us", "async_pairs_emitted", "busy_us",
                  "idle_share", "line_all_reduce_us")
 SLICE_TOML = os.path.join(scaling.REPO, "examples", "mars_limb.toml")
+# The host's launch calls (cudaLaunch* and cuLaunch*, which NCCL may use,
+# and the async copies and sets), matched to their device events by the
+# profiler's correlation id.
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+# Each forward's host marks (:func:`host_marks`).
+HOST_MARK_KEYS = ("host_own_sum_start_us", "host_own_sum_first_launch_us",
+              "host_exchange_issue_us", "host_exchange_launch_us",
+              "exchange_device_start_us", "own_sum_device_end_us",
+              "own_prologue_device_us", "own_line_sum_device_us")
 
 
 def traffic_argument(R_loc=10, NL=20, n_out=2, n_fields=11) -> dict:
@@ -163,15 +177,73 @@ def schedule(work) -> dict:
             "async_pairs_emitted": emitted}
 
 
+def host_marks(events, w0: float, w1: float) -> dict:
+    """One forward's host marks from its profiler events ``events`` (the
+    window [w0, w1] of its range; every time from w0 on the profiler's
+    clock, which the host and device events share): when the own line sum
+    began (its range, ``collectives.OWN_SUM_RANGE``) and launched its first
+    kernel, when the exchange's issue began (``collectives.EXCHANGE_RANGE``)
+    and launched its kernel, when that kernel began on the device, when the
+    own sum's last kernel ended, and the device time of the own sum's
+    prologue (every kernel it launched but the line sum's) and of its line
+    sum (K1, K2).  Each is None where the trace lacks it (the device marks
+    on the CPU)."""
+    from torch.autograd import DeviceType
+
+    from spectrobot_tpu_torch.parallel.collectives import (
+        EXCHANGE_RANGE, OWN_SUM_RANGE)
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU
+           and w0 <= e.time_range.start <= w1]
+    dev = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            dev.setdefault(e.id, []).append(e)
+    rel = lambda t: None if t is None else t - w0
+    first = lambda name: min((e.time_range for e in cpu if e.name == name),
+                             key=lambda r: r.start, default=None)
+    own, issue = first(OWN_SUM_RANGE), first(EXCHANGE_RANGE)
+    launches = sorted((e for e in cpu if e.name.startswith(LAUNCH_CALLS)),
+                      key=lambda e: e.time_range.start)
+    out = dict.fromkeys(HOST_MARK_KEYS)
+    out["host_exchange_issue_us"] = rel(issue and issue.start)
+    x_dev = [d for e in launches for d in dev.get(e.id, ())
+             if _kind(d.name) == "exchange"]
+    if x_dev:
+        out["exchange_device_start_us"] = rel(min(d.time_range.start
+                                                  for d in x_dev))
+        out["host_exchange_launch_us"] = rel(min(
+            e.time_range.start for e in launches
+            if any(_kind(d.name) == "exchange" for d in dev.get(e.id, ()))))
+    if own is not None:
+        out["host_own_sum_start_us"] = rel(own.start)
+        mine = [e for e in launches
+                if own.start <= e.time_range.start <= own.end]
+        if mine:
+            out["host_own_sum_first_launch_us"] = rel(
+                mine[0].time_range.start)
+        kern = [d for e in mine for d in dev.get(e.id, ())]
+        if kern:
+            out["own_sum_device_end_us"] = rel(max(d.time_range.end
+                                                   for d in kern))
+            line = [any(k in d.name for k in LINE_SUM_KERNELS) for d in kern]
+            dur = lambda d: d.time_range.end - d.time_range.start
+            out["own_line_sum_device_us"] = sum(
+                dur(d) for d, ls in zip(kern, line) if ls)
+            out["own_prologue_device_us"] = sum(
+                dur(d) for d, ls in zip(kern, line) if not ls)
+    return out
+
+
 def summary(forwards: list) -> dict:
     """A rank's forwards in one: the largest launch count, the fewest
     overlapped kernels, whether every forward emitted async pairs, and the
     median of every time (None where no forward has the value)."""
     def vals(k):
-        return [f[k] for f in forwards if f[k] is not None]
+        return [f[k] for f in forwards if f.get(k) is not None]
 
     out = {}
-    for k in SCHEDULE_KEYS + ("window_us",):
+    for k in SCHEDULE_KEYS + HOST_MARK_KEYS + ("window_us",):
         v = vals(k)
         if not v:
             out[k] = None
@@ -219,7 +291,7 @@ def trace_forwards(fn: Callable, device: torch.device, n: int) -> list:
     """``n`` calls of ``fn`` in one profiler window, each in its own range
     and ending in a synchronise: for each, (its device events [(name,
     start_us, end_us, stream)] within its range, the range's length in
-    us)."""
+    us, its :func:`host_marks`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -243,7 +315,7 @@ def trace_forwards(fn: Callable, device: torch.device, n: int) -> list:
                                    f"{RANGE}_{i}")
             work += [(name, s, e, st) for name, s, e in found if s < e]
         _, (w0, w1) = window_work(events, f"{RANGE}_{i}", cuda=False)
-        out.append((work, w1 - w0))
+        out.append((work, w1 - w0, host_marks(events, w0, w1)))
     return out
 
 
@@ -257,8 +329,8 @@ def measure(fn: Callable, device: torch.device, n_forwards: int = N_FORWARDS,
     _sync(device)()
     walls = forward_walls_ms(fn, device, n_walls)
     forwards = []
-    for work, window_us in trace_forwards(fn, device, n_forwards):
-        f = {**schedule(work), "window_us": window_us}
+    for work, window_us, marks in trace_forwards(fn, device, n_forwards):
+        f = {**schedule(work), **marks, "window_us": window_us}
         if f["busy_us"] is not None:
             f["idle_share"] = 1.0 - f["busy_us"] / window_us
         forwards.append(f)

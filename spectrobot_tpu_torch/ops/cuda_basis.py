@@ -13,7 +13,11 @@ Jacobian:
 
 with the basis {K, dK/dx, x dK/dx, dK/dy} of Humlicek's w4 (times chi and
 the cutoff mask) at every (point p, line i) pair of state b.  The rows r
-carry every Jacobian column, so the basis is evaluated once per Jacobian.
+carry every Jacobian column, so the basis is evaluated once per Jacobian
+up to ``MAX_ROWS`` rows (111 columns); past that the rows go in row groups
+of at most ``MAX_ROWS``, as even as the count allows, one launch and one
+evaluation of the basis a group (:func:`basis_contract_batch`), as the
+reference's kernel takes any R.
 
 What bounds it on an H100: the basis on the CUDA cores (FP32, about 2.5x
 the forward's Voigt flops per pair), the contraction on the tensor cores
@@ -50,9 +54,10 @@ from spectrobot_tpu_torch.ops.cuda_transpose import (
     basis_transpose_batch_plain)
 from spectrobot_tpu_torch.ops.opacity import Engine, _basis
 
-# The most coefficient rows one kernel call takes: the rows' sums live in
+# The most coefficient rows one kernel launch takes: the rows' sums live in
 # each lane's registers (csrc/basis_contract.cuh MAX_ROWS, checked against
-# the library when it is loaded).
+# the library when it is loaded).  A call with more rows launches once a
+# row group (:func:`row_spans`).
 MAX_ROWS = 223
 
 # Kernel launches made by basis_contract_batch in this process.
@@ -96,8 +101,8 @@ def basis_contract_batch_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
 
 def _check(nu_grid, nu_c, sx, y, C, active, chi_b, *, kernel: bool) -> None:
     """Raise on inputs of the wrong shape or on mixed devices; with
-    ``kernel``, also on what the kernel does not take (more states or rows
-    than it has room for, a dtype other than float32, non-contiguous
+    ``kernel``, also on what the kernel does not take (more states than a
+    launch's grid holds, a dtype other than float32, non-contiguous
     tensors)."""
     if nu_grid.dim() != 1:
         raise ValueError(f"nu_grid must be 1-D, got {tuple(nu_grid.shape)}")
@@ -106,14 +111,8 @@ def _check(nu_grid, nu_c, sx, y, C, active, chi_b, *, kernel: bool) -> None:
                          f"{tuple(nu_c.shape)} and {tuple(C[0].shape)}")
     B, L = nu_c.shape
     R = C[0].shape[1]
-    if kernel:
-        if B > 65535:
-            raise ValueError(f"at most 65535 states per call, got {B}")
-        if R > MAX_ROWS:
-            raise ValueError(
-                f"{R} coefficient rows, but the basis kernel holds at most "
-                f"{MAX_ROWS} (the sums of every row live in registers); "
-                f"take the Jacobian in chunks (retrieval.jac_chunk)")
+    if kernel and B > 65535:
+        raise ValueError(f"at most 65535 states per call, got {B}")
     want = {"nu_c": (nu_c, (B, L)), "sx": (sx, (B, L)), "y": (y, (B, L))}
     for k, c in enumerate(C, 1):
         want[f"C{k}"] = (c, (B, R, L))
@@ -137,6 +136,31 @@ def _check(nu_grid, nu_c, sx, y, C, active, chi_b, *, kernel: bool) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def row_spans(R: int) -> list:
+    """[(r0, r1)]: ``R`` coefficient rows cut into the fewest groups of at
+    most ``MAX_ROWS``, as even as the count allows (their sizes differ by
+    one at most), in order."""
+    n = max(1, -(-R // MAX_ROWS))
+    q, extra = divmod(R, n)
+    spans, r0 = [], 0
+    for g in range(n):
+        spans.append((r0, r0 + q + (g < extra)))
+        r0 = spans[-1][1]
+    return spans
+
+
+def contract_row_groups(C, out: torch.Tensor, contract) -> torch.Tensor:
+    """Fill ``out`` [B, R, ...] by row groups: for each span of
+    :func:`row_spans`, ``contract(C_group, out_group)`` with C1..C4's rows
+    of the span ([B, G, L] each) and ``out``'s rows of the span (a view it
+    writes).  The rows of a contraction are independent, so the groups
+    give what one call over every row gives; each group evaluates the
+    basis again."""
+    for r0, r1 in row_spans(C[0].shape[1]):
+        contract([c[:, r0:r1] for c in C], out[:, r0:r1])
+    return out
 
 
 def _library() -> ctypes.CDLL:
@@ -181,8 +205,13 @@ def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
     rows are all zero, which the kernel skips; the caller may pass a
     cheaper sufficient statistic (the line sum's tangent passes
     amps != 0 | C1 != 0, since C2..C4 are amps-scaled).
+
+    Any R: more than ``MAX_ROWS`` rows are cut into row groups
+    (:func:`contract_row_groups`), one launch a group.  The kernel writes
+    [B, G, Pp] rows of its own, so a group whose rows of the [B, R, Pp]
+    output are not contiguous (B > 1) goes to a buffer of its own, copied
+    into them: one [B, G, Pp] buffer and one device copy a group.
     """
-    global LAUNCHES
     C = (C1, C2, C3, C4)
     on_cpu = nu_grid.device.type == "cpu"
     _check(nu_grid, nu_c, sx, y, C, active, chi_b, kernel=not on_cpu)
@@ -203,25 +232,35 @@ def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
     nuc_d = pad_lines(nu_c, Lp, win.far)
     sx_d, y_d = pad_lines(sx, Lp, 1e6), pad_lines(y, Lp, 1e6)
     chi_d = None if chi_b is None else pad_lines(chi_b, Lp, 0.0)
-    C_d = [aligned(pad_lines(c, Lp, 0.0)) for c in C]
     if active is None:
         active = torch.stack([(c != 0).flatten(1).any(1) for c in C]).any(0)
     active = active.to(torch.int32).contiguous()
     out = torch.empty((B, R, Pp), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(Cg, out_g):
+        global LAUNCHES
+        G = Cg[0].shape[1]
+        C_d = [aligned(pad_lines(c, Lp, 0.0)) for c in Cg]
+        dst = (out_g if out_g.is_contiguous() else
+               torch.empty((B, G, Pp), dtype=torch.float32, device=dev))
         rc = lib.basis_batch_launch(
             win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
             y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
             *(c.data_ptr() for c in C_d), win.starts.data_ptr(),
-            win.counts.data_ptr(), active.data_ptr(), out.data_ptr(), B, R,
+            win.counts.data_ptr(), active.data_ptr(), dst.data_ptr(), B, G,
             Pp, Lp, cut, stream)
         LAUNCHES += 1
-    if rc != 0:
-        msg = lib.basis_batch_error_string(rc).decode()
-        raise RuntimeError(f"basis_batch kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+        if rc != 0:
+            msg = lib.basis_batch_error_string(rc).decode()
+            raise RuntimeError(f"basis_batch kernel launch failed: CUDA "
+                               f"error {rc} ({msg})")
+        if dst is not out_g:
+            out_g.copy_(dst)
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        contract_row_groups(C, out, launch)
     return out[:, :, :P]
 
 

@@ -28,6 +28,7 @@ nu-halo tier's line parameters are constants on every path.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence
 
 import torch
@@ -154,6 +155,26 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     return _AllGather.apply(x, mesh.groups[axis], int(dim))
 
 
+# The profiler ranges of an exchange's issue and of the own line sum it
+# overlaps (``halo_overlap``'s host marks).
+EXCHANGE_RANGE = "ring_exchange_issue"
+OWN_SUM_RANGE = "halo_own_line_sum"
+
+
+def _span(name: str):
+    """A ``torch.profiler.record_function`` range while a profiler runs
+    (``halo_overlap`` reads them), else nothing: the forward pays no range
+    when it is not traced."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def own_sum_span():
+    """The range of a halo body's own line sum (:data:`OWN_SUM_RANGE`)."""
+    return _span(OWN_SUM_RANGE)
+
+
 class Pending:
     """A ring exchange in flight (:func:`ring_exchange_start`).  It holds
     the send buffers until :meth:`wait`: the exchange reads them on its
@@ -216,5 +237,6 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
                 ops += [dist.P2POp(dist.isend, x, peer(r + shift), group),
                         dist.P2POp(dist.irecv, out, peer(r - shift), group)]
             recvs.append(got)
-        works = dist.batch_isend_irecv(ops) if ops else []
+        with _span(EXCHANGE_RANGE):
+            works = dist.batch_isend_irecv(ops) if ops else []
     return Pending(works, sends, recvs)

@@ -28,7 +28,8 @@ import torch
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.cuda_single import accumulate_single
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
-from spectrobot_tpu_torch.parallel.collectives import ring_exchange_start
+from spectrobot_tpu_torch.parallel.collectives import (
+    own_sum_span, ring_exchange_start)
 
 
 class ShardedKernelLines(NamedTuple):
@@ -171,7 +172,8 @@ def halo_accumulate_fn(mesh, *, chunk: int = 256,
 
     def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
         pending = _start_halo(mine, mesh, n_shards)
-        out = acc(nu_loc, mine)
+        with own_sum_span():
+            out = acc(nu_loc, mine)
         for (_, src), (rows,) in zip(_hops(n_shards), pending.wait()):
             got = unpack_lines(rows)
             d = torch.as_tensor(delta[src], dtype=got.nu_c.dtype,
@@ -214,7 +216,8 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
 
     def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
         pending = _start_halo(mine, mesh, n_shards)
-        out = acc(nu_loc, mine, 0)
+        with own_sum_span():
+            out = acc(nu_loc, mine, 0)
         for (_, s_i), (rows,) in zip(_hops(n_shards), pending.wait()):
             out = out + acc(nu_loc, unpack_lines(rows), s_i)
         return out

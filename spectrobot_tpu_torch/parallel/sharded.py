@@ -48,7 +48,7 @@ from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 from spectrobot_tpu_torch.parallel.collectives import (
-    psum, ring_exchange_start)
+    own_sum_span, psum, ring_exchange_start)
 from spectrobot_tpu_torch.parallel.halo import _hops, nu_shard_edges
 
 # Per-line DeviceLines fields (leading [L] axis); the trailing three
@@ -264,7 +264,8 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
         # under jacfwd) and waited on after it, so the two overlap.
         pending = ring_exchange_start(_line_messages(lines_loc), mesh, "nu",
                                       [shift for shift, _ in hops])
-        dtau, dtau_em = tau(lines_loc, 0)
+        with own_sum_span():
+            dtau, dtau_em = tau(lines_loc, 0)
         for (_, s_i), got in zip(hops, pending.wait()):
             d2, d2e = tau(_received_lines(lines_loc, got), s_i)
             dtau, dtau_em = dtau + d2, dtau_em + d2e

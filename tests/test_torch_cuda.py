@@ -228,15 +228,31 @@ def test_basis_kernel_rejects_what_it_does_not_take(cuda):
         cb.basis_contract_batch(nu, win, nc, sx.cpu(), y, *C)
     with pytest.raises(TypeError, match="float32"):
         cb.basis_contract_batch(nu, win, nc, sx, y, C[0].double(), *C[1:])
-    big = [c[:, :1].expand(-1, cb.MAX_ROWS + 1, -1).contiguous() for c in C]
-    with pytest.raises(ValueError, match="rows"):
-        cb.basis_contract_batch(nu, win, nc, sx, y, *big)
+    # One row past a launch's limit: two launches (112 + 112 rows), each
+    # row the same as at the limit in one launch.
+    for R, n in ((cb.MAX_ROWS, 1), (cb.MAX_ROWS + 1, 2)):
+        before = cb.LAUNCHES
+        rows = [c[:, :1].expand(-1, R, -1).contiguous() for c in C]
+        out = cb.basis_contract_batch(nu, win, nc, sx, y, *rows)
+        torch.cuda.synchronize()
+        assert cb.LAUNCHES == before + n and out.shape[1] == R
+        assert torch.equal(out[:, 0], out[:, -1])
+
+
+@pytest.mark.parametrize("n_rows", [228, 450])
+def test_basis_kernel_takes_any_number_of_rows(cuda, n_rows):
+    """Past MAX_ROWS the wrapper launches once a row group (two of 114,
+    three of 150), each writing its rows of one output: against the
+    plain version within K2's budget."""
+    nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda, n_rows=n_rows)
     before = cb.LAUNCHES
-    rows = [c[:, :1].expand(-1, cb.MAX_ROWS, -1).contiguous() for c in C]
-    out = cb.basis_contract_batch(nu, win, nc, sx, y, *rows)
+    got = cb.basis_contract_batch(nu, co.line_windows(nu, nu0), nc, sx, y,
+                                  *C, chi_b=chi)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES == before + 1 and out.shape[1] == cb.MAX_ROWS
-    assert torch.equal(out[:, 0], out[:, -1])
+    assert cb.LAUNCHES == before + len(cb.row_spans(n_rows))
+    ref = cb.basis_contract_batch_plain(nu, nc, sx, y, *C, chi_b=chi)
+    assert got.shape == ref.shape == (nc.shape[0], n_rows, nu.shape[0])
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_basis_kernels_take_rows_off_a_16_byte_boundary(cuda):

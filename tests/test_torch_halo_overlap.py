@@ -9,8 +9,11 @@ the trace tool spectrobot_tpu_torch/halo_overlap.py, on the CPU:
 - at 2 and 4 gloo ranks the exchange bit-equal to ring_shift, its refusal
   of a jvp tangent, a vmap batch and a requires_grad input, and the
   sharded forward and both halo accumulations bit-equal to the same sums
-  in the order of the synchronous shift;
-- the tool's analysis on synthetic event lists, its traffic argument
+  in the order of the synchronous shift, also when the same function runs
+  a second forward on other line parameters (which catches a buffer kept
+  from one forward to the next going stale);
+- the tool's analysis and host marks on synthetic event lists, its
+  traffic argument
   against the reference's, and the tool end to end on 2 gloo ranks."""
 
 import importlib.util
@@ -137,6 +140,30 @@ def test_halo_accumulations_bit_equal_to_synchronous_order(ranks):
         assert torch.equal(kernel, p_kernel)
 
 
+@pytest.mark.parametrize("mode", ["limb", "nadir"])
+def test_second_forward_on_other_lines_is_its_own(ranks, mode):
+    """The mesh function called twice, the second time on other line
+    parameters: each forward bit-equal to the synchronous order on its own
+    lines."""
+    world, _, _, got = ranks
+    for r in range(world):
+        I, _, parent = got[r]["sharded"][mode]
+        I2, parent2 = got[r]["sharded_again"][mode]
+        assert torch.equal(I2, parent2)
+        assert not torch.equal(I2, I)
+
+
+def test_second_halo_accumulation_on_other_lines_is_its_own(ranks):
+    world, _, _, got = ranks
+    for r in range(world):
+        plain, kernel, _ = got[r]["halo"]
+        plain2, kernel2, (p_plain, p_kernel) = got[r]["halo_again"]
+        assert torch.equal(plain2, p_plain)
+        assert torch.equal(kernel2, p_kernel)
+        assert not torch.equal(plain2, plain)
+        assert not torch.equal(kernel2, kernel)
+
+
 @pytest.mark.parametrize("ranks", [4], indirect=True)
 @pytest.mark.parametrize("mode", ["limb", "nadir"])
 def test_two_hop_sharded_matches(ranks, mode):
@@ -218,6 +245,44 @@ def test_schedule_without_exchange_and_without_events():
     fwds = [{**ho.schedule([]), "window_us": w} for w in (1.0, 3.0)]
     summ = ho.summary(fwds)
     assert summ["window_us"] == 2.0 and summ["n_exchange_launches"] is None
+
+
+def _event(name, start, end, dev=False, corr=0):
+    """A profiler event as ``host_marks`` reads it."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    return SimpleNamespace(
+        name=name, id=corr, time_range=SimpleNamespace(start=start, end=end),
+        device_type=DeviceType.CUDA if dev else DeviceType.CPU)
+
+
+def test_host_marks_of_the_issue_order():
+    """The own sum's range launches a prologue kernel and K1; the
+    exchange's issue range launches the send/receive kernel; every time
+    from the forward's range start (1000 us); launches are matched to
+    their kernels by correlation id."""
+    from spectrobot_tpu_torch.parallel.collectives import (
+        EXCHANGE_RANGE, OWN_SUM_RANGE)
+    ev = [_event(OWN_SUM_RANGE, 1010.0, 1100.0),
+          _event("cudaLaunchKernel", 1020.0, 1025.0, corr=7),
+          _event("cudaLaunchKernel", 1090.0, 1095.0, corr=8),
+          _event(EXCHANGE_RANGE, 1105.0, 1200.0),
+          _event("cuLaunchKernelEx", 1180.0, 1190.0, corr=9),
+          _event("elementwise_kernel", 1022.0, 1030.0, dev=True, corr=7),
+          _event(K1, 1093.0, 1150.0, dev=True, corr=8),
+          _event(SENDRECV, 1185.0, 1195.0, dev=True, corr=9),
+          _event(K1, 5000.0, 5050.0, dev=True, corr=3)]
+    m = ho.host_marks(ev, 1000.0, 1300.0)
+    assert m == {"host_own_sum_start_us": 10.0,
+                 "host_own_sum_first_launch_us": 20.0,
+                 "host_exchange_issue_us": 105.0,
+                 "host_exchange_launch_us": 180.0,
+                 "exchange_device_start_us": 185.0,
+                 "own_sum_device_end_us": 150.0,
+                 "own_prologue_device_us": 8.0,
+                 "own_line_sum_device_us": 57.0}
+    assert all(v is None for v in ho.host_marks(ev, 0.0, 5.0).values())
 
 
 def test_traffic_argument_matches_reference():

@@ -256,7 +256,9 @@ def exchange_case(rank, world, msgs, sharded_cases, halo_in, oe_cases):
     requires_grad input; the sharded forward of each (name, shape, scene)
     of ``sharded_cases`` and, on the (1, 1, world) mesh, in the order of
     the synchronous shift; the halo accumulations of ``halo_in`` (nu, nu0,
-    kernel lines, cutoff) and in that order; mesh_retrieval_case of
+    kernel lines, cutoff) and in that order; each sharded forward and
+    halo accumulation again, by the same function, on other line
+    parameters ("sharded_again", "halo_again"); mesh_retrieval_case of
     ``oe_cases``."""
     from spectrobot_tpu_torch import interop
     from spectrobot_tpu_torch.ops.opacity import KernelLines
@@ -313,6 +315,15 @@ def exchange_case(rank, world, msgs, sharded_cases, halo_in, oe_cases):
                                    sc["cutoff"])
         out["sharded"][name] = (I, dict(m.coord), _parent_sharded(
             m, st, windows, sc["cutoff"], is_limb, sc["emissivity"]))
+        # The same mesh function again on other line parameters: the
+        # send buffer it keeps carries this forward's lines.
+        st2 = st._replace(lines=st.lines._replace(
+            sw=st.lines.sw * 1.5, gamma_air=st.lines.gamma_air * 0.8))
+        out["sharded_again"] = out.get("sharded_again", {})
+        out["sharded_again"][name] = (
+            f(st2.nu, st2.nu_off, st2.lines, st2.cg, st2.I_bg),
+            _parent_sharded(m, st2, windows, sc["cutoff"], is_limb,
+                            sc["emissivity"]))
 
     nu, nu0, kl, cutoff = halo_in
     nu = torch.as_tensor(nu)
@@ -321,11 +332,18 @@ def exchange_case(rank, world, msgs, sharded_cases, halo_in, oe_cases):
     skl = halo.partition_kernel_lines(kl, nu0, edges)
     mine = halo.shard_lines(skl, mesh.coord["nu"])
     nu_loc = nu[mesh.block(nu.shape[0], "nu")]
+    plain_fn = halo.halo_accumulate_fn(mesh, cutoff_cm1=cutoff)
+    kernel_fn = halo.halo_accumulate_pallas_fn(mesh, nu.numpy(),
+                                               skl.nu_c.numpy(),
+                                               cutoff_cm1=cutoff)
     out["halo"] = (
-        halo.halo_accumulate_fn(mesh, cutoff_cm1=cutoff)(nu_loc, mine),
-        halo.halo_accumulate_pallas_fn(mesh, nu.numpy(), skl.nu_c.numpy(),
-                                       cutoff_cm1=cutoff)(nu_loc, mine),
+        plain_fn(nu_loc, mine), kernel_fn(nu_loc, mine),
         _parent_halo(mesh, nu_loc, mine, cutoff, nu.numpy(),
+                     skl.nu_c.numpy()))
+    mine2 = mine._replace(y=mine.y * 1.25, amps=mine.amps * 0.5)
+    out["halo_again"] = (
+        plain_fn(nu_loc, mine2), kernel_fn(nu_loc, mine2),
+        _parent_halo(mesh, nu_loc, mine2, cutoff, nu.numpy(),
                      skl.nu_c.numpy()))
     out["oe"] = mesh_retrieval_case(rank, world, oe_cases)
     return out
