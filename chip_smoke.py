@@ -46,8 +46,14 @@ Phases, each of which raises (non-zero exit) on failure:
      (parallel.sharded through parallel.oe) in the psum and nu-halo tiers
      against the single-device forward, through K1; the halo accumulation
      (parallel.halo.halo_accumulate_pallas_fn) on the bench state through
-     K3, against the plain sum; the sharded normal equations (F, H, g)
-     against those of the single-device Jacobian, K2 once per call;
+     K3, against the plain sum; the mesh bodies replayed as CUDA graphs
+     (parallel.graphed): the slice at a 10 cm-1 cutoff in both tiers and
+     the K3 halo accumulation, each on two states in turn, every replay
+     bit-equal to the eager body and one K1 (K3) launch a replay, the
+     slice within MESH_RTOL of one device, the graph pool's size, and the
+     graphed forward's walls and host issue beside the eager body's; the
+     sharded normal equations (F, H, g) against those of the
+     single-device Jacobian (jacfwd: the eager body), K2 once per call;
   6d. the single-state line sum (ops.opacity.make_accumulate_op at one
      state) through its entry points: acceptance config 1
      (forward.model.nadir_single_layer, float32, 3001 points) against the
@@ -92,7 +98,8 @@ Phases, each of which raises (non-zero exit) on failure:
      Jacobian), the reverse gradient (one K1, one K5) against J^T dL/dy;
      then the composed scene (plus the CIA continuum and a 3 km FOV over 40
      fine rays): the CLI forward and retrieve, the Jacobian (finite), and
-     the (1, 1, 1) mesh forward in the nu-halo tier against one device;
+     the (1, 1, 1) mesh forward in the nu-halo tier against one device,
+     its replay bit-equal to its first call, its graph pool's size;
   6g. the (P, T) table tier and the 2-D climatology, float32: the LTE
      table of examples/mars_limb.toml (21 x 25 lattice) and config 3's
      non-LTE tables, each built in one K1 launch and held at every node to
@@ -612,7 +619,7 @@ def compare_k3(case: K3Case) -> dict:
 
 
 def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
-               bench_nu0: torch.Tensor) -> dict:
+               bench_nu0: torch.Tensor, card: str) -> dict:
     """Phase 6c: the mesh at world size 1 on the card (NCCL, in-process).
     ``bench_nu0``: the unshifted centers of the bench state's lines.
     Returns K3's launch count and what phase 7 times; the process group
@@ -683,6 +690,7 @@ def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
                         "sum")
     out["k3_launches"] = n["K3"]
     out["halo"] = (f, bench.nu, halo.shard_lines(skl, 0))
+    graph_phase(mesh, f, out["halo"][1:], card)
 
     # The sharded normal equations against the single-device Jacobian.
     oe = cli.sharded_problem(cfg, scene, mesh, prob.atm,
@@ -714,6 +722,106 @@ def mesh_phase(cfg, scene, prob, x0, J, y_obs, sigma, bench: K3Case,
     out["x_empty"] = x_empty
     out["mesh"] = mesh
     return out
+
+
+def graph_phase(mesh, halo_fn, halo_in: tuple, card: str) -> None:
+    """Phase 6c, the mesh bodies replayed as CUDA graphs (parallel.graphed)
+    on the (1, 1, 1) mesh: the slice (halo_overlap's scene, cutoff 10
+    cm-1) in both tiers on two PathCG states, each replay bit-equal to the
+    eager body on the same inputs and one K1 launch a replay, a state
+    within MESH_RTOL of one device; the graphed forward's walls beside
+    the eager body's; the K3 halo accumulation ``halo_fn`` replayed on its
+    inputs ``halo_in`` and on other amplitudes, bit-equal to its eager
+    body, one K3 launch a replay."""
+    from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.parallel import sharded as sh
+
+    dev = mesh.device
+    sc = ho.make_scene("slice", dev, 1)
+    ref = ho.single_device_block(mesh, sc)
+    nu_off = sc.nu_host - float(sc.lines.nu_ref)
+    t = lambda a: torch.as_tensor(a, dtype=sc.cg.u.dtype, device=dev)
+    # Two states: the scene's rays, and the same rays 2 % warmer with 10 %
+    # less column.
+    cgs = (sc.cg, sc.cg._replace(T_sp=sc.cg.T_sp * 1.02,
+                                 T_air=sc.cg.T_air * 1.02, u=sc.cg.u * 0.9))
+
+    def replays(name, f, calls, kernel):
+        """The first call (eager, then the capture) and four replays of
+        ``calls`` in turn (B, A, B, A), each against ``f.body``."""
+        reset_launches()
+        first = calls[0](f)
+        torch.cuda.synchronize()
+        n = launch_counts()
+        expect_launches(f"{name}, first call (eager, then captured)", n,
+                        **{kernel: 1})
+        check(len(f.graphs) == 1, f"{name} captured {len(f.graphs)} graphs")
+        check(torch.equal(first, calls[0](f.body)),
+              f"{name}: the first call differs from the eager body")
+        out = {}
+        for i in (1, 0, 1, 0):
+            reset_launches()
+            got = calls[i](f)
+            torch.cuda.synchronize()
+            n = launch_counts()
+            expect_launches(f"{name}, a replay", n, **{kernel: 1})
+            eager = calls[i](f.body)
+            diff = float((got - eager).abs().max())
+            check(torch.equal(got, eager),
+                  f"{name}: replay on state {'AB'[i]} differs from the "
+                  f"eager body by {diff:.3e}")
+            out[i] = got
+        check(f.replays == 4, f"{name} replayed {f.replays} times, not 4")
+        check(not torch.equal(out[0], out[1]),
+              f"{name}: the two states gave the same output")
+        pool = sum(g.pool_bytes for g in f.graphs.values())
+        print(f"6c graph: {name}: 4 replays on alternating states bit-equal "
+              f"to the eager body; {kernel} once a replay; graph pool "
+              f"{pool / 1e6:.2f} MB")
+        return out
+
+    for tier, halo in (("psum", False), ("nu-halo", True)):
+        lines = (sh.partition_lines_by_nu(sc.lines, sc.nu_host, 1,
+                                          cutoff_cm1=sc.cutoff_cm1)
+                 if halo else sh.pad_lines_for_mesh(sc.lines, 1))
+        f = sh.sharded_radiance_fn(
+            mesh, win_grid=nu_off, win_lines=lines.nu0.cpu().double().numpy(),
+            cutoff_cm1=sc.cutoff_cm1, nu_halo=halo)
+        sts = [sh.stage_sharded(mesh, t(sc.nu_host), lines, cg,
+                                nu_off=t(nu_off)) for cg in cgs]
+        calls = [(lambda st: lambda g: g(st.nu, st.nu_off, st.lines, st.cg))(
+            st) for st in sts]
+        out = replays(f"(1, 1, 1) mesh forward, {tier} tier", f, calls, "K1")
+        err = float((out[0] - ref).abs().max())
+        print(f"6c graph: (1, 1, 1) {tier} replay vs single-device: max "
+              f"|err| {err:.3e} of max {float(ref.abs().max()):.3e}")
+        np.testing.assert_allclose(out[0].cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=MESH_RTOL,
+                                   atol=MESH_RTOL * float(ref.abs().max()))
+        # The walls, graph and eager body in turns (3 rounds each).
+        walls = {"graph": [], "eager": []}
+        for order in (("graph", "eager"), ("eager", "graph"),
+                      ("graph", "eager")):
+            for d in order:
+                g = f if d == "graph" else f.body
+                walls[d].append(cuda_ms(lambda: calls[0](g)))
+        issue = {d: host_ms(lambda: calls[0](f if d == "graph" else f.body))
+                 for d in walls}
+        print(f"time (1, 1, 1) mesh forward, {tier} tier [{card}]: graph "
+              f"{np.median(walls['graph']):.3f} ms, eager body "
+              f"{np.median(walls['eager']):.3f} ms (CUDA events, median of "
+              f"3 rounds of 5 in turns: graph "
+              f"{', '.join(f'{v:.3f}' for v in walls['graph'])}; eager "
+              f"{', '.join(f'{v:.3f}' for v in walls['eager'])}); host "
+              f"issue / to the device's end a call: graph "
+              f"{issue['graph'][0]:.3f} / {issue['graph'][1]:.3f} ms, eager "
+              f"{issue['eager'][0]:.3f} / {issue['eager'][1]:.3f} ms")
+
+    nu_b, mine = halo_in
+    mine2 = mine._replace(amps=mine.amps * 0.5, y=mine.y * 1.25)
+    calls = [(lambda m: lambda g: g(nu_b, m))(m) for m in (mine, mine2)]
+    halo_fn.release()
+    replays("the K3 halo accumulation", halo_fn, calls, "K3")
 
 
 class K4Case(NamedTuple):
@@ -1137,6 +1245,7 @@ def config3_phase(dev, mesh) -> dict:
     6c.  Returns what phase 7 times and reports."""
     from spectrobot_tpu_torch import cli
     from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
+    from spectrobot_tpu_torch.parallel import graphed
     from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
 
     out = {"oracle": config3_oracle(dev)}
@@ -1330,10 +1439,23 @@ def config3_phase(dev, mesh) -> dict:
     empty = make_state(scene_c.atm, [], retrieve_temperature=False)
     I_single = cli.run_forward(cfg_c, scene_c).cpu().numpy()
     oe = cli.sharded_problem(cfg_h, scene_c, mesh, scene_c.atm, empty)
+    pool = graphed.pool_bytes()
     reset_launches()
     I_m = oe.forward_flat(flatten_state(empty)[0]).reshape(I_single.shape)
     torch.cuda.synchronize()
     n = launch_counts()
+    pool = graphed.pool_bytes() - pool
+    # The second call replays the graph its first call captured.
+    reset_launches()
+    I_r = oe.forward_flat(flatten_state(empty)[0]).reshape(I_single.shape)
+    torch.cuda.synchronize()
+    n_r = launch_counts()
+    print(f"composed mesh forward replayed: bit-equal to its first (eager) "
+          f"call {bool(torch.equal(I_r, I_m))}; graph pool "
+          f"{pool / 1e6:.2f} MB; launches {json.dumps(n_r)}")
+    expect_launches("the composed mesh forward's replay", n_r, K1=1)
+    check(torch.equal(I_r, I_m), "the composed mesh forward's replay "
+                                 "differs from its first (eager) call")
     I_m = I_m.cpu().numpy()
     err = float(np.abs(I_m - I_single).max())
     print(f"composed mesh forward (nu-halo tier) vs single-device: max "
@@ -2639,6 +2761,7 @@ def main(argv=None) -> int:
     from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
     from spectrobot_tpu_torch.parallel import peer
+    from spectrobot_tpu_torch.parallel.mesh import finalize_multihost
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2898,7 +3021,8 @@ def main(argv=None) -> int:
 
     # Phase 6c: the mesh at world size 1 (NCCL, in-process).
     mesh = mesh_phase(cfg, scene, prob["kernels"], x0, J, y_obs, sigma,
-                      cases3["bench state"], bench_device_lines(dev).nu0)
+                      cases3["bench state"], bench_device_lines(dev).nu0,
+                      card)
 
     # Phase 6d: the single-state line sum (K3, K4; K1, K2 and K5 on its
     # structural and reverse routes).
@@ -3162,7 +3286,7 @@ def main(argv=None) -> int:
     tools = tools_phase(dev, mesh["mesh"], card)
     # Phase 6j: the nu-halo forward's exchange schedule on the same group.
     halo_overlap_phase(dev, cfg, scene, mesh, card)
-    torch.distributed.destroy_process_group()
+    finalize_multihost()
 
     # Each kernel's bound at its timed limb inputs: K1 and K2 over the
     # amplitude-live states, K5 over the cotangent-live ones (all of them).

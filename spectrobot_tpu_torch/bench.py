@@ -373,7 +373,8 @@ def bench_sharded_pallas(device, n_rep: Optional[int] = None) -> dict:
     (``bench.py:225``), chained through the paths' Curtis-Godson columns
     (``bench.py:260``).  Joins or makes the process group; a group this
     call made it ends."""
-    from spectrobot_tpu_torch.parallel.mesh import initialize_multihost
+    from spectrobot_tpu_torch.parallel.mesh import (
+        finalize_multihost, initialize_multihost)
 
     made = initialize_multihost(device.type)
     try:
@@ -391,7 +392,7 @@ def bench_sharded_pallas(device, n_rep: Optional[int] = None) -> dict:
         rank = torch.distributed.get_rank()
     finally:
         if made:
-            torch.distributed.destroy_process_group()
+            finalize_multihost()
     print(f"sharded forward (rank {rank} of {world}): {t_mesh.ms:.2f} "
           f"ms on a (1, 1, {world}) mesh vs {t_single.ms:.2f} ms on "
           f"one device ({t_single.ms / t_mesh.ms:.2f}x); max |diff| / max "

@@ -60,7 +60,8 @@ from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.ils import fov_matrix, ils_matrix
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
-from spectrobot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+from spectrobot_tpu_torch.parallel.mesh import (
+    finalize_multihost, initialize_multihost, make_mesh)
 from spectrobot_tpu_torch.parallel.oe import ShardedOE, make_sharded_oe
 from spectrobot_tpu_torch.retrieval.state import (
     NodeBasis, build_forward, build_forward_lut, flatten_state,
@@ -458,7 +459,7 @@ def open_mesh(cfg, device: torch.device):
         yield make_mesh(shape, device.type)
     finally:
         if made:
-            dist.destroy_process_group()
+            finalize_multihost()
 
 
 def _is_rank0(mesh) -> bool:

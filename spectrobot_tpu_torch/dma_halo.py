@@ -49,7 +49,8 @@ from spectrobot_tpu_torch.ops.cuda_dma import (
 from spectrobot_tpu_torch.ops.opacity import KernelLines
 from spectrobot_tpu_torch.parallel.halo import (
     ShardedKernelLines, pack_lines, unpack_lines)
-from spectrobot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+from spectrobot_tpu_torch.parallel.mesh import (
+    finalize_multihost, initialize_multihost, make_mesh)
 from spectrobot_tpu_torch.parallel import peer
 from spectrobot_tpu_torch.parallel.peer import TIMEOUT_S, Ring, mesh_ring
 
@@ -321,7 +322,7 @@ def main(argv=None) -> int:
     dist.all_gather_object(ranks, res)
     if dist.get_rank() == 0:
         print(json.dumps({"card": card(device), "ranks": ranks}))
-    dist.destroy_process_group()
+    finalize_multihost()
     return 0
 
 

@@ -7,8 +7,8 @@ and splits its device events into the exchange (NCCL's send/receive
 kernels) and the compute (every other kernel, copy and set).
 
     python -m spectrobot_tpu_torch.halo_overlap [--scene {aot,slice,scaling}]
-        [--ranks N] [--forwards N] [--walls N] [--json-out PATH]
-        [--device {cuda,cpu}]
+        [--ranks N] [--forwards N] [--walls N] [--designs graph,eager]
+        [--json-out PATH] [--device {cuda,cpu}]
 
 The tool starts ``--ranks`` ranks (default: the cards there are; 2 on the
 CPU) with ``torch.distributed.run`` (NCCL, one card a rank; gloo on the
@@ -26,6 +26,11 @@ CPU); run under an outer ``torchrun`` it is one of its ranks.  Scenes:
 - ``scaling``: ``scaling.scene`` at 2048 points a rank on (1, 1, ranks),
   the cutoff ``scaling.halo_cutoff``.
 
+Designs (``--designs``, each a run of every mesh, in the order given):
+``graph`` (the default) is the mesh function as its callers get it, whose
+body replays as one CUDA graph on the card, the exchange a branch beside
+the own line sum (``parallel.graphed``; eager on the CPU, where no graph
+is made); ``eager`` the same body issued op by op (``graph=False``).
 Float32 on the card, float64 on the CPU.  For each mesh every rank runs
 the forward ``--walls`` times unprofiled (``forward_wall_ms``: CUDA events
 on the card, the host clock on the CPU; median and quartiles), then
@@ -45,10 +50,14 @@ the forward's range start on the profiler's clock): when the own line sum
 began and launched its first kernel, when the exchange's issue began and
 launched its kernel, when that kernel began on the device and the own
 sum's last kernel ended, and the own prologue's and line sum's device
-time.  Each rank also reports its radiances against the
-single-device forward of the same scene (``vs_single_device``).
+time; under a replay the graph's launch issues both, so those marks name
+the replay (its range's start, the ``cudaGraphLaunch``).  Each rank also
+reports its radiances against the single-device forward of the same
+scene (``vs_single_device``) and, in the graph design, against the eager
+body on the same inputs (``vs_eager``), the replays its forwards made and
+the memory its graph's capture took (``graph``).
 
-Rank 0 prints one JSON object: the runs by mesh and rank, ``traffic`` (the
+Rank 0 prints one JSON object: the runs by design, mesh and rank, ``traffic`` (the
 reference's ``traffic_argument`` and beside it the bytes the port sends a
 hop), and ``topology`` ("<n> x <card>, <power limit>" as nvidia-smi gives
 them, or "cpu, gloo ranks"); ``--json-out`` also writes it there.
@@ -78,7 +87,7 @@ from spectrobot_tpu_torch.forward.limb import limb_radiance
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
 from spectrobot_tpu_torch.parallel.mesh import (
-    _TORCHRUN_ENV, initialize_multihost, make_mesh)
+    _TORCHRUN_ENV, finalize_multihost, initialize_multihost, make_mesh)
 from spectrobot_tpu_torch.parallel.sharded import (
     PER_LINE_FIELDS, partition_lines_by_nu, sharded_radiance_fn,
     stage_sharded)
@@ -101,14 +110,18 @@ SCHEDULE_KEYS = ("n_exchange_launches", "exchange_start_us",
                  "idle_share", "line_all_reduce_us")
 SLICE_TOML = os.path.join(scaling.REPO, "examples", "mars_limb.toml")
 # The host's launch calls (cudaLaunch* and cuLaunch*, which NCCL may use,
-# and the async copies and sets), matched to their device events by the
-# profiler's correlation id.
-LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+# the async copies and sets, and a graph's launch), matched to their device
+# events by the profiler's correlation id.
+GRAPH_LAUNCH = "cudaGraphLaunch"
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                GRAPH_LAUNCH)
 # Each forward's host marks (:func:`host_marks`).
 HOST_MARK_KEYS = ("host_own_sum_start_us", "host_own_sum_first_launch_us",
-              "host_exchange_issue_us", "host_exchange_launch_us",
-              "exchange_device_start_us", "own_sum_device_end_us",
-              "own_prologue_device_us", "own_line_sum_device_us")
+                  "host_exchange_issue_us", "host_exchange_launch_us",
+                  "exchange_device_start_us", "own_sum_device_end_us",
+                  "own_prologue_device_us", "own_line_sum_device_us",
+                  "host_replay_start_us", "host_graph_launch_us")
+DESIGNS = ("graph", "eager")
 
 
 def traffic_argument(R_loc=10, NL=20, n_out=2, n_fields=11) -> dict:
@@ -186,12 +199,18 @@ def host_marks(events, w0: float, w1: float) -> dict:
     and launched its kernel, when that kernel began on the device, when the
     own sum's last kernel ended, and the device time of the own sum's
     prologue (every kernel it launched but the line sum's) and of its line
-    sum (K1, K2).  Each is None where the trace lacks it (the device marks
-    on the CPU)."""
+    sum (K1, K2).  Under a replay (``graphed.REPLAY_RANGE``) one
+    ``cudaGraphLaunch`` issues the exchange and the own sum: their host
+    marks are the replay range's start and that launch
+    (``host_replay_start_us``, ``host_graph_launch_us``), the own line sum
+    is the graph's first line-sum kernel and its prologue the graph's
+    compute kernels that end before that one starts.  Each is None where
+    the trace lacks it (the device marks on the CPU)."""
     from torch.autograd import DeviceType
 
     from spectrobot_tpu_torch.parallel.collectives import (
         EXCHANGE_RANGE, OWN_SUM_RANGE)
+    from spectrobot_tpu_torch.parallel.graphed import REPLAY_RANGE
 
     cpu = [e for e in events if e.device_type == DeviceType.CPU
            and w0 <= e.time_range.start <= w1]
@@ -203,9 +222,15 @@ def host_marks(events, w0: float, w1: float) -> dict:
     first = lambda name: min((e.time_range for e in cpu if e.name == name),
                              key=lambda r: r.start, default=None)
     own, issue = first(OWN_SUM_RANGE), first(EXCHANGE_RANGE)
+    replay = first(REPLAY_RANGE)
     launches = sorted((e for e in cpu if e.name.startswith(LAUNCH_CALLS)),
                       key=lambda e: e.time_range.start)
+    graph = [e for e in launches if e.name.startswith(GRAPH_LAUNCH)]
     out = dict.fromkeys(HOST_MARK_KEYS)
+    if replay is not None:
+        out["host_replay_start_us"] = rel(replay.start)
+        own = own or replay
+        issue = issue or replay
     out["host_exchange_issue_us"] = rel(issue and issue.start)
     x_dev = [d for e in launches for d in dev.get(e.id, ())
              if _kind(d.name) == "exchange"]
@@ -215,23 +240,36 @@ def host_marks(events, w0: float, w1: float) -> dict:
         out["host_exchange_launch_us"] = rel(min(
             e.time_range.start for e in launches
             if any(_kind(d.name) == "exchange" for d in dev.get(e.id, ()))))
-    if own is not None:
-        out["host_own_sum_start_us"] = rel(own.start)
+    dur = lambda d: d.time_range.end - d.time_range.start
+    is_sum = lambda d: any(k in d.name for k in LINE_SUM_KERNELS)
+    kern = line = None
+    if graph:
+        out["host_graph_launch_us"] = rel(graph[0].time_range.start)
+        out["host_own_sum_first_launch_us"] = out["host_graph_launch_us"]
+        ks = [d for d in dev.get(graph[0].id, ())
+              if _kind(d.name) == "compute"]
+        sums = sorted((d for d in ks if is_sum(d)),
+                      key=lambda d: d.time_range.start)
+        if sums:
+            line = [sums[0]]
+            kern = line + [d for d in ks if not is_sum(d)
+                           and d.time_range.end <= sums[0].time_range.start]
+    elif own is not None:
         mine = [e for e in launches
                 if own.start <= e.time_range.start <= own.end]
         if mine:
             out["host_own_sum_first_launch_us"] = rel(
                 mine[0].time_range.start)
         kern = [d for e in mine for d in dev.get(e.id, ())]
-        if kern:
-            out["own_sum_device_end_us"] = rel(max(d.time_range.end
-                                                   for d in kern))
-            line = [any(k in d.name for k in LINE_SUM_KERNELS) for d in kern]
-            dur = lambda d: d.time_range.end - d.time_range.start
-            out["own_line_sum_device_us"] = sum(
-                dur(d) for d, ls in zip(kern, line) if ls)
-            out["own_prologue_device_us"] = sum(
-                dur(d) for d, ls in zip(kern, line) if not ls)
+        line = [d for d in kern if is_sum(d)]
+    if own is not None:
+        out["host_own_sum_start_us"] = rel(own.start)
+    if kern:
+        out["own_sum_device_end_us"] = rel(max(d.time_range.end
+                                               for d in kern))
+        out["own_line_sum_device_us"] = sum(dur(d) for d in line)
+        out["own_prologue_device_us"] = sum(dur(d) for d in kern
+                                            if not is_sum(d))
     return out
 
 
@@ -383,9 +421,11 @@ def make_scene(name: str, device: torch.device, world: int) -> Scene:
     raise ValueError(f"no scene {name!r} (aot, slice or scaling)")
 
 
-def halo_forward(mesh, sc: Scene) -> tuple:
-    """(f, lines_loc): this rank's nu-halo mesh forward of the scene (a
-    call gives its [R_loc, P_loc] radiances) and its line slice."""
+def halo_forward(mesh, sc: Scene, graph: bool = True) -> tuple:
+    """(call, f, lines_loc): this rank's nu-halo mesh function of the scene
+    (``sharded_radiance_fn(graph=graph)``), ``call(g)`` which calls ``f``
+    or its body ``g`` on the rank's staged inputs (its [R_loc, P_loc]
+    radiances), and its line slice."""
     dl, cg = sc.lines, sc.cg
     lines = partition_lines_by_nu(dl, sc.nu_host, mesh.shape["nu"],
                                   cutoff_cm1=sc.cutoff_cm1,
@@ -394,9 +434,10 @@ def halo_forward(mesh, sc: Scene) -> tuple:
     t = lambda a: torch.as_tensor(a, dtype=cg.u.dtype, device=cg.u.device)
     f = sharded_radiance_fn(mesh, win_grid=nu_off,
                             win_lines=lines.nu0.cpu().double().numpy(),
-                            cutoff_cm1=sc.cutoff_cm1, nu_halo=True)
+                            cutoff_cm1=sc.cutoff_cm1, nu_halo=True,
+                            graph=graph)
     st = stage_sharded(mesh, t(sc.nu_host), lines, cg, nu_off=t(nu_off))
-    return (lambda: f(st.nu, st.nu_off, st.lines, st.cg)), st.lines
+    return (lambda g: g(st.nu, st.nu_off, st.lines, st.cg)), f, st.lines
 
 
 def single_device_block(mesh, sc: Scene) -> torch.Tensor:
@@ -419,13 +460,28 @@ def message_bytes(lines_loc) -> int:
                for f in PER_LINE_FIELDS)
 
 
+def graph_record(f, I: torch.Tensor, eager) -> dict:
+    """The graph design's record of the mesh function ``f`` (a
+    ``GraphedBody``): the replays its calls made, its graphs and the
+    memory their captures took, and its radiances ``I`` against the eager
+    body's ``eager`` on the same inputs."""
+    graphs = getattr(f, "graphs", {})
+    return {"replays": getattr(f, "replays", 0), "graphs": len(graphs),
+            "pool_bytes": sum(g.pool_bytes for g in graphs.values()),
+            "vs_eager": {"max_abs_diff": float((I - eager).abs().max()),
+                         "bit_equal": bool(torch.equal(I, eager))}}
+
+
 def run_mesh(mesh, sc: Scene, device: torch.device, n_forwards: int,
-             n_walls: int) -> dict:
-    """Every rank's measurements of the scene on ``mesh`` (gathered on
-    every rank) and the run's shapes."""
-    fn, lines_loc = halo_forward(mesh, sc)
-    rec = measure(fn, device, n_forwards, n_walls)
-    I = fn().double()
+             n_walls: int, design: str = "graph") -> dict:
+    """Every rank's measurements of the scene on ``mesh`` in ``design``
+    (gathered on every rank) and the run's shapes."""
+    call, f, lines_loc = halo_forward(mesh, sc, graph=design == "graph")
+    rec = measure(lambda: call(f), device, n_forwards, n_walls)
+    I = call(f)
+    if design == "graph":
+        rec["graph"] = graph_record(f, I, call(getattr(f, "body", f)))
+    I = I.double()
     ref = single_device_block(mesh, sc).double()
     d = (I - ref).abs()
     rec.update(rank=dist.get_rank(), coord=dict(mesh.coord),
@@ -440,7 +496,7 @@ def run_mesh(mesh, sc: Scene, device: torch.device, n_forwards: int,
     dist.all_gather_object(ranks, rec)
     L = int(lines_loc.nu0.shape[0])
     sent = message_bytes(lines_loc)
-    return {"mesh": list(mesh.shape.values()),
+    return {"design": design, "mesh": list(mesh.shape.values()),
             "n_points": int(sc.nu_host.shape[0]),
             "n_lines": int(sc.lines.nu0.shape[0]),
             "n_rays": int(sc.cg.u.shape[0]),
@@ -463,8 +519,12 @@ def _rank_main(args) -> int:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if args.device == "cuda" else torch.device("cpu"))
         sc = make_scene(args.scene, device, world)
-        runs = [run_mesh(make_mesh(shape, args.device), sc, device,
-                         args.forwards, args.walls) for shape in sc.meshes]
+        designs = args.designs.split(",")
+        runs = []
+        for shape in sc.meshes:
+            mesh = make_mesh(shape, args.device)
+            runs += [run_mesh(mesh, sc, device, args.forwards, args.walls,
+                              design) for design in designs]
         if dist.get_rank() == 0:
             out = {"tool": "halo_overlap", "scene": args.scene,
                    "topology": topology(device, world),
@@ -473,14 +533,15 @@ def _rank_main(args) -> int:
                    "traffic": {"config2_scale": traffic_argument(),
                                "port": [{"mesh": r["mesh"],
                                          **r["port_traffic"]}
-                                        for r in runs]}}
+                                        for r in runs
+                                        if r["design"] == designs[0]]}}
             print(json.dumps(out), flush=True)
             if args.json_out:
                 with open(args.json_out, "w") as fh:
                     json.dump(out, fh, indent=1)
                     fh.write("\n")
     finally:
-        dist.destroy_process_group()
+        finalize_multihost()
     return 0
 
 
@@ -516,10 +577,16 @@ def main(argv=None) -> int:
                    help="forwards traced a mesh")
     p.add_argument("--walls", type=int, default=N_WALLS,
                    help="unprofiled forwards timed a mesh")
+    p.add_argument("--designs", default="graph",
+                   help="comma-separated designs to run in turn on every "
+                        f"mesh, of {', '.join(DESIGNS)} (default: graph)")
     p.add_argument("--json-out", default=None,
                    help="also write the JSON object to this file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = p.parse_args(argv)
+    bad = [d for d in args.designs.split(",") if d not in DESIGNS]
+    if bad:
+        p.error(f"no design {bad[0]!r} ({', '.join(DESIGNS)})")
     device = cli.resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

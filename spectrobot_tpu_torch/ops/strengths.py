@@ -112,11 +112,13 @@ def partition_ratio(lines: DeviceLines, T) -> torch.Tensor:
     i0 = torch.broadcast_to(i0, shape)
     line = torch.arange(lines.n_lines, device=tgrid.device)
     qT = rows[line, i0] * (1 - frac) + rows[line, i0 + 1] * frac
-    # Q at the reference temperature (static index).
+    # Q at the reference temperature, its index gathered on the device (a
+    # host read of it would stop the mesh body's CUDA graph capture).
     f_ref = (T_REF - tgrid[0]) / dt_grid
-    i_ref = int(torch.floor(f_ref))
-    fr_ref = f_ref - i_ref
-    q_ref = rows[:, i_ref] * (1 - fr_ref) + rows[:, i_ref + 1] * fr_ref
+    i_ref = torch.floor(f_ref).to(torch.int64).reshape(1)
+    fr_ref = f_ref - i_ref[0]
+    q_ref = (rows.index_select(1, i_ref)[:, 0] * (1 - fr_ref)
+             + rows.index_select(1, i_ref + 1)[:, 0] * fr_ref)
     return q_ref / qT
 
 

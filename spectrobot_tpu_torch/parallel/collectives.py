@@ -23,13 +23,16 @@ ring exchange of constants in two, as XLA schedules the reference's
 ``collective-permute-start``/``-done`` pairs: every hop's messages are
 issued at once, the caller runs independent work, and only then does the
 current stream wait for the exchange.  They carry no tangent rule: the
-nu-halo tier's line parameters are constants on every path.
+nu-halo tier's line parameters are constants on every path.  Under a CUDA
+graph's capture (``parallel.graphed``) the exchange is issued from a
+stream of its own, so that it is a branch of the graph beside the
+caller's work.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -180,23 +183,34 @@ class Pending:
     the send buffers until :meth:`wait`: the exchange reads them on its
     own stream (NCCL) or thread (gloo)."""
 
-    def __init__(self, works, sends, recvs):
+    def __init__(self, works, sends, recvs, stream=None):
         self._works, self._sends, self._recvs = works, sends, recvs
+        self._stream = stream
 
     def wait(self) -> List[List[torch.Tensor]]:
-        """Make the current stream (gloo: the host) wait for the exchange;
-        the received messages, by hop and by message, each a stack of the
-        sender's parts."""
+        """Make the current stream (gloo: the host) wait for the exchange,
+        and for the stream it was issued from; the received messages, by
+        hop and by message, each a stack of the sender's parts."""
         with torch._C._DisableFuncTorch():
             for work in self._works:
                 work.wait()
+        if self._stream is not None:
+            torch.cuda.current_stream(self._stream.device).wait_stream(
+                self._stream)
         self._works = self._sends = ()
         return self._recvs
 
 
+def is_constant(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a constant: no ``torch.func`` wrapper, no
+    ``requires_grad`` and no forward-AD tangent."""
+    return not (is_functorch_wrapped_tensor(t) or t.requires_grad
+                or torch.autograd.forward_ad.unpack_dual(t).tangent
+                is not None)
+
+
 def _check_constant(t: torch.Tensor) -> None:
-    if (is_functorch_wrapped_tensor(t) or t.requires_grad
-            or torch.autograd.forward_ad.unpack_dual(t).tangent is not None):
+    if not is_constant(t):
         raise ValueError(
             "ring_exchange_start takes constants only: this input carries a "
             "tangent, a vmap batch or requires grad (use ring_shift, which "
@@ -204,7 +218,9 @@ def _check_constant(t: torch.Tensor) -> None:
 
 
 def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
-                        axis: str, shifts: Sequence[int]) -> Pending:
+                        axis: str, shifts: Sequence[int],
+                        stream: Optional[torch.cuda.Stream] = None
+                        ) -> Pending:
     """Issue the ring shifts ``shifts`` of every message at once and return
     without blocking the host; :meth:`Pending.wait` gives, for each shift,
     each message as ``ring_shift`` would (the message of the rank ``shift``
@@ -216,7 +232,12 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
     for the packing).  Every rank of the ring must call it with the same
     shifts and messages of the same shapes, in the same order.  The parts
     must be constants (no ``torch.func`` wrapper, no ``requires_grad``):
-    a ValueError otherwise.  No shift gives no exchange at all."""
+    a ValueError otherwise.  No shift gives no exchange at all.
+
+    ``stream`` (a CUDA stream; ``parallel.graphed`` passes one under
+    capture): the exchange is issued from it, after it waits for the
+    packing on the current stream, so that it forks from the caller's
+    work; :meth:`Pending.wait` joins it back."""
     if not shifts:
         return Pending((), (), [])
     for msg in tensors:
@@ -237,6 +258,10 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
                 ops += [dist.P2POp(dist.isend, x, peer(r + shift), group),
                         dist.P2POp(dist.irecv, out, peer(r - shift), group)]
             recvs.append(got)
-        with _span(EXCHANGE_RANGE):
+        fork = contextlib.nullcontext()
+        if stream is not None and ops:
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+            fork = torch.cuda.stream(stream)
+        with fork, _span(EXCHANGE_RANGE):
             works = dist.batch_isend_irecv(ops) if ops else []
-    return Pending(works, sends, recvs)
+    return Pending(works, sends, recvs, stream if ops else None)

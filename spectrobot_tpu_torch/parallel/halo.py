@@ -10,7 +10,9 @@ with the usual |dnu| <= cutoff mask.  Exact when the cutoff is at most one
 chunk wide (:func:`nu_shard_edges` checks).  The shifts of every hop are
 issued before the shard's own line sum and waited on after it
 (:func:`.collectives.ring_exchange_start`), so the exchange overlaps the
-local accumulation, as XLA schedules the reference's permutes.
+local accumulation, as XLA schedules the reference's permutes; the K3
+accumulation on the card replays as one CUDA graph in which the exchange
+is a branch beside the own sum (:mod:`.graphed`).
 
 Every rank runs the same program on its own block: the functions built
 here take the rank's grid chunk and its own row of a
@@ -30,6 +32,7 @@ from spectrobot_tpu_torch.ops.cuda_single import accumulate_single
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
 from spectrobot_tpu_torch.parallel.collectives import (
     own_sum_span, ring_exchange_start)
+from spectrobot_tpu_torch.parallel.graphed import GraphedBody
 
 
 class ShardedKernelLines(NamedTuple):
@@ -127,13 +130,15 @@ def unpack_lines(packed: torch.Tensor) -> KernelLines:
                        packed[..., 2, :], packed[..., 3:, :])
 
 
-def _start_halo(lines: KernelLines, mesh, n_shards: int):
+def _start_halo(lines: KernelLines, mesh, n_shards: int, stream=None):
     """Issue the halo's ring shifts of this shard's ``KernelLines``, one
-    message each (the rows of :func:`pack_lines`); ``wait()`` gives, for
-    each hop of :func:`_hops`, the neighbour's packed rows."""
+    message each (the rows of :func:`pack_lines`; from ``stream``, as
+    ``ring_exchange_start`` takes it); ``wait()`` gives, for each hop of
+    :func:`_hops`, the neighbour's packed rows."""
     rows = [lines.nu_c, lines.scale_x, lines.y, *lines.amps]
     return ring_exchange_start([rows], mesh, "nu",
-                               [shift for shift, _ in _hops(n_shards)])
+                               [shift for shift, _ in _hops(n_shards)],
+                               stream=stream)
 
 
 def _hops(n_shards: int):
@@ -185,7 +190,8 @@ def halo_accumulate_fn(mesh, *, chunk: int = 256,
 
 
 def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
-                              cutoff_cm1: Optional[float] = 25.0):
+                              cutoff_cm1: Optional[float] = 25.0,
+                              graph: bool = True):
     """The halo accumulation with K3 (``ops.cuda_single.accumulate_single``)
     as each shard's line sum, in float32: the production multi-card path.
     Returns f(nu_loc, mine) -> [n_out, P_loc] as :func:`halo_accumulate_fn`.
@@ -194,7 +200,10 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
     per-shard padded centers [n_shards, Lmax] (``ShardedKernelLines.nu_c``).
     This rank's window tables against its own lines and against each ring
     neighbour's (which arrive by the ring shift) are built here, on the
-    host, once.
+    host, once.  On constant inputs on the card the body runs as one CUDA
+    graph per input key, the exchange a branch beside the own K3 sum
+    (``parallel.graphed.GraphedBody``); ``graph=False`` runs it eagerly
+    always.
     """
     n_shards, k = mesh.shape["nu"], mesh.coord["nu"]
     nu_host, skl_nu0 = _host64(nu_host), _host64(skl_nu0)
@@ -214,15 +223,16 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
                                  f32(kl.scale_x), f32(kl.y), f32(kl.amps),
                                  cutoff_cm1=cutoff_cm1)
 
-    def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
-        pending = _start_halo(mine, mesh, n_shards)
+    def body(nu_loc: torch.Tensor, mine: KernelLines, *,
+             side=None) -> torch.Tensor:
+        pending = _start_halo(mine, mesh, n_shards, stream=side)
         with own_sum_span():
             out = acc(nu_loc, mine, 0)
         for (_, s_i), (rows,) in zip(_hops(n_shards), pending.wait()):
             out = out + acc(nu_loc, unpack_lines(rows), s_i)
         return out
 
-    return apply
+    return GraphedBody(body) if graph else body
 
 
 def nu_shard_edges(nu_host, n_shards: int,

@@ -27,6 +27,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from spectrobot_tpu_torch.parallel.graphed import release_graphs
+
 AXES = ("ray", "line", "nu")
 
 # torchrun's environment: world size, this rank, the rendezvous address.
@@ -49,7 +51,7 @@ def initialize_multihost(device_type: str) -> bool:
     for ``device_type='cuda'``, gloo for ``'cpu'``.
 
     Returns True when this call made the group (its caller ends it with
-    ``torch.distributed.destroy_process_group``), False when one existed.
+    :func:`finalize_multihost`), False when one existed.
     """
     if dist.is_initialized():
         return False
@@ -68,6 +70,16 @@ def initialize_multihost(device_type: str) -> bool:
             backend, init_method=f"tcp://localhost:{_free_port()}",
             world_size=1, rank=0)
     return True
+
+
+def finalize_multihost() -> None:
+    """End this run's process group, after dropping every captured mesh
+    graph (``parallel.graphed.release_graphs``): a graph holds NCCL's
+    kernels, and NCCL's teardown waits for such graphs to go."""
+    release_graphs()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 class Mesh:

@@ -18,7 +18,9 @@ Two line distributions:
   is at most one chunk wide (``halo.nu_shard_edges`` checks).  The shift
   of every hop is issued before the rank's own line sum and waited on
   after it (``collectives.ring_exchange_start``), as XLA overlaps the
-  reference's permutes with its local accumulation.
+  reference's permutes with its local accumulation; on constant inputs on
+  the card the whole body is one CUDA graph in which the exchange is a
+  branch beside the own line sum (``parallel.graphed``).
 
 Each rank's line sums are the port's ``forward.limb.layer_tau_kernel``: K1
 for the depths, K2 for their tangents under ``torch.func.jacfwd``, on
@@ -49,6 +51,7 @@ from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 from spectrobot_tpu_torch.parallel.collectives import (
     own_sum_span, psum, ring_exchange_start)
+from spectrobot_tpu_torch.parallel.graphed import GraphedBody
 from spectrobot_tpu_torch.parallel.halo import _hops, nu_shard_edges
 
 # Per-line DeviceLines fields (leading [L] axis); the trailing three
@@ -225,7 +228,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                         cutoff_cm1: Optional[float] = 25.0,
                         engine: Engine = KERNELS, nu_halo: bool = False,
                         is_limb: bool = True, emissivity: float = 1.0,
-                        analytic_jvp=True, chi=None):
+                        analytic_jvp=True, chi=None, graph: bool = True):
     """Build the sharded radiance function of this rank:
     f(nu_loc, nu_off_loc, lines_loc, cg_loc, I_bg=None, nlte=None,
     cia=None) -> I_loc [R_loc, P_loc], the arguments as
@@ -247,10 +250,10 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
     hops = _hops(mesh.shape["nu"]) if nu_halo else ()
     windows = _rank_windows(mesh, win_grid, win_lines, nu_halo, cutoff_cm1)
 
-    def apply(nu_loc, nu_off_loc, lines_loc: DeviceLines, cg_loc: PathCG,
-              I_bg: Optional[torch.Tensor] = None,
-              nlte: Optional[DeviceNLTE] = None,
-              cia: Optional[DeviceCIA] = None) -> torch.Tensor:
+    def body(nu_loc, nu_off_loc, lines_loc: DeviceLines, cg_loc: PathCG,
+             I_bg: Optional[torch.Tensor] = None,
+             nlte: Optional[DeviceNLTE] = None,
+             cia: Optional[DeviceCIA] = None, *, side=None) -> torch.Tensor:
         def tau(lines, s_i):
             return layer_tau_kernel(nu_off_loc, lines, cg_loc, windows[s_i],
                                     cutoff_cm1=cutoff_cm1, engine=engine,
@@ -261,9 +264,11 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
         # chunk's edges; far (wrap-around) lines fall outside the mask.
         # Centers are global-origin offsets, so they need no shift.  The
         # exchange is issued before this rank's own line sum (K1, and K2
-        # under jacfwd) and waited on after it, so the two overlap.
+        # under jacfwd) and waited on after it, so the two overlap; under
+        # capture it is issued from the stream ``side``, a branch of its own.
         pending = ring_exchange_start(_line_messages(lines_loc), mesh, "nu",
-                                      [shift for shift, _ in hops])
+                                      [shift for shift, _ in hops],
+                                      stream=side)
         with own_sum_span():
             dtau, dtau_em = tau(lines_loc, 0)
         for (_, s_i), got in zip(hops, pending.wait()):
@@ -275,4 +280,4 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                                      dtau_em, cia=cia, I_background=I_bg,
                                      is_limb=is_limb, emissivity=emissivity)
 
-    return apply
+    return GraphedBody(body) if graph else body

@@ -3,8 +3,8 @@ reference's ``benchmarks/scaling.py``; ``BASELINE.json:5`` asks >= 80 %
 grid-points/s scaling efficiency).
 
     python -m spectrobot_tpu_torch.scaling [--points-per-device 2048]
-        [--lines 2000] [--rays 8] [--reps 5] [--halo] [--max-devices N]
-        [--json-out PATH] [--device {cuda,cpu}]
+        [--lines 2000] [--rays 8] [--reps 5] [--halo] [--eager]
+        [--max-devices N] [--json-out PATH] [--device {cuda,cpu}]
 
 The scene is the reference's: ``co2_15um_band(j_max=40)`` and
 ``random_lines(2000, 560, 780, seed=2)``, a Mars atmosphere of 21 levels to
@@ -18,8 +18,11 @@ its own: the global grid grows with n (weak scaling).  In the psum tier
 every rank sums every line over its chunk (cutoff 25 cm-1); with
 ``--halo`` (the nu-halo tier) the lines are owned by the shard holding
 their centre (``partition_lines_by_nu``, cutoff ``min(10, 0.9 140 / n)``)
-and the neighbours' lines arrive by ring shifts.  Rank 0 prints one record
-a size: ``n_devices``, ``grid_points``, ``halo``, ``wall_s`` (the slowest
+and the neighbours' lines arrive by ring shifts.  The mesh forward's body
+replays as one CUDA graph on the card (``parallel.graphed``); ``--eager``
+issues it op by op (``graph=False``) for comparison (``--json-out``'s
+``graph`` says which).  Rank 0 prints one record a size: ``n_devices``,
+``grid_points``, ``halo``, ``wall_s`` (the slowest
 rank's host time per forward over ``--reps`` back to back, ending in a
 device synchronise), ``grid_points_per_s`` (ray grid points), and
 ``card``; the tool adds ``efficiency_vs_1dev`` against the 1-rank rate and
@@ -53,7 +56,7 @@ from spectrobot_tpu_torch.forward.limb import limb_radiance
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
 from spectrobot_tpu_torch.parallel.mesh import (
-    _free_port, initialize_multihost, make_mesh)
+    _free_port, finalize_multihost, initialize_multihost, make_mesh)
 from spectrobot_tpu_torch.parallel.sharded import (
     partition_lines_by_nu, sharded_radiance_fn, stage_sharded)
 
@@ -91,9 +94,11 @@ def _grid(n_points: int, dl, dtype, device) -> tuple:
     return nu_host, t(nu_host), t(nu_host - float(dl.nu_ref))
 
 
-def mesh_forward(mesh, dl, cg, n_points: int, halo: bool) -> Callable:
+def mesh_forward(mesh, dl, cg, n_points: int, halo: bool,
+                 graph: bool = True) -> Callable:
     """The (1, 1, n) mesh forward of this rank on the global grid of
-    ``n_points`` points: a call gives its radiances [R, n_points / n]."""
+    ``n_points`` points (``sharded_radiance_fn(graph=graph)``): a call
+    gives its radiances [R, n_points / n]."""
     n = mesh.shape["nu"]
     nu_host, nu, nu_off = _grid(n_points, dl, cg.u.dtype, cg.u.device)
     if halo:
@@ -103,7 +108,7 @@ def mesh_forward(mesh, dl, cg, n_points: int, halo: bool) -> Callable:
         cutoff, lines = PSUM_CUTOFF, dl
     f = sharded_radiance_fn(mesh, win_grid=nu_host - float(dl.nu_ref),
                             win_lines=lines.nu0.cpu().numpy(),
-                            cutoff_cm1=cutoff, nu_halo=halo)
+                            cutoff_cm1=cutoff, nu_halo=halo, graph=graph)
     st = stage_sharded(mesh, nu, lines, cg, nu_off=nu_off)
     return lambda: f(st.nu, st.nu_off, st.lines, st.cg)
 
@@ -130,7 +135,8 @@ def wall_s(fn: Callable, reps: int, device: torch.device) -> float:
     return float(dt)
 
 
-def overhead_record(mesh, dl, cg, n_points: int, reps: int) -> dict:
+def overhead_record(mesh, dl, cg, n_points: int, reps: int,
+                    graph: bool = True) -> dict:
     """The 1-device overhead record (``scaling.py:94-117``): the plain
     ``limb_radiance`` against the (1, 1, 1) mesh forward (psum tier) on
     ``n_points`` points."""
@@ -142,20 +148,21 @@ def overhead_record(mesh, dl, cg, n_points: int, reps: int) -> dict:
     windows = line_windows(nu_off, dl.nu0, cutoff_cm1=PSUM_CUTOFF)
     t_plain = wall_s(lambda: limb_radiance(nu, dl, cg, nu_off=nu_off,
                                            windows=windows), reps, device)
-    t_mesh = wall_s(mesh_forward(mesh, dl, cg, n_points, False), reps, device)
+    t_mesh = wall_s(mesh_forward(mesh, dl, cg, n_points, False, graph),
+                    reps, device)
     return {"metric": "sharded_overhead_1dev", "t_plain_s": t_plain,
             "t_mesh_s": t_mesh, "overhead_frac": t_mesh / t_plain - 1.0,
             "card": card(device)}
 
 
 def scaling_record(mesh, dl, cg, points_per_device: int, reps: int,
-                   halo: bool) -> dict:
+                   halo: bool, graph: bool = True) -> dict:
     """This world's weak-scaling record (every rank calls it; the timing
     is the slowest rank's)."""
     n = mesh.shape["nu"]
     P = points_per_device * n
     device = cg.u.device
-    dt = wall_s(mesh_forward(mesh, dl, cg, P, halo), reps, device)
+    dt = wall_s(mesh_forward(mesh, dl, cg, P, halo, graph), reps, device)
     return {"n_devices": n, "grid_points": P, "halo": bool(halo),
             "wall_s": dt, "grid_points_per_s": P * cg.u.shape[0] / dt,
             "card": card(device)}
@@ -172,14 +179,15 @@ def _rank_main(args) -> int:
         records = []
         if mesh.size == 1:
             records.append(overhead_record(mesh, dl, cg,
-                                           args.points_per_device, args.reps))
+                                           args.points_per_device, args.reps,
+                                           not args.eager))
         records.append(scaling_record(mesh, dl, cg, args.points_per_device,
-                                      args.reps, args.halo))
+                                      args.reps, args.halo, not args.eager))
         if dist.get_rank() == 0:
             for rec in records:
                 print(json.dumps(rec), flush=True)
     finally:
-        dist.destroy_process_group()
+        finalize_multihost()
     return 0
 
 
@@ -193,7 +201,8 @@ def _spawn(n: int, args) -> list:
            "--device", args.device,
            "--points-per-device", str(args.points_per_device),
            "--lines", str(args.lines), "--rays", str(args.rays),
-           "--reps", str(args.reps)] + (["--halo"] if args.halo else [])
+           "--reps", str(args.reps)] + (["--halo"] if args.halo else []) \
+        + (["--eager"] if args.eager else [])
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
@@ -231,6 +240,9 @@ def main(argv=None) -> int:
     p.add_argument("--halo", action="store_true",
                    help="the nu-halo tier (owner-shard lines and ring "
                         "shifts) instead of the line psum tier")
+    p.add_argument("--eager", action="store_true",
+                   help="issue the mesh forward op by op instead of "
+                        "replaying it as a CUDA graph")
     p.add_argument("--max-devices", type=int, default=None,
                    help="the largest world (default: the cards there are; "
                         "2 on the CPU)")
@@ -261,7 +273,8 @@ def main(argv=None) -> int:
                        "n_devices_max": n_max,
                        "points_per_device": args.points_per_device,
                        "n_lines": args.lines, "n_rays": args.rays,
-                       "halo": args.halo, "records": records}, fh, indent=2)
+                       "halo": args.halo, "graph": not args.eager,
+                       "records": records}, fh, indent=2)
             fh.write("\n")
         print(f"wrote {args.json_out}", file=sys.stderr)
     return 0

@@ -1,7 +1,8 @@
 """The CUDA kernels (K1, K2, K5, K3, K4, the remote-copy tier's ring and
 fused halo kernels, and the FMA measurement kernel) on the card, and the
-CLI's mesh route, the nu-halo exchange's overlap and the remote-copy tier
-across the machine's cards (marker ``cuda``; skips without a GPU and nvcc,
+CLI's mesh route, the nu-halo exchange's overlap, the mesh bodies' CUDA
+graphs against their eager bodies and the remote-copy tier across the
+machine's cards (marker ``cuda``; skips without a GPU and nvcc,
 the multi-card tests without a second card).  Run on the card with
 ``python -m pytest -m cuda tests/``."""
 
@@ -766,6 +767,67 @@ def test_halo_exchange_overlaps_on_every_card(cuda, tmp_path):
             assert r["summary"]["kernels_overlapped_in_flight_window"] >= 1
             assert r["summary"]["async_pairs_emitted"] is True
             assert r["vs_single_device"]["worst_ratio"] <= mesh_rtol
+
+
+@pytest.fixture(scope="module")
+def graph_runs(tmp_path_factory):
+    """tests/torch_mesh_cases.py:graph_card_case on every card (one rank a
+    card): the meshes (1, 1, n) and, from 4 cards, (1, 2, n/2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the mesh graphs run only on the card")
+    import torch_mesh_cases as cases
+    n = torch.cuda.device_count()
+    shapes = [(1, 1, n)] + ([(1, 2, n // 2)] if n >= 4 and n % 2 == 0
+                            else [])
+    tmp = tmp_path_factory.mktemp("graph")
+    return n, shapes, cases.run(tmp, n, cases.graph_card_case, str(tmp),
+                                shapes, join_group=False)
+
+
+def test_graph_replay_bit_equal_to_eager_body(graph_runs):
+    """The mesh forward in both tiers and the K3 halo accumulation through
+    their CUDA graphs, on two states in turn: the first call (eager, then
+    captured) and four replays, each bit-equal to the eager body on the
+    same inputs; one graph and four replays."""
+    n, shapes, got = graph_runs
+    names = {f"{tier} {s}" for s in shapes for tier in ("psum", "nu-halo")}
+    for rank, out in enumerate(got):
+        assert set(out) == names | {"K3 halo"}
+        for name, rec in out.items():
+            print(rank, name, rec["calls"], rec["pool_bytes"])
+            assert [c[0] for c in rec["calls"]] == [True] * 5, name
+            assert (rec["graphs"], rec["replays"]) == (1, 4), name
+
+
+def test_graph_replay_launches_each_kernel_once_a_source(graph_runs):
+    """K1 (K3 in the halo accumulation) once a line source and call, the
+    replays as the eager first call: 1 + the nu-halo hops."""
+    from spectrobot_tpu_torch.parallel.halo import _hops
+    n, _, got = graph_runs
+    for out in got:
+        for name, rec in out.items():
+            if name == "K3 halo":
+                want = {"cuda_single.LAUNCHES": 1 + len(_hops(n))}
+            else:
+                tier, shape = name.split(" ", 1)
+                n_nu = int(shape.strip("()").split(",")[2])
+                want = {"cuda_opacity.LAUNCHES": 1 + (
+                    len(_hops(n_nu)) if tier == "nu-halo" else 0)}
+            assert [c[1] for c in rec["calls"]] == [want] * 5, name
+
+
+def test_mesh_jacobian_stays_eager(graph_runs):
+    """torch.func.jacfwd through the graphed mesh function runs its body
+    eagerly: no capture, no replay, bit-equal to jacfwd of the body."""
+    _, _, got = graph_runs
+    for out in got:
+        for name, rec in out.items():
+            if name == "K3 halo":
+                continue
+            jac = rec["jacobian"]
+            before, after = jac["graphs_replays"]
+            assert before == after == (1, 4), name
+            assert jac["equal_to_body"] and jac["finite"], name
 
 
 # ---------------------------------------------------------------------------

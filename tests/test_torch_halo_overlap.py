@@ -12,8 +12,8 @@ the trace tool spectrobot_tpu_torch/halo_overlap.py, on the CPU:
   in the order of the synchronous shift, also when the same function runs
   a second forward on other line parameters (which catches a buffer kept
   from one forward to the next going stale);
-- the tool's analysis and host marks on synthetic event lists, its
-  traffic argument
+- the tool's analysis and host marks (of the eager issue order and of a
+  graph replay) on synthetic event lists, its traffic argument
   against the reference's, and the tool end to end on 2 gloo ranks."""
 
 import importlib.util
@@ -281,8 +281,41 @@ def test_host_marks_of_the_issue_order():
                  "exchange_device_start_us": 185.0,
                  "own_sum_device_end_us": 150.0,
                  "own_prologue_device_us": 8.0,
-                 "own_line_sum_device_us": 57.0}
+                 "own_line_sum_device_us": 57.0,
+                 "host_replay_start_us": None,
+                 "host_graph_launch_us": None}
     assert all(v is None for v in ho.host_marks(ev, 0.0, 5.0).values())
+
+
+def test_host_marks_of_a_replay():
+    """Under a replay (its range from 1010 us) the input copy and then one
+    cudaGraphLaunch, whose kernels (one correlation id) are a stack of the
+    messages, the prologue, K1 beside the send/receive kernel, and a hop's
+    K1: the exchange's and the own sum's host marks are the replay's and
+    the graph launch's; the own line sum is the graph's first K1, its
+    prologue the graph's compute kernels that end before it."""
+    from spectrobot_tpu_torch.parallel.graphed import REPLAY_RANGE
+    ev = [_event(REPLAY_RANGE, 1010.0, 1100.0),
+          _event("cudaLaunchKernel", 1015.0, 1020.0, corr=5),
+          _event("cudaGraphLaunch", 1030.0, 1060.0, corr=6),
+          _event("multi_tensor_apply_kernel", 1022.0, 1024.0, dev=True,
+                 corr=5),
+          _event("CatArrayBatchedCopy", 1062.0, 1063.0, dev=True, corr=6),
+          _event("elementwise_kernel", 1063.0, 1070.0, dev=True, corr=6),
+          _event(SENDRECV, 1064.0, 1072.0, dev=True, corr=6),
+          _event(K1, 1071.0, 1120.0, dev=True, corr=6),
+          _event(K1, 1121.0, 1130.0, dev=True, corr=6)]
+    m = ho.host_marks(ev, 1000.0, 1300.0)
+    assert m == {"host_own_sum_start_us": 10.0,
+                 "host_own_sum_first_launch_us": 30.0,
+                 "host_exchange_issue_us": 10.0,
+                 "host_exchange_launch_us": 30.0,
+                 "exchange_device_start_us": 64.0,
+                 "own_sum_device_end_us": 120.0,
+                 "own_prologue_device_us": 8.0,
+                 "own_line_sum_device_us": 49.0,
+                 "host_replay_start_us": 10.0,
+                 "host_graph_launch_us": 30.0}
 
 
 def test_traffic_argument_matches_reference():

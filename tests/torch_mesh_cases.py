@@ -585,3 +585,252 @@ def scaling_case(rank, world, n_points, n_lines, n_rays):
     dl, cg = scaling.scene(CPU, torch.float64, n_lines, n_rays)
     return {halo: scaling.mesh_forward(mesh, dl, cg, n_points, halo)()
             for halo in (False, True)}
+
+
+# ---------------------------------------------------------------------------
+# the graph route of the mesh bodies (parallel.graphed)
+# ---------------------------------------------------------------------------
+
+# The ATen calls that read a tensor's values on the host: each would stop a
+# CUDA graph's capture of the mesh body on the card.
+HOST_READS = ("aten::_local_scalar_dense", "aten::nonzero",
+              "aten::masked_select", "aten::is_nonzero", "aten::equal",
+              "aten::_unique2", "aten::unique_consecutive")
+
+
+def _host_reads_mode():
+    """A dispatch mode that records the HOST_READS calls made under it
+    (``.seen``); the kernels' plain versions run outside it (on the card
+    the kernels run in their place)."""
+    from torch.utils._python_dispatch import (
+        TorchDispatchMode, _disable_current_modes)
+
+    from spectrobot_tpu_torch.ops import cuda_opacity, cuda_single
+
+    class HostReads(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+            self._saved = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._schema.name in HOST_READS:
+                self.seen.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+        def __enter__(self):
+            for mod, name in ((cuda_opacity, "accumulate_batch_plain"),
+                              (cuda_single, "accumulate_single_plain")):
+                plain = getattr(mod, name)
+
+                def outside(*a, _plain=plain, **kw):
+                    with _disable_current_modes():
+                        return _plain(*a, **kw)
+                self._saved.append((mod, name, plain))
+                setattr(mod, name, outside)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            for mod, name, plain in self._saved:
+                setattr(mod, name, plain)
+            return super().__exit__(*exc)
+
+    return HostReads()
+
+
+def graph_route_case(rank, world, toml, overrides):
+    """The mesh bodies of the CLI scene of ``toml`` (with ``overrides``:
+    non-LTE and the continuum) on the (1, 1, world) mesh (nu-halo tier:
+    the limb, and nadir over a grey surface) and the (1, world, 1) mesh
+    (psum tier, limb), and the K3 halo accumulation of random lines:
+    "reads", the HOST_READS each body makes (``_host_reads_mode``);
+    "probe", what the mode records of a host read; "cpu_route", for each
+    body called twice through its GraphedBody with ``torch.cuda.graph``
+    and ``torch.cuda.CUDAGraph`` made to raise: (graphs captured, replays,
+    both calls bit-equal to the eager body)."""
+    import numpy as np
+
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.forward.geometry import (
+        limb_path_cg, nadir_path_cg)
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.ops.planck import planck_nu
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel import sharded as sh
+
+    cfg = cli.load_config(toml, overrides)
+    scene = cli.build_scene(cfg, CPU)
+    atm = scene.atm.to(scene.nu.dtype)
+    cut, n_sub = cfg.compute.cutoff_cm1, cfg.geometry.n_sub
+    nu_host = scene.nu.double().numpy()
+    nu_off = scene.nu_off.double().numpy()
+    limb = limb_path_cg(atm, scene.species_names, scene.h_t, scene.planet,
+                        n_sub)
+    nadir = nadir_path_cg(atm, scene.species_names, torch.as_tensor(
+        [1.0, 1.5], dtype=scene.nu.dtype), n_sub)
+    bg = 0.9 * planck_nu(scene.nu, torch.as_tensor(230.0,
+                                                   dtype=scene.nu.dtype))
+    calls = {}
+    for name, shape, halo_on, cg, I_bg in (
+            ("halo limb", (1, 1, world), True, limb, None),
+            ("halo nadir", (1, 1, world), True, nadir, bg),
+            ("psum limb", (1, world, 1), False, limb, None)):
+        mesh = _mesh(shape)
+        lines = (sh.partition_lines_by_nu(scene.lines, nu_host, world,
+                                          cutoff_cm1=cut)
+                 if halo_on else sh.pad_lines_for_mesh(scene.lines, world))
+        f = sh.sharded_radiance_fn(
+            mesh, win_grid=nu_off, win_lines=lines.nu0.double().numpy(),
+            cutoff_cm1=cut, nu_halo=halo_on, is_limb=I_bg is None,
+            emissivity=1.0 if I_bg is None else 0.9)
+        st = sh.stage_sharded(mesh, scene.nu, lines, cg, I_bg=I_bg,
+                              nu_off=scene.nu_off, nlte=scene.nlte,
+                              cia=scene.cia)
+        calls[name] = (f, (st.nu, st.nu_off, st.lines, st.cg, st.I_bg),
+                       {"nlte": st.nlte, "cia": st.cia})
+
+    rng = np.random.default_rng(7)
+    L, cutoff = 96, 10.0
+    nu = torch.linspace(600.0, 700.0, 512, dtype=torch.float64)
+    nu0 = np.sort(rng.uniform(600.0, 700.0, L))
+    kl = KernelLines(torch.as_tensor(nu0), torch.as_tensor(
+        rng.uniform(5.0, 20.0, L)), torch.as_tensor(rng.uniform(0.1, 2.0, L)),
+        torch.as_tensor(rng.uniform(0.5, 1.0, (2, L))))
+    mesh = _mesh((1, 1, world))
+    skl = halo.partition_kernel_lines(
+        kl, nu0, halo.nu_shard_edges(nu.numpy(), world, cutoff))
+    k3 = halo.halo_accumulate_pallas_fn(mesh, nu.numpy(), skl.nu_c.numpy(),
+                                        cutoff_cm1=cutoff)
+    calls["K3 halo"] = (k3, (nu[mesh.block(nu.shape[0], "nu")],
+                             halo.shard_lines(skl, mesh.coord["nu"])), {})
+
+    out = {"reads": {}, "cpu_route": {}}
+    for name, (f, args, kwargs) in calls.items():
+        with _host_reads_mode() as mode:
+            f.body(*args, **kwargs)
+        out["reads"][name] = mode.seen
+    with _host_reads_mode() as mode:
+        int(torch.zeros((), dtype=torch.int64))
+    out["probe"] = mode.seen
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU call reached torch.cuda's graphs")
+
+    saved = torch.cuda.graph, torch.cuda.CUDAGraph
+    torch.cuda.graph = torch.cuda.CUDAGraph = refuse
+    try:
+        for name, (f, args, kwargs) in calls.items():
+            got = [f(*args, **kwargs) for _ in range(2)]
+            eager = f.body(*args, **kwargs)
+            out["cpu_route"][name] = (len(f.graphs), f.replays,
+                                      all(torch.equal(g, eager) for g in got))
+    finally:
+        torch.cuda.graph, torch.cuda.CUDAGraph = saved
+    return out
+
+
+def graph_card_case(rank, world, tmp, shapes):
+    """On the card (NCCL, one card a rank, a file store under ``tmp``): for
+    each mesh shape of ``shapes`` and each tier, the slice
+    (``halo_overlap.make_scene("slice")``, cutoff 10 cm-1) through its
+    GraphedBody on two PathCG states in turn (A: first call, eager then
+    captured; then B, A, B, A replayed), each call against the eager body
+    on the same inputs; the launches of every call; the mesh Jacobian
+    (``torch.func.jacfwd`` over a column scale) through the GraphedBody
+    and through the body, and the graphs and replays before and after it;
+    then the K3 halo accumulation of random lines alike on two amplitude
+    sets.  Returns {name: record}."""
+    import numpy as np
+
+    from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel import sharded as sh
+    from spectrobot_tpu_torch.parallel.graphed import launch_counts
+    from spectrobot_tpu_torch.parallel.mesh import (
+        finalize_multihost, make_mesh)
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+                            world_size=world, rank=rank, timeout=TIMEOUT)
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def turns(f, calls):
+        """(bit-equal to the body, launches) of every call, in turn."""
+        rec = []
+        for i in (0, 1, 0, 1, 0):
+            before = launch_counts()
+            got = calls[i](f)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            rec.append((bool(torch.equal(got, calls[i](f.body))),
+                        {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}))
+        return {"calls": rec, "graphs": len(f.graphs),
+                "replays": f.replays,
+                "pool_bytes": sum(g.pool_bytes for g in f.graphs.values())}
+
+    out = {}
+    try:
+        sc = ho.make_scene("slice", dev, world)
+        nu_off = sc.nu_host - float(sc.lines.nu_ref)
+        t = lambda a: torch.as_tensor(a, dtype=sc.cg.u.dtype, device=dev)
+        cgs = (sc.cg, sc.cg._replace(T_sp=sc.cg.T_sp * 1.02,
+                                     T_air=sc.cg.T_air * 1.02,
+                                     u=sc.cg.u * 0.9))
+        for shape in shapes:
+            mesh = make_mesh(shape, "cuda")
+            for tier, halo_on in (("psum", False), ("nu-halo", True)):
+                lines = (sh.partition_lines_by_nu(
+                    sc.lines, sc.nu_host, shape[2], cutoff_cm1=sc.cutoff_cm1,
+                    line_shards=shape[1]) if halo_on
+                    else sh.pad_lines_for_mesh(sc.lines, shape[1]))
+                f = sh.sharded_radiance_fn(
+                    mesh, win_grid=nu_off,
+                    win_lines=lines.nu0.cpu().double().numpy(),
+                    cutoff_cm1=sc.cutoff_cm1, nu_halo=halo_on)
+                sts = [sh.stage_sharded(mesh, t(sc.nu_host), lines, cg,
+                                        nu_off=t(nu_off)) for cg in cgs]
+                calls = [(lambda st: lambda g: g(st.nu, st.nu_off, st.lines,
+                                                 st.cg))(st) for st in sts]
+                rec = turns(f, calls)
+                st = sts[0]
+
+                def jac(g):
+                    return torch.func.jacfwd(lambda s: g(
+                        st.nu, st.nu_off, st.lines,
+                        st.cg._replace(u=st.cg.u * s)))(
+                        torch.ones(1, dtype=st.cg.u.dtype, device=dev))
+                seen = (len(f.graphs), f.replays)
+                J = jac(f)
+                rec["jacobian"] = {
+                    "equal_to_body": bool(torch.equal(J, jac(f.body))),
+                    "graphs_replays": (seen, (len(f.graphs), f.replays)),
+                    "finite": bool(torch.isfinite(J).all())}
+                out[f"{tier} {tuple(shape)}"] = rec
+
+        rng = np.random.default_rng(7)
+        L, cutoff = 2048, 10.0
+        nu = torch.linspace(600.0, 700.0, 4096 * world, dtype=torch.float64)
+        nu0 = np.sort(rng.uniform(600.0, 700.0, L))
+        kl = KernelLines(torch.as_tensor(nu0), torch.as_tensor(
+            rng.uniform(5.0, 20.0, L)), torch.as_tensor(
+            rng.uniform(0.1, 2.0, L)), torch.as_tensor(
+            rng.uniform(0.5, 1.0, (2, L))))
+        mesh = make_mesh((1, 1, world), "cuda")
+        skl = halo.partition_kernel_lines(
+            kl, nu0, halo.nu_shard_edges(nu.numpy(), world, cutoff),
+            out_dtype=torch.float32)
+        skl = skl._replace(**{k: v.to(dev) for k, v in skl._asdict().items()})
+        f = halo.halo_accumulate_pallas_fn(mesh, nu.numpy(),
+                                           skl.nu_c.cpu().numpy(),
+                                           cutoff_cm1=cutoff)
+        nu_loc = nu[mesh.block(nu.shape[0], "nu")].float().to(dev)
+        mine = halo.shard_lines(skl, mesh.coord["nu"])
+        mine2 = mine._replace(amps=mine.amps * 0.5, y=mine.y * 1.25)
+        out["K3 halo"] = turns(f, [(lambda m: lambda g: g(nu_loc, m))(m)
+                                   for m in (mine, mine2)])
+    finally:
+        finalize_multihost()
+    return out
