@@ -49,7 +49,8 @@ Phases, each of which raises (non-zero exit) on failure:
      K3, against the plain sum; the mesh bodies replayed as CUDA graphs
      (parallel.graphed): the slice at a 10 cm-1 cutoff in both tiers and
      the K3 halo accumulation, each on two states in turn, every replay
-     bit-equal to the eager body and one K1 (K3) launch a replay, the
+     bit-equal to the eager body and one K1 (K3) launch a replay (the
+     first replay's counts held to the kernels its profiler trace shows), the
      slice within MESH_RTOL of one device, the graph pool's size, and the
      graphed forward's walls and host issue beside the eager body's; the
      sharded normal equations (F, H, g) against those of the
@@ -99,7 +100,8 @@ Phases, each of which raises (non-zero exit) on failure:
      then the composed scene (plus the CIA continuum and a 3 km FOV over 40
      fine rays): the CLI forward and retrieve, the Jacobian (finite), and
      the (1, 1, 1) mesh forward in the nu-halo tier against one device,
-     its replay bit-equal to its first call, its graph pool's size;
+     its replay bit-equal to its first call and launching what its trace
+     shows, its graph pool's size;
   6g. the (P, T) table tier and the 2-D climatology, float32: the LTE
      table of examples/mars_limb.toml (21 x 25 lattice) and config 3's
      non-LTE tables, each built in one K1 launch and held at every node to
@@ -732,8 +734,10 @@ def graph_phase(mesh, halo_fn, halo_in: tuple, card: str) -> None:
     within MESH_RTOL of one device; the graphed forward's walls beside
     the eager body's; the K3 halo accumulation ``halo_fn`` replayed on its
     inputs ``halo_in`` and on other amplitudes, bit-equal to its eager
-    body, one K3 launch a replay."""
+    body, one K3 launch a replay.  A replay's counts are also held to the
+    kernels its profiler trace shows."""
     from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.parallel import graphed
     from spectrobot_tpu_torch.parallel import sharded as sh
 
     dev = mesh.device
@@ -759,9 +763,18 @@ def graph_phase(mesh, halo_fn, halo_in: tuple, card: str) -> None:
         check(torch.equal(first, calls[0](f.body)),
               f"{name}: the first call differs from the eager body")
         out = {}
-        for i in (1, 0, 1, 0):
+        for j, i in enumerate((1, 0, 1, 0)):
             reset_launches()
-            got = calls[i](f)
+            if j == 0:
+                # The first replay traced: its kernels as the device ran
+                # them, against the counts the replay added.
+                traced, got = ho.traced_launches(lambda: calls[i](f), dev)
+                check(traced == graphed.launch_counts(),
+                      f"{name}: a replay's trace launched "
+                      f"{json.dumps(traced)}, its counts say "
+                      f"{json.dumps(graphed.launch_counts())}")
+            else:
+                got = calls[i](f)
             torch.cuda.synchronize()
             n = launch_counts()
             expect_launches(f"{name}, a replay", n, **{kernel: 1})
@@ -776,7 +789,8 @@ def graph_phase(mesh, halo_fn, halo_in: tuple, card: str) -> None:
               f"{name}: the two states gave the same output")
         pool = sum(g.pool_bytes for g in f.graphs.values())
         print(f"6c graph: {name}: 4 replays on alternating states bit-equal "
-              f"to the eager body; {kernel} once a replay; graph pool "
+              f"to the eager body; {kernel} once a replay, in the counts and "
+              f"in a replay's trace; graph pool "
               f"{pool / 1e6:.2f} MB")
         return out
 
@@ -1244,6 +1258,7 @@ def config3_phase(dev, mesh) -> dict:
     width, float32 on the card.  ``mesh``: the (1, 1, 1) mesh of phase
     6c.  Returns what phase 7 times and reports."""
     from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch import halo_overlap as ho
     from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
     from spectrobot_tpu_torch.parallel import graphed
     from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
@@ -1445,14 +1460,20 @@ def config3_phase(dev, mesh) -> dict:
     torch.cuda.synchronize()
     n = launch_counts()
     pool = graphed.pool_bytes() - pool
-    # The second call replays the graph its first call captured.
+    # The second call replays the graph its first call captured; its
+    # counts are held to the kernels its trace shows.
     reset_launches()
-    I_r = oe.forward_flat(flatten_state(empty)[0]).reshape(I_single.shape)
-    torch.cuda.synchronize()
+    traced, I_r = ho.traced_launches(
+        lambda: oe.forward_flat(flatten_state(empty)[0]), dev)
+    I_r = I_r.reshape(I_single.shape)
     n_r = launch_counts()
+    check(traced == graphed.launch_counts(),
+          f"the composed mesh forward's replay traced {json.dumps(traced)}, "
+          f"its counts say {json.dumps(graphed.launch_counts())}")
     print(f"composed mesh forward replayed: bit-equal to its first (eager) "
           f"call {bool(torch.equal(I_r, I_m))}; graph pool "
-          f"{pool / 1e6:.2f} MB; launches {json.dumps(n_r)}")
+          f"{pool / 1e6:.2f} MB; launches {json.dumps(n_r)}, as its trace "
+          f"shows")
     expect_launches("the composed mesh forward's replay", n_r, K1=1)
     check(torch.equal(I_r, I_m), "the composed mesh forward's replay "
                                  "differs from its first (eager) call")

@@ -30,7 +30,7 @@ Designs (``--designs``, each a run of every mesh, in the order given):
 ``graph`` (the default) is the mesh function as its callers get it, whose
 body replays as one CUDA graph on the card, the exchange a branch beside
 the own line sum (``parallel.graphed``; eager on the CPU, where no graph
-is made); ``eager`` the same body issued op by op (``graph=False``).
+is made); ``eager`` the same body issued op by op (its ``body``).
 Float32 on the card, float64 on the CPU.  For each mesh every rank runs
 the forward ``--walls`` times unprofiled (``forward_wall_ms``: CUDA events
 on the card, the host clock on the CPU; median and quartiles), then
@@ -86,6 +86,8 @@ from spectrobot_tpu_torch.forward.geometry import limb_path_cg
 from spectrobot_tpu_torch.forward.limb import limb_radiance
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+from spectrobot_tpu_torch.parallel.graphed import (
+    REPLAY_RANGE, kernel_launches)
 from spectrobot_tpu_torch.parallel.mesh import (
     _TORCHRUN_ENV, finalize_multihost, initialize_multihost, make_mesh)
 from spectrobot_tpu_torch.parallel.sharded import (
@@ -210,7 +212,6 @@ def host_marks(events, w0: float, w1: float) -> dict:
 
     from spectrobot_tpu_torch.parallel.collectives import (
         EXCHANGE_RANGE, OWN_SUM_RANGE)
-    from spectrobot_tpu_torch.parallel.graphed import REPLAY_RANGE
 
     cpu = [e for e in events if e.device_type == DeviceType.CPU
            and w0 <= e.time_range.start <= w1]
@@ -357,6 +358,15 @@ def trace_forwards(fn: Callable, device: torch.device, n: int) -> list:
     return out
 
 
+def traced_launches(fn: Callable, device: torch.device) -> tuple:
+    """(launches, out): one call of ``fn`` traced (:func:`trace_forwards`),
+    the launches of each counted kernel read from its device events
+    (``graphed.kernel_launches``), and what the call returned."""
+    outs = []
+    ((work, _, _),) = trace_forwards(lambda: outs.append(fn()), device, 1)
+    return kernel_launches([name for name, *_ in work]), outs[0]
+
+
 def measure(fn: Callable, device: torch.device, n_forwards: int = N_FORWARDS,
             n_walls: int = N_WALLS) -> dict:
     """One rank's measurements of the warm forward ``fn`` (the module
@@ -421,11 +431,11 @@ def make_scene(name: str, device: torch.device, world: int) -> Scene:
     raise ValueError(f"no scene {name!r} (aot, slice or scaling)")
 
 
-def halo_forward(mesh, sc: Scene, graph: bool = True) -> tuple:
+def halo_forward(mesh, sc: Scene) -> tuple:
     """(call, f, lines_loc): this rank's nu-halo mesh function of the scene
-    (``sharded_radiance_fn(graph=graph)``), ``call(g)`` which calls ``f``
-    or its body ``g`` on the rank's staged inputs (its [R_loc, P_loc]
-    radiances), and its line slice."""
+    (``sharded_radiance_fn``), ``call(g)`` which calls ``f`` or its body
+    ``f.body`` on the rank's staged inputs (its [R_loc, P_loc] radiances),
+    and its line slice."""
     dl, cg = sc.lines, sc.cg
     lines = partition_lines_by_nu(dl, sc.nu_host, mesh.shape["nu"],
                                   cutoff_cm1=sc.cutoff_cm1,
@@ -434,8 +444,7 @@ def halo_forward(mesh, sc: Scene, graph: bool = True) -> tuple:
     t = lambda a: torch.as_tensor(a, dtype=cg.u.dtype, device=cg.u.device)
     f = sharded_radiance_fn(mesh, win_grid=nu_off,
                             win_lines=lines.nu0.cpu().double().numpy(),
-                            cutoff_cm1=sc.cutoff_cm1, nu_halo=True,
-                            graph=graph)
+                            cutoff_cm1=sc.cutoff_cm1, nu_halo=True)
     st = stage_sharded(mesh, t(sc.nu_host), lines, cg, nu_off=t(nu_off))
     return (lambda g: g(st.nu, st.nu_off, st.lines, st.cg)), f, st.lines
 
@@ -476,11 +485,12 @@ def run_mesh(mesh, sc: Scene, device: torch.device, n_forwards: int,
              n_walls: int, design: str = "graph") -> dict:
     """Every rank's measurements of the scene on ``mesh`` in ``design``
     (gathered on every rank) and the run's shapes."""
-    call, f, lines_loc = halo_forward(mesh, sc, graph=design == "graph")
-    rec = measure(lambda: call(f), device, n_forwards, n_walls)
-    I = call(f)
+    call, f, lines_loc = halo_forward(mesh, sc)
+    g = f if design == "graph" else f.body
+    rec = measure(lambda: call(g), device, n_forwards, n_walls)
+    I = call(g)
     if design == "graph":
-        rec["graph"] = graph_record(f, I, call(getattr(f, "body", f)))
+        rec["graph"] = graph_record(f, I, call(f.body))
     I = I.double()
     ref = single_device_block(mesh, sc).double()
     d = (I - ref).abs()

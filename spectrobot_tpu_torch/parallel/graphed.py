@@ -28,10 +28,13 @@ at the same call: the mesh's callers run the forward in lockstep.
 
 The kernels' launch counts move at capture but no kernel runs then: the
 capture's increments are taken back and added again at every replay, so a
-count says how many launches the device ran.  Replays of one body run in
-stream order and never overlap (K3's arrival counters, kept per capture
-stream, rely on it; each graph is captured on a stream of its own, so each
-allocates and zeroes its own).
+count says how many launches the device ran; :func:`kernel_launches` reads
+the same counts from a profiler trace, which is how the tools check them.
+Replays of one graph run in stream order and never overlap: K3's arrival
+counters, which its wrapper caches per stream, are allocated and zeroed
+inside the capture, and the graph takes them out of that cache
+(:func:`take_stream_caches`), so that no other graph or call on a recycled
+stream handle shares them.
 """
 
 from __future__ import annotations
@@ -46,11 +49,20 @@ from spectrobot_tpu_torch.parallel.collectives import _span, is_constant
 
 # The profiler range around a replay (``halo_overlap``'s host marks).
 REPLAY_RANGE = "mesh_graph_replay"
-# Every kernel wrapper's launch count, as (module, attribute).
-COUNTERS = (("cuda_opacity", "LAUNCHES"), ("cuda_basis", "LAUNCHES"),
-            ("cuda_transpose", "LAUNCHES"), ("cuda_single", "LAUNCHES"),
-            ("cuda_basis_single", "LAUNCHES"), ("cuda_fma", "LAUNCHES"),
-            ("cuda_dma", "RING_LAUNCHES"), ("cuda_dma", "HALO_LAUNCHES"))
+# Every kernel wrapper's launch count, as (module, attribute), and the
+# __global__ whose launches it counts (a trace's kernels are named so).
+COUNTERS = {("cuda_opacity", "LAUNCHES"): "opacity_batch_kernel",
+            ("cuda_basis", "LAUNCHES"): "basis_batch_kernel",
+            ("cuda_transpose", "LAUNCHES"): "basis_transpose_kernel",
+            ("cuda_single", "LAUNCHES"): "opacity_single_kernel",
+            ("cuda_basis_single", "LAUNCHES"): "basis_single_kernel",
+            ("cuda_fma", "LAUNCHES"): "fma_chain_kernel",
+            ("cuda_dma", "RING_LAUNCHES"): "dma_ring_kernel",
+            ("cuda_dma", "HALO_LAUNCHES"): "dma_halo_kernel"}
+# The wrappers' per-stream caches of arrival counters, {(device, raw
+# stream handle): tensor}, as (module, attribute).
+STREAM_CACHES = (("cuda_single", "_COUNTERS"), ("cuda_transpose", "_COUNTERS"),
+                 ("cuda_dma", "_COUNTERS"))
 
 
 def _counter_modules() -> list:
@@ -65,6 +77,26 @@ def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count, by ``module.attribute``."""
     return {f"{m.__name__.rsplit('.', 1)[1]}.{a}": getattr(m, a)
             for m, a in _counter_modules()}
+
+
+def kernel_launches(names: Sequence[str]) -> Dict[str, int]:
+    """The launches of each counted kernel among the device events named
+    ``names`` (a profiler trace), by :func:`launch_counts`' names."""
+    return {f"{m}.{a}": sum(kernel in n for n in names)
+            for (m, a), kernel in COUNTERS.items()}
+
+
+def take_stream_caches(streams: Sequence[torch.cuda.Stream]) -> list:
+    """Take the arrival counters the wrappers cache for ``streams`` out of
+    their caches (``STREAM_CACHES``) and return them."""
+    import importlib
+    handles = {s.cuda_stream for s in streams}
+    taken = []
+    for m, a in STREAM_CACHES:
+        cache = getattr(importlib.import_module(
+            f"spectrobot_tpu_torch.ops.{m}"), a)
+        taken += [cache.pop(k) for k in list(cache) if k[1] in handles]
+    return taken
 
 
 def add_launches(delta: Dict[str, int]) -> None:
@@ -93,8 +125,9 @@ def graph_route(tensors: Sequence[torch.Tensor]) -> bool:
 
 
 class _Graph:
-    """One captured body: its static inputs, graph, output, the launches
-    of one replay and the memory the capture took."""
+    """One captured body: its static inputs, graph, output, the arrival
+    counters its kernels use, the launches of one replay and the memory
+    the capture took."""
 
     def __init__(self, body: Callable, leaves: list, spec):
         dev = next(t for t in leaves if isinstance(t, torch.Tensor)).device
@@ -108,11 +141,16 @@ class _Graph:
         # The capture empties the allocator's cache first; so does this, so
         # that the growth of the reserved memory is the graph's own pool.
         torch.cuda.synchronize(dev)
+        # Counters cached for a recycled stream handle are not this graph's.
+        take_stream_caches((stream, side))
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
             self.out = body(*args, **kwargs, side=side)
+        # The counters the capture allocated (and zeroes at every replay)
+        # are the graph's own: no later call on these handles may share them.
+        self.counters = take_stream_caches((stream, side))
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         add_launches({k: -n for k, n in self.launches.items()})

@@ -190,8 +190,7 @@ def halo_accumulate_fn(mesh, *, chunk: int = 256,
 
 
 def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
-                              cutoff_cm1: Optional[float] = 25.0,
-                              graph: bool = True):
+                              cutoff_cm1: Optional[float] = 25.0):
     """The halo accumulation with K3 (``ops.cuda_single.accumulate_single``)
     as each shard's line sum, in float32: the production multi-card path.
     Returns f(nu_loc, mine) -> [n_out, P_loc] as :func:`halo_accumulate_fn`.
@@ -202,8 +201,7 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
     neighbour's (which arrive by the ring shift) are built here, on the
     host, once.  On constant inputs on the card the body runs as one CUDA
     graph per input key, the exchange a branch beside the own K3 sum
-    (``parallel.graphed.GraphedBody``); ``graph=False`` runs it eagerly
-    always.
+    (``parallel.graphed.GraphedBody``; its ``body`` is the eager body).
     """
     n_shards, k = mesh.shape["nu"], mesh.coord["nu"]
     nu_host, skl_nu0 = _host64(nu_host), _host64(skl_nu0)
@@ -232,7 +230,7 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
             out = out + acc(nu_loc, unpack_lines(rows), s_i)
         return out
 
-    return GraphedBody(body) if graph else body
+    return GraphedBody(body)
 
 
 def nu_shard_edges(nu_host, n_shards: int,

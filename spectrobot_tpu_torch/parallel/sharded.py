@@ -228,7 +228,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                         cutoff_cm1: Optional[float] = 25.0,
                         engine: Engine = KERNELS, nu_halo: bool = False,
                         is_limb: bool = True, emissivity: float = 1.0,
-                        analytic_jvp=True, chi=None, graph: bool = True):
+                        analytic_jvp=True, chi=None):
     """Build the sharded radiance function of this rank:
     f(nu_loc, nu_off_loc, lines_loc, cg_loc, I_bg=None, nlte=None,
     cia=None) -> I_loc [R_loc, P_loc], the arguments as
@@ -246,6 +246,11 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
     carries eps B(T_surface), and for ``emissivity < 1`` the reflected
     downwelling is added from the same layer optics.  Nadir needs no
     collective beyond the line all-reduce.
+
+    The function is a ``parallel.graphed.GraphedBody``: on constant inputs
+    on the card it replays the body as one CUDA graph per input key, the
+    exchange a branch beside the own line sum; its ``body`` is the eager
+    body.
     """
     hops = _hops(mesh.shape["nu"]) if nu_halo else ()
     windows = _rank_windows(mesh, win_grid, win_lines, nu_halo, cutoff_cm1)
@@ -280,4 +285,4 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
                                      dtau_em, cia=cia, I_background=I_bg,
                                      is_limb=is_limb, emissivity=emissivity)
 
-    return GraphedBody(body) if graph else body
+    return GraphedBody(body)

@@ -20,7 +20,7 @@ every rank sums every line over its chunk (cutoff 25 cm-1); with
 their centre (``partition_lines_by_nu``, cutoff ``min(10, 0.9 140 / n)``)
 and the neighbours' lines arrive by ring shifts.  The mesh forward's body
 replays as one CUDA graph on the card (``parallel.graphed``); ``--eager``
-issues it op by op (``graph=False``) for comparison (``--json-out``'s
+issues its body op by op (``f.body``) for comparison (``--json-out``'s
 ``graph`` says which).  Rank 0 prints one record a size: ``n_devices``,
 ``grid_points``, ``halo``, ``wall_s`` (the slowest
 rank's host time per forward over ``--reps`` back to back, ending in a
@@ -97,8 +97,8 @@ def _grid(n_points: int, dl, dtype, device) -> tuple:
 def mesh_forward(mesh, dl, cg, n_points: int, halo: bool,
                  graph: bool = True) -> Callable:
     """The (1, 1, n) mesh forward of this rank on the global grid of
-    ``n_points`` points (``sharded_radiance_fn(graph=graph)``): a call
-    gives its radiances [R, n_points / n]."""
+    ``n_points`` points (``sharded_radiance_fn``, or its eager body where
+    ``graph`` is False): a call gives its radiances [R, n_points / n]."""
     n = mesh.shape["nu"]
     nu_host, nu, nu_off = _grid(n_points, dl, cg.u.dtype, cg.u.device)
     if halo:
@@ -108,9 +108,10 @@ def mesh_forward(mesh, dl, cg, n_points: int, halo: bool,
         cutoff, lines = PSUM_CUTOFF, dl
     f = sharded_radiance_fn(mesh, win_grid=nu_host - float(dl.nu_ref),
                             win_lines=lines.nu0.cpu().numpy(),
-                            cutoff_cm1=cutoff, nu_halo=halo, graph=graph)
+                            cutoff_cm1=cutoff, nu_halo=halo)
+    g = f if graph else f.body
     st = stage_sharded(mesh, nu, lines, cg, nu_off=nu_off)
-    return lambda: f(st.nu, st.nu_off, st.lines, st.cg)
+    return lambda: g(st.nu, st.nu_off, st.lines, st.cg)
 
 
 def wall_s(fn: Callable, reps: int, device: torch.device) -> float:

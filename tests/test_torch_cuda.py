@@ -801,7 +801,8 @@ def test_graph_replay_bit_equal_to_eager_body(graph_runs):
 
 def test_graph_replay_launches_each_kernel_once_a_source(graph_runs):
     """K1 (K3 in the halo accumulation) once a line source and call, the
-    replays as the eager first call: 1 + the nu-halo hops."""
+    replays as the eager first call: 1 + the nu-halo hops; a replay's
+    counts are the kernels its profiler trace shows."""
     from spectrobot_tpu_torch.parallel.halo import _hops
     n, _, got = graph_runs
     for out in got:
@@ -814,6 +815,7 @@ def test_graph_replay_launches_each_kernel_once_a_source(graph_runs):
                 want = {"cuda_opacity.LAUNCHES": 1 + (
                     len(_hops(n_nu)) if tier == "nu-halo" else 0)}
             assert [c[1] for c in rec["calls"]] == [want] * 5, name
+            assert rec["traced"] == want, name
 
 
 def test_mesh_jacobian_stays_eager(graph_runs):

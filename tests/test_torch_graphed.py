@@ -8,7 +8,10 @@ graphed.py) on the CPU, where no graph is made:
   forced as on the card): the first call of a key runs the body and
   captures, later calls of the key replay, other shapes or arguments
   capture anew, non-constant calls run the body;
-- the launch counts a replay adds;
+- the launch counts a replay adds, and their reading from a profiler
+  trace's kernel names;
+- a capture takes its streams' arrival counters out of the wrappers'
+  caches;
 - on 2 gloo ranks, the nu-halo (limb and nadir), psum and K3 halo bodies
   of a non-LTE scene with the continuum read no tensor value on the host
   (which would stop their capture on the card), and through GraphedBody
@@ -130,22 +133,56 @@ def test_launch_counts_add_and_take_back():
     assert graphed.launch_counts() == before
 
 
-def test_graph_probe_side_record():
-    """graph_probe's record of a replay: a launch at 100 us, the graph's
-    first kernel at 300, a side kernel at 320-330 beside two of the three
-    others."""
-    from spectrobot_tpu_torch import graph_probe
-    dev = [(300.0, 310.0, "a", 7), (305.0, 340.0, "b", 7),
-           (320.0, 330.0, "ncclDevKernel_SendRecv", 9),
-           (340.0, 360.0, "c", 7)]
-    rest = [e for e in dev if "nccl" not in e[2]]
-    got = graph_probe.side_record(100.0, dev, dev[2], rest)
-    assert got == {"launch_to_first_us": 200.0, "side_start_us": 20.0,
-                   "side_end_us": 30.0, "others_end_us": 60.0,
-                   "n_others": 3, "beside": 1}
-    assert graph_probe.side_record(100.0, dev, None, dev)["beside"] == 0
-    with pytest.raises(SystemExit):
-        graph_probe.main(["both"])
+def test_kernel_launches_read_from_trace_names():
+    """A trace's kernels counted by their wrappers' launch counts: two K1
+    launches, one K3, none of a kernel whose name is a near miss."""
+    names = ["opacity_batch_kernel(float const*, float*)",
+             "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)",
+             "opacity_single_kernel(float const*, int)",
+             "void at::native::vectorized_elementwise_kernel<4>",
+             "opacity_batch_kernel(float const*, float*)",
+             "sum_segments_kernel(float const*, float*)"]
+    got = graphed.kernel_launches(names)
+    assert set(got) == set(graphed.launch_counts())
+    assert got == {k: {"cuda_opacity.LAUNCHES": 2,
+                       "cuda_single.LAUNCHES": 1}.get(k, 0) for k in got}
+
+
+def test_traced_launches_on_the_cpu():
+    """halo_overlap.traced_launches returns the call's value and, with no
+    device events on the CPU, no launch."""
+    from spectrobot_tpu_torch import halo_overlap as ho
+    x = torch.arange(4.0)
+    got, out = ho.traced_launches(lambda: x * 2.0, torch.device("cpu"))
+    assert torch.equal(out, x * 2.0)
+    assert got == dict.fromkeys(graphed.launch_counts(), 0)
+
+
+class _Stream:
+    def __init__(self, handle):
+        self.cuda_stream = handle
+
+
+def test_capture_takes_its_streams_counters():
+    """The arrival counters cached for a capture's streams leave every
+    wrapper's cache; those of other streams stay."""
+    from spectrobot_tpu_torch.ops import cuda_dma, cuda_single
+    dev = torch.device("cpu")
+    mine, other = torch.zeros(4), torch.zeros(4)
+    saved = dict(cuda_single._COUNTERS), dict(cuda_dma._COUNTERS)
+    try:
+        cuda_single._COUNTERS.update({(dev, 11): mine, (dev, 12): other})
+        cuda_dma._COUNTERS[(dev, 13)] = mine
+        taken = graphed.take_stream_caches([_Stream(11), _Stream(13)])
+        assert len(taken) == 2 and all(t is mine for t in taken)
+        assert (dev, 11) not in cuda_single._COUNTERS
+        assert (dev, 13) not in cuda_dma._COUNTERS
+        assert cuda_single._COUNTERS[(dev, 12)] is other
+    finally:
+        for cache, old in zip((cuda_single._COUNTERS, cuda_dma._COUNTERS),
+                              saved):
+            cache.clear()
+            cache.update(old)
 
 
 @pytest.fixture(scope="module")

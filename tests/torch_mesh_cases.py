@@ -735,7 +735,8 @@ def graph_card_case(rank, world, tmp, shapes):
     (``halo_overlap.make_scene("slice")``, cutoff 10 cm-1) through its
     GraphedBody on two PathCG states in turn (A: first call, eager then
     captured; then B, A, B, A replayed), each call against the eager body
-    on the same inputs; the launches of every call; the mesh Jacobian
+    on the same inputs; the launches of every call, and of the first
+    replay as its profiler trace shows them; the mesh Jacobian
     (``torch.func.jacfwd`` over a column scale) through the GraphedBody
     and through the body, and the graphs and replays before and after it;
     then the K3 halo accumulation of random lines alike on two amplitude
@@ -757,17 +758,22 @@ def graph_card_case(rank, world, tmp, shapes):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def turns(f, calls):
-        """(bit-equal to the body, launches) of every call, in turn."""
+        """(bit-equal to the body, launches) of every call, in turn, and
+        the launches the first replay's profiler trace shows."""
         rec = []
-        for i in (0, 1, 0, 1, 0):
+        for j, i in enumerate((0, 1, 0, 1, 0)):
             before = launch_counts()
-            got = calls[i](f)
+            if j == 1:
+                seen, got = ho.traced_launches(lambda: calls[i](f), dev)
+                traced = {k: n for k, n in seen.items() if n}
+            else:
+                got = calls[i](f)
             torch.cuda.synchronize()
             after = launch_counts()
             rec.append((bool(torch.equal(got, calls[i](f.body))),
                         {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}))
-        return {"calls": rec, "graphs": len(f.graphs),
+        return {"calls": rec, "traced": traced, "graphs": len(f.graphs),
                 "replays": f.replays,
                 "pool_bytes": sum(g.pool_bytes for g in f.graphs.values())}
 
