@@ -53,6 +53,12 @@ Phases, each of which raises (non-zero exit) on failure:
      first replay's counts held to the kernels its profiler trace shows), the
      slice within MESH_RTOL of one device, the graph pool's size, and the
      graphed forward's walls and host issue beside the eager body's; the
+     transport of a captured exchange (collectives.capture_exchange: the
+     ring kernel over a ring whose epochs the card counts) on a loopback
+     ring of 4 shards at the slice's message size, both directions in one
+     launch, eagerly and in a graph replayed 3 times, bit-equal to the
+     rolls, the count of calls read back after each; a line with the NCCL
+     runtime, the route and the capture rings' settings as read back; the
      sharded normal equations (F, H, g) against those of the
      single-device Jacobian (jacfwd: the eager body), K2 once per call;
   6d. the single-state line sum (ops.opacity.make_accumulate_op at one
@@ -836,6 +842,69 @@ def graph_phase(mesh, halo_fn, halo_in: tuple, card: str) -> None:
     calls = [(lambda m: lambda g: g(nu_b, m))(m) for m in (mine, mine2)]
     halo_fn.release()
     replays("the K3 halo accumulation", halo_fn, calls, "K3")
+    capture_ring_check(mesh, sts[0].lines, card)
+
+
+def capture_ring_check(mesh, lines_loc, card: str) -> None:
+    """Phase 6c, the transport of a captured nu-halo exchange (route B:
+    the ring kernel over the mesh's capture ring, its epochs counted on
+    the card) on this card's loopback ring of 4 shards: the slice's packed
+    line messages (``collectives.pack_messages``) moved in both directions
+    by one launch, eagerly and through a CUDA graph replayed 3 times on
+    new blocks, each bit-equal to the two rolls, with the count of calls
+    read back from the card after each.  Prints, on a line of its own, the
+    NCCL runtime, the route and the capture rings' settings as read
+    back."""
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import collectives as C
+    from spectrobot_tpu_torch.parallel.peer import Ring
+    from spectrobot_tpu_torch.parallel.sharded import _line_messages
+
+    dev = mesh.device
+    sends = [torch.stack(m) for m in _line_messages(lines_loc)]
+    n_floats = C.packed_floats(sends)
+    ring = Ring(4, dev, on_device=True)
+    ring.reserve(n_floats)
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn((4, 1, n_floats), generator=g, device=dev)
+    rolls = lambda v: torch.stack([torch.roll(v, 1, 0), torch.roll(v, -1, 0)])
+    reset_launches()
+    got = cuda_dma.ring_exchange_hops(ring, x, (1, -1))
+    torch.cuda.synchronize()
+    expect_launches("an eager two-direction ring call", launch_counts(),
+                    dma_ring=1)
+    check(torch.equal(got, rolls(x)), "the two-direction ring call differs "
+          "from the rolls")
+    calls = [ring.device_calls()]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_dma.ring_exchange_hops(ring, x, (1, -1))
+    calls.append(ring.device_calls())
+    for i in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, rolls(x)),
+              f"replay {i} of the captured ring call differs from the rolls")
+        calls.append(ring.device_calls())
+    check(calls == [1, 1, 2, 3, 4], f"the ring's count of calls on the card "
+          f"read back {calls}, not [1, 1, 2, 3, 4]")
+    del graph
+    ring.close()
+    mr = mesh.capture_ring
+    print("6c capture: " + json.dumps({
+        "nccl_runtime": ".".join(map(str, torch.cuda.nccl.version())),
+        "route": "B: the captured exchange leaves NCCL for the ring kernel "
+                 "over the mesh's capture ring (ncclConfig_t has no "
+                 "per-communicator graph-mixing field)",
+        "mesh_capture_ring": {
+            "ranks": mr.ranks, "on_device": mr.on_device,
+            "workspace_open": mr.workspace is not None,
+            "device_calls_read_back": mr.device_calls()},
+        "loopback_check": {
+            "shards": 4, "message_floats": n_floats, "card": card,
+            "device_calls_read_back": calls,
+            "eager_and_3_replays_bit_equal_to_rolls": True}}))
 
 
 class K4Case(NamedTuple):

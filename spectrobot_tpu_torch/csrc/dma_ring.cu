@@ -5,6 +5,8 @@
 //
 //   out[k] = x[k - direction]   (k over the shards of the ring, mod n)
 //
+// for one direction, or both (+1, then -1) in one launch: out [n_dirs, ...].
+//
 // Bit-exact: a roll of the blocks over the shards.  The protocol (barrier,
 // per-chunk release and acquire, bounded waits) is csrc/peer_ring.cuh's.
 // One launch covers every shard this process holds: one on a ring of
@@ -37,6 +39,10 @@
 //  * The host passes one argument struct that the workspace keeps between
 //    calls (parallel/peer.py: RingArgs): the wrapper sets the pointers,
 //    the epoch and the stream, and makes one ctypes call.
+//  * A CUDA graph freezes the launch's arguments, the epoch with them.  So
+//    on a ring whose calls a graph replays (the mesh's capture ring:
+//    parallel/collectives.py) the host passes epoch 0 and the launch counts
+//    its epoch on the device (peer_ring.cuh: ring_epoch, ring_exit).
 //
 // This file also holds the workspace's host functions (cudaMalloc, CUDA
 // IPC), called by spectrobot_tpu_torch/parallel/peer.py through ctypes.
@@ -47,9 +53,11 @@
 #include "peer_ring.cuh"
 
 // One call, as the host passes it (parallel/peer.py: RingArgs, the same
-// layout): table [n_loc, 3] of workspace bases; x, out [n_loc, n] floats;
-// d = 0 (direction +1) or 1 (-1); chunk: floats per copy item; loopback:
-// every shard of the ring is in this launch, on this device.
+// layout): table [n_loc, 3] of workspace bases; x [n_loc, n] floats, out
+// [n_dirs, n_loc, n]; the directions d, ..., d + n_dirs - 1 (d = 0:
+// direction +1, 1: -1); epoch: the host's, or 0 to count it on the device;
+// chunk: floats per copy item; loopback: every shard of the ring is in
+// this launch, on this device.
 struct RingArgs {
   const long long* table;
   const float* x;
@@ -64,6 +72,7 @@ struct RingArgs {
   int loopback;
   float timeout_s;
   void* stream;
+  int n_dirs;
 };
 
 namespace {
@@ -73,51 +82,58 @@ namespace {
 template <int SCOPE, bool TWO_PASS, bool VEC>
 __global__ void __launch_bounds__(RING_THREADS)
 dma_ring_kernel(RingArgs a, int n_chunks, long long budget) {
-  signal_free<SCOPE>(a.table, a.n_loc, a.d, 1, a.epoch);
-  const int items = a.n_loc * n_chunks;
+  const long long first = a.table[OWN];
+  const u64 epoch = ring_epoch(first, a.epoch);
+  signal_free<SCOPE>(a.table, a.n_loc, a.d, a.n_dirs, epoch);
+  const int per_dir = a.n_loc * n_chunks;
+  const int items = a.n_dirs * per_dir;
   // A receive right after its send waits only on lower items when each
   // shard receives from another process (n_loc = 1); with several shards
   // here, every send comes first.
   const bool interleave = TWO_PASS && a.n_loc == 1;
-  const int shift = a.d == 0 ? 1 : a.n_loc - 1;
   int ready_k = -1;
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
-    const int k = i / n_chunks, c = i % n_chunks;
+    const int e = i / per_dir, d = a.d + e;
+    const int k = i % per_dir / n_chunks, c = i % n_chunks;
+    const int shift = d == 0 ? 1 : a.n_loc - 1;
+    float* out = a.out + (size_t)e * a.n_loc * a.n;
     const long long* row = a.table + 3 * k;
-    const long long to = dst_of(row, a.d);
-    float* dst = TWO_PASS ? ws_recv(to, a.d, a.cap_floats)
-                          : a.out + (size_t)((k + shift) % a.n_loc) * a.n;
-    send_chunk<SCOPE, VEC>(row, k, &ready_k, a.d, a.x + (size_t)k * a.n,
-                           dst, to, a.n, c, a.chunk, a.cap_floats, a.epoch,
+    const long long to = dst_of(row, d);
+    float* dst = TWO_PASS ? ws_recv(to, d, a.cap_floats)
+                          : out + (size_t)((k + shift) % a.n_loc) * a.n;
+    send_chunk<SCOPE, VEC>(row, 2 * k + d, &ready_k, d, a.x + (size_t)k * a.n,
+                           dst, to, a.n, c, a.chunk, a.cap_floats, epoch,
                            budget);
     if (interleave) {
       const long long own = row[OWN];
       const long long lo = (long long)c * a.chunk;
       const long long hi = lo + a.chunk < a.n ? lo + a.chunk : a.n;
-      block_wait<SCOPE>(ws_arrived(own, a.d, a.cap_floats) + c, a.epoch,
-                        budget);
-      block_copy<VEC, true>(a.out + (size_t)k * a.n,
-                            ws_recv(own, a.d, a.cap_floats), lo, hi);
+      block_wait<SCOPE>(ws_arrived(own, d, a.cap_floats) + c, epoch, budget);
+      block_copy<VEC, true>(out + (size_t)k * a.n,
+                            ws_recv(own, d, a.cap_floats), lo, hi);
     }
   }
   if (TWO_PASS && !interleave) {
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
-      const int k = i / n_chunks, c = i % n_chunks;
+      const int e = i / per_dir, d = a.d + e;
+      const int k = i % per_dir / n_chunks, c = i % n_chunks;
       const long long own = a.table[3 * k + OWN];
       const long long lo = (long long)c * a.chunk;
       const long long hi = lo + a.chunk < a.n ? lo + a.chunk : a.n;
-      block_wait<SCOPE>(ws_arrived(own, a.d, a.cap_floats) + c, a.epoch,
-                        budget);
-      block_copy<VEC, true>(a.out + (size_t)k * a.n,
-                            ws_recv(own, a.d, a.cap_floats), lo, hi);
+      block_wait<SCOPE>(ws_arrived(own, d, a.cap_floats) + c, epoch, budget);
+      block_copy<VEC, true>(a.out + ((size_t)e * a.n_loc + k) * a.n,
+                            ws_recv(own, d, a.cap_floats), lo, hi);
     }
-  } else if (!TWO_PASS && blockIdx.x < a.n_loc) {
-    // The receive side on the loopback: shard blockIdx.x acquires every
-    // chunk of its block.
-    const long long own = a.table[3 * blockIdx.x + OWN];
-    block_wait_all<SCOPE>(ws_arrived(own, a.d, a.cap_floats), n_chunks,
-                          a.epoch, budget);
+  } else if (!TWO_PASS) {
+    // The receive side on the loopback: for each (direction, shard) pair,
+    // one block acquires every chunk of the shard's block.
+    for (int i = blockIdx.x; i < a.n_dirs * a.n_loc; i += gridDim.x) {
+      const long long own = a.table[3 * (i % a.n_loc) + OWN];
+      block_wait_all<SCOPE>(ws_arrived(own, a.d + i / a.n_loc, a.cap_floats),
+                            n_chunks, epoch, budget);
+    }
   }
+  if (a.epoch == 0) ring_exit(first, epoch);
 }
 
 // The kernel of a call: on the loopback one pass at device scope, between
@@ -173,6 +189,16 @@ int dma_ipc_open(int device, const void* handle, void** out) {
   return (int)err;
 }
 
+// The count of calls of a ring on the device's epoch (the epoch of its
+// last ring call) in the workspace at `base`, read into *out.
+int dma_ws_calls(int device, const void* base, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemcpy(out, static_cast<const char*>(base) + 8 * WS_CALLS,
+                     sizeof(*out), cudaMemcpyDeviceToHost);
+  return (int)err;
+}
+
 int dma_ipc_close(int device, void* p) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = cudaIpcCloseMemHandle(p);
@@ -185,12 +211,14 @@ int dma_ipc_close(int device, void* p) {
 // the grid may be made of at most the ring's shards (n_loc), else of one.
 int dma_ring_launch(const RingArgs* a) {
   if (a->n <= 0 || a->n > a->cap_floats || a->n_loc < 1 ||
-      (a->d != 0 && a->d != 1) || a->chunk < MIN_CHUNK ||
+      (a->d != 0 && a->d != 1) || a->n_dirs < 1 || a->d + a->n_dirs > 2 ||
+      a->chunk < MIN_CHUNK ||
       a->chunk % 4 != 0 || a->cap_floats % MIN_CHUNK != 0 ||
       (!a->loopback && a->n_loc != 1))
     return (int)cudaErrorInvalidValue;
   const long long chunks = (a->n + a->chunk - 1) / a->chunk;
-  if (chunks * a->n_loc > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  if (chunks * a->n_loc * a->n_dirs > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
   DeviceGuard guard(a->device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   int n_chunks = (int)chunks;
@@ -201,7 +229,7 @@ int dma_ring_launch(const RingArgs* a) {
   void* params[] = {&args, &n_chunks, &budget};
   void* kern = vec ? ring_kernel<true>(a) : ring_kernel<false>(a);
   const int grid = resident_blocks(kern, a->device, RING_THREADS,
-                                   chunks * a->n_loc);
+                                   chunks * a->n_loc * a->n_dirs);
   cudaError_t err = cudaLaunchCooperativeKernel(
       kern, dim3(grid), dim3(RING_THREADS), params, 0,
       static_cast<cudaStream_t>(a->stream));

@@ -17,6 +17,11 @@
 //                                           fused halo kernel has found
 //                                           the center ranges of this
 //                                           shard's own line blocks
+//   [24, 32)                    calls       u64: a ring on the device's
+//                                           epoch (below): the epoch of
+//                                           its last ring call
+//   [32, 40)                    exits       u64: the blocks of the ring
+//                                           call under way that have ended
 //   [HEADER, + 4 cap)           recv[0]     rows from the left neighbour
 //   [HEADER + 4 cap, + 4 cap)   recv[1]     rows from the right neighbour
 //   [HEADER + 8 cap, + 8 n_flags)  arrived[0][n_flags]  u64: per chunk c,
@@ -28,8 +33,12 @@
 // leftward (to k - 1).  A table holds, per shard of the launch, the bases
 // of its own workspace and of its left and right neighbours'.
 //
-// The protocol of one call, epoch e (the host counts calls; every shard
-// sees the same e, so no flag is ever reset):
+// The protocol of one call, epoch e (calls are counted, and every shard
+// sees the same e, so no flag is ever reset).  The host counts them, or,
+// for the ring kernel on a ring whose calls a CUDA graph replays, the
+// device: the launch takes e = calls + 1 from the workspace of its first
+// shard, and its last block to end stores e back (ring_epoch, ring_exit),
+// so that each replay of one captured launch runs the next epoch:
 //   1. barrier:   the receiver stores e into ready[d] of the shard that
 //                 sends to it (a release store): its destination is free,
 //                 since its previous call on this stream has ended;
@@ -61,6 +70,8 @@ namespace {
 constexpr int WS_HEADER = 256;          // bytes before recv[0]
 constexpr int WS_READY = 0;             // u64 offset of ready[2]
 constexpr int WS_MINE = 2;              // u64 offset of mine
+constexpr int WS_CALLS = 3;             // u64 offset of calls
+constexpr int WS_EXITS = 4;             // u64 offset of exits
 constexpr int MIN_CHUNK = 1024;         // fewest floats of a copy item
 constexpr int RING_THREADS = 256;
 constexpr int COPY_UNROLL = 4;          // 16-byte loads in flight a thread
@@ -83,6 +94,12 @@ __device__ __forceinline__ u64* ws_ready(long long base, int d) {
 }
 __device__ __forceinline__ u64* ws_mine(long long base) {
   return reinterpret_cast<u64*>(base) + WS_MINE;
+}
+__device__ __forceinline__ u64* ws_calls(long long base) {
+  return reinterpret_cast<u64*>(base) + WS_CALLS;
+}
+__device__ __forceinline__ u64* ws_exits(long long base) {
+  return reinterpret_cast<u64*>(base) + WS_EXITS;
 }
 __device__ __forceinline__ float* ws_recv(long long base, int d,
                                           long long cap_floats) {
@@ -214,6 +231,33 @@ __device__ __forceinline__ void block_copy(float* dst, const float* src,
       for (int u = 0; u < COPY_UNROLL; ++u)
         if (i + u * step < hi) dst[i + u * step] = v[u];
     }
+  }
+}
+
+// The epoch of a launch: `host`, or with host = 0 the device's count of
+// calls in the workspace `base` plus one.  Every block reads it before any
+// block of the launch has ended, so before ring_exit stores it.
+__device__ __forceinline__ u64 ring_epoch(long long base, u64 host) {
+  __shared__ u64 s_epoch;
+  if (threadIdx.x == 0)
+    s_epoch = host != 0 ? host
+                        : *reinterpret_cast<volatile u64*>(ws_calls(base)) + 1;
+  __syncthreads();
+  return s_epoch;
+}
+
+// The end of a block of a launch that took its epoch from the device: the
+// last block of the grid to end stores the epoch as the count of calls
+// and zeroes the count of ended blocks for the next launch (which, in
+// stream order, starts after this one has ended).
+__device__ __forceinline__ void ring_exit(long long base, u64 epoch) {
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  __threadfence();
+  if (atomicAdd(ws_exits(base), 1ull) == gridDim.x - 1ull) {
+    *ws_exits(base) = 0;
+    *ws_calls(base) = epoch;
+    __threadfence();
   }
 }
 

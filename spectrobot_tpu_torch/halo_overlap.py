@@ -4,7 +4,8 @@ which compiles the tier for a virtual TPU topology and reads XLA's
 schedule).  Here the schedule is measured: every rank runs the nu-halo mesh
 forward (``parallel.sharded.sharded_radiance_fn``) under ``torch.profiler``
 and splits its device events into the exchange (NCCL's send/receive
-kernels) and the compute (every other kernel, copy and set).
+kernels eagerly, the ring kernel ``dma_ring_kernel`` in a graph replay)
+and the compute (every other kernel, copy and set).
 
     python -m spectrobot_tpu_torch.halo_overlap [--scene {aot,slice,scaling}]
         [--ranks N] [--forwards N] [--walls N] [--designs graph,eager]
@@ -124,6 +125,8 @@ HOST_MARK_KEYS = ("host_own_sum_start_us", "host_own_sum_first_launch_us",
                   "own_prologue_device_us", "own_line_sum_device_us",
                   "host_replay_start_us", "host_graph_launch_us")
 DESIGNS = ("graph", "eager")
+# The __global__ of a captured exchange (collectives.capture_exchange).
+EXCHANGE_KERNEL = "dma_ring_kernel"
 
 
 def traffic_argument(R_loc=10, NL=20, n_out=2, n_fields=11) -> dict:
@@ -150,9 +153,12 @@ def traffic_argument(R_loc=10, NL=20, n_out=2, n_fields=11) -> dict:
 
 
 def _kind(name: str) -> str:
-    """A device event's part: "exchange" (NCCL's send/receive kernel),
-    "all_reduce", another "collective", or "compute"."""
+    """A device event's part: "exchange" (NCCL's send/receive kernel, or
+    the ring kernel of a captured exchange), "all_reduce", another
+    "collective", or "compute"."""
     low = name.lower()
+    if EXCHANGE_KERNEL in low:
+        return "exchange"
     if "nccl" not in low:
         return "compute"
     if "send" in low or "recv" in low:

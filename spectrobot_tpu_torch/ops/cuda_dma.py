@@ -4,9 +4,10 @@ their plain PyTorch versions.
 
 The kernels replace the TPU kernels of ``benchmarks/dma_halo.py``:
 
-- ``_ring_kernel`` (:func:`ring_exchange_cuda`): each shard's block moves
-  to its ring neighbour at ``direction`` by stores into the neighbour's
-  memory, a roll of the blocks over the shards;
+- ``_ring_kernel`` (:func:`ring_exchange_cuda`; :func:`ring_exchange_hops`
+  for both directions in one launch): each shard's block moves to its ring
+  neighbour at ``direction`` by stores into the neighbour's memory, a roll
+  of the blocks over the shards;
 - ``_fused_kernel`` (:func:`fused_halo_accumulate_cuda`, and
   :func:`fused_halo_accumulate_lines` for rows held apart): a neighbour
   barrier, the remote stores of the shard's line rows and their block
@@ -156,24 +157,53 @@ def ring_exchange_cuda(ring: Ring, x: torch.Tensor,
     receives its left neighbour's block): ``x`` [rows, cols] on a ring of
     ranks, [n, rows, cols] on the loopback ring; float32 on the card, any
     dtype on the CPU (the plain version)."""
+    return ring_exchange_hops(ring, x, (direction,))[0]
+
+
+def _directions(directions) -> tuple:
+    """(first direction index, count) of the kernel's directions: (+1,),
+    (-1,) or (+1, -1)."""
+    directions = tuple(directions)
+    for d in directions:
+        _direction_index(d)
+    if directions not in ((1,), (-1,), (1, -1)):
+        raise ValueError(f"the ring kernel moves blocks in the directions "
+                         f"(1,), (-1,) or (1, -1), got {directions}")
+    return _direction_index(directions[0]), len(directions)
+
+
+def ring_exchange_hops(ring: Ring, x: torch.Tensor,
+                       directions=(1, -1)) -> torch.Tensor:
+    """:func:`ring_exchange_cuda` in each of ``directions`` ((+1,), (-1,)
+    or (+1, -1)) in one launch: out [len(directions), *x.shape], out[i]
+    the blocks moved at ``directions[i]``.  On a ring ``on_device`` the
+    launch counts its epoch on the card, so that a CUDA graph may capture
+    it: inside a capture the ring must be reserved for the block
+    (``Ring.reserve``) beforehand."""
     global RING_LAUNCHES
-    d = _direction_index(direction)
+    d, n_dirs = _directions(directions)
     _check_ring_tensor(ring, x, "x", 2)
     n_floats = x.numel() // ring.n if ring.loopback else x.numel()
     if not x.is_cuda and x.device.type == "cpu":
         ring.begin_call()
-        return ring_exchange_plain(ring, x, direction)
+        return torch.stack([ring_exchange_plain(ring, x, k)
+                            for k in directions])
     _check_kernel_tensor(ring, x, "x")
     if n_floats == 0:
         raise ValueError("the ring exchange takes a non-empty block")
     lib = peer.library()
+    if torch.cuda.is_current_stream_capturing():
+        if not (ring.on_device and ring.reserved(n_floats)):
+            raise RuntimeError(
+                "a captured ring exchange needs a ring on the device's epoch "
+                "reserved for its block (Ring.reserve) before the capture")
     ring.sync_once("dma_ring")
     args = ring.workspace_for(n_floats).ring_args
-    out = torch.empty_like(x)
+    out = torch.empty((n_dirs, *x.shape), dtype=x.dtype, device=x.device)
     args.x, args.out = x.data_ptr(), out.data_ptr()
-    args.n, args.d = n_floats, d
-    args.chunk = ring_chunk(n_floats, args.n_loc)
-    args.epoch = ring.begin_call()
+    args.n, args.d, args.n_dirs = n_floats, d, n_dirs
+    args.chunk = ring_chunk(n_floats, args.n_loc * n_dirs)
+    args.epoch = 0 if ring.on_device else ring.begin_call()
     args.stream = current_stream(args.device)
     rc = lib.dma_ring_launch(ctypes.byref(args))
     RING_LAUNCHES += 1
@@ -317,6 +347,10 @@ def _launch_fused(ring: Ring, nu: torch.Tensor, rows: tuple, strides: tuple,
     between their amps; between the rows of a shard's amps) into ``out``
     with ``out_strides`` (between shards, between rows)."""
     global HALO_LAUNCHES
+    if ring.on_device:
+        raise ValueError("the fused halo kernel takes its epoch from the "
+                         "host: it does not run on a ring on the device's "
+                         "epoch")
     lib = _library()
     ring.sync_once("dma_halo")
     ws = ring.workspace_for(workspace_floats(n_out, L))

@@ -26,7 +26,15 @@ current stream wait for the exchange.  They carry no tangent rule: the
 nu-halo tier's line parameters are constants on every path.  Under a CUDA
 graph's capture (``parallel.graphed``) the exchange is issued from a
 stream of its own, so that it is a branch of the graph beside the
-caller's work.
+caller's work, and it leaves NCCL: :func:`capture_exchange` sends every
+hop's messages by one launch of the port's ring kernel
+(``ops.cuda_dma.ring_exchange_hops``, ``csrc/dma_ring.cu``) over the
+mesh's capture ring (``Mesh.capture_ring``: the ranks of the ``nu``
+group, peer memory, epochs counted on the card).  NCCL offers no
+per-communicator switch for its support of graphs mixed with eager
+calls, and with it on, a captured send/receive started only after the
+own line sum; every eager call, this module's collectives and the
+eager exchange keep ``mesh.groups``.
 """
 
 from __future__ import annotations
@@ -181,7 +189,8 @@ def own_sum_span():
 class Pending:
     """A ring exchange in flight (:func:`ring_exchange_start`).  It holds
     the send buffers until :meth:`wait`: the exchange reads them on its
-    own stream (NCCL) or thread (gloo)."""
+    own stream (NCCL; a captured exchange's ring kernel: the stream it was
+    issued from) or thread (gloo)."""
 
     def __init__(self, works, sends, recvs, stream=None):
         self._works, self._sends, self._recvs = works, sends, recvs
@@ -234,10 +243,16 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
     must be constants (no ``torch.func`` wrapper, no ``requires_grad``):
     a ValueError otherwise.  No shift gives no exchange at all.
 
-    ``stream`` (a CUDA stream; ``parallel.graphed`` passes one under
-    capture): the exchange is issued from it, after it waits for the
-    packing on the current stream, so that it forks from the caller's
-    work; :meth:`Pending.wait` joins it back."""
+    ``stream`` (a CUDA stream; ``parallel.graphed`` passes one under a
+    capture): the exchange is :func:`capture_exchange` over
+    ``mesh.capture_ring`` (``axis`` must be ``nu``), issued from
+    ``stream`` after it waits for the packing on the current stream, so
+    that it forks from the caller's work; :meth:`Pending.wait` joins it
+    back.  Otherwise NCCL (gloo) on ``mesh.groups[axis]`` from the current
+    stream; on the card that call also readies the capture ring for
+    messages of this size (``Ring.reserve``: a handshake over the ``nu``
+    group when the ring must grow), since a capture of the same call may
+    follow, and may not open it."""
     if not shifts:
         return Pending((), (), [])
     for msg in tensors:
@@ -248,6 +263,14 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
     peer = lambda k: dist.get_global_rank(group, k % n)
     with torch._C._DisableFuncTorch():
         sends = [torch.stack(tuple(msg)) for msg in tensors]
+        if stream is not None and torch.cuda.is_current_stream_capturing():
+            if axis != "nu":
+                raise ValueError(f"a captured exchange runs on the nu "
+                                 f"capture ring, not on {axis!r}")
+            return capture_exchange(sends, mesh.capture_ring, shifts, stream)
+        if sends[0].is_cuda and axis == "nu" and any(
+                shift % n for shift in shifts):
+            mesh.capture_ring.reserve(packed_floats(sends))
         ops, recvs = [], []
         for shift in shifts:
             if shift % n == 0:
@@ -258,10 +281,73 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
                 ops += [dist.P2POp(dist.isend, x, peer(r + shift), group),
                         dist.P2POp(dist.irecv, out, peer(r - shift), group)]
             recvs.append(got)
-        fork = contextlib.nullcontext()
-        if stream is not None and ops:
-            stream.wait_stream(torch.cuda.current_stream(stream.device))
-            fork = torch.cuda.stream(stream)
-        with fork, _span(EXCHANGE_RANGE):
+        with _span(EXCHANGE_RANGE):
             works = dist.batch_isend_irecv(ops) if ops else []
-    return Pending(works, sends, recvs, stream if ops else None)
+    return Pending(works, sends, recvs)
+
+
+# Each message's bytes in a packed exchange start on this boundary (so
+# that every dtype's view of them is aligned).
+PACK_ALIGN = 16
+
+
+def _padded(nbytes: int) -> int:
+    return -(-nbytes // PACK_ALIGN) * PACK_ALIGN
+
+
+def packed_floats(sends: Sequence[torch.Tensor]) -> int:
+    """The float32 words of :func:`pack_messages`' buffer."""
+    return sum(_padded(x.numel() * x.element_size()) for x in sends) // 4
+
+
+def pack_messages(sends: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The bytes of every message (each contiguous), each padded to
+    ``PACK_ALIGN``, as one float32 row [1, packed_floats]: what the ring
+    kernel moves, bit for bit, whatever the messages' dtypes."""
+    parts = []
+    for x in sends:
+        b = x.reshape(-1).view(torch.uint8)
+        parts.append(b)
+        pad = _padded(b.numel()) - b.numel()
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8,
+                                     device=b.device))
+    return torch.cat(parts).view(torch.float32).reshape(1, -1)
+
+
+def unpack_messages(row: torch.Tensor,
+                    sends: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Views of a packed row [packed_floats] (:func:`pack_messages`) as
+    messages of the dtypes and shapes of ``sends``."""
+    b, off, out = row.reshape(-1).view(torch.uint8), 0, []
+    for x in sends:
+        nbytes = x.numel() * x.element_size()
+        out.append(b[off:off + nbytes].view(x.dtype).reshape(x.shape))
+        off += _padded(nbytes)
+    return out
+
+
+def capture_exchange(sends: Sequence[torch.Tensor], ring,
+                     shifts: Sequence[int],
+                     stream: Optional[torch.cuda.Stream] = None) -> Pending:
+    """The exchange of a captured mesh body: the messages ``sends`` (each a
+    stacked message) packed into one row (:func:`pack_messages`) and moved
+    by one ring kernel launch in every direction of ``shifts`` (each +1 or
+    -1: the ring's neighbours) over ``ring``, the mesh's capture ring,
+    from ``stream`` as :func:`ring_exchange_start` issues it.  The ring
+    must be reserved for the row (``Ring.reserve``: the eager call before
+    a capture does it).  Received messages as ``ring_exchange_start``
+    gives them, views of the launch's output.  On the CPU the ring's plain
+    version (``ring_shift`` over the ``nu`` group) moves the row."""
+    from spectrobot_tpu_torch.ops.cuda_dma import ring_exchange_hops
+
+    shifts = tuple(int(s) for s in shifts)
+    x = pack_messages(sends)
+    fork = contextlib.nullcontext()
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        fork = torch.cuda.stream(stream)
+    with fork, _span(EXCHANGE_RANGE):
+        out = ring_exchange_hops(ring, x, shifts)
+    recvs = [unpack_messages(out[i], sends) for i in range(len(shifts))]
+    return Pending((), (x, out), recvs, stream)

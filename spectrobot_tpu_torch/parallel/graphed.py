@@ -11,13 +11,18 @@ body at once, the permutes beside the local accumulation.
 :class:`GraphedBody` does the same for a body of constants on the card.
 At the first such call of an input key (the tensors' shapes, dtypes and
 devices, and every other argument) it runs the body eagerly (which also
-makes NCCL's communicators) and then captures it into one
-``torch.cuda.CUDAGraph``, the body's exchange forked onto a stream of its
-own (``collectives.ring_exchange_start(stream=)``): in the graph the
-exchange and the own line sum are independent branches, joined before the
-hop sums.  Every later call of that key copies its inputs into the graph's
-static inputs, replays the graph once and returns a copy of its output;
-the device starts both branches at the replay, whatever the host does.
+makes NCCL's communicators and readies the mesh's capture ring) and then
+captures it into one ``torch.cuda.CUDAGraph``, the body's exchange forked
+onto a stream of its own (``collectives.ring_exchange_start(stream=)``)
+and sent by the port's ring kernel over ``Mesh.capture_ring``, not by
+NCCL: in the graph the exchange and the own line sum are independent
+branches, joined before the hop sums.  Every later call of that key
+copies its inputs into the graph's static inputs, replays the graph once
+and returns a copy of its output; the device starts both branches at the
+replay, whatever the host does.  (A captured NCCL send/receive started
+only after the own line sum: NCCL's support of graphs mixed with eager
+calls holds it back, and NCCL 2.28 offers no switch for it per
+communicator, only a process-wide environment variable.)
 
 The route is chosen by the inputs alone (:func:`graph_route`): tensors on
 the card, none a ``torch.func`` wrapper, a ``requires_grad`` leaf or a
@@ -35,6 +40,19 @@ counters, which its wrapper caches per stream, are allocated and zeroed
 inside the capture, and the graph takes them out of that cache
 (:func:`take_stream_caches`), so that no other graph or call on a recycled
 stream handle shares them.
+
+The capture ring's launches are counted on the card (each replay's ring
+kernel runs the next epoch of its ring), so every rank must replay the
+graphs of a mesh in the same order, as the SPMD callers do.  A replay's
+ring kernel waits for its neighbours' and traps ``parallel.peer.TIMEOUT_S``
+(5 s) after its wait began.  The callers stay inside it: each replay is
+queued on the current stream behind the rank's earlier collectives (the
+previous forward's ``line`` all-reduce and all-gather, the normal
+equations' all-reduces, which no rank passes before every rank has issued
+them), so a ring kernel waits only for the host work the ranks do between
+their last common collective and the replay, the same on every rank (an LM
+step's solve, a profiler window's start); what one rank alone does (rank
+0 writing the outputs) comes after a run's last forward.
 """
 
 from __future__ import annotations

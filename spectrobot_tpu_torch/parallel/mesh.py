@@ -28,6 +28,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from spectrobot_tpu_torch.parallel.graphed import release_graphs
+from spectrobot_tpu_torch.parallel.peer import Ring, close_rings
 
 AXES = ("ray", "line", "nu")
 
@@ -74,11 +75,14 @@ def initialize_multihost(device_type: str) -> bool:
 
 def finalize_multihost() -> None:
     """End this run's process group, after dropping every captured mesh
-    graph (``parallel.graphed.release_graphs``): a graph holds NCCL's
-    kernels, and NCCL's teardown waits for such graphs to go."""
+    graph (``parallel.graphed.release_graphs``: a graph holds NCCL's
+    kernels, and NCCL's teardown waits for such graphs to go) and closing
+    every open peer ring (``parallel.peer.close_rings``: the meshes'
+    capture rings among them), whose handshakes run over the group."""
     release_graphs()
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    close_rings()
     dist.destroy_process_group()
 
 
@@ -86,13 +90,23 @@ class Mesh:
     """This rank's view of the (ray, line, nu) mesh: ``shape`` and ``coord``
     map each axis name to its size and to this rank's index along it;
     ``groups`` to the process group of the ranks that differ from this one
-    only along that axis."""
+    only along that axis.
+
+    ``capture_ring``: the ring of this rank's ``nu`` group
+    (``parallel.peer.Ring``, its epochs counted on the card) that carries
+    the exchange of a captured mesh body
+    (``collectives.ring_exchange_start``): NCCL keeps every eager call,
+    the captured exchange leaves it.  Its workspace opens when an eager
+    exchange on the card first needs it (a handshake over the ``nu``
+    group) and closes in :func:`finalize_multihost`."""
 
     def __init__(self, device_mesh):
         self.device_type = device_mesh.device_type
         self.shape = dict(zip(AXES, device_mesh.shape))
         self.coord = {ax: device_mesh.get_local_rank(ax) for ax in AXES}
         self.groups = {ax: device_mesh.get_group(ax) for ax in AXES}
+        self.capture_ring = Ring(self.shape["nu"], self.device, self,
+                                 on_device=True)
 
     @property
     def size(self) -> int:

@@ -27,6 +27,16 @@ no flag is ever reset), the size of a call's copy items
 workspace between calls (:class:`RingArgs`).  On the CPU a ring has no
 workspace (the wrappers run their plain versions), but counts its calls
 alike.
+
+A ring ``on_device`` counts its epochs on the card instead: a CUDA graph
+freezes a launch's arguments, so each ring kernel launch on it takes its
+epoch from a count in its workspace and advances it
+(:meth:`Ring.device_calls` reads it back).  Each mesh has one such ring on
+its ``nu`` axis, its capture ring (``parallel.mesh.Mesh.capture_ring``),
+which carries the exchange of every captured mesh body
+(``parallel.collectives.ring_exchange_start``).  Every workspace opened is
+kept in the order it opened, the same on every rank, until
+:func:`close_rings` (``parallel.mesh.finalize_multihost``).
 """
 
 from __future__ import annotations
@@ -59,20 +69,24 @@ TIMEOUT_S = 5.0
 
 _LIB = None
 _MESH_RINGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# The rings whose workspace is open, in the order they opened.
+_OPEN: list = []
 
 
 class RingArgs(ctypes.Structure):
     """The ring kernel's launch arguments (``csrc/dma_ring.cu`` RingArgs,
     the same layout, checked when the library is loaded).  A workspace
     keeps one and the wrapper sets the fields that change between calls
-    (x, out, n, d, chunk, epoch, stream)."""
+    (x, out, n, d, n_dirs, chunk, epoch, stream; epoch 0: the device
+    counts it)."""
     _fields_ = [("table", ctypes.c_void_p), ("x", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("cap_floats", ctypes.c_longlong),
                 ("epoch", ctypes.c_ulonglong), ("n_loc", ctypes.c_int),
                 ("d", ctypes.c_int), ("chunk", ctypes.c_int),
                 ("device", ctypes.c_int), ("loopback", ctypes.c_int),
-                ("timeout_s", ctypes.c_float), ("stream", ctypes.c_void_p)]
+                ("timeout_s", ctypes.c_float), ("stream", ctypes.c_void_p),
+                ("n_dirs", ctypes.c_int)]
 
 
 def library() -> ctypes.CDLL:
@@ -89,7 +103,10 @@ def library() -> ctypes.CDLL:
                            ("dma_ipc_get", [i32, ptr, ptr]),
                            ("dma_ipc_open", [i32, ptr, ptr]),
                            ("dma_ipc_close", [i32, ptr]),
-                           ("dma_ring_launch", [ctypes.POINTER(RingArgs)])):
+                           ("dma_ring_launch", [ctypes.POINTER(RingArgs)]),
+                           ("dma_ws_calls", [i32, ptr,
+                                             ctypes.POINTER(
+                                                 ctypes.c_ulonglong)])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, i32
         lib.dma_ws_bytes.argtypes, lib.dma_ws_bytes.restype = [i64], i64
@@ -240,16 +257,28 @@ class Ring:
     """A 1-D ``nu`` ring of ``n`` shards on ``device``: the ranks of
     ``mesh``'s ``nu`` axis, or (``mesh`` None) the loopback of ``n`` shards
     in this process.  Holds the epoch (calls made) and, on a card, the
-    peer workspace, grown on demand."""
+    peer workspace, grown on demand.  ``on_device``: the ring kernel's
+    launches count their epochs on the card (the module docstring), and
+    the fused kernel, which takes its epoch from the host, refuses the
+    ring."""
 
-    def __init__(self, n: int, device, mesh=None):
+    def __init__(self, n: int, device, mesh=None, *, on_device: bool = False):
         self.n, self.mesh = int(n), mesh
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.on_device = on_device
         self.epoch = 0
         self.workspace: Optional[PeerWorkspace] = None
         self._synced: set = set()
+
+    @property
+    def ranks(self) -> list:
+        """The global ranks of a ring of ranks, in ring order (the ranks of
+        the mesh's ``nu`` group); None on the loopback."""
+        if self.mesh is None:
+            return None
+        return dist.get_process_group_ranks(self.mesh.groups["nu"])
 
     @property
     def loopback(self) -> bool:
@@ -278,8 +307,9 @@ class Ring:
         """On a ring of ranks, a barrier the first time ``key`` is named:
         after a kernel library is loaded, so that no rank starts waiting on
         a peer that is still compiling."""
-        if self.mesh is not None and key not in self._synced:
-            dist.barrier(group=self.mesh.groups["nu"])
+        if key not in self._synced:
+            if self.mesh is not None:
+                dist.barrier(group=self.mesh.groups["nu"])
             self._synced.add(key)
 
     def workspace_for(self, n_floats: int) -> PeerWorkspace:
@@ -290,18 +320,70 @@ class Ring:
             raise ValueError(f"a ring on {self.device} has no peer workspace")
         ws = self.workspace
         if ws is None or ws.cap_floats < n_floats:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"a ring's workspace opens outside a CUDA graph's "
+                    f"capture: reserve({n_floats}) it first")
             cap = workspace_cap(n_floats)
             if ws is not None:
-                ws.close()
+                self.close()
             self.workspace = (_open_loopback(self.n, self.device, cap)
                               if self.loopback else
                               _open_ranks(self.mesh, self.device, cap))
+            _OPEN.append(self)
         return self.workspace
+
+    def reserve(self, n_floats: int) -> None:
+        """Ready the ring, outside any capture, for ring kernel calls of
+        ``n_floats`` floats a shard: its library loaded, the first-use
+        barrier made and the workspace open and large enough (on a ring of
+        ranks, collective: every rank asks for the same size in the same
+        call).  Growing the workspace of a ring ``on_device`` drops every
+        captured mesh graph first (``parallel.graphed.release_graphs``:
+        they hold the old workspace), and its count of calls starts anew
+        with the new workspace, on every rank alike.  Nothing on the
+        CPU."""
+        if self.device.type != "cuda":
+            return
+        library()
+        self.sync_once("dma_ring")
+        ws = self.workspace
+        if self.on_device and ws is not None and ws.cap_floats < n_floats:
+            from spectrobot_tpu_torch.parallel.graphed import release_graphs
+            release_graphs()
+        self.workspace_for(n_floats)
+
+    def reserved(self, n_floats: int) -> bool:
+        """Whether :meth:`reserve` has readied the ring for calls of
+        ``n_floats`` floats a shard."""
+        ws = self.workspace
+        return (ws is not None and ws.cap_floats >= n_floats
+                and "dma_ring" in self._synced)
+
+    def device_calls(self) -> int:
+        """The ring kernel's count of calls on the card (the epoch of its
+        last call on a ring ``on_device``), read back from the workspace
+        of this process's first shard (a synchronising copy); 0 before the
+        workspace opens."""
+        if self.workspace is None:
+            return 0
+        out = ctypes.c_ulonglong()
+        _call("dma_ws_calls", self.device.index,
+              ctypes.c_void_p(self.workspace.owned[0]), ctypes.byref(out))
+        return int(out.value)
 
     def close(self) -> None:
         if self.workspace is not None:
             self.workspace.close()
             self.workspace = None
+            _OPEN.remove(self)
+
+
+def close_rings() -> None:
+    """Close every open ring's workspace, in the order they opened (on a
+    ring of ranks collective, and the order is the same on every rank)."""
+    for ring in list(_OPEN):
+        ring.close()
 
 
 def loopback_ring(n: int, device="cuda") -> Ring:

@@ -769,6 +769,57 @@ def test_halo_exchange_overlaps_on_every_card(cuda, tmp_path):
             assert r["vs_single_device"]["worst_ratio"] <= mesh_rtol
 
 
+def test_retrieve_mixes_replays_with_eager_collectives_on_every_card(
+        cuda, tmp_path):
+    """``torchrun`` of the CLI retrieve in the nu-halo tier on the
+    machine's n cards, on (1, 1, n) and, from 4 cards, (1, 2, n/2), against
+    the single-card retrieve (examples/mars_limb.toml at a 10 cm-1 cutoff,
+    float32): each LM iteration's eager ``jacfwd`` Jacobian and
+    normal-equation all-reduces (NCCL) run between replays of the graphed
+    forward (its exchange on the capture ring), so at least two
+    iterations mean replays after eager collectives.  Each run ends
+    within its timeout (no hang); the LM path is the same (iterations,
+    convergence), the fitted spectrum within 1e-5 of its largest value of
+    one card's, the state and chi2 within the 1e-4 of the CLI mesh test
+    (float32 sums in another order)."""
+    from spectrobot_tpu_torch import cli
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("the mesh across cards needs two cards or more")
+    common = ["-o", "compute.cutoff_cm1=10"]
+    assert cli.main(["retrieve", SCENE, "-o",
+                     f"run.output_dir={tmp_path}/one", *common]) == 0
+    one = np.load(tmp_path / "one" / "retrieval.npz")
+    assert int(one["n_iter"]) >= 2
+    shapes = [(1, 1, n)] + ([(1, 2, n // 2)] if n >= 4 and n % 2 == 0
+                            else [])
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for shape in shapes:
+        out = tmp_path / f"mesh_{shape[1]}_{shape[2]}"
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             f"--nproc_per_node={n}", "-m", "spectrobot_tpu_torch",
+             "retrieve", SCENE, "-o", f"run.output_dir={out}", *common,
+             "-o", "compute.mesh_halo=true",
+             "-o", f"compute.mesh_line={shape[1]}",
+             "-o", f"compute.mesh_nu={shape[2]}"],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        got = np.load(out / "retrieval.npz")
+        y_err = np.abs(got["values"] - one["values"]).max() / np.abs(
+            one["values"]).max()
+        print(f"retrieve on {shape} vs one card: {int(got['n_iter'])} vs "
+              f"{int(one['n_iter'])} LM iterations, fit max |err| / max "
+              f"{y_err:.3e}, x max rel err "
+              f"{np.abs(got['x'] - one['x']).max() / np.abs(one['x']).max():.3e}"
+              f", chi2 {float(got['chi2']):.6g} vs {float(one['chi2']):.6g}")
+        assert int(got["n_iter"]) == int(one["n_iter"])
+        assert bool(got["converged"]) and bool(one["converged"])
+        assert y_err <= 1e-5
+        np.testing.assert_allclose(got["x"], one["x"], rtol=1e-4)
+        np.testing.assert_allclose(got["chi2"], one["chi2"], rtol=1e-4)
+
+
 @pytest.fixture(scope="module")
 def graph_runs(tmp_path_factory):
     """tests/torch_mesh_cases.py:graph_card_case on every card (one rank a
@@ -801,21 +852,27 @@ def test_graph_replay_bit_equal_to_eager_body(graph_runs):
 
 def test_graph_replay_launches_each_kernel_once_a_source(graph_runs):
     """K1 (K3 in the halo accumulation) once a line source and call, the
-    replays as the eager first call: 1 + the nu-halo hops; a replay's
-    counts are the kernels its profiler trace shows."""
+    replays as the eager first call: 1 + the nu-halo hops; a replay with
+    hops also launches the ring kernel once (its exchange, every hop in
+    one launch, where the eager call's is NCCL's); a replay's counts are
+    the kernels its profiler trace shows."""
     from spectrobot_tpu_torch.parallel.halo import _hops
     n, _, got = graph_runs
     for out in got:
         for name, rec in out.items():
             if name == "K3 halo":
-                want = {"cuda_single.LAUNCHES": 1 + len(_hops(n))}
+                hops = len(_hops(n))
+                want = {"cuda_single.LAUNCHES": 1 + hops}
             else:
                 tier, shape = name.split(" ", 1)
                 n_nu = int(shape.strip("()").split(",")[2])
-                want = {"cuda_opacity.LAUNCHES": 1 + (
-                    len(_hops(n_nu)) if tier == "nu-halo" else 0)}
-            assert [c[1] for c in rec["calls"]] == [want] * 5, name
-            assert rec["traced"] == want, name
+                hops = len(_hops(n_nu)) if tier == "nu-halo" else 0
+                want = {"cuda_opacity.LAUNCHES": 1 + hops}
+            replay = {**want, **({"cuda_dma.RING_LAUNCHES": 1} if hops
+                                 else {})}
+            assert [c[1] for c in rec["calls"]] == [want] + [replay] * 4, \
+                name
+            assert rec["traced"] == replay, name
 
 
 def test_mesh_jacobian_stays_eager(graph_runs):
@@ -880,6 +937,44 @@ def test_dma_ring_back_to_back(cuda, n):
     assert ring.epoch == 50
     for x, d, got in zip(xs, dirs, outs):
         assert torch.equal(got, torch.roll(x, d, 0))
+    ring.close()
+
+
+@pytest.mark.parametrize("n", [1, 3, 4])
+def test_captured_ring_exchange_counts_its_epoch_on_the_card(cuda, n):
+    """The capture ring's transport on the loopback ring (a ring on the
+    device's epoch): both directions in one launch, bit-equal to the two
+    rolls, eagerly and through a CUDA graph replayed three times on new
+    blocks (15005 floats: 4-byte copies, several chunks); the count of
+    calls read back from the card moves by one a launch (not at the
+    capture), and the host counts none."""
+    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel.peer import Ring
+    ring = Ring(n, cuda, on_device=True)
+    g = torch.Generator(device=cuda).manual_seed(30 + n)
+    x = torch.randn((n, 5, 3001), generator=g, device=cuda)
+    ring.reserve(x.numel() // n)
+    rolls = lambda v: torch.stack([torch.roll(v, 1, 0), torch.roll(v, -1, 0)])
+    before = cuda_dma.RING_LAUNCHES
+    got = cuda_dma.ring_exchange_hops(ring, x, (1, -1))
+    torch.cuda.synchronize()
+    assert cuda_dma.RING_LAUNCHES == before + 1
+    assert torch.equal(got, rolls(x)) and ring.device_calls() == 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_dma.ring_exchange_hops(ring, x, (1, -1))
+    assert ring.device_calls() == 1
+    for i in range(3):
+        x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, rolls(x)), i
+        assert ring.device_calls() == 2 + i
+    got = cuda_dma.ring_exchange_hops(ring, x, (-1,))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.roll(x, -1, 0))
+    assert ring.device_calls() == 5 and ring.epoch == 0
+    del graph
     ring.close()
 
 

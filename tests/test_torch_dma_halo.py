@@ -391,7 +391,7 @@ def test_fused_lines_route_is_the_packed_route(jax_refs, n):
 def test_workspace_keeps_the_ring_launch_arguments():
     """The ring kernel's arguments that do not change between calls are
     set once, when the workspace opens, in the kernel's own layout
-    (csrc/dma_ring.cu RingArgs: 80 bytes, the fields in C order)."""
+    (csrc/dma_ring.cu RingArgs: 88 bytes, the fields in C order)."""
     import ctypes
     table = torch.arange(12, dtype=torch.int64).reshape(4, 3)
     ws = peer.PeerWorkspace(torch.device("cuda", 3), 1 << 16, [], [], table,
@@ -402,11 +402,11 @@ def test_workspace_keeps_the_ring_launch_arguments():
     assert a.timeout_s == pytest.approx(peer.TIMEOUT_S)
     assert (a.x, a.out, a.n, a.epoch) == (None, None, 0, 0)
     R = peer.RingArgs
-    assert ctypes.sizeof(R) == 80
+    assert ctypes.sizeof(R) == 88
     assert [getattr(R, f).offset for f in (
         "table", "x", "out", "n", "cap_floats", "epoch", "n_loc", "d",
-        "chunk", "device", "loopback", "timeout_s", "stream")] == [
-        0, 8, 16, 24, 32, 40, 48, 52, 56, 60, 64, 68, 72]
+        "chunk", "device", "loopback", "timeout_s", "stream", "n_dirs")] == [
+        0, 8, 16, 24, 32, 40, 48, 52, 56, 60, 64, 68, 72, 80]
     ranks = peer.PeerWorkspace(torch.device("cuda", 0), 1 << 20, [], [],
                                table[:1], object(), loopback=False)
     assert (ranks.ring_args.n_loc, ranks.ring_args.loopback) == (1, 0)

@@ -840,3 +840,120 @@ def graph_card_case(rank, world, tmp, shapes):
     finally:
         finalize_multihost()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the capture ring (the transport of a captured exchange)
+# ---------------------------------------------------------------------------
+
+
+def _own(hops):
+    """Received messages, each a tensor of its own (a packed exchange's are
+    views of one buffer in several dtypes, which torch.save refuses)."""
+    return [[t.clone() for t in msgs] for msgs in hops]
+
+
+def capture_ring_case(rank, world, msgs, shapes):
+    """For each mesh shape of ``shapes``: the capture ring's ranks, size and
+    flags beside the ``nu`` group's ranks; this rank's messages ``msgs``
+    [rank] through ``collectives.capture_exchange`` over the ring (its
+    plain version on the CPU), through the eager ``ring_exchange_start``
+    and through ``ring_shift``, at the halo's shifts; then, with
+    ``capture_exchange`` recording its calls: the calls that the eager
+    mesh bodies (the nu-halo forward of ``halo_overlap``'s aot scene and
+    its ``jacfwd``, the K3 halo accumulation), ``ring_shift`` and the eager
+    exchange made ("eager", expected none), and the exchange issued with a
+    stream while ``torch.cuda.is_current_stream_capturing`` says True
+    ("captured": its calls and received messages), and whether such an
+    exchange on another axis is refused."""
+    import numpy as np
+
+    from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel import collectives as C
+    from spectrobot_tpu_torch.parallel import halo
+    from spectrobot_tpu_torch.parallel import sharded as sh
+
+    out = {"rings": {}, "exchange": {}}
+    parts = [list(torch.as_tensor(m[rank])) for m in msgs]
+    for shape in shapes:
+        mesh = _mesh(shape)
+        ring = mesh.capture_ring
+        out["rings"][shape] = {
+            "ranks": ring.ranks,
+            "nu_ranks": dist.get_process_group_ranks(mesh.groups["nu"]),
+            "n": ring.n, "on_device": ring.on_device,
+            "loopback": ring.loopback, "mesh_is_its": ring.mesh is mesh}
+        shifts = [s for s, _ in halo._hops(mesh.shape["nu"])]
+        sends = [torch.stack(p) for p in parts]
+        out["exchange"][shape] = {
+            "shifts": shifts,
+            "capture": _own(C.capture_exchange(sends, ring, shifts).wait()),
+            "eager": C.ring_exchange_start(parts, mesh, "nu", shifts).wait(),
+            "ring_shift": [[C.ring_shift(x, mesh, "nu", s) for x in sends]
+                           for s in shifts],
+            "workspace": ring.workspace}
+
+    # The eager bodies: the nu-halo forward of the aot scene on (1, w/2, 2)
+    # and its jacfwd over a column scale, and the K3 halo accumulation of
+    # random lines on (1, 1, w).
+    sc = ho.make_scene("aot", CPU, world)
+    aot = _mesh((1, world // 2, 2))
+    dlp = sh.partition_lines_by_nu(sc.lines, sc.nu_host, 2,
+                                   cutoff_cm1=sc.cutoff_cm1,
+                                   line_shards=world // 2)
+    nu_off = sc.nu_host - float(sc.lines.nu_ref)
+    fwd = sh.sharded_radiance_fn(aot, win_grid=nu_off,
+                                 win_lines=dlp.nu0.double().numpy(),
+                                 cutoff_cm1=sc.cutoff_cm1, nu_halo=True)
+    st = sh.stage_sharded(aot, torch.as_tensor(sc.nu_host), dlp, sc.cg,
+                          nu_off=torch.as_tensor(nu_off))
+    rng = np.random.default_rng(7)
+    L, cutoff = 96, 10.0
+    nu = torch.linspace(600.0, 700.0, 512, dtype=torch.float64)
+    nu0 = np.sort(rng.uniform(600.0, 700.0, L))
+    kl = KernelLines(torch.as_tensor(nu0), torch.as_tensor(
+        rng.uniform(5.0, 20.0, L)), torch.as_tensor(rng.uniform(0.1, 2.0, L)),
+        torch.as_tensor(rng.uniform(0.5, 1.0, (2, L))))
+    mesh = _mesh((1, 1, world))
+    skl = halo.partition_kernel_lines(
+        kl, nu0, halo.nu_shard_edges(nu.numpy(), world, cutoff))
+    k3 = halo.halo_accumulate_pallas_fn(mesh, nu.numpy(), skl.nu_c.numpy(),
+                                        cutoff_cm1=cutoff)
+    calls = []
+    real = C.capture_exchange
+
+    def record(sends, ring, shifts, stream=None):
+        calls.append((ring is mesh.capture_ring, list(shifts),
+                      stream is not None))
+        return real(sends, ring, shifts)
+
+    C.capture_exchange = record
+    try:
+        fwd(st.nu, st.nu_off, st.lines, st.cg)
+        torch.func.jacfwd(lambda s: fwd(
+            st.nu, st.nu_off, st.lines, st.cg._replace(u=st.cg.u * s)))(
+            torch.ones(1, dtype=st.cg.u.dtype))
+        k3(nu[mesh.block(nu.shape[0], "nu")],
+           halo.shard_lines(skl, mesh.coord["nu"]))
+        C.ring_shift(torch.stack(parts[0]), mesh, "nu", 1)
+        C.ring_exchange_start(parts, mesh, "nu", [1, -1]).wait()
+        out["eager"] = list(calls)
+        del calls[:]
+        capturing = torch.cuda.is_current_stream_capturing
+        torch.cuda.is_current_stream_capturing = lambda: True
+        try:
+            got = C.ring_exchange_start(parts, mesh, "nu", [1, -1],
+                                        stream=object()).wait()
+            try:
+                C.ring_exchange_start(parts, mesh, "line", [1],
+                                      stream=object())
+                refused = False
+            except ValueError:
+                refused = True
+        finally:
+            torch.cuda.is_current_stream_capturing = capturing
+        out["captured"] = (list(calls), _own(got), refused)
+    finally:
+        C.capture_exchange = real
+    return out
