@@ -191,6 +191,25 @@ Phases, each of which raises (non-zero exit) on failure:
      composed scene and the float64 Weideman slice within GUARD_RATIO of
      the measured increase of their peak memory (peak - resident), each
      unchunked; each sub-phase's wall time beside the card.
+  6l. (after 6k, before phase 7, on phase 6c's process group) the engine
+     rule's two other humlicek4 configurations: compute.dtype = "float64"
+     through the float32 kernels (ops.cuda_basis.KERNELS casts the
+     pipeline's inputs and results) on examples/mars_limb.toml: the CLI
+     forward (one K1, float64 radiances), the Jacobian at the prior (one
+     K1, one K2; its peak memory against cli.jacobian_bytes within
+     GUARD_RATIO), the CLI retrieve (one K2 a Jacobian, converged), the
+     reverse gradient (one K1, one K5; within F64_GRAD_REL of J^T dL/dy),
+     config 3's forward and Jacobian, config 1 (one K3; its Jacobian one
+     K3 and one K4; the float64 oracle's float32 budget), the LTE table
+     build (one K1) and the (1, 1, 1) mesh forward in both tiers (a
+     replay bit-equal to its eager first call, within MESH_RTOL of one
+     device), each float64 and within the float32 budgets (K1's,
+     K2_REL) of the same engine over the plain versions in float32; the
+     slice's distance from the pure float64 plain engine; then
+     compute.use_pallas = false (ops.cuda_basis.PLAIN) in float32 and
+     float64, the CLI forward and the Jacobian with no kernel launch,
+     against the kernels' in float32; the engine each configuration
+     takes; the float64 walls beside float32's.
 With --profiler-misses ROUNDS, phase 6e also counts how often a profiler
 window misses the fused-halo kernel, with and without the host wait of
 its check (profiler_misses).
@@ -2202,6 +2221,363 @@ def guard_phase(dev, card: str, scenes: dict, extra: dict) -> None:
             check(chunk is None, f"{name}: the guard chunks the Jacobian")
 
 
+# Phase 6l: the engine rule's two other humlicek4 configurations at full
+# width: compute.dtype = "float64" through the float32 kernels (KERNELS
+# casts a float64 pipeline's inputs and results), and compute.use_pallas
+# = false through the plain engine (PLAIN, in the configured dtype).
+F64_CLI = {"compute.dtype": "float64"}
+NO_PALLAS_CLI = {"compute.use_pallas": "false"}
+# The float64 reverse gradient against J^T dL/dy from the float64
+# Jacobian (both through the float32 kernels), and against the float32-cast
+# plain engine's: max |err| <= F64_GRAD_REL max |ref|.
+F64_GRAD_REL = 1e-5
+
+
+def cast_plain_engine():
+    """The plain versions computing in float32 on the card, as KERNELS
+    does: what a float64 run through the kernels is held to."""
+    from spectrobot_tpu_torch.ops.cuda_basis import PLAIN
+    from spectrobot_tpu_torch.ops.opacity import with_compute_dtype
+    return with_compute_dtype(dataclasses.replace(PLAIN, name="cast plain"),
+                              torch.float32)
+
+
+def sum_error(got, ref) -> tuple:
+    """(max |err|, the worst ratio to K1's budget) of ``got`` against
+    ``ref`` (tensors or arrays), in float64."""
+    got, ref = (torch.as_tensor(a).double().cpu() for a in (got, ref))
+    err = (got - ref).abs()
+    return float(err.max()), float(
+        (err / (RTOL * ref.abs() + ATOL_REL * ref.abs().max())).max())
+
+
+def rel_max(got, ref) -> float:
+    """max |got - ref| / max |ref|, in float64."""
+    got, ref = (torch.as_tensor(a).double().cpu() for a in (got, ref))
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def engine_dtype_phase(dev, mesh, cfg, scene, I, J, card: str) -> dict:
+    """Phase 6l on the card: examples/mars_limb.toml with compute.dtype =
+    "float64" through the kernels (the CLI forward, the Jacobian and its
+    peak against ``cli.jacobian_bytes``, the CLI retrieve, the reverse
+    gradient), config 3's forward and Jacobian, config 1 (K3, K4), the LTE
+    table build and the (1, 1, 1) mesh forward in both tiers (graphed and
+    eager), each float64 with the float32 path's launches and within the
+    float32 budgets of the same engine over the plain versions in float32;
+    the slice's distance from the pure float64 plain engine; then
+    compute.use_pallas = false in float32 and float64 (forward and
+    Jacobian, no kernel launch).  ``I``, ``J``: phase 5's and 6's float32
+    radiances and Jacobian.  Prints each wall beside ``card`` and the
+    float32 one; returns the walls [ms]."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.forward.model import nadir_single_layer
+    from spectrobot_tpu_torch.ops import lut
+    from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+    from spectrobot_tpu_torch.parallel import graphed
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    f64 = torch.float64
+    cast = cast_plain_engine()
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls[name] = 1e3 * (time.perf_counter() - t0)
+        return res
+
+    def counted(fn):
+        reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, launch_counts()
+
+    # (a) The engine rule on the card.
+    for ov, want in (({}, KERNELS), (F64_CLI, KERNELS),
+                     (NO_PALLAS_CLI, PLAIN),
+                     ({**F64_CLI, **NO_PALLAS_CLI}, PLAIN)):
+        c = cli.load_config(SCENE, ov)
+        e = cli.select_engine(c, dev)
+        dt = f64 if c.compute.dtype == "float64" else torch.float32
+        print(f"6l (a) engine for {json.dumps(ov)}: {e.describe(dt, dev)}")
+        check(e is want, f"{json.dumps(ov)} selected {e.name}, not "
+                         f"{want.name}")
+
+    # (b) The CLI forward in float64 through the kernels, against the
+    # float32-cast plain engine and the pure float64 plain engine (the CLI
+    # with compute.use_pallas = false).
+    cfg64 = cli.load_config(SCENE, F64_CLI)
+    scene64 = cli.build_scene(cfg64, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n, _ = timed("(b) CLI forward", lambda: cli_run(
+            "forward", F64_CLI, tmp))
+        I64, chans = res["values"], res["nu"]
+        res, n_pure, _ = cli_run("forward", {**F64_CLI, **NO_PALLAS_CLI},
+                                 tmp)
+        I_pure = res["values"]
+    expect_launches("the float64 CLI forward", n, K1=1)
+    expect_launches("the float64 CLI forward with use_pallas = false",
+                    n_pure)
+    I_dev = cli.run_forward(cfg64, scene64, KERNELS)
+    check(I_dev.dtype == f64 and I64.shape == I.shape
+          and np.array_equal(I_dev.cpu().numpy(), I64)
+          and bool(np.isfinite(I64).all() and (I64 >= 0).all()),
+          f"float64 radiances {I64.shape} ({I_dev.dtype} on the card) not "
+          f"the finite, non-negative float64 of shape {I.shape} the CLI "
+          f"wrote")
+    I_cast = cli.run_forward(cfg64, scene64, cast)
+    err, worst = sum_error(I64, I_cast)
+    print(f"6l (b) CLI forward float64 through the kernels: launches "
+          f"{json.dumps(n)}; vs the float32-cast plain engine max |err| "
+          f"{err:.3e}, {worst:.3e} x K1's budget; vs pure float64 plain "
+          f"{rel_max(I64, I_pure):.3e} of max radiance; vs the float32 CLI "
+          f"forward {rel_max(I64, I):.3e}")
+    check(worst <= 1.0, "the float64 forward disagrees with the float32-"
+                        "cast plain engine")
+    band = np.trapezoid(I64, chans, axis=1)
+    check(bool(np.all(np.diff(band) < 0)),
+          "the float64 band radiance does not fall with tangent height")
+
+    # (c) The Jacobian at the prior: through the kernels (one K1, one K2;
+    # its peak against the guard's count), the float32-cast plain engine
+    # and the pure float64 plain engine (compute.use_pallas = false).
+    cfg_pure = cli.load_config(SCENE, {**F64_CLI, **NO_PALLAS_CLI})
+    jacs, probs = {}, {}
+    for name, c, e in (("kernels", cfg64, KERNELS), ("cast", cfg64, cast),
+                       ("pure", cfg_pure, cli.select_engine(cfg_pure, dev))):
+        p = probs[name] = cli.retrieval_problem(c, scene64, e)
+        n_x, n_fine = int(p.x0.shape[0]), int(scene64.nu.shape[0])
+        check(cli.jacobian_chunk(c, n_x, n_fine, dev) is None,
+              f"the float64 Jacobian ({name}) is chunked")
+        jac = cli.make_jacobian(c, p.fwd_flat, n_x, n_fine, dev)
+        got = []
+        reset_launches()
+        peak = timed(f"(c) Jacobian, {name}", lambda: peak_memory(
+            lambda: got.append(jac(p.x0))))
+        jacs[name] = (got.pop(), launch_counts(), peak, jac)
+    J64, n, peak, jac64 = jacs["kernels"]
+    expect_launches("the float64 Jacobian", n, K1=1, K2=1)
+    expect_launches("the pure float64 plain Jacobian", jacs["pure"][1])
+    check(J64.dtype == f64 and bool(torch.isfinite(J64).all()),
+          "the float64 Jacobian is not finite float64")
+    jerr = rel_max(J64, jacs["cast"][0])
+    counted_b = cli.jacobian_bytes(cfg64, n_x, n_fine)
+    grown = (peak[0] - peak[1]) * 1e9
+    print(f"6l (c) Jacobian {tuple(J64.shape)} float64 through the kernels: "
+          f"launches {json.dumps(n)}; vs the float32-cast plain engine "
+          f"{jerr:.3e} of max |K| (budget {K2_REL:g}); vs pure float64 "
+          f"plain {rel_max(J64, jacs['pure'][0]):.3e}; vs the float32 "
+          f"Jacobian {rel_max(J64, J):.3e}")
+    print(f"6l (c) float64 Jacobian peak device memory {peak[0]:.2f} GB "
+          f"({peak[1]:.2f} GB resident before it): increase "
+          f"{grown / 1e9:.2f} GB against cli.jacobian_bytes "
+          f"{counted_b / 1e9:.2f} GB, ratio {counted_b / grown:.3f} "
+          f"({cli.JAC_LIVE_TANGENTS:g} float64 tangents counted); pure "
+          f"float64 plain {jacs['pure'][2][0]:.2f} GB, float32-cast plain "
+          f"{jacs['cast'][2][0]:.2f} GB")
+    check(jerr <= K2_REL, "the float64 Jacobian disagrees with the "
+                          "float32-cast plain engine's")
+    check(GUARD_RATIO[0] <= counted_b / grown <= GUARD_RATIO[1],
+          f"the guard counts {counted_b / grown:.3f} x the float64 "
+          f"Jacobian's increase, outside {GUARD_RATIO}")
+
+    # (d) The CLI retrieve in float64: K1 and K2 as in float32.
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n, iters = timed("(d) CLI retrieve", lambda: cli_run(
+            "retrieve", F64_CLI, tmp))
+    n_iter, chi2 = int(res["n_iter"]), float(res["chi2"])
+    print(f"6l (d) CLI retrieve float64: converged {bool(res['converged'])} "
+          f"({res['stop_reason']}), chi2 {iters[0]['chi2']:.6g} at the "
+          f"prior -> {chi2:.6g} in {n_iter} LM iterations; launches "
+          f"{json.dumps(n)}")
+    check(n["K1"] > 0 and n["K2"] == n_iter + 1 and n["K5"] == 0,
+          f"the float64 retrieve launched {json.dumps(n)} for {n_iter} LM "
+          f"iterations")
+    check(bool(res["converged"]) and chi2 < iters[0]["chi2"],
+          "the float64 retrieval did not converge")
+    check(res["y_fit"].dtype == np.float64, "the float64 fit is not float64")
+
+    # (e) The reverse gradient of the retrieval cost: one K1, one K5.
+    y_obs = torch.as_tensor(res["y_obs"].reshape(-1), dtype=f64, device=dev)
+    sig = torch.as_tensor(res["noise"].reshape(-1), dtype=f64, device=dev)
+
+    def cost_grad(p, y_o, s):
+        x = p.x0.detach().clone().requires_grad_()
+        r = (p.fwd_flat(x) - y_o) / s
+        return torch.autograd.grad(0.5 * torch.sum(r * r), x)[0]
+
+    rev = {e.name: cli.retrieval_problem(cfg64, scene64, e,
+                                         analytic_jvp="rev")
+           for e in (KERNELS, cast)}
+    g, n = counted(lambda: timed("(e) reverse gradient", lambda: cost_grad(
+        rev["kernels"], y_obs, sig)))
+    expect_launches("the float64 reverse gradient", n, K1=1, K5=1)
+    g_jac = J64.T @ ((probs["kernels"].fwd_flat(probs["kernels"].x0) - y_obs)
+                     / sig ** 2)
+    g_cast = cost_grad(rev["cast plain"], y_obs, sig)
+    gerr = {"J^T dL/dy": rel_max(g, g_jac), "cast plain": rel_max(g, g_cast)}
+    print(f"6l (e) reverse gradient float64 ({g.dtype}): launches "
+          f"{json.dumps(n)}; max |err| / max |ref| {json.dumps(gerr)} "
+          f"(budget {F64_GRAD_REL:g})")
+    check(g.dtype == f64 and all(v <= F64_GRAD_REL for v in gerr.values()),
+          "the float64 reverse gradient disagrees")
+
+    # (f) Config 3 in float64: forward (one K1) and Jacobian (one K1, one
+    # K2) against the float32-cast plain engine.
+    cfg3 = cli.load_config(SCENE, {**CONFIG3_CLI, **F64_CLI})
+    scene3 = cli.build_scene(cfg3, dev)
+    I3, n = counted(lambda: cli.run_forward(cfg3, scene3, KERNELS))
+    expect_launches("the float64 config 3 forward", n, K1=1)
+    err, worst = sum_error(I3, cli.run_forward(cfg3, scene3, cast))
+    p3 = {e.name: cli.retrieval_problem(cfg3, scene3, e)
+          for e in (KERNELS, cast)}
+    J3 = {}
+    for name, p in p3.items():
+        reset_launches()
+        J3[name] = cli.make_jacobian(cfg3, p.fwd_flat, int(p.x0.shape[0]),
+                                     int(scene3.nu.shape[0]), dev)(p.x0)
+        torch.cuda.synchronize()
+        if name == "kernels":
+            n3 = launch_counts()
+    j3err = rel_max(J3["kernels"], J3["cast plain"])
+    print(f"6l (f) config 3 float64: forward {I3.dtype} vs the float32-cast "
+          f"plain engine max |err| {err:.3e}, {worst:.3e} x K1's budget "
+          f"(launches {json.dumps(n)}); Jacobian "
+          f"{tuple(J3['kernels'].shape)} {j3err:.3e} of max |K| (launches "
+          f"{json.dumps(n3)})")
+    expect_launches("the float64 config 3 Jacobian", n3, K1=1, K2=1)
+    check(I3.dtype == f64 and J3["kernels"].dtype == f64,
+          "config 3 in float64 is not float64")
+    check(worst <= 1.0 and j3err <= K2_REL,
+          "config 3 in float64 disagrees with the float32-cast plain engine")
+
+    # (g) Config 1 in float64: one K3; its Jacobian one K3 and one K4.
+    ll, dl32, nu32 = config1_scene(dev)
+    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=f64, device=dev)
+    nu = nu32.to(f64)
+    x = [torch.tensor(v, dtype=f64, device=dev) for v in CONFIG1.values()]
+    rad = lambda engine: (lambda *a: nadir_single_layer(nu, dl, *a,
+                                                        engine=engine))
+    I1, n = counted(lambda: rad(None)(*x))
+    expect_launches("the float64 config-1 radiance", n, K3=1)
+    golden = config1_oracle(ll, np.linspace(630.0, 705.0, 3001))
+    err_gold = np.abs(I1.cpu().numpy() - golden)
+    worst = float((err_gold / (ORACLE_RTOL * np.abs(golden) + ORACLE_ATOL_REL
+                               * np.abs(golden).max())).max())
+    argn = tuple(range(len(x)))
+    J1, n = counted(lambda: torch.func.jacfwd(rad(None), argnums=argn)(*x))
+    expect_launches("the float64 config-1 Jacobian", n, K3=1, K4=1)
+    ratio = column_errors(J1, torch.func.jacfwd(rad(cast), argnums=argn)(*x))
+    print(f"6l (g) config 1 float64: radiance {I1.dtype} vs the float64 "
+          f"oracle {worst:.3e} x its float32 budget; Jacobian worst column "
+          f"{ratio:.3e} x {K2_REL:g} of the float32-cast plain engine's; "
+          f"launches K3 1, K4 1")
+    check(I1.dtype == f64 and all(j.dtype == f64 for j in J1),
+          "config 1 in float64 is not float64")
+    check(worst <= 1.0 and ratio <= 1.0,
+          "config 1 in float64 misses its budgets")
+
+    # (h) The LTE table built in float64: one K1, against the float32-cast
+    # plain build at every node.
+    cfgL = cli.load_config(SCENE, {**LUT_CLI, **F64_CLI})
+    sceneL, n = counted(lambda: timed("(h) table build", lambda:
+                                      cli.build_scene(cfgL, dev)))
+    expect_launches("the float64 table build", n, K1=1)
+    plain = lut.build_lut(sceneL.nu, sceneL.lines,
+                          len(sceneL.species_names), engine=cast,
+                          **cli.lut_lattice(cfgL, sceneL.atm,
+                                            sceneL.species_names, sceneL.chi,
+                                            sceneL.nu_off))
+    err, worst = table_error(sceneL.lut, plain)
+    print(f"6l (h) LTE table build float64 ({sceneL.lut.sigma.dtype}): "
+          f"launches {json.dumps(n)}; vs the float32-cast plain build max "
+          f"|err| {err:.3e}, {worst:.3e} x K1's budget")
+    check(sceneL.lut.sigma.dtype == f64 and worst <= 1.0,
+          "the float64 table disagrees with the float32-cast plain build")
+    del plain, sceneL
+
+    # (i) The (1, 1, 1) mesh forward in float64, both tiers: the first call
+    # (the eager body, then its capture) and a replay, bit-equal, one K1
+    # each, within MESH_RTOL of one device.
+    empty = make_state(scene64.atm, [], retrieve_temperature=False)
+    x_e = flatten_state(empty)[0]
+    I_one = cli.run_forward(cfg64, scene64).cpu().numpy()
+    for tier, halo_on in (("psum", False), ("nu-halo", True)):
+        cfg_t = dataclasses.replace(cfg64, compute=dataclasses.replace(
+            cfg64.compute, mesh_halo=halo_on))
+        oe = cli.sharded_problem(cfg_t, scene64, mesh, scene64.atm, empty)
+        I_m, n = counted(lambda: oe.forward_flat(x_e))
+        reset_launches()
+        traced, I_r = ho.traced_launches(lambda: oe.forward_flat(x_e), dev)
+        n_r = launch_counts()
+        check(traced == graphed.launch_counts(),
+              f"the float64 {tier} replay traced {json.dumps(traced)}, its "
+              f"counts say {json.dumps(graphed.launch_counts())}")
+        expect_launches(f"the float64 {tier} mesh forward", n, K1=1)
+        expect_launches(f"the float64 {tier} mesh replay", n_r, K1=1)
+        err = rel_max(I_m.reshape(I_one.shape), I_one)
+        print(f"6l (i) (1, 1, 1) mesh forward float64, {tier} tier "
+              f"({I_m.dtype}): replay bit-equal to the eager first call "
+              f"{bool(torch.equal(I_r, I_m))}, launches {json.dumps(n_r)} "
+              f"as its trace shows; vs one device {err:.3e} of max")
+        check(I_m.dtype == f64 and torch.equal(I_r, I_m),
+              f"the float64 {tier} mesh replay differs from its eager call")
+        check(err <= MESH_RTOL, f"the float64 {tier} mesh forward is off "
+                                f"one device")
+
+    # (j) compute.use_pallas = false in float32: the CLI forward and the
+    # Jacobian on the plain engine, no launch, against the kernels'.
+    cfg_np = cli.load_config(SCENE, NO_PALLAS_CLI)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n, _ = timed("(j) CLI forward, use_pallas = false, float32",
+                          lambda: cli_run("forward", NO_PALLAS_CLI, tmp))
+    expect_launches("the float32 CLI forward with use_pallas = false", n)
+    err, worst = sum_error(res["values"], I)
+    p = cli.retrieval_problem(cfg_np, scene, cli.select_engine(cfg_np, dev))
+    J_np, n_j = counted(lambda: timed(
+        "(j) Jacobian, use_pallas = false, float32", lambda: cli.make_jacobian(
+            cfg_np, p.fwd_flat, int(p.x0.shape[0]), int(scene.nu.shape[0]),
+            dev)(p.x0)))
+    expect_launches("the float32 Jacobian with use_pallas = false", n_j)
+    print(f"6l (j) use_pallas = false, float32: forward vs the kernels' "
+          f"max |err| {err:.3e}, "
+          f"{worst:.3e} x K1's budget; Jacobian {J_np.dtype} vs the kernels' "
+          f"{rel_max(J, J_np):.3e} of max |K|; launches {json.dumps(n)}, "
+          f"{json.dumps(n_j)}; float64 (b, c): launches "
+          f"{json.dumps(n_pure)}, {json.dumps(jacs['pure'][1])}")
+    check(worst <= 1.0 and rel_max(J, J_np) <= K2_REL,
+          "use_pallas = false disagrees with the kernels")
+
+    # Walls beside float32's (CUDA events, median of 5; the forward by the
+    # host clock, median of 3 after a warm-up).
+    rev32 = cli.retrieval_problem(cfg, scene, KERNELS, analytic_jvp="rev")
+    p32 = cli.retrieval_problem(cfg, scene, KERNELS)
+    jac32 = cli.make_jacobian(cfg, p32.fwd_flat, int(p32.x0.shape[0]),
+                              int(scene.nu.shape[0]), dev)
+    y32, s32 = y_obs.float(), sig.float()
+    pairs = {
+        "forward": (lambda: cli.run_forward(cfg64, scene64, KERNELS),
+                    lambda: cli.run_forward(cfg, scene, KERNELS), wall_ms),
+        "Jacobian": (lambda: jac64(probs["kernels"].x0),
+                     lambda: jac32(p32.x0), cuda_ms),
+        "reverse gradient": (lambda: cost_grad(rev["kernels"], y_obs, sig),
+                             lambda: cost_grad(rev32, y32, s32), cuda_ms)}
+    for name, (f64_call, f32_call, clock) in pairs.items():
+        walls[name] = (clock(f64_call), clock(f32_call))
+        print(f"time 6l {name} [{card}]: float64 through the kernels "
+              f"{walls[name][0]:.2f} ms, float32 {walls[name][1]:.2f} ms")
+    for name in [k for k in walls if k.startswith("(")]:
+        print(f"time 6l {name} [{card}]: {walls[name]:.1f} ms (one call)")
+    print(f"time 6l [{card}]: {time.perf_counter() - t_phase:.1f} s")
+    return walls
+
+
 # Phase 6i: the measurement tools (bench, jac_kernel_bench, scaling,
 # trace_summary, run_demo) on the card, at the reference's TPU sizes.
 # The launches per call each bench scene must make.
@@ -3144,6 +3520,10 @@ def main(argv=None) -> int:
                      c3["composed_jac_peak"]),
         "Weideman float64 slice": (cli.load_config(SCENE, WEIDEMAN_CLI), n_x,
                                    weid["jac_peak"])}, c5)
+    # Phase 6l: float64 through the float32 kernels, and
+    # compute.use_pallas = false through the plain engine.
+    release_cache("phase 6l")
+    engine_dtype_phase(dev, mesh["mesh"], cfg, scene, I, J, card)
     # Release the allocator's cache (phase 6f's composed Jacobian alone
     # peaks near 25 GB): phases 7 and 6i time each call's own allocations,
     # not the allocator freeing and retrying on a full device.

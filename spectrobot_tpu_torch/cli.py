@@ -28,14 +28,24 @@ per rank, or gloo on the CPU), and rank 0 writes the outputs.  With
 ``optics.npz``: each ray's line-of-sight optical depth and transmittance,
 from the same line sum as the radiances.
 
-Engine rule (:func:`select_engine`): with ``compute.variant = "humlicek4"``
-the opacity line sum runs in the CUDA kernels on CUDA (K1 for the primal,
-K2 for the Jacobian; ``compute.use_pallas = true``, float32), and in their
-plain PyTorch versions on the CPU.  With ``compute.variant = "weideman"``
-it runs in plain PyTorch on either device, in the configured dtype
-(``ops.cuda_basis.WEIDEMAN``), as the reference runs that variant only on
-its XLA engine: no kernel evaluates it.  ``--device cuda`` without a GPU
-raises; nothing falls back to the CPU.
+Engine rule (:func:`select_engine`), the reference's ``_engine`` policy
+with the card in the TPU's place: with ``compute.variant = "humlicek4"``
+and ``compute.use_pallas = true`` the opacity line sum runs in the CUDA
+kernels on CUDA (K1 for the primal, K2 for the Jacobian, K5 for a
+gradient; ``ops.cuda_basis.KERNELS``), which compute in float32: with
+``compute.dtype = "float64"`` the pipeline stays float64 and hands them
+float32 copies of its inputs, as the reference runs its float32 kernels
+under x64.  With ``compute.use_pallas = false`` it runs in the kernels'
+plain PyTorch versions on the card (``ops.cuda_basis.PLAIN``, in the
+configured dtype), the counterpart of the reference's XLA engine.  On the
+CPU humlicek4 takes ``KERNELS``, whose wrappers run their plain versions
+in the configured dtype (the reference's XLA engine off the TPU).  With
+``compute.variant = "weideman"`` it runs in plain PyTorch on either device,
+in the configured dtype (``ops.cuda_basis.WEIDEMAN``), as the reference
+runs that variant only on its XLA engine: no kernel evaluates it.  The
+engine taken is named in the log.  ``--device cuda``
+without a GPU raises; nothing falls back to the CPU, and no engine gives
+way to another when a kernel fails.
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ import torch.distributed as dist
 from spectrobot_tpu_torch.config import Config, load_config
 from spectrobot_tpu_torch.data import atmosphere as atm_mod
 from spectrobot_tpu_torch.data.lines import configured_lines
-from spectrobot_tpu_torch.ops.cuda_basis import KERNELS, PLAIN, engine_for
+from spectrobot_tpu_torch.ops.cuda_basis import (
+    KERNELS, PLAIN, WEIDEMAN, engine_for)
 from spectrobot_tpu_torch.ops.cuda_opacity import Windows, line_windows
 from spectrobot_tpu_torch.ops.ils import fov_matrix, ils_matrix
 from spectrobot_tpu_torch.ops.opacity import Engine
@@ -71,25 +82,19 @@ from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
 
 def select_engine(cfg, device: torch.device) -> Engine:
-    """The engine rule, chosen by ``compute.variant`` alone, as the
-    reference's ``_engine`` chooses its XLA engine: "weideman" takes
-    ``WEIDEMAN`` (plain PyTorch on either device, in the configured dtype);
-    "humlicek4" the line sum's kernels (K1 and K2), checked against the
-    configuration on CUDA (their wrappers themselves send CPU tensors to
-    the plain versions, in any dtype).  Any other variant raises a
+    """The engine rule, the reference's ``_engine`` with the card in the
+    TPU's place: "weideman" takes ``WEIDEMAN`` (plain PyTorch on either
+    device, in the configured dtype); "humlicek4" takes ``KERNELS`` on the
+    card when ``compute.use_pallas`` is set, in either dtype (the kernels
+    compute in float32, a float64 pipeline casting their inputs and
+    results), and ``PLAIN`` there when it is not (the reference's XLA
+    engine); on the CPU ``KERNELS``, whose wrappers send CPU tensors to the
+    plain versions in any dtype.  Any other variant raises a
     ValueError."""
     if cfg.compute.variant != "humlicek4":
         return engine_for(cfg.compute.variant)
     if device.type != "cpu" and not cfg.compute.use_pallas:
-        raise NotImplementedError(
-            "compute.use_pallas = false on CUDA: the CUDA opacity kernels "
-            "are the port's only humlicek4 engine on CUDA (set "
-            "compute.use_pallas = true, or run the plain versions with "
-            "--device cpu)")
-    if device.type != "cpu" and cfg.compute.dtype != "float32":
-        raise NotImplementedError(
-            f"compute.dtype = {cfg.compute.dtype!r} on CUDA: the CUDA "
-            f"opacity kernels are float32 (run float64 with --device cpu)")
+        return PLAIN
     return KERNELS
 
 
@@ -500,9 +505,18 @@ def save_optics(cfg, scene: Scene, cg, dtau: torch.Tensor) -> str:
     return path
 
 
+def _engine_used(scene: Scene, engine: Engine, device) -> str:
+    """What the run's line sums take, for the log: the engine (and its
+    cast, ``Engine.describe``), or none through the scene's table."""
+    if scene.lut is not None:
+        return "none (the table)"
+    return engine.describe(scene.nu.dtype, device)
+
+
 def _forward(cfg, device: torch.device, mesh) -> dict:
     engine = select_engine(cfg, device)
     scene = build_scene(cfg, device)
+    used = _engine_used(scene, engine, device)
     halo = cfg.compute.mesh_halo and scene.lut is None
     t0 = time.time()
     if mesh is None:
@@ -520,7 +534,7 @@ def _forward(cfg, device: torch.device, mesh) -> dict:
             axes = dict(zip(("ray", "line", "nu"), mesh.shape.values()))
             print(f"mesh LUT forward over {axes} ({scene.lut_src})"
                   if scene.lut is not None else
-                  f"mesh forward over {axes} engine={engine.name}"
+                  f"mesh forward over {axes} engine={used}"
                   f"{' nu-halo' if halo else ''}", file=sys.stderr)
     I = I.cpu().numpy()                 # waits for the device
     wall = time.time() - t0
@@ -552,8 +566,8 @@ def _forward(cfg, device: torch.device, mesh) -> dict:
                            title=f"{cfg.geometry.mode} {sp.kind} [{sp.units}]")
         except Exception as e:  # plotting must never fail a forward
             print(f"plotting skipped: {e}", file=sys.stderr)
-        print(f"forward: {I.shape} radiances in {wall:.2f}s on {where} -> "
-              f"{out_path}", file=sys.stderr)
+        print(f"forward: {I.shape} radiances in {wall:.2f}s on {where}, "
+              f"engine {used} -> {out_path}", file=sys.stderr)
     return {"radiance_shape": list(I.shape), "wall_s": wall,
             "output": out_path, "n_lines": scene.lines.n_lines,
             "device": where}
@@ -599,7 +613,9 @@ def _check_obs_consistency(cfg, obs, chans, n_chan):
 # 6k; NVIDIA H100 80GB HBM3 at 700 W): examples/mars_limb.toml 13.33 at
 # n_x = 33, 13.17 at 66, 13.65 at 17 levels; config 3 13.33; the composed
 # scene (CIA, a FOV over 40 rays) 15.40; the float64 Weideman slice 13.33;
-# config 5 13.25 at n_x = 50 and 13.10 at 114.
+# config 5 13.25 at n_x = 50 and 13.10 at 114; the float64 slice through
+# the float32 kernels 13.33, as Weideman's (their float32 copies are freed
+# before the epilogue's peak).
 JAC_LIVE_TANGENTS = 14.0
 # The CPU's limit: the reference's 8 GB, half of the 16 GB of the v5e it
 # was set on (spectrobot_tpu/cli.py:560-564).
@@ -611,8 +627,8 @@ JAC_AUTO_CHUNK = 16
 def jacobian_bytes(cfg, n_x: int, n_fine: int) -> float:
     """The unchunked Jacobian's counted bytes: JAC_LIVE_TANGENTS tangent
     buffers of n_x x the forward's rays (the fine ladder under a FOV) x
-    layers x ``n_fine`` points, in the compute dtype (8 bytes in float64,
-    as the Weideman route runs, else 4)."""
+    layers x ``n_fine`` points, in the compute dtype (8 bytes in float64
+    on every engine, the kernels' float32 copies included, else 4)."""
     size = 8 if cfg.compute.dtype == "float64" else 4
     return (JAC_LIVE_TANGENTS * size * n_x * n_model_rays(cfg)
             * (cfg.scene.n_levels - 1) * n_fine)
@@ -683,8 +699,9 @@ def retrieval_problem(cfg, scene: Scene, engine: Engine = KERNELS,
     model, with the line sum on ``engine``, differentiable as
     ``analytic_jvp`` says (True: the Jacobian by ``torch.func.jacfwd``,
     'rev': the gradient of a cost by ``torch.autograd.grad``).  The scene's
-    atmosphere is cast to the compute dtype (float32 on the card, where the
-    line sum and its derivatives run in K1, K2 and K5)."""
+    atmosphere is cast to the compute dtype (the line sum and its
+    derivatives run in K1, K2 and K5 on the card, in float32 in either
+    dtype: ``KERNELS`` casts a float64 pipeline's inputs and results)."""
     atm = scene.atm.to(scene.nu.dtype)
     retrieve_vmr = list(cfg.retrieval.retrieve_vmr)
     ret_T = cfg.retrieval.retrieve_temperature
@@ -742,6 +759,9 @@ def _retrieve(cfg, device: torch.device, mesh) -> dict:
     engine = select_engine(cfg, device)
     scene = build_scene(cfg, device)
     dtype = scene.nu.dtype
+    if _is_rank0(mesh):
+        print(f"engine: {_engine_used(scene, engine, device)}",
+              file=sys.stderr)
     atm, nb, init, x0, fwd_flat = retrieval_problem(cfg, scene, engine)
     retrieve_vmr = list(cfg.retrieval.retrieve_vmr)
     ret_T = cfg.retrieval.retrieve_temperature
@@ -884,11 +904,21 @@ def cmd_info() -> dict:
                 for i in range(torch.cuda.device_count())] if cuda else [])
     engine = (select_engine(Config(), torch.device("cuda")).name
               if cuda else PLAIN.name)
+
+    def computes_in(e: Engine) -> str:
+        if e.compute_dtype is None:
+            return "the caller's dtype"
+        return (f"{str(e.compute_dtype).removeprefix('torch.')} on "
+                f"{', '.join(e.compute_devices)} tensors (another dtype "
+                f"cast there and back), the caller's dtype elsewhere")
+
     from spectrobot_tpu_torch.data import hitran_native
     from spectrobot_tpu_torch.data.molparams import MOLECULES
     return {"version": __import__("spectrobot_tpu_torch").__version__,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "devices": devices, "default_engine": engine,
+            "engines": {e.name: computes_in(e)
+                        for e in (KERNELS, PLAIN, WEIDEMAN)},
             "native_parser_built": hitran_native.available(),
             "molecules_registered": len(MOLECULES),
             "isotopologues_registered": sum(len(m.isotopologues)

@@ -52,7 +52,8 @@ from spectrobot_tpu_torch.ops.cuda_single import (
 from spectrobot_tpu_torch.ops.cuda_transpose import (
     MAX_ROWS as TRANSPOSE_ROWS, basis_transpose_batch,
     basis_transpose_batch_plain)
-from spectrobot_tpu_torch.ops.opacity import Engine, _basis
+from spectrobot_tpu_torch.ops.opacity import (
+    Engine, _basis, with_compute_dtype)
 
 # The most coefficient rows one kernel launch takes: the rows' sums live in
 # each lane's registers (csrc/basis_contract.cuh MAX_ROWS, checked against
@@ -290,15 +291,23 @@ def _plain_engine(name: str, variant: str) -> Engine:
                   accumulate_single, contract_single, variant)
 
 
-# The line sum's engines (ops.opacity.LineSumOp, AccumulateOp): the five
-# kernels (their plain versions on CPU tensors); the plain versions on any
-# device, which need no window table (the reference for the kernels on the
-# card); and the plain versions with the Weideman evaluator on any device,
-# the one engine that runs plain PyTorch on CUDA tensors: the reference
-# runs that variant only on its XLA engine, and no kernel evaluates it.
-KERNELS = Engine("kernels", accumulate_batch, basis_contract_batch,
-                 basis_transpose_batch, TRANSPOSE_ROWS, accumulate_single,
-                 basis_contract_single)
+# The line sum's engines (ops.opacity.LineSumOp, AccumulateOp):
+# - KERNELS, the five kernels, which compute in float32 on CUDA tensors: a
+#   float64 pipeline hands them float32 copies of its inputs and gets their
+#   results back in float64 (ops.opacity.with_compute_dtype), as the
+#   reference runs its float32 Pallas kernels under x64; on CPU tensors
+#   their plain versions, in the caller's dtype;
+# - PLAIN, the plain versions on any device and dtype, which need no window
+#   table: the reference for the kernels on the card, and with
+#   compute.use_pallas = false the counterpart of the reference's XLA
+#   engine there;
+# - WEIDEMAN, the plain versions with the Weideman evaluator on any device
+#   and dtype: the reference runs that variant only on its XLA engine, and
+#   no kernel evaluates it.
+KERNELS = with_compute_dtype(
+    Engine("kernels", accumulate_batch, basis_contract_batch,
+           basis_transpose_batch, TRANSPOSE_ROWS, accumulate_single,
+           basis_contract_single), torch.float32)
 PLAIN = _plain_engine("plain", "humlicek4")
 WEIDEMAN = _plain_engine("weideman", "weideman")
 

@@ -23,7 +23,11 @@ the kernels evaluate) or Weideman's approximation (``"weideman"``, plain
 PyTorch only, as the reference runs it only on its XLA engine).  An
 :class:`Engine` carries its variant, so every path a line sum takes
 (forward, ``jacfwd``, reverse mode, one state, the mesh, the table builds)
-follows the engine it is given.
+follows the engine it is given.  It also carries the dtype its primitives
+compute in (:func:`with_compute_dtype`): the kernels' engine computes in
+float32 on the card, so a float64 pipeline runs them on float32 copies of
+its inputs and gets primals, tangents and cotangents back in float64, as
+the reference runs its float32 kernels under x64.
 """
 
 from __future__ import annotations
@@ -307,7 +311,10 @@ class Engine:
     ``ops.cuda_basis.WEIDEMAN``: the plain versions with the Weideman
     evaluator).  ``transpose_rows``: the most cotangent rows one
     ``transpose`` call takes (None: any).  ``variant``: the evaluator of
-    Re w its primitives use."""
+    Re w its primitives use.  ``compute_dtype``: the dtype the primitives
+    compute in on tensors of ``compute_devices`` (None: the caller's);
+    :func:`with_compute_dtype` builds such an engine, whose primitives
+    cast the caller's tensors there and their results back."""
     name: str
     accumulate: Callable
     contract: Callable
@@ -316,6 +323,69 @@ class Engine:
     accumulate_single: Optional[Callable] = None
     contract_single: Optional[Callable] = None
     variant: str = "humlicek4"
+    compute_dtype: Optional[torch.dtype] = None
+    compute_devices: tuple = ()
+
+    def dtype_on(self, device) -> Optional[torch.dtype]:
+        """The dtype the primitives compute in on ``device``, or None where
+        they compute in the caller's."""
+        if torch.device(device).type in self.compute_devices:
+            return self.compute_dtype
+        return None
+
+    def describe(self, dtype: torch.dtype, device) -> str:
+        """The engine's name, and where a pipeline of ``dtype`` on
+        ``device`` is cast for its primitives, the dtypes of both."""
+        dt = self.dtype_on(device)
+        if dt is None or dt == dtype:
+            return self.name
+        name = lambda d: str(d).removeprefix("torch.")
+        return (f"{self.name} ({name(dt)} primitives in a {name(dtype)} "
+                f"pipeline)")
+
+
+_PRIMITIVES = ("accumulate", "contract", "transpose", "accumulate_single",
+               "contract_single")
+
+
+def _cast_primitive(fn: Callable, dtype: torch.dtype, devices: tuple):
+    """``fn`` (a primitive: the grid, the window table, then tensors and
+    keywords) computing in ``dtype`` on tensors of ``devices``: a call on a
+    grid of another dtype there hands ``fn`` copies of its floating tensors
+    in ``dtype`` and returns the result (each of a tuple) in the grid's
+    dtype, as the reference casts its float32 kernels' results to
+    ``result_type(nu_grid)``.  Any other call goes to ``fn`` untouched."""
+    def call(nu_grid, windows, *args, **kw):
+        back = nu_grid.dtype
+        if nu_grid.device.type not in devices or back == dtype:
+            return fn(nu_grid, windows, *args, **kw)
+        to = lambda a: (a.to(dtype) if isinstance(a, torch.Tensor)
+                        and a.is_floating_point() else a)
+        out = fn(to(nu_grid), windows, *map(to, args),
+                 **{k: to(v) for k, v in kw.items()})
+        if isinstance(out, tuple):
+            return tuple(o.to(back) for o in out)
+        return out.to(back)
+    return call
+
+
+def with_compute_dtype(engine: Engine, dtype: torch.dtype,
+                       devices=("cuda",)) -> Engine:
+    """``engine`` with primitives that compute in ``dtype`` on tensors of
+    ``devices`` (device types): a pipeline of another dtype there hands
+    them copies of its grid, line parameters, rows, cotangents and chi in
+    ``dtype`` and gets their results back in its own dtype, so tangents
+    and cotangents keep the dtype of their primal (``ops.cuda_basis.
+    KERNELS``: float32 kernels on CUDA inside a float64 pipeline, the
+    reference's float32 Pallas kernels under x64)."""
+    if engine.compute_dtype is not None:
+        raise ValueError(f"engine {engine.name!r} already computes in "
+                         f"{engine.compute_dtype}")
+    devices = tuple(devices)
+    prims = {f: _cast_primitive(getattr(engine, f), dtype, devices)
+             for f in _PRIMITIVES if getattr(engine, f) is not None}
+    return dataclasses.replace(engine, compute_dtype=dtype,
+                               compute_devices=devices, **prims)
 
 
 def engine_of(variant: str, engine: Optional[Engine] = None) -> Engine:

@@ -280,10 +280,12 @@ def test_info_reports_the_reference_keys():
 
 def test_cuda_device_rule(tiny_toml):
     """--device cuda never falls back: without a GPU it raises; the engine
-    rule on CUDA takes only the float32 kernel configuration for
-    humlicek4, while on the CPU the same wrappers run their plain versions
-    in any configuration.  compute.variant = "weideman" takes the WEIDEMAN
-    engine on both devices, in either dtype, and the kernels refuse it."""
+    rule on CUDA takes the kernels for humlicek4 with compute.use_pallas =
+    true in either dtype (float32 kernels, a float64 pipeline cast there
+    and back) and the plain engine with use_pallas = false, while on the
+    CPU the kernels' wrappers run their plain versions in any
+    configuration.  compute.variant = "weideman" takes the WEIDEMAN engine
+    on both devices, in either dtype, and the kernels refuse it."""
     import torch
 
     from spectrobot_tpu_torch.data.synth import co2_15um_band
@@ -312,11 +314,13 @@ def test_cuda_device_rule(tiny_toml):
                      {"compute.dtype": "float64"}):
         assert cli.select_engine(load_config(tiny_toml, override),
                                  cpu) is cli.KERNELS
-    for override, key in (({"compute.use_pallas": "false"},
-                           "compute.use_pallas"),
-                          ({"compute.dtype": "float64"}, "compute.dtype")):
-        with pytest.raises(NotImplementedError, match=key):
-            cli.select_engine(load_config(tiny_toml, override), cuda)
+    for dtype in ("float32", "float64"):
+        for pallas, engine in (("true", cli.KERNELS), ("false", cli.PLAIN)):
+            assert cli.select_engine(load_config(tiny_toml, {
+                "compute.dtype": dtype, "compute.use_pallas": pallas}),
+                cuda) is engine
+    assert cli.KERNELS.dtype_on(cuda) == torch.float32
+    assert cli.KERNELS.dtype_on(cpu) is None
     if not torch.cuda.is_available():
         for cmd in ("forward", "retrieve"):
             with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -681,6 +681,139 @@ def test_single_basis_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The engine rule's other humlicek4 configurations: float64 through the
+# float32 kernels, and compute.use_pallas = false (the plain engine)
+# ---------------------------------------------------------------------------
+
+# The kernels' float32 budgets: sums RTOL |ref| + ATOL_REL max|ref|,
+# Jacobians and gradients DERIV_REL max|ref|.
+RTOL, ATOL_REL, DERIV_REL = 3e-5, 1e-6, 1e-5
+SMALL_SLICE = {"grid.nu_min": "660.0", "grid.nu_max": "674.0",
+               "grid.n_points": "512", "scene.n_levels": "9",
+               "geometry.tangent_heights_km": "8.0,25.0,40.0",
+               "geometry.n_sub": "2", "instrument.enabled": "true",
+               "instrument.n_channels": "32"}
+
+
+def _launched(fn):
+    """(fn(), the launches of K1, K2, K5, K3 and K4 it made)."""
+    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
+    from spectrobot_tpu_torch.ops import cuda_single as cs
+    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    mods = (co, cb, ctr, cs, cbs)
+    before = [m.LAUNCHES for m in mods]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(zip(("K1", "K2", "K5", "K3", "K4"),
+                         (m.LAUNCHES - b for m, b in zip(mods, before))))
+
+
+def test_float64_slice_through_the_kernels(cuda):
+    """A small limb slice in float64 through ``KERNELS``: the forward (one
+    K1), the jacfwd Jacobian (one K1, one K2) and the reverse gradient of a
+    cost (one K1, one K5) are float64 and agree with the same engine over
+    the plain versions in float32 (the cast the kernels make) within the
+    float32 budgets."""
+    import dataclasses
+
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.ops.opacity import with_compute_dtype
+    from spectrobot_tpu_torch.retrieval.state import flatten_state, make_state
+
+    cfg = cli.load_config(None, {**SMALL_SLICE, "compute.dtype": "float64"})
+    assert cli.select_engine(cfg, cuda) is cb.KERNELS
+    cast_plain = with_compute_dtype(
+        dataclasses.replace(cb.PLAIN, name="cast"), torch.float32)
+    scene = cli.build_scene(cfg, cuda)
+    atm = scene.atm.to(torch.float64)
+    x0, unravel = flatten_state(make_state(atm, []))
+    w = torch.linspace(-1.0, 1.0, 3 * 32, dtype=torch.float64, device=cuda)
+    out, n = {}, {}
+    for engine in (cb.KERNELS, cast_plain):
+        fwd = cli.scene_forward(cfg, scene, atm, engine)
+        rev = cli.scene_forward(cfg, scene, atm, engine, "rev")
+        f = lambda x: fwd(unravel(x))
+
+        def grad():
+            x = x0.clone().requires_grad_()
+            return torch.autograd.grad(torch.sum(w * rev(unravel(x))), x)[0]
+
+        out[engine.name, "I"], n[engine.name, "I"] = _launched(lambda: f(x0))
+        out[engine.name, "J"], n[engine.name, "J"] = _launched(
+            lambda: torch.func.jacfwd(f)(x0))
+        out[engine.name, "g"], n[engine.name, "g"] = _launched(grad)
+    zero = dict(K1=0, K2=0, K5=0, K3=0, K4=0)
+    assert n["kernels", "I"] == {**zero, "K1": 1}
+    assert n["kernels", "J"] == {**zero, "K1": 1, "K2": 1}
+    assert n["kernels", "g"] == {**zero, "K1": 1, "K5": 1}
+    assert all(n["cast", k] == zero for k in "IJg")
+    for k in "IJg":
+        got, ref = out["kernels", k], out["cast", k]
+        assert got.dtype == ref.dtype == torch.float64, k
+        assert bool(torch.isfinite(got).all()), k
+        scale = float(ref.abs().max())
+        if k == "I":
+            assert bool(torch.all((got - ref).abs() <= RTOL * ref.abs()
+                                  + ATOL_REL * scale))
+        else:
+            assert float((got - ref).abs().max()) <= DERIV_REL * scale, k
+
+
+def test_use_pallas_false_runs_the_plain_engine_on_the_card(cuda):
+    """``compute.use_pallas = false`` on the card takes ``PLAIN``: a float32
+    forward that launches none of the kernels, within K1's budget of the
+    kernels' forward."""
+    from spectrobot_tpu_torch import cli
+
+    cfg = cli.load_config(None, {**SMALL_SLICE, "compute.use_pallas": "false"})
+    engine = cli.select_engine(cfg, cuda)
+    assert engine is cb.PLAIN
+    scene = cli.build_scene(cfg, cuda)
+    I, n = _launched(lambda: cli.run_forward(cfg, scene, engine))
+    assert n == dict(K1=0, K2=0, K5=0, K3=0, K4=0)
+    I_k, n_k = _launched(lambda: cli.run_forward(cfg, scene, cb.KERNELS))
+    assert n_k["K1"] == 1
+    assert scene.nu.dtype == torch.float32 and I.dtype == I_k.dtype
+    assert bool(torch.all((I - I_k).abs() <= RTOL * I_k.abs()
+                          + ATOL_REL * float(I_k.abs().max())))
+
+
+def test_config1_float64_through_the_kernels(cuda):
+    """Acceptance config 1 in float64 through ``KERNELS``: the radiance
+    (one K3) float64 within the float32 budget of the float64 oracle
+    (tests/test_config1_golden.py:57), its jacfwd over the five scalars
+    (one K3, one K4) float64 and finite."""
+    from golden import numpy_ref
+    from spectrobot_tpu_torch.data import tips
+    from spectrobot_tpu_torch.data.synth import co2_15um_band
+    from spectrobot_tpu_torch.forward.model import nadir_single_layer
+    from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
+
+    ll = co2_15um_band(j_max=30)
+    dl = device_lines_from_linelist(ll, [(2, 1)], dtype=torch.float64,
+                                    device=cuda)
+    nu_host = np.linspace(630.0, 705.0, 3001)
+    nu = torch.as_tensor(nu_host, device=cuda)
+    sc = dict(T=215.0, p=500.0, col=2.0e27, vmr=0.95, Ts=260.0)
+    x = [torch.tensor(v, dtype=torch.float64, device=cuda)
+         for v in sc.values()]
+    rad = lambda *a: nadir_single_layer(nu, dl, *a)
+    I, n = _launched(lambda: rad(*x))
+    assert n == dict(K1=0, K2=0, K5=0, K3=1, K4=0)
+    q = np.full(len(ll), tips.q_of_T(2, 1, 296.0) / tips.q_of_T(2, 1, 215.0))
+    golden = numpy_ref.nadir_single_layer(nu_host, ll, 215.0, 500.0, 2.0e27,
+                                          0.95, 260.0, q, cutoff=25.0)
+    assert I.dtype == torch.float64
+    np.testing.assert_allclose(I.cpu().numpy(), golden, rtol=5e-3,
+                               atol=golden.max() * 1e-4)
+    J, n = _launched(lambda: torch.func.jacfwd(
+        rad, argnums=tuple(range(5)))(*x))
+    assert n == dict(K1=0, K2=0, K5=0, K3=1, K4=1)
+    assert all(j.dtype == torch.float64 and bool(torch.isfinite(j).all())
+               for j in J)
+
+
+# ---------------------------------------------------------------------------
 # The mesh across cards (torchrun, NCCL, one card per rank)
 # ---------------------------------------------------------------------------
 
