@@ -83,7 +83,9 @@ def window_work(events, window: str = WINDOW, cuda: bool = True) -> tuple:
     end)), ``work`` as [(name, start_us, end_us)] clipped to the window.
     With ``cuda`` the device's kernels, copies and sets (not the device
     side of a ``record_function`` range); else (a CPU run, no device
-    events) the operators the window called directly."""
+    events) the operators the window called directly, looking through
+    the program's own spans (``utils.profiling.annotate``: ranges named
+    ``spectrobot.*``), which are not operators."""
     from torch.autograd import DeviceType
 
     # The window's own range (its device-side annotation is not work).
@@ -95,8 +97,11 @@ def window_work(events, window: str = WINDOW, cuda: bool = True) -> tuple:
                  and e.name != window
                  and not getattr(e, "is_user_annotation", False)]
     else:
-        found = [e for e in events if e.cpu_parent is not None
-                 and e.cpu_parent.id == win.id]
+        found, spans = [], [win]
+        while spans:
+            for e in spans.pop().cpu_children:
+                (spans if e.name.startswith("spectrobot.")
+                 else found).append(e)
     work = [(e.name, max(e.time_range.start, w0), min(e.time_range.end, w1))
             for e in found]
     return work, (w0, w1)

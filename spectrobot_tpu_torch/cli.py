@@ -76,7 +76,7 @@ from spectrobot_tpu_torch.parallel.mesh import (
 from spectrobot_tpu_torch.parallel.oe import ShardedOE, make_sharded_oe
 from spectrobot_tpu_torch.retrieval.state import (
     NodeBasis, build_forward, build_forward_lut, flatten_state,
-    jacobian_fwd_chunked, make_state)
+    jacobian_fwd, jacobian_fwd_chunked, make_state)
 from spectrobot_tpu_torch.spectra import optical_depth as optical_depth_spectrum
 from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
@@ -658,13 +658,14 @@ def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int, device):
     """The Jacobian callable, with the reference's memory guard on the
     port's own bytes: the unchunked ``torch.func.jacfwd``, or
     :func:`jacobian_fwd_chunked` (the same values, a bounded tangent batch)
-    in the columns of :func:`jacobian_chunk`."""
+    in the columns of :func:`jacobian_chunk`; either in one span
+    ``spectrobot.jacobian`` a call."""
     chunk = jacobian_chunk(cfg, n_x, n_fine, device)
     if chunk:
         print(f"jacobian: chunked forward-mode ({chunk} tangent columns)",
               file=sys.stderr)
         return lambda x: jacobian_fwd_chunked(fwd_flat, x, chunk=chunk)
-    return torch.func.jacfwd(fwd_flat)
+    return lambda x: jacobian_fwd(fwd_flat, x)
 
 
 def _node_basis(cfg, atm):

@@ -32,6 +32,7 @@ from spectrobot_tpu_torch.ops.opacity import (
     Engine, LineSumOp, ad_mode, line_kernel_inputs, line_sum_plain_ad)
 from spectrobot_tpu_torch.ops.planck import planck_nu
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
+from spectrobot_tpu_torch.utils.profiling import annotate
 
 
 class LayerOptics(NamedTuple):
@@ -89,7 +90,9 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     ``chi`` = (``ops.chi.ChiProfile``, row_mask): the sub-Lorentzian wing
     correction, valid to a cutoff of ``ops.chi.CHI_MAX_CUTOFF``.
     ``nlte``: the non-LTE state (``data.nlte.DeviceNLTE``), or None for
-    LTE.  Returns (dtau, dtau_em), each [R, NL, P].
+    LTE.  Returns (dtau, dtau_em), each [R, NL, P].  The prologue and the
+    line sum run in the spans ``spectrobot.forward.prologue`` and
+    ``spectrobot.forward.line_sum`` (``utils.profiling.annotate``).
     """
     if chi is not None and (cutoff_cm1 is None
                             or cutoff_cm1 > CHI_MAX_CUTOFF):
@@ -100,16 +103,19 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
             f"or disable lines.chi")
     R, NL, _ = cg.u.shape
     dt = nu_off.dtype
-    nu_c, sx, y, amps, chi_b = (None if a is None else a.to(dt).contiguous()
-                                for a in _tau_prologue(lines, cg, nlte, chi))
+    with annotate("spectrobot.forward.prologue"):
+        nu_c, sx, y, amps, chi_b = (
+            None if a is None else a.to(dt).contiguous()
+            for a in _tau_prologue(lines, cg, nlte, chi))
     mode = ad_mode(analytic_jvp)
-    if mode is None:
-        out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
-                                chunk=chunk, cutoff_cm1=cutoff_cm1,
-                                remat=remat, variant=engine.variant)
-    else:
-        out = LineSumOp(engine, windows, cutoff_cm1, mode)(
-            nu_off, nu_c, sx, y, amps, chi_b)          # [B, 2, P]
+    with annotate("spectrobot.forward.line_sum"):
+        if mode is None:
+            out = line_sum_plain_ad(nu_off, nu_c, sx, y, amps, chi_b,
+                                    chunk=chunk, cutoff_cm1=cutoff_cm1,
+                                    remat=remat, variant=engine.variant)
+        else:
+            out = LineSumOp(engine, windows, cutoff_cm1, mode)(
+                nu_off, nu_c, sx, y, amps, chi_b)      # [B, 2, P]
     out = out.reshape(R, NL, 2, nu_off.shape[0])
     return out[:, :, 0, :], out[:, :, 1, :]
 

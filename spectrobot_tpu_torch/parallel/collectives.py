@@ -46,6 +46,8 @@ import torch
 import torch.distributed as dist
 from torch._C._functorch import is_functorch_wrapped_tensor
 
+from spectrobot_tpu_torch.utils.profiling import annotate
+
 
 class _AllReduce(torch.autograd.Function):
     """Sum over the ranks of ``group``; every rank gets the sum."""
@@ -166,25 +168,10 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     return _AllGather.apply(x, mesh.groups[axis], int(dim))
 
 
-# The profiler ranges of an exchange's issue and of the own line sum it
-# overlaps (``halo_overlap``'s host marks).
+# The profiler ranges (``utils.profiling.annotate``) of an exchange's issue
+# and of the own line sum it overlaps (``halo_overlap``'s host marks).
 EXCHANGE_RANGE = "ring_exchange_issue"
 OWN_SUM_RANGE = "halo_own_line_sum"
-
-
-def _span(name: str):
-    """A ``torch.profiler.record_function`` range while a profiler runs
-    (``halo_overlap`` reads them), else nothing: the forward pays no range
-    when it is not traced."""
-    if torch._C._autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
-def own_sum_span():
-    """The range of a halo body's own line sum (:data:`OWN_SUM_RANGE`)."""
-    return _span(OWN_SUM_RANGE)
-
 
 class Pending:
     """A ring exchange in flight (:func:`ring_exchange_start`).  It holds
@@ -281,7 +268,7 @@ def ring_exchange_start(tensors: Sequence[Sequence[torch.Tensor]], mesh,
                 ops += [dist.P2POp(dist.isend, x, peer(r + shift), group),
                         dist.P2POp(dist.irecv, out, peer(r - shift), group)]
             recvs.append(got)
-        with _span(EXCHANGE_RANGE):
+        with annotate(EXCHANGE_RANGE):
             works = dist.batch_isend_irecv(ops) if ops else []
     return Pending(works, sends, recvs)
 
@@ -347,7 +334,7 @@ def capture_exchange(sends: Sequence[torch.Tensor], ring,
     if stream is not None:
         stream.wait_stream(torch.cuda.current_stream(stream.device))
         fork = torch.cuda.stream(stream)
-    with fork, _span(EXCHANGE_RANGE):
+    with fork, annotate(EXCHANGE_RANGE):
         out = ring_exchange_hops(ring, x, shifts)
     recvs = [unpack_messages(out[i], sends) for i in range(len(shifts))]
     return Pending((), (x, out), recvs, stream)

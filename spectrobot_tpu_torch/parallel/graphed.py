@@ -63,7 +63,8 @@ from typing import Callable, Dict, List, Sequence
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from spectrobot_tpu_torch.parallel.collectives import _span, is_constant
+from spectrobot_tpu_torch.parallel.collectives import is_constant
+from spectrobot_tpu_torch.utils.profiling import annotate
 
 # The profiler range around a replay (``halo_overlap``'s host marks).
 REPLAY_RANGE = "mesh_graph_replay"
@@ -175,7 +176,7 @@ class _Graph:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
     def replay(self, tensors: List[torch.Tensor]):
-        with _span(REPLAY_RANGE):
+        with annotate(REPLAY_RANGE):
             torch._foreach_copy_(self.inputs, tensors)
             self.graph.replay()
             add_launches(self.launches)

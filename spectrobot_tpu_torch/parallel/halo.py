@@ -31,8 +31,9 @@ from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.cuda_single import accumulate_single
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
 from spectrobot_tpu_torch.parallel.collectives import (
-    own_sum_span, ring_exchange_start)
+    OWN_SUM_RANGE, ring_exchange_start)
 from spectrobot_tpu_torch.parallel.graphed import GraphedBody
+from spectrobot_tpu_torch.utils.profiling import annotate
 
 
 class ShardedKernelLines(NamedTuple):
@@ -177,7 +178,7 @@ def halo_accumulate_fn(mesh, *, chunk: int = 256,
 
     def apply(nu_loc: torch.Tensor, mine: KernelLines) -> torch.Tensor:
         pending = _start_halo(mine, mesh, n_shards)
-        with own_sum_span():
+        with annotate(OWN_SUM_RANGE):
             out = acc(nu_loc, mine)
         for (_, src), (rows,) in zip(_hops(n_shards), pending.wait()):
             got = unpack_lines(rows)
@@ -224,7 +225,7 @@ def halo_accumulate_pallas_fn(mesh, nu_host, skl_nu0, *,
     def body(nu_loc: torch.Tensor, mine: KernelLines, *,
              side=None) -> torch.Tensor:
         pending = _start_halo(mine, mesh, n_shards, stream=side)
-        with own_sum_span():
+        with annotate(OWN_SUM_RANGE):
             out = acc(nu_loc, mine, 0)
         for (_, s_i), (rows,) in zip(_hops(n_shards), pending.wait()):
             out = out + acc(nu_loc, unpack_lines(rows), s_i)

@@ -50,9 +50,10 @@ from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.opacity import Engine
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 from spectrobot_tpu_torch.parallel.collectives import (
-    own_sum_span, psum, ring_exchange_start)
+    OWN_SUM_RANGE, psum, ring_exchange_start)
 from spectrobot_tpu_torch.parallel.graphed import GraphedBody
 from spectrobot_tpu_torch.parallel.halo import _hops, nu_shard_edges
+from spectrobot_tpu_torch.utils.profiling import annotate
 
 # Per-line DeviceLines fields (leading [L] axis); the trailing three
 # (q_tbl, q_tgrid, nu_ref) are lookup state every rank holds whole.
@@ -274,7 +275,7 @@ def sharded_radiance_fn(mesh, *, win_grid, win_lines,
         pending = ring_exchange_start(_line_messages(lines_loc), mesh, "nu",
                                       [shift for shift, _ in hops],
                                       stream=side)
-        with own_sum_span():
+        with annotate(OWN_SUM_RANGE):
             dtau, dtau_em = tau(lines_loc, 0)
         for (_, s_i), got in zip(hops, pending.wait()):
             d2, d2e = tau(_received_lines(lines_loc, got), s_i)

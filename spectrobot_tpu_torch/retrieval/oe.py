@@ -8,6 +8,13 @@ the normal equations carry condition numbers of 1e6 and more, which a
 float32 solve turns into garbage steps.  Every iteration is logged and every
 accepted one checkpointed, so a restart re-enters at the last accepted
 iteration.
+
+Each iteration runs in the span ``spectrobot.lm.iteration``
+(``utils.profiling.annotate``, recorded only while a profiler runs), its
+host algebra in ``spectrobot.lm.normal_equations``, ``.solve`` and
+``.cost``, the algebra after the loop in ``spectrobot.lm.posterior``; the
+copies of device results to the host stay outside them.  :data:`COUNTS`
+counts the Jacobians and those repeated at an unchanged state, always.
 """
 
 from __future__ import annotations
@@ -18,6 +25,15 @@ from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+
+from spectrobot_tpu_torch.utils.profiling import annotate
+
+# The LM loop's counts over every :func:`retrieve` of the process: the
+# Jacobians (every call of ``jacobian`` or ``normal_eqs``, the posterior's
+# included) and those at a state bit-equal to the previous call's within
+# one retrieval (after a rejected step; a posterior at an unchanged state).
+# The benchmark's ``jacobian_repeat_pct`` reads them.
+COUNTS = {"jacobians": 0, "jacobians_repeated": 0}
 
 
 @dataclasses.dataclass
@@ -80,13 +96,24 @@ def _lm_solve(x, H, g, x_a, S_a_inv, lam):
     return x64 + dx, dx, d2
 
 
+def _normal_equations(K, F, y, inv_se_diag):
+    """H = K^T Se^-1 K and g = K^T Se^-1 (y - F) on the host in float64
+    (host arrays)."""
+    KtSe = K.T * inv_se_diag[None, :]
+    return KtSe @ K, KtSe @ (y - F)
+
+
 def _lm_step(x, K, F, y, x_a, inv_se_diag, S_a_inv, lam):
     """One LM step from the Jacobian: the normal equations assembled on
-    the host in float64, then :func:`_lm_solve`."""
-    K64 = _host(K)
-    KtSe = K64.T * _host(inv_se_diag)[None, :]
-    return _lm_solve(x, KtSe @ K64, KtSe @ (_host(y) - _host(F)), x_a,
-                     S_a_inv, lam)
+    the host in float64 (span ``spectrobot.lm.normal_equations``), then
+    :func:`_lm_solve` (span ``spectrobot.lm.solve``).  :func:`retrieve`
+    passes K already copied to the host, so that the spans time the
+    algebra and not the wait for the device."""
+    with annotate("spectrobot.lm.normal_equations"):
+        H, g = _normal_equations(_host(K), _host(F), _host(y),
+                                 _host(inv_se_diag))
+    with annotate("spectrobot.lm.solve"):
+        return _lm_solve(x, H, g, x_a, S_a_inv, lam)
 
 
 def retrieve(
@@ -152,71 +179,89 @@ def retrieve(
     stop_reason = "max_iter"
     n_x = x.shape[0]
     it = start_iter
+    jac_at = None       # the state of the last Jacobian
+
+    def count_jacobian(x):
+        nonlocal jac_at
+        COUNTS["jacobians"] += 1
+        if jac_at is not None and np.array_equal(jac_at, x):
+            COUNTS["jacobians_repeated"] += 1
+        jac_at = x.copy()
 
     for it in range(start_iter, cfg.max_iter):
-        t0 = time.time()
-        if normal_eqs is not None:
-            _, H, g = normal_eqs(dev(x))
-            x_try, dx, d2 = _lm_solve(x, H, g, x_a, S_a_inv, lam)
-        else:
-            K = jacobian(dev(x))
-            x_try, dx, d2 = _lm_step(x, K, F, y, x_a, inv_se, S_a_inv, lam)
-        F_try = _host(forward_flat(dev(x_try)))
-        m_try, p_try = _chi2_terms(y, F_try, x_try, x_a, inv_se, S_a_inv)
-        chi2_try = float(m_try + p_try)
-        accepted = chi2_try < chi2
+        with annotate("spectrobot.lm.iteration"):
+            t0 = time.time()
+            count_jacobian(x)
+            if normal_eqs is not None:
+                _, H, g = normal_eqs(dev(x))
+                H, g = _host(H), _host(g)
+                with annotate("spectrobot.lm.solve"):
+                    x_try, dx, d2 = _lm_solve(x, H, g, x_a, S_a_inv, lam)
+            else:
+                K = _host(jacobian(dev(x)))
+                x_try, dx, d2 = _lm_step(x, K, F, y, x_a, inv_se, S_a_inv,
+                                         lam)
+            F_try = _host(forward_flat(dev(x_try)))
+            with annotate("spectrobot.lm.cost"):
+                m_try, p_try = _chi2_terms(y, F_try, x_try, x_a, inv_se,
+                                           S_a_inv)
+            chi2_try = float(m_try + p_try)
+            accepted = chi2_try < chi2
 
-        rec = {
-            "iteration": it, "lambda": float(lam), "chi2": chi2,
-            "chi2_try": chi2_try, "accepted": bool(accepted),
-            "d2": float(d2), "norm_dx": float(np.linalg.norm(dx)),
-            "wall_s": time.time() - t0,
-        }
-        history.append(rec)
-        if logger is not None:
-            logger.log(rec)
+            rec = {
+                "iteration": it, "lambda": float(lam), "chi2": chi2,
+                "chi2_try": chi2_try, "accepted": bool(accepted),
+                "d2": float(d2), "norm_dx": float(np.linalg.norm(dx)),
+                "wall_s": time.time() - t0,
+            }
+            history.append(rec)
+            if logger is not None:
+                logger.log(rec)
 
-        # Rodgers d^2 criterion: the predicted improvement is negligible,
-        # converged whether or not the step was accepted.
-        if float(d2) < cfg.dx2_tol * n_x:
-            if accepted:
-                x, F, chi2 = x_try, F_try, chi2_try
-            converged = True
-            stop_reason = "d2_tol"
-            break
-
-        if accepted:
-            rel = (chi2 - chi2_try) / max(chi2, 1e-300)
-            x, F, chi2 = x_try, F_try, chi2_try
-            if state_check is not None:
-                msg = state_check(x)
-                if msg:
-                    import warnings
-                    warnings.warn(msg, stacklevel=2)
-                    if logger is not None:
-                        logger.log({"iteration": it, "physics_warning": msg})
-            lam = max(lam * cfg.lm_down, 1e-12)
-            if checkpointer is not None:
-                checkpointer.save(it, x=np.asarray(x), lam=lam,
-                                  history=history)
-            if rel < cfg.chi2_rel_tol:
+            # Rodgers d^2 criterion: the predicted improvement is negligible,
+            # converged whether or not the step was accepted.
+            if float(d2) < cfg.dx2_tol * n_x:
+                if accepted:
+                    x, F, chi2 = x_try, F_try, chi2_try
                 converged = True
-                stop_reason = "chi2_tol"
+                stop_reason = "d2_tol"
                 break
-        else:
-            lam *= cfg.lm_up
-            if lam > cfg.lambda_max:
-                stop_reason = "lambda_max"
-                break
+
+            if accepted:
+                rel = (chi2 - chi2_try) / max(chi2, 1e-300)
+                x, F, chi2 = x_try, F_try, chi2_try
+                if state_check is not None:
+                    msg = state_check(x)
+                    if msg:
+                        import warnings
+                        warnings.warn(msg, stacklevel=2)
+                        if logger is not None:
+                            logger.log({"iteration": it,
+                                        "physics_warning": msg})
+                lam = max(lam * cfg.lm_down, 1e-12)
+                if checkpointer is not None:
+                    checkpointer.save(it, x=np.asarray(x), lam=lam,
+                                      history=history)
+                if rel < cfg.chi2_rel_tol:
+                    converged = True
+                    stop_reason = "chi2_tol"
+                    break
+            else:
+                lam *= cfg.lm_up
+                if lam > cfg.lambda_max:
+                    stop_reason = "lambda_max"
+                    break
 
     # Posterior covariance and averaging kernels (Rodgers 2000), at the
     # retrieved state.
+    count_jacobian(x)
     K = _host(jacobian(dev(x)))
-    KtSe = K.T * inv_se[None, :]
-    H = KtSe @ K
-    S_hat = np.linalg.inv(H + S_a_inv)
-    A_kernel = S_hat @ H
-    chi2_m, _ = _chi2_terms(y, F, x, x_a, inv_se, S_a_inv)
+    with annotate("spectrobot.lm.posterior"):
+        KtSe = K.T * inv_se[None, :]
+        H = KtSe @ K
+        S_hat = np.linalg.inv(H + S_a_inv)
+        A_kernel = S_hat @ H
+        chi2_m, _ = _chi2_terms(y, F, x, x_a, inv_se, S_a_inv)
 
     return RetrievalResult(
         x=x, chi2=chi2, chi2_meas=float(chi2_m), n_iter=it + 1,

@@ -32,6 +32,7 @@ from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.ils import apply_fov, apply_ils
 from spectrobot_tpu_torch.ops.opacity import Engine, ad_mode
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
+from spectrobot_tpu_torch.utils.profiling import annotate
 
 
 def make_state(atm: Atmosphere, retrieve_vmr: Sequence[str],
@@ -179,7 +180,10 @@ def build_forward(
     correction.  ``depths_tap(cg, dtau)``, if given, receives each call's
     path and layer absorption depths [R, NL, P] straight from the line sum
     (the CLI's ``run.save_optics`` reuses them; no second line sum).
-    Output y is flattened [n_obs_ray * n_chan].
+    Output y is flattened [n_obs_ray * n_chan].  Each call's phases run in
+    the spans (``utils.profiling.annotate``) ``spectrobot.forward.path``,
+    ``.prologue``, ``.line_sum``, ``.epilogue`` (the FOV included) and
+    ``.ils``.
     """
     if nu_off is None:
         nu_off = torch.as_tensor(
@@ -190,13 +194,15 @@ def build_forward(
         windows = line_windows(nu_off, lines.nu0, cutoff_cm1=cutoff_cm1)
 
     def forward(state: Dict) -> torch.Tensor:
-        atm = apply_state(base_atm, state)
-        if tangent_heights_m is not None:
-            cg = limb_path_cg(atm, species, tangent_heights_m, planet, n_sub)
-            ts = None
-        else:
-            cg = nadir_path_cg(atm, species, sec_theta, n_sub)
-            ts = state.get("T_surface", T_surface)
+        with annotate("spectrobot.forward.path"):
+            atm = apply_state(base_atm, state)
+            if tangent_heights_m is not None:
+                cg = limb_path_cg(atm, species, tangent_heights_m, planet,
+                                  n_sub)
+                ts = None
+            else:
+                cg = nadir_path_cg(atm, species, sec_theta, n_sub)
+                ts = state.get("T_surface", T_surface)
         dtau, dtau_em = layer_tau_kernel(nu_off, lines, cg, windows,
                                          cutoff_cm1=cutoff_cm1,
                                          engine=engine,
@@ -204,12 +210,15 @@ def build_forward(
                                          nlte=nlte)
         if depths_tap is not None:
             depths_tap(cg, dtau)
-        I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
-                              cia=cia, T_surface=ts, emissivity=emissivity)
-        if fov_V is not None:
-            I = apply_fov(I, fov_V)
+        with annotate("spectrobot.forward.epilogue"):
+            I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
+                                  cia=cia, T_surface=ts,
+                                  emissivity=emissivity)
+            if fov_V is not None:
+                I = apply_fov(I, fov_V)
         if ils_W is not None:
-            I = apply_ils(I, ils_W)
+            with annotate("spectrobot.forward.ils"):
+                I = apply_ils(I, ils_W)
         return I.reshape(-1)
 
     return forward
@@ -288,8 +297,10 @@ def flatten_state(state: Dict) -> Tuple[torch.Tensor, Callable]:
 
 
 def jacobian_fwd(forward_flat: Callable, x: torch.Tensor) -> torch.Tensor:
-    """Analytic Jacobian K [n_y, n_x] by forward-mode AD."""
-    return torch.func.jacfwd(forward_flat)(x)
+    """Analytic Jacobian K [n_y, n_x] by forward-mode AD, in the span
+    ``spectrobot.jacobian``."""
+    with annotate("spectrobot.jacobian"):
+        return torch.func.jacfwd(forward_flat)(x)
 
 
 def jacobian_fwd_chunked(forward_flat: Callable, x: torch.Tensor,
@@ -297,15 +308,17 @@ def jacobian_fwd_chunked(forward_flat: Callable, x: torch.Tensor,
     """The Jacobian in tangent chunks: a vmap of ``torch.func.jvp`` over
     ``chunk`` columns of the identity at a time, which bounds the live
     tangent batch (``torch.func.jacfwd`` has no chunk size).  Same result
-    as :func:`jacobian_fwd`."""
+    as :func:`jacobian_fwd`, in one span ``spectrobot.jacobian`` that holds
+    the chunks."""
     eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
 
     def one(v):
         return torch.func.jvp(forward_flat, (x,), (v,))[1]
 
-    cols = [torch.func.vmap(one)(eye[s:s + chunk])
-            for s in range(0, x.shape[0], chunk)]
-    return torch.cat(cols, dim=0).T
+    with annotate("spectrobot.jacobian"):
+        cols = [torch.func.vmap(one)(eye[s:s + chunk])
+                for s in range(0, x.shape[0], chunk)]
+        return torch.cat(cols, dim=0).T
 
 
 def jacobian_fd(forward_flat: Callable, x: torch.Tensor,

@@ -4,20 +4,26 @@
 ``trace()`` records everything inside the context with ``torch.profiler``
 (host operations and, on a GPU, the device kernels, those the CUDA
 kernels of ``csrc/`` launch through ctypes included) and writes a Chrome
-trace; ``annotate`` names a physics stage in that trace and, on a GPU, as
-an NVTX range; ``stopwatch`` times a block on the host clock after the
+trace; ``annotate`` is the port's one span helper: while a profiler runs it
+names a stage in that trace and keeps a record of it (host and device
+time, the span that holds it), which ``spans()`` returns, and otherwise
+costs a check of the profiler's state.  For NVTX ranges, run under
+``torch.autograd.profiler.emit_nvtx()``: it turns the same ranges into
+NVTX ranges.  ``stopwatch`` times a block on the host clock after the
 device has finished; ``kernel_roofline`` gives a kernel's rates from its
 pair count and wall time.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
 import sys
 import tempfile
 import time
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -50,19 +56,102 @@ def trace(log_dir: Optional[str] = None) -> Iterator[object]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Name a physics stage: a ``torch.profiler.record_function`` range in
-    a trace and, when CUDA is present, an NVTX range."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+# The span records kept at most; past this the oldest go (and are counted).
+MAX_SPANS = 65536
+_records: collections.deque = collections.deque()
+_open: List[dict] = []
+_ids = itertools.count()
+_dropped = 0
+
+
+class _Span:
+    """One span of :func:`annotate` while a profiler runs."""
+
+    __slots__ = ("name", "rec", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _dropped
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        rec = {"id": next(_ids), "name": self.name,
+               "parent": _open[-1]["id"] if _open else None,
+               "events": None}
+        if (torch.cuda.is_available() and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            rec["events"] = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            rec["events"][0].record()
+        if len(_records) >= MAX_SPANS:
+            _records.popleft()
+            _dropped += 1
+        _records.append(rec)
+        _open.append(rec)
+        self.rec = rec
+        rec["t0_ns"] = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec["t1_ns"] = time.perf_counter_ns()
+        if rec["events"] is not None:
+            rec["events"][1].record()
+        _open.pop()
+        return self.rf.__exit__(*exc)
+
+
+def annotate(name: str):
+    """The port's span: while a profiler runs
+    (``torch.autograd.profiler`` or ``torch.profiler``, ``emit_nvtx``
+    included), a ``torch.profiler.record_function`` range named ``name``,
+    which lies on the profiler's clock beside the device's kernels, and a
+    record for :func:`spans` (the enclosing span, host start and end, and
+    on CUDA outside stream capture a pair of timing events on the current
+    stream).  Otherwise ``contextlib.nullcontext()``: no range, no record,
+    no event."""
+    if torch._C._autograd._profiler_enabled():
+        return _Span(name)
+    return contextlib.nullcontext()
+
+
+def spans() -> List[dict]:
+    """The records of the spans closed so far, oldest first (at most
+    :data:`MAX_SPANS`; :func:`dropped_spans` counts the older ones let go),
+    after one synchronisation: each {"id", "name", "parent" (the id of the
+    span that held it, or None), "host_ms", "device_ms"}.
+
+    ``device_ms`` is the current stream's time from the span's entry to its
+    exit (None on the CPU or under stream capture): from the phase's first
+    launch to its last where the device keeps up, but where the host
+    issues the phase more slowly than the device runs it, it includes the
+    idle while the device waited for the host."""
+    done = [r for r in _records if "t1_ns" in r]
+    if any(r["events"] is not None for r in done):
+        torch.cuda.synchronize()
+    out = []
+    for r in done:
+        ev = r["events"]
+        out.append({"id": r["id"], "name": r["name"], "parent": r["parent"],
+                    "host_ms": (r["t1_ns"] - r["t0_ns"]) / 1e6,
+                    "device_ms": (None if ev is None
+                                  else ev[0].elapsed_time(ev[1]))})
+    return out
+
+
+def dropped_spans() -> int:
+    """The span records let go since the last :func:`reset_spans`, the
+    oldest first, once :data:`MAX_SPANS` were kept.  A mean over
+    :func:`spans` is taken only where this is 0 (the benchmark's span
+    readers give none otherwise)."""
+    return _dropped
+
+
+def reset_spans() -> None:
+    """Forget every span record and the count of those let go."""
+    global _dropped
+    _records.clear()
+    _dropped = 0
 
 
 @contextlib.contextmanager

@@ -1,6 +1,6 @@
 """Bodies of the port's multi-rank tests (tests/test_torch_{collectives,
 halo,sharded,mesh_retrieval,dma_halo,cia,composed,lut,weideman,
-scaling,halo_overlap}.py).  :func:`run`
+scaling,halo_overlap,spans}.py).  :func:`run`
 starts ``world`` gloo ranks with ``torch.multiprocessing.spawn``; each runs
 one case function of this module on numpy inputs made by the calling test
 and saves what it returns.
@@ -585,6 +585,24 @@ def scaling_case(rank, world, n_points, n_lines, n_rays):
     dl, cg = scaling.scene(CPU, torch.float64, n_lines, n_rays)
     return {halo: scaling.mesh_forward(mesh, dl, cg, n_points, halo)()
             for halo in (False, True)}
+
+
+def mesh_ranges_case(rank, world, n_points, n_lines, n_rays):
+    """One nu-halo mesh forward of the scaling tool's scene (float64) on
+    the (1, 1, world) mesh under ``torch.profiler``: the names of the
+    profiler's events and of the span records (``utils.profiling``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectrobot_tpu_torch import scaling
+    from spectrobot_tpu_torch.utils import profiling
+    mesh = _mesh((1, 1, world))
+    dl, cg = scaling.scene(CPU, torch.float64, n_lines, n_rays)
+    fwd = scaling.mesh_forward(mesh, dl, cg, n_points, True)
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fwd()
+    return ({e.name for e in prof.events()},
+            [r["name"] for r in profiling.spans()])
 
 
 # ---------------------------------------------------------------------------
