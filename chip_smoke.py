@@ -1375,8 +1375,9 @@ def config3_phase(dev, mesh) -> dict:
     seen = {}
     rec = cli.retrieval_problem(cfg, scene, recording_engine_rows(seen))
     n_x = int(rec.x0.shape[0])
+    # Eagerly: a CUDA graph's capture would record rows it never computes.
     cli.make_jacobian(cfg, rec.fwd_flat, n_x, scene.nu.shape[0],
-                      dev)(rec.x0)
+                      dev, graph=False)(rec.x0)
     out["k2"] = compare_k2(case, seen["C"])
     check(seen["C"][0].shape[1] == 2 * n_x,
           f"the config-3 Jacobian gave K2 {seen['C'][0].shape[1]} rows")

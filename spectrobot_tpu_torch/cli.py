@@ -52,10 +52,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
 import time
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -76,7 +78,7 @@ from spectrobot_tpu_torch.parallel.mesh import (
 from spectrobot_tpu_torch.parallel.oe import ShardedOE, make_sharded_oe
 from spectrobot_tpu_torch.retrieval.state import (
     NodeBasis, build_forward, build_forward_lut, flatten_state,
-    jacobian_fwd, jacobian_fwd_chunked, make_state)
+    jacobian_fwd, jacobian_fwd_chunked, jacobian_graphed, make_state)
 from spectrobot_tpu_torch.spectra import optical_depth as optical_depth_spectrum
 from spectrobot_tpu_torch.spectra import radiance as radiance_spectrum
 
@@ -215,7 +217,11 @@ def _build_chi(cfg, species_names):
     return (prof, mask)
 
 
-class Scene(NamedTuple):
+@dataclasses.dataclass(frozen=True, eq=False)
+class Scene:
+    """The configured scene on its device (:func:`build_scene`).  Compared
+    and hashed by identity, and held weakly by the retrieval problems built
+    on it (:func:`retrieval_problem`), which go with it."""
     planet: atm_mod.Planet
     atm: atm_mod.Atmosphere
     lines: object              # DeviceLines
@@ -654,18 +660,33 @@ def jacobian_chunk(cfg, n_x: int, n_fine: int, device) -> Optional[int]:
     return None
 
 
-def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int, device):
+def make_jacobian(cfg, fwd_flat, n_x: int, n_fine: int, device,
+                  graph: bool = True):
     """The Jacobian callable, with the reference's memory guard on the
     port's own bytes: the unchunked ``torch.func.jacfwd``, or
     :func:`jacobian_fwd_chunked` (the same values, a bounded tangent batch)
     in the columns of :func:`jacobian_chunk`; either in one span
-    ``spectrobot.jacobian`` a call."""
+    ``spectrobot.jacobian`` a call.  The unchunked one is
+    ``retrieval.state.jacobian_graphed`` where ``graph`` is true: on the
+    card it replays one CUDA graph of ``fwd_flat``'s Jacobian, captured at
+    the first call and shared by every callable made for the same
+    ``fwd_flat`` (:func:`retrieval_problem` gives one a scene,
+    configuration and engine), its graphs and those of other forwards held
+    within :func:`jacobian_limit`; on the CPU it runs eagerly.  On an H100
+    a capture costs about 1.7 eager Jacobians and a replay saves about a
+    quarter of one, so a graph repays itself only after about seven
+    replays: a caller that calls one forward's Jacobian a few times, as
+    one retrieval does, passes ``graph=False`` and runs ``jacfwd``
+    eagerly.  The chunked one runs eagerly."""
     chunk = jacobian_chunk(cfg, n_x, n_fine, device)
     if chunk:
         print(f"jacobian: chunked forward-mode ({chunk} tangent columns)",
               file=sys.stderr)
         return lambda x: jacobian_fwd_chunked(fwd_flat, x, chunk=chunk)
-    return lambda x: jacobian_fwd(fwd_flat, x)
+    if not graph:
+        return lambda x: jacobian_fwd(fwd_flat, x)
+    return jacobian_graphed(fwd_flat, jacobian_bytes(cfg, n_x, n_fine),
+                            jacobian_limit(device))
 
 
 def _node_basis(cfg, atm):
@@ -694,6 +715,12 @@ class RetrievalProblem(NamedTuple):
     fwd_flat: object           # F: flat state -> y [n_ray * n_chan]
 
 
+# The retrieval problems built on each live scene, by the configuration's
+# value, the engine and the AD mode (retrieval_problem).
+_PROBLEMS: "weakref.WeakKeyDictionary[Scene, dict]" = (
+    weakref.WeakKeyDictionary())
+
+
 def retrieval_problem(cfg, scene: Scene, engine: Engine = KERNELS,
                       analytic_jvp=True) -> RetrievalProblem:
     """The configured retrieval's state at the prior and its flat forward
@@ -702,7 +729,24 @@ def retrieval_problem(cfg, scene: Scene, engine: Engine = KERNELS,
     'rev': the gradient of a cost by ``torch.autograd.grad``).  The scene's
     atmosphere is cast to the compute dtype (the line sum and its
     derivatives run in K1, K2 and K5 on the card, in float32 in either
-    dtype: ``KERNELS`` casts a float64 pipeline's inputs and results)."""
+    dtype: ``KERNELS`` casts a float64 pipeline's inputs and results).
+
+    Built once for a scene, a configuration (by value), an engine and an
+    AD mode, and kept while the scene lives: a later call gives the same
+    flat forward (so :func:`make_jacobian` replays the CUDA graph that the
+    first call's Jacobian captured) and a copy of x0."""
+    built = _PROBLEMS.setdefault(scene, {})
+    # The engine by identity: the problem's forward holds it, so the id
+    # stays its own while the entry lives.
+    key = (repr(cfg), id(engine), analytic_jvp)
+    if key not in built:
+        built[key] = _retrieval_problem(cfg, scene, engine, analytic_jvp)
+    prob = built[key]
+    return prob._replace(x0=prob.x0.clone())
+
+
+def _retrieval_problem(cfg, scene: Scene, engine: Engine,
+                       analytic_jvp) -> RetrievalProblem:
     atm = scene.atm.to(scene.nu.dtype)
     retrieve_vmr = list(cfg.retrieval.retrieve_vmr)
     ret_T = cfg.retrieval.retrieve_temperature
@@ -773,7 +817,9 @@ def _retrieve(cfg, device: torch.device, mesh) -> dict:
     n_fine = int(scene.nu.shape[0])
     oe = None
     if mesh is None:
-        jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine, device)
+        # One retrieval: its few Jacobians would not repay a graph's capture.
+        jac = make_jacobian(cfg, fwd_flat, int(x0.shape[0]), n_fine, device,
+                            graph=False)
     else:
         oe = sharded_problem(cfg, scene, mesh, atm, init(atm), engine,
                              None if nb is None else nb.expand)

@@ -8,14 +8,14 @@ Closed-form chord lengths through spherical shells,
 evaluated for all rays at once (the reference's vmap over rays is the
 leading ray dimension here); layers below the tangent point get ds = 0.
 Curtis-Godson averages use ``n_sub`` equal-path-length samples per layer
-crossing.
+crossing.  Everything is computed on the atmosphere's device, the segment
+order included: no host copy, so a CUDA graph can capture the path.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
-import numpy as np
 import torch
 
 from spectrobot_tpu_torch.data.atmosphere import Atmosphere, Planet
@@ -129,10 +129,10 @@ def limb_path_cg(atm: Atmosphere, species: Sequence[str],
                                  n_sub)
     u, T_sp, p_sp, p_self_sp, T_air, u_air, uu_air = _cg_from_samples(
         atm, species, z_k, w)
-    seg_layer = np.concatenate([np.arange(n_lay)[::-1], np.arange(n_lay)])
+    up = torch.arange(n_lay, device=atm.z.device)
     return PathCG(
         u=u, T_sp=T_sp, p_sp=p_sp, p_self_sp=p_self_sp, T_air=T_air,
-        seg_layer=torch.as_tensor(seg_layer, device=atm.z.device),
+        seg_layer=torch.cat([up.flip(0), up]),
         seg_count=2 * n_lay, is_limb=True, u_air=u_air, uu_air=uu_air)
 
 
@@ -144,8 +144,7 @@ def nadir_path_cg(atm: Atmosphere, species: Sequence[str],
     z_k, w = _layer_samples_nadir(atm.z, sec_theta, n_sub)
     u, T_sp, p_sp, p_self_sp, T_air, u_air, uu_air = _cg_from_samples(
         atm, species, z_k, w)
-    seg_layer = np.arange(n_lay)[::-1].copy()
     return PathCG(
         u=u, T_sp=T_sp, p_sp=p_sp, p_self_sp=p_self_sp, T_air=T_air,
-        seg_layer=torch.as_tensor(seg_layer, device=atm.z.device),
+        seg_layer=torch.arange(n_lay - 1, -1, -1, device=atm.z.device),
         seg_count=n_lay, is_limb=False, u_air=u_air, uu_air=uu_air)

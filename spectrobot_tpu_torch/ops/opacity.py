@@ -86,8 +86,12 @@ def line_kernel_inputs(lines: DeviceLines, T, p_pa, p_self_pa=0.0,
     chi_b = None
     if chi is not None:
         profile, row_mask = chi
-        mask = torch.as_tensor(row_mask, dtype=torch.bool,
-                               device=base.device)[lines.species_idx]
+        # The lines of the masked species rows, made on the device (no
+        # host copy).
+        mask = torch.zeros_like(lines.species_idx, dtype=torch.bool)
+        for row, on in enumerate(row_mask):
+            if on:
+                mask = mask | (lines.species_idx == row)
         T_line = torch.broadcast_to(torch.as_tensor(
             T, dtype=base.dtype, device=base.device), base.shape)
         chi_b = torch.where(mask, profile.slope(T_line).to(base.dtype), 0.0)

@@ -1,4 +1,4 @@
-"""A rank's mesh body replayed as one CUDA graph.
+"""A rank's mesh body, or one card's Jacobian, replayed as one CUDA graph.
 
 Eagerly, a nu-halo forward is issued from the host op by op: the exchange
 of the line parameters, the own line sum (prologue and K1), the hop sums,
@@ -23,6 +23,13 @@ replay, whatever the host does.  (A captured NCCL send/receive started
 only after the own line sum: NCCL's support of graphs mixed with eager
 calls holds it back, and NCCL 2.28 offers no switch for it per
 communicator, only a process-wide environment variable.)
+
+The single-card Jacobian (``retrieval.state.jacobian_graphed``) takes the
+same route through a body with no exchange (it ignores ``side``): the whole
+``torch.func.jacfwd`` of a flat forward, path, prologue, K1, K2, the
+vmapped epilogue and the ILS, issued by one graph launch where the host
+issued it op by op, and its forward's spans recorded as timing events in
+the graph (``spans=True``; ``utils.profiling.capturing_spans``).
 
 The route is chosen by the inputs alone (:func:`graph_route`): tensors on
 the card, none a ``torch.func`` wrapper, a ``requires_grad`` leaf or a
@@ -57,6 +64,7 @@ step's solve, a profiler window's start); what one rank alone does (rank
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Callable, Dict, List, Sequence
 
@@ -64,7 +72,8 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from spectrobot_tpu_torch.parallel.collectives import is_constant
-from spectrobot_tpu_torch.utils.profiling import annotate
+from spectrobot_tpu_torch.utils.profiling import (
+    annotate, capturing_spans, replayed_spans)
 
 # The profiler range around a replay (``halo_overlap``'s host marks).
 REPLAY_RANGE = "mesh_graph_replay"
@@ -145,10 +154,12 @@ def graph_route(tensors: Sequence[torch.Tensor]) -> bool:
 
 class _Graph:
     """One captured body: its static inputs, graph, output, the arrival
-    counters its kernels use, the launches of one replay and the memory
-    the capture took."""
+    counters its kernels use, the launches of one replay, the memory the
+    capture took and the spans it met (``utils.profiling.capturing_spans``;
+    with ``spans`` false, none are kept)."""
 
-    def __init__(self, body: Callable, leaves: list, spec):
+    def __init__(self, body: Callable, leaves: list, spec,
+                 spans: bool = False):
         dev = next(t for t in leaves if isinstance(t, torch.Tensor)).device
         static = [t.clone() if isinstance(t, torch.Tensor) else t
                   for t in leaves]
@@ -164,8 +175,11 @@ class _Graph:
         take_stream_caches((stream, side))
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
+        with contextlib.ExitStack() as stack:
+            self.spans = (stack.enter_context(capturing_spans()) if spans
+                          else ())
+            stack.enter_context(torch.cuda.graph(
+                self.graph, stream=stream, capture_error_mode="thread_local"))
             self.out = body(*args, **kwargs, side=side)
         # The counters the capture allocated (and zeroes at every replay)
         # are the graph's own: no later call on these handles may share them.
@@ -180,6 +194,7 @@ class _Graph:
             torch._foreach_copy_(self.inputs, tensors)
             self.graph.replay()
             add_launches(self.launches)
+            replayed_spans(self.spans)
             return tree_map(torch.clone, self.out)
 
 
@@ -187,11 +202,14 @@ class GraphedBody:
     """``body(*args, side=None, **kwargs)`` (``side``: the stream its
     exchange is issued from, None eagerly) called through one CUDA graph
     per input key where :func:`graph_route` allows it, eagerly otherwise
-    (the module docstring).  ``graphs``: the captured graphs by key;
-    ``replays``: how many calls replayed one."""
+    (the module docstring).  With ``spans`` each replay made while a
+    profiler runs records the spans its capture met
+    (``utils.profiling.replayed_spans``).  ``graphs``: the captured graphs
+    by key; ``replays``: how many calls replayed one."""
 
-    def __init__(self, body: Callable):
+    def __init__(self, body: Callable, spans: bool = False):
         self.body = body
+        self.spans = spans
         self.graphs: Dict[tuple, _Graph] = {}
         self.replays = 0
         _BODIES.add(self)
@@ -214,7 +232,8 @@ class GraphedBody:
         graph = self.graphs.get(key)
         if graph is None:
             out = self.body(*args, **kwargs)
-            self.graphs[key] = _Graph(self.body, leaves, spec)
+            self.graphs[key] = _Graph(self.body, leaves, spec,
+                                      spans=self.spans)
             return out
         self.replays += 1
         return graph.replay(tensors)

@@ -53,7 +53,8 @@ from spectrobot_tpu_torch.parallel.sharded import (
     sharded_radiance_fn)
 from spectrobot_tpu_torch.parallel.sharded_lut import (
     sharded_lut_radiance_fn, stage_lut_sharded)
-from spectrobot_tpu_torch.retrieval.state import apply_state, flatten_state
+from spectrobot_tpu_torch.retrieval.state import (
+    apply_state, flatten_state, release_jacobian_graphs)
 
 
 class ShardedOE:
@@ -77,7 +78,11 @@ class ShardedOE:
 
     def _jac_local(self, x):
         """(K_loc, F_loc): one jvp of the sharded forward per column, all
-        columns in one ``torch.func.jacfwd``."""
+        columns in one ``torch.func.jacfwd``, eagerly, after the
+        single-card Jacobians' graphs are released (their pools would sit
+        beside its tangents)."""
+        release_jacobian_graphs()
+
         def value_twice(v):
             y = self._model(v)
             return y, y

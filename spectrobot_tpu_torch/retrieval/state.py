@@ -7,7 +7,9 @@ The state is a dict ``{"T": [n_lev], "T_surface": [], "ln_vmr": {species:
 same thing in both packages.  The forward model is one function state -> y
 (concatenated channel radiances over all rays), differentiable in forward
 mode: :func:`jacobian_fwd` is ``torch.func.jacfwd``, whose tangent batch the
-line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``).  With
+line sum folds into one basis-kernel call (``ops.opacity.LineSumOp``), and
+:func:`jacobian_graphed` the same Jacobian replayed from one CUDA graph on
+the card.  With
 ``analytic_jvp='rev'`` it is differentiable in reverse mode instead: the
 gradient of a retrieval cost costs one transpose-kernel call.  A non-LTE
 state, a collision-induced continuum and a field of view (a fine ladder of
@@ -18,6 +20,9 @@ limb rays smeared into the observed ones) are options of the forward.
 
 from __future__ import annotations
 
+import itertools
+import math
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +37,7 @@ from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.ils import apply_fov, apply_ils
 from spectrobot_tpu_torch.ops.opacity import Engine, ad_mode
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
+from spectrobot_tpu_torch.parallel.graphed import GraphedBody, pool_bytes
 from spectrobot_tpu_torch.utils.profiling import annotate
 
 
@@ -93,9 +99,12 @@ class NodeBasis:
     def __init__(self, z_lev, z_nodes):
         self.z_lev = np.asarray(z_lev, np.float64)
         self.z_nodes = np.asarray(z_nodes, np.float64)
-        # Host float64 master copy, cast to the state's dtype at expand.
+        # Host float64 master copy, staged in the state's dtype and device
+        # at its first expand (none after: a host copy stops a CUDA graph's
+        # capture).
         self.M = node_level_matrix(self.z_lev, self.z_nodes)
         self.n_nodes = int(self.M.shape[1])
+        self._staged: Dict[tuple, torch.Tensor] = {}
 
     @classmethod
     def uniform(cls, atm: Atmosphere, n_nodes: int) -> "NodeBasis":
@@ -125,8 +134,11 @@ class NodeBasis:
 
     def expand(self, state: Dict) -> Dict:
         def up(v):
-            return torch.as_tensor(self.M, dtype=v.dtype,
-                                   device=v.device) @ v
+            M = self._staged.get((v.dtype, v.device))
+            if M is None:
+                M = self._staged[v.dtype, v.device] = torch.as_tensor(
+                    self.M, dtype=v.dtype, device=v.device)
+            return M @ v
         out: Dict = {"ln_vmr": {s: up(v) for s, v in state["ln_vmr"].items()}}
         if "T" in state:
             out["T"] = up(state["T"])
@@ -303,13 +315,97 @@ def jacobian_fwd(forward_flat: Callable, x: torch.Tensor) -> torch.Tensor:
         return torch.func.jacfwd(forward_flat)(x)
 
 
+# The captures and replays of the Jacobian's CUDA graphs over the process
+# (jacobian_graphed), beside ``retrieval.oe.COUNTS``' Jacobians; the
+# benchmark's ``jacobian_graph_pct`` reads them.
+GRAPH_COUNTS = {"jacobian_graph_captures": 0, "jacobian_graph_replays": 0}
+# The graphed Jacobian body of each flat forward (jacobian_graphed), kept
+# while the forward lives, and the order in which the bodies were last
+# called (release_jacobian_graphs releases the oldest first).
+_GRAPHED: "weakref.WeakKeyDictionary[Callable, GraphedBody]" = (
+    weakref.WeakKeyDictionary())
+_LAST_CALL: "weakref.WeakKeyDictionary[GraphedBody, int]" = (
+    weakref.WeakKeyDictionary())
+_CALLS = itertools.count()
+
+
+def _held(body: GraphedBody) -> int:
+    return sum(g.pool_bytes for g in body.graphs.values())
+
+
+def release_jacobian_graphs(budget: Optional[float] = None,
+                            keep: Optional[GraphedBody] = None) -> None:
+    """Release the Jacobians' graphs (:func:`jacobian_graphed`), the least
+    recently called forward's first and never ``keep``'s, until the pools
+    of every live graph (``parallel.graphed.pool_bytes``, the mesh bodies'
+    included) less ``keep``'s come to ``budget`` bytes or less; with no
+    budget, all of them.  A released forward's next Jacobian captures
+    again."""
+    own = 0 if keep is None else _held(keep)
+    for body in sorted((b for b in list(_GRAPHED.values())
+                        if b.graphs and b is not keep),
+                       key=lambda b: _LAST_CALL.get(b, -1)):
+        if budget is not None and pool_bytes() - own <= budget:
+            return
+        body.release()
+
+
+def jacobian_graphed(forward_flat: Callable, nbytes: float = 0.0,
+                     limit: float = math.inf) -> Callable:
+    """The Jacobian of :func:`jacobian_fwd`, through one CUDA graph per
+    key (x's shape, dtype and device, and the float32 matmul precision)
+    where ``parallel.graphed.graph_route`` allows it: on the card, outside
+    any transform and with x not requiring grad.  There the first call of
+    a key runs ``jacfwd`` eagerly and then captures it, and every later
+    call, through any callable this returns for the same ``forward_flat``,
+    copies x into the graph, replays it and returns a copy of K: the
+    kernels and their order as eagerly, issued by one launch.  Elsewhere
+    ``jacfwd`` runs eagerly.  Each call is one span ``spectrobot.jacobian``
+    that holds the forward's phases, a replay's from the events its
+    capture recorded.  :data:`GRAPH_COUNTS` counts the captures and
+    replays.  The graphs go with ``forward_flat`` (held weakly here, and by
+    the callable returned); the tensors it closes over must keep their
+    storage while it lives, as a scene's do.
+
+    The graphs' pools stay reserved, so the Jacobian memory of the device
+    is what every graph holds plus the Jacobian that runs.  Before each
+    call, the other forwards' Jacobian graphs are released, the least
+    recently called first, until the pools of the rest plus this
+    Jacobian's (its own pool, or ``nbytes`` before its capture: the
+    counted bytes of ``cli.jacobian_bytes``) come to ``limit`` or less
+    (``cli.jacobian_limit``, the guard's): callers that alternate between
+    forwards keep each one's graph while they fit."""
+
+    def jacobian(x: torch.Tensor) -> torch.Tensor:
+        body = _GRAPHED.get(forward_flat)
+        if body is None:
+            ref = weakref.ref(forward_flat)
+            body = _GRAPHED[forward_flat] = GraphedBody(
+                lambda x, _precision, side=None: torch.func.jacfwd(ref())(x),
+                spans=True)
+        _LAST_CALL[body] = next(_CALLS)
+        release_jacobian_graphs(limit - max(_held(body), nbytes), keep=body)
+        n_graphs, n_replays = len(body.graphs), body.replays
+        with annotate("spectrobot.jacobian"):
+            K = body(x, torch.get_float32_matmul_precision())
+        counts = GRAPH_COUNTS
+        counts["jacobian_graph_captures"] += len(body.graphs) - n_graphs
+        counts["jacobian_graph_replays"] += body.replays - n_replays
+        return K
+
+    return jacobian
+
+
 def jacobian_fwd_chunked(forward_flat: Callable, x: torch.Tensor,
                          chunk: int = 16) -> torch.Tensor:
     """The Jacobian in tangent chunks: a vmap of ``torch.func.jvp`` over
     ``chunk`` columns of the identity at a time, which bounds the live
     tangent batch (``torch.func.jacfwd`` has no chunk size).  Same result
     as :func:`jacobian_fwd`, in one span ``spectrobot.jacobian`` that holds
-    the chunks."""
+    the chunks.  It runs eagerly, after the Jacobians' graphs are released
+    (:func:`release_jacobian_graphs`): it is taken where one Jacobian would
+    not fit beside them."""
+    release_jacobian_graphs()
     eye = torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
 
     def one(v):

@@ -7,7 +7,10 @@ kernels of ``csrc/`` launch through ctypes included) and writes a Chrome
 trace; ``annotate`` is the port's one span helper: while a profiler runs it
 names a stage in that trace and keeps a record of it (host and device
 time, the span that holds it), which ``spans()`` returns, and otherwise
-costs a check of the profiler's state.  For NVTX ranges, run under
+costs a check of the profiler's state.  Inside a CUDA graph's capture
+(``capturing_spans``) a span records its boundaries as timing events in
+the graph, and each replay made while a profiler runs adds a record of it
+(``replayed_spans``).  For NVTX ranges, run under
 ``torch.autograd.profiler.emit_nvtx()``: it turns the same ranges into
 NVTX ranges.  ``stopwatch`` times a block on the host clock after the
 device has finished; ``kernel_roofline`` gives a kernel's rates from its
@@ -73,7 +76,6 @@ class _Span:
         self.name = name
 
     def __enter__(self):
-        global _dropped
         self.rf = torch.profiler.record_function(self.name)
         self.rf.__enter__()
         rec = {"id": next(_ids), "name": self.name,
@@ -84,10 +86,7 @@ class _Span:
             rec["events"] = (torch.cuda.Event(enable_timing=True),
                              torch.cuda.Event(enable_timing=True))
             rec["events"][0].record()
-        if len(_records) >= MAX_SPANS:
-            _records.popleft()
-            _dropped += 1
-        _records.append(rec)
+        _keep(rec)
         _open.append(rec)
         self.rec = rec
         rec["t0_ns"] = time.perf_counter_ns()
@@ -101,8 +100,87 @@ class _Span:
         return self.rf.__exit__(*exc)
 
 
+class _CapturedSpan:
+    """One span of :func:`annotate` inside :func:`capturing_spans`: two
+    timing events recorded in the graph under capture, kept in the
+    capture's list with the index of the captured span that holds it."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        rec = {"name": self.name,
+               "parent": _captured_open[-1] if _captured_open else None,
+               "events": (torch.cuda.Event(enable_timing=True, external=True),
+                          torch.cuda.Event(enable_timing=True, external=True))}
+        rec["events"][0].record()
+        _captured_open.append(len(_captured))
+        _captured.append(rec)
+
+    def __exit__(self, *exc):
+        _captured[_captured_open.pop()]["events"][1].record()
+        return False
+
+
+# The spans met in the CUDA graph capture under way (capturing_spans), and
+# the indices of those open; None outside a capture.
+_captured: Optional[List[dict]] = None
+_captured_open: List[int] = []
+
+
+@contextlib.contextmanager
+def capturing_spans() -> Iterator[List[dict]]:
+    """Around a CUDA graph's capture: every :func:`annotate` span met
+    inside records its entry and exit as timing events in the graph
+    (``external``: each replay records them again), profiler or not.
+    Yields the list of the captured spans ({"name", "parent": the index of
+    the captured span that holds it, or None, "events"}), outermost first,
+    for :func:`replayed_spans`."""
+    global _captured, _captured_open
+    outer = _captured, _captured_open
+    _captured, _captured_open = [], []
+    try:
+        yield _captured
+    finally:
+        _captured, _captured_open = outer
+
+
+def replayed_spans(captured: List[dict]) -> None:
+    """After a replay of a graph whose capture met the spans ``captured``
+    (:func:`capturing_spans`), while a profiler runs: one record for
+    :func:`spans` of each, under the span open now, with the device time
+    between the events the replay recorded.  It waits for the replay to
+    record them (the next replay records them again); host time it has
+    none.  Without a profiler, or with nothing captured, it does
+    nothing."""
+    if not captured or not torch._C._autograd._profiler_enabled():
+        return
+    for c in captured:
+        c["events"][1].synchronize()
+    outer = _open[-1]["id"] if _open else None
+    ids: List[int] = []
+    for c in captured:
+        ids.append(next(_ids))
+        start, end = c["events"]
+        _keep({"id": ids[-1], "name": c["name"],
+               "parent": outer if c["parent"] is None else ids[c["parent"]],
+               "events": None, "device_ms": start.elapsed_time(end)})
+
+
+def _keep(rec: dict) -> None:
+    """Append a record, letting the oldest go past :data:`MAX_SPANS`."""
+    global _dropped
+    if len(_records) >= MAX_SPANS:
+        _records.popleft()
+        _dropped += 1
+    _records.append(rec)
+
+
 def annotate(name: str):
-    """The port's span: while a profiler runs
+    """The port's span: inside :func:`capturing_spans`, two timing events
+    in the graph under capture.  Otherwise, while a profiler runs
     (``torch.autograd.profiler`` or ``torch.profiler``, ``emit_nvtx``
     included), a ``torch.profiler.record_function`` range named ``name``,
     which lies on the profiler's clock beside the device's kernels, and a
@@ -110,6 +188,8 @@ def annotate(name: str):
     on CUDA outside stream capture a pair of timing events on the current
     stream).  Otherwise ``contextlib.nullcontext()``: no range, no record,
     no event."""
+    if _captured is not None:
+        return _CapturedSpan(name)
     if torch._C._autograd._profiler_enabled():
         return _Span(name)
     return contextlib.nullcontext()
@@ -125,16 +205,19 @@ def spans() -> List[dict]:
     exit (None on the CPU or under stream capture): from the phase's first
     launch to its last where the device keeps up, but where the host
     issues the phase more slowly than the device runs it, it includes the
-    idle while the device waited for the host."""
-    done = [r for r in _records if "t1_ns" in r]
+    idle while the device waited for the host.  A span replayed from a
+    CUDA graph (:func:`replayed_spans`) has the device time of its replay,
+    which no host issue stretches, and ``host_ms`` None."""
+    done = [r for r in _records if "t1_ns" in r or "device_ms" in r]
     if any(r["events"] is not None for r in done):
         torch.cuda.synchronize()
     out = []
     for r in done:
         ev = r["events"]
         out.append({"id": r["id"], "name": r["name"], "parent": r["parent"],
-                    "host_ms": (r["t1_ns"] - r["t0_ns"]) / 1e6,
-                    "device_ms": (None if ev is None
+                    "host_ms": ((r["t1_ns"] - r["t0_ns"]) / 1e6
+                                if "t1_ns" in r else None),
+                    "device_ms": (r.get("device_ms") if ev is None
                                   else ev[0].elapsed_time(ev[1]))})
     return out
 

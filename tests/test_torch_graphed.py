@@ -84,7 +84,7 @@ class _Capture:
     replays by the body's arithmetic."""
     made = []
 
-    def __init__(self, body, leaves, spec):
+    def __init__(self, body, leaves, spec, spans=False):
         self.leaves, self.pool_bytes = leaves, 0
         self.graph = type("G", (), {"reset": lambda s: None})()
         _Capture.made.append(self)

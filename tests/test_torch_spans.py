@@ -282,6 +282,7 @@ def test_mesh_ranges_keep_their_names(tmp_path):
         assert {EXCHANGE_RANGE, OWN_SUM_RANGE} <= set(spans)
     g = graphed._Graph.__new__(graphed._Graph)
     g.inputs, g.graph, g.launches = [torch.zeros(2)], _Replayed(), {}
+    g.spans = ()
     g.out = torch.ones(2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         g.replay([torch.ones(2)])

@@ -616,10 +616,10 @@ HOST_READS = ("aten::_local_scalar_dense", "aten::nonzero",
               "aten::_unique2", "aten::unique_consecutive")
 
 
-def _host_reads_mode():
-    """A dispatch mode that records the HOST_READS calls made under it
-    (``.seen``); the kernels' plain versions run outside it (on the card
-    the kernels run in their place)."""
+def _host_reads_mode(names=HOST_READS):
+    """A dispatch mode that records the calls of ``names`` (by default
+    HOST_READS) made under it (``.seen``); the kernels' plain versions run
+    outside it (on the card the kernels run in their place)."""
     from torch.utils._python_dispatch import (
         TorchDispatchMode, _disable_current_modes)
 
@@ -632,7 +632,7 @@ def _host_reads_mode():
             self._saved = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func._schema.name in HOST_READS:
+            if func._schema.name in names:
                 self.seen.append(func._schema.name)
             return func(*args, **(kwargs or {}))
 
@@ -745,6 +745,46 @@ def graph_route_case(rank, world, toml, overrides):
     finally:
         torch.cuda.graph, torch.cuda.CUDAGraph = saved
     return out
+
+
+class EagerCapture:
+    """A stand-in for ``parallel.graphed._Graph`` on the CPU: keeps the
+    body and the capture's inputs (``made``: every one made), and replays
+    by running the body eagerly on the replay's inputs."""
+    made = []
+
+    def __init__(self, body, leaves, spec, spans=False):
+        from torch.utils._pytree import tree_unflatten
+        self.body, self.leaves, self.spec = body, leaves, spec
+        self.unflatten, self.pool_bytes = tree_unflatten, 0
+        self.graph = type("G", (), {"reset": lambda s: None})()
+        EagerCapture.made.append(self)
+
+    def replay(self, tensors):
+        new = iter(tensors)
+        leaves = [next(new) if isinstance(t, torch.Tensor) else t
+                  for t in self.leaves]
+        args, kwargs = self.unflatten(leaves, self.spec)
+        return self.body(*args, **kwargs)
+
+
+def jacobian_route_mesh_case(rank, world, toml, out_dir, port):
+    """The CLI's retrieve of ``toml`` on the (1, 1, world) mesh, the graph
+    route forced as on the card and the capture an ``EagerCapture``:
+    (the single-card Jacobian's graph counts after it, the captures the
+    mesh's own bodies made)."""
+    from spectrobot_tpu_torch import cli
+    from spectrobot_tpu_torch.parallel import graphed
+    from spectrobot_tpu_torch.retrieval.state import GRAPH_COUNTS
+    graphed.graph_route = graphed.constant_call
+    graphed._Graph = EagerCapture
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    assert cli.main(["retrieve", toml, "--device", "cpu", "-o",
+                     f"compute.mesh_nu={world}", "-o",
+                     f"run.output_dir={out_dir}"]) == 0
+    return dict(GRAPH_COUNTS), len(EagerCapture.made)
 
 
 def graph_card_case(rank, world, tmp, shapes):
