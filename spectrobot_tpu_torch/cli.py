@@ -124,11 +124,18 @@ def _build_atmosphere(cfg, device):
     return planet, atm
 
 
+# The counters of the scene built last (build_scene): the limb rays the
+# forward runs under the field of view (0 without one), and the lines whose
+# upper or lower level the [nlte] section pumps, a t_vib apart from the
+# kinetic profile in some layer (0 in LTE).
+SCENE_COUNTS = {"fov_fine_rays": 0, "nlte_pumped_lines": 0}
+
+
 def _build_nlte(cfg, ll, atm, dtype, device):
     """Non-LTE state from config (reference call stack 4.4): registry from
     the line list's quanta, t_vib per the ``[nlte]`` section, matched level
     indices annotated IN PLACE on ``ll``, so this runs before the lines are
-    staged on the device."""
+    staged on the device.  Counts the pumped lines (``SCENE_COUNTS``)."""
     from spectrobot_tpu_torch.data.nlte import (
         demo_pump_t_vib, device_nlte, lte_t_vib, match_lines_to_levels,
         registry_from_linelist, t_vib_from_npz)
@@ -150,6 +157,10 @@ def _build_nlte(cfg, ll, atm, dtype, device):
         t_vib = demo_pump_t_vib(reg, z_mid, T_lay)
     else:
         t_vib = t_vib_from_npz(reg, src, z_mid, T_lay)
+    # An unmatched line's index, -1, reads the False appended last.
+    pumped = np.append((t_vib != lte_t_vib(reg, T_lay)).any(axis=1), False)
+    SCENE_COUNTS["nlte_pumped_lines"] = int(
+        (pumped[ll.level_upper] | pumped[ll.level_lower]).sum())
     return device_nlte(reg, t_vib, dtype=dtype, device=device)
 
 
@@ -242,10 +253,12 @@ class Scene:
 
 
 def build_scene(cfg, device: torch.device) -> Scene:
-    """Config -> the forward's inputs on ``device``."""
+    """Config -> the forward's inputs on ``device``; sets
+    ``SCENE_COUNTS``."""
     from spectrobot_tpu_torch.data.molparams import MOLECULES, molecule_by_name
 
     dtype = torch.float64 if cfg.compute.dtype == "float64" else torch.float32
+    SCENE_COUNTS.update(fov_fine_rays=0, nlte_pumped_lines=0)
     planet, atm = _build_atmosphere(cfg, device)
     ll = configured_lines(cfg)
     # The level indices go on the host line list before it is staged.
@@ -282,6 +295,8 @@ def build_scene(cfg, device: torch.device) -> Scene:
            if cfg.cia.enabled else None)
     h_t, fov_V = (_build_fov(cfg, dtype, device)
                   if cfg.geometry.mode == "limb" else (None, None))
+    if fov_V is not None:
+        SCENE_COUNTS["fov_fine_rays"] = int(fov_V.shape[1])
     chi = _build_chi(cfg, species_names)
     lut, lut_src = (_get_lut(cfg, nu, nu_off, dl, species_names, atm, nlte,
                              chi) if cfg.compute.use_lut else (None, ""))

@@ -49,11 +49,13 @@ def _tau_prologue(lines: DeviceLines, cg: PathCG,
     R, NL, _ = cg.u.shape
     sp = lines.species_idx
     u_line_cm2 = cg.u[:, :, sp] * 1.0e-4               # [R, NL, L] one side
-    w = layer_weights(nlte, lines, cg.T_air)
-    if w is None:       # LTE: absorption and emission weights are both 1
+    if nlte is None:    # LTE: absorption and emission weights are both 1
         amps = torch.stack([u_line_cm2, u_line_cm2], dim=-2)
     else:
-        amps = torch.stack([w[0] * u_line_cm2, w[1] * u_line_cm2], dim=-2)
+        with annotate("spectrobot.forward.nlte"):
+            w_abs, w_em = layer_weights(nlte, lines, cg.T_air)
+            amps = torch.stack([w_abs * u_line_cm2, w_em * u_line_cm2],
+                               dim=-2)
     kl = line_kernel_inputs(lines, cg.T_sp[:, :, sp], cg.p_sp[:, :, sp],
                             cg.p_self_sp[:, :, sp], amps, chi=chi)
     L = lines.n_lines
@@ -92,7 +94,9 @@ def layer_tau_kernel(nu_off: torch.Tensor, lines: DeviceLines, cg: PathCG,
     ``nlte``: the non-LTE state (``data.nlte.DeviceNLTE``), or None for
     LTE.  Returns (dtau, dtau_em), each [R, NL, P].  The prologue and the
     line sum run in the spans ``spectrobot.forward.prologue`` and
-    ``spectrobot.forward.line_sum`` (``utils.profiling.annotate``).
+    ``spectrobot.forward.line_sum`` (``utils.profiling.annotate``); with
+    ``nlte`` the layer weights run in ``spectrobot.forward.nlte`` inside
+    the prologue's.
     """
     if chi is not None and (cutoff_cm1 is None
                             or cutoff_cm1 > CHI_MAX_CUTOFF):

@@ -194,8 +194,9 @@ def build_forward(
     (the CLI's ``run.save_optics`` reuses them; no second line sum).
     Output y is flattened [n_obs_ray * n_chan].  Each call's phases run in
     the spans (``utils.profiling.annotate``) ``spectrobot.forward.path``,
-    ``.prologue``, ``.line_sum``, ``.epilogue`` (the FOV included) and
-    ``.ils``.
+    ``.prologue`` (with ``nlte`` the layer weights in ``.nlte`` inside
+    it), ``.line_sum``, ``.epilogue`` (with ``fov_V`` the smear in
+    ``.fov`` inside it) and ``.ils``.
     """
     if nu_off is None:
         nu_off = torch.as_tensor(
@@ -227,7 +228,8 @@ def build_forward(
                                   cia=cia, T_surface=ts,
                                   emissivity=emissivity)
             if fov_V is not None:
-                I = apply_fov(I, fov_V)
+                with annotate("spectrobot.forward.fov"):
+                    I = apply_fov(I, fov_V)
         if ils_W is not None:
             with annotate("spectrobot.forward.ils"):
                 I = apply_ils(I, ils_W)

@@ -13,9 +13,15 @@
   gives without them;
 - the Jacobian that a planted rejected step repeats is counted;
 - the bounded list drops its oldest record and counts the drop;
-- the mesh's ranges keep their names (``halo_overlap`` reads them)."""
+- the mesh's ranges keep their names (``halo_overlap`` reads them);
+- on the benchmark's non-LTE scene under a field of view the layer weights
+  and the smear run in spans of their own, once a forward, inside the
+  prologue and the epilogue, and on its LTE scene neither does; the
+  scene's counters (``cli.SCENE_COUNTS``) hold its fine rays and pumped
+  lines."""
 
 import contextlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -288,3 +294,65 @@ def test_mesh_ranges_keep_their_names(tmp_path):
         g.replay([torch.ones(2)])
     assert graphed.REPLAY_RANGE in {e.name for e in prof.events()}
     profiling.reset_spans()
+
+
+# The benchmark's two scene files at a grid a CPU test holds: the non-LTE
+# scene under its 3 km field of view over 40 fine rays, and the LTE scene
+# without one.
+SCENE_FILES = {"mars43_nlte_fov": "spectrobench/configs/mars43_nlte_fov.toml",
+               "mars15_lte": "spectrobench/configs/mars15_lte.toml"}
+SMALL_GRID = {"grid.n_points": "128", "scene.n_levels": "6"}
+OWN = ("spectrobot.forward.nlte", "spectrobot.forward.fov")
+
+
+@pytest.fixture(scope="module", params=sorted(SCENE_FILES))
+def bench_scene(request):
+    """(name, the CLI's retrieval problem, the scene's counters) of one
+    benchmark scene file."""
+    root = Path(__file__).resolve().parents[1]
+    cfg = cli.load_config(str(root / SCENE_FILES[request.param]),
+                          SMALL_GRID)
+    scene = cli.build_scene(cfg, CPU)
+    counts = dict(cli.SCENE_COUNTS)
+    return request.param, cli.retrieval_problem(cfg, scene), counts
+
+
+def test_nlte_and_fov_spans_run_once_a_forward_inside_their_phase(
+        bench_scene):
+    """One forward and one Jacobian under the profiler: on the non-LTE
+    scene with a field of view each opens ``.nlte`` inside ``.prologue``
+    and ``.fov`` inside ``.epilogue``, once; on the LTE scene neither."""
+    name, prob, _ = bench_scene
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prob.fwd_flat(prob.x0)
+        jacobian_fwd(prob.fwd_flat, prob.x0)
+    recs = profiling.spans()
+    profiling.reset_spans()
+    by_id = {r["id"]: r for r in recs}
+    names = [r["name"] for r in recs]
+    assert names.count("spectrobot.forward.prologue") == 2
+    if name == "mars15_lte":
+        assert not set(OWN) & (set(names) | {e.name for e in prof.events()})
+        return
+    assert OWN[0] in {e.name for e in prof.events()}
+    for span, phase in zip(OWN, ("spectrobot.forward.prologue",
+                                 "spectrobot.forward.epilogue")):
+        mine = [r for r in recs if r["name"] == span]
+        assert len(mine) == 2
+        assert all(by_id[r["parent"]]["name"] == phase for r in mine)
+    # The Jacobian's set: one of each under its span.
+    (jac,) = [r for r in recs if r["name"] == "spectrobot.jacobian"]
+    under = [r["name"] for r in recs if jac["id"] in _reach(r, by_id)]
+    assert sorted(under) == sorted(PHASES + OWN)
+
+
+def test_scene_counters(bench_scene):
+    """Set at the scene's build: 40 fine rays and every line (all match a
+    pumped nu3 level) on the non-LTE scene, none on the LTE one."""
+    name, _, counts = bench_scene
+    if name == "mars15_lte":
+        assert counts == {"fov_fine_rays": 0, "nlte_pumped_lines": 0}
+    else:
+        assert counts["fov_fine_rays"] == 40
+        assert counts["nlte_pumped_lines"] > 0
