@@ -6,9 +6,9 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. environment: a CUDA device, torch/CUDA versions, the card's name and
      power limit;
-  2. build: the seven kernels and the FMA measurement kernel from
-     spectrobot_tpu_torch/csrc (one nvcc each, started together), with
-     their ptxas reports;
+  2. build: the seven kernels, the FMA measurement kernel and the fused RT
+     epilogue from spectrobot_tpu_torch/csrc (one nvcc each, started
+     together), with their ptxas reports;
   3. K1 (the line sum) against its plain PyTorch version on the card, in
      float32: the forward's own limb and nadir inputs
      (examples/mars_limb.toml) and the reference bench's production scale
@@ -27,13 +27,25 @@ Phases, each of which raises (non-zero exit) on failure:
      state of the bench scale (n_out = 2, cutoff 25), the reference bench's
      dense shape (20480 lines x 16384 points, no cutoff) and a nadir state
      with chi and 4 random amplitude rows; all four tiers must occur;
+  4d. the fused RT epilogue (ops/cuda_epilogue.py, csrc/rt_epilogue.cu)
+     at the benchmark cells' shapes (mars15_lte: 20 rays x 31 layers, 32
+     columns, LTE; mars43_nlte_fov: 40 x 32, 33 columns, non-LTE; 8192
+     points, float32, the tangents in K2's layout, tests/epilogue_cases.py):
+     the primal and the tangent (one launch each) against the composed
+     epilogue, its plain version (optics_from_tau + layer_path_radiance
+     and their vmapped jvp); each timed alone by CUDA events (median of 5)
+     beside its bytes bound and the composed one;
   5. main path, forward: the CLI forward of examples/mars_limb.toml through
-     K1 (its launch count must rise), radiances checked, then the same scene
-     through the plain version;
+     K1 (its launch count must rise) and the fused epilogue (a float64
+     atmosphere over float32 depths: one fused launch a K1, no composed
+     call), radiances checked, then the same scene through the plain
+     version;
   6. main path, retrieve: the CLI temperature retrieval of the same scene
-     (self-test observations) through K1 and K2; K2 must launch once per
-     Jacobian, the fit converge with chi2 falling, and the Jacobian at the
-     prior through the kernels agree with the plain engine's; then the CLI
+     (self-test observations) through K1, K2 and the fused epilogue; K2
+     must launch once per Jacobian and the epilogue once a forward and
+     twice a Jacobian, every call fused (these launches are the kernel
+     line's), the fit converge with chi2 falling, and the Jacobian at the
+     prior through the kernels (fused) agree with the plain engine's; then the CLI
      forward and retrieve again with lines.chi = "co2_mars" (the forward
      against the plain engine's, the fit converged);
   6b. main path, reverse mode: the gradient of the retrieval cost
@@ -190,14 +202,20 @@ Phases, each of which raises (non-zero exit) on failure:
      counted bytes (cli.jacobian_bytes) of the slice, config 3, the
      composed scene and the float64 Weideman slice within GUARD_RATIO of
      the measured increase of their peak memory (peak - resident), each
-     unchunked; each sub-phase's wall time beside the card.
+     unchunked, or within FUSED_GUARD_RATIO where the Jacobian's epilogue
+     was the fused kernel (cli.JAC_LIVE_TANGENTS counts the composed
+     epilogue's temporaries), config 5's Jacobians too where fused; the
+     route each took, read from forward.limb.EPILOGUE_COUNTS, must be the
+     fused one on the kernels' engine and the composed one elsewhere; each
+     sub-phase's wall time beside the card.
   6l. (after 6k, before phase 7, on phase 6c's process group) the engine
      rule's two other humlicek4 configurations: compute.dtype = "float64"
      through the float32 kernels (ops.cuda_basis.KERNELS casts the
      pipeline's inputs and results) on examples/mars_limb.toml: the CLI
      forward (one K1, float64 radiances), the Jacobian at the prior (one
-     K1, one K2; its peak memory against cli.jacobian_bytes within
-     GUARD_RATIO), the CLI retrieve (one K2 a Jacobian, converged), the
+     K1, one K2, two fused epilogue launches; its peak memory against
+     cli.jacobian_bytes within FUSED_GUARD_RATIO), the CLI retrieve (one
+     K2 a Jacobian, converged), the
      reverse gradient (one K1, one K5; within F64_GRAD_REL of J^T dL/dy),
      config 3's forward and Jacobian, config 1 (one K3; its Jacobian one
      K3 and one K4; the float64 oracle's float32 budget), the LTE table
@@ -215,7 +233,8 @@ window misses the fused-halo kernel, with and without the host wait of
 its check (profiler_misses).
 The card's name and power limit (as nvidia-smi prints them) and the kernel
 table as JSON (the seven ports under "kernels", the FMA measurement kernel
-apart under "measurement_kernels") are the two lines before the last; the
+apart under "measurement_kernels", the fused epilogue, which ports no TPU
+kernel, under "port_kernels") are the two lines before the last; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -265,6 +284,14 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 # ceiling).
 MEASUREMENT_KERNELS = {
     "fma_peak": ("spectrobot_tpu_torch/csrc/fma_peak.cu", None)}
+# The port's own kernels: no TPU kernel is ported (the JAX package leaves
+# the RT epilogue to XLA's fusion).
+PORT_KERNELS = {
+    "rt_epilogue": ("spectrobot_tpu_torch/csrc/rt_epilogue.cu", None)}
+# The fused epilogue against the composed epilogue (its plain version),
+# max |diff| over max |composed|, float32: within the cells' fit_gap
+# (1e-5) and mars15_lte's jac_gap (3e-5) limits.
+EPILOGUE_REL = {"primal": 1e-5, "tangent": 3e-5}
 # K1 vs plain budget (the reference's Pallas parity budget,
 # tests/test_pallas_opacity.py:90): |err| <= RTOL |ref| + ATOL_REL max|ref|.
 RTOL, ATOL_REL = 3e-5, 1e-6
@@ -296,10 +323,10 @@ ORACLE_RTOL, ORACLE_ATOL_REL = 5e-3, 1e-4
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_dma, cuda_fma, cuda_opacity,
-        cuda_single, cuda_transpose)
+        cuda_basis, cuda_basis_single, cuda_dma, cuda_epilogue, cuda_fma,
+        cuda_opacity, cuda_single, cuda_transpose)
     for m in (cuda_opacity, cuda_basis, cuda_transpose, cuda_single,
-              cuda_basis_single, cuda_fma):
+              cuda_basis_single, cuda_fma, cuda_epilogue):
         m.LAUNCHES = 0
     cuda_dma.RING_LAUNCHES = cuda_dma.HALO_LAUNCHES = 0
 
@@ -307,19 +334,23 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     """Each kernel's launches since the last :func:`reset_launches`."""
     from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_dma, cuda_fma, cuda_opacity,
-        cuda_single, cuda_transpose)
+        cuda_basis, cuda_basis_single, cuda_dma, cuda_epilogue, cuda_fma,
+        cuda_opacity, cuda_single, cuda_transpose)
     return {"K1": cuda_opacity.LAUNCHES, "K2": cuda_basis.LAUNCHES,
             "K5": cuda_transpose.LAUNCHES, "K3": cuda_single.LAUNCHES,
             "K4": cuda_basis_single.LAUNCHES,
             "dma_ring": cuda_dma.RING_LAUNCHES,
             "dma_halo": cuda_dma.HALO_LAUNCHES,
-            "fma_peak": cuda_fma.LAUNCHES}
+            "fma_peak": cuda_fma.LAUNCHES,
+            "epilogue": cuda_epilogue.LAUNCHES}
 
 
 def expect_launches(what: str, n: dict, **want) -> None:
     """Fail unless the counts ``n`` are ``want`` (0 for a kernel not
-    named)."""
+    named; the fused epilogue, whose route the caller checks where it
+    matters (:func:`epilogue_routes`), only where named)."""
+    if "epilogue" not in want:
+        n = {k: v for k, v in n.items() if k != "epilogue"}
     want = {k: want.get(k, 0) for k in n}
     check(n == want, f"{what} launched {json.dumps(n)}, not "
                      f"{json.dumps(want)}")
@@ -1616,16 +1647,38 @@ def cli_run(cmd: str, overrides: dict, tmp: str) -> tuple:
     return res, n, iters
 
 
+def epilogue_counts() -> dict:
+    """A copy of the RT epilogue's host-issued calls by route
+    (``forward.limb.EPILOGUE_COUNTS``)."""
+    from spectrobot_tpu_torch.forward import limb
+    return dict(limb.EPILOGUE_COUNTS)
+
+
+def epilogue_route(before: dict) -> str:
+    """The route the epilogue's calls took since ``before``
+    (:func:`epilogue_counts`): "fused" or "composed" where every call took
+    it, "mixed" where both ran, "none" where no call was issued (a graph's
+    replay)."""
+    now = epilogue_counts()
+    fused, composed = (now[k] - before[k] for k in ("fused", "composed"))
+    if fused and composed:
+        return "mixed"
+    return "fused" if fused else "composed" if composed else "none"
+
+
 def peak_memory(fn) -> tuple:
     """(peak, resident) device memory [GB] of one call of ``fn``: the
-    allocator's peak over the call, and what was allocated before it."""
+    allocator's peak over the call, and what was allocated before it;
+    and the route its epilogue took (:func:`epilogue_route`)."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
+    before = epilogue_counts()
     fn()
     torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() / 1e9, resident / 1e9
+    return (torch.cuda.max_memory_allocated() / 1e9, resident / 1e9,
+            epilogue_route(before))
 
 
 def table_error(built, plain) -> tuple:
@@ -2067,6 +2120,14 @@ CONFIG5_WIDE = {"scene.n_levels": "38", "retrieval.retrieve_vmr": "CO2,CO"}
 # The guard's counted bytes over the measured increase of a Jacobian's
 # peak memory (peak - resident) must lie in this range.
 GUARD_RATIO = (0.8, 2.0)
+# The same for a Jacobian whose epilogue is the fused kernel: its count,
+# cli.JAC_LIVE_TANGENTS, is the composed epilogue's (kept until it is
+# measured again), 2.26-3.39 times what those Jacobians hold (NVIDIA H100
+# 80GB HBM3 at 700 W; the composed scene lowest, its CIA adding to both
+# depths).  Both ends hold: a new temporary or copy of a tangent's size
+# still falls below the lower end in the composed scene, a larger one in
+# every scene.
+FUSED_GUARD_RATIO = (2.0, 4.0)
 
 
 def k2_rows_phase(cases: dict, card: str) -> None:
@@ -2212,13 +2273,21 @@ def guard_phase(dev, card: str, scenes: dict, extra: dict) -> None:
         grown = (peak[0] - peak[1]) * 1e9
         ratio = counted / grown
         chunk = cli.jacobian_chunk(cfg, n_x, n_fine, dev)
+        route = peak[2]
+        bounds = FUSED_GUARD_RATIO if route == "fused" else GUARD_RATIO
         print(f"6k (c) {name}: counted {counted / 1e9:.2f} GB, measured "
               f"increase {grown / 1e9:.2f} GB (peak {peak[0]:.2f} - "
-              f"resident {peak[1]:.2f}), ratio {ratio:.3f}; chunk {chunk}")
-        if name in scenes:
-            check(GUARD_RATIO[0] <= ratio <= GUARD_RATIO[1],
+              f"resident {peak[1]:.2f}), ratio {ratio:.3f}; chunk {chunk}; "
+              f"epilogue {route}")
+        want = ("fused" if cli.select_engine(cfg, dev) is cli.KERNELS
+                else "composed")
+        check(route == want, f"{name}: the Jacobian's epilogue took the "
+                             f"{route} route, not the {want} one")
+        if name in scenes or route == "fused":
+            check(bounds[0] <= ratio <= bounds[1],
                   f"{name}: the guard counts {ratio:.3f} x the measured "
-                  f"increase, outside {GUARD_RATIO}")
+                  f"increase, outside {bounds} ({route} epilogue)")
+        if name in scenes:
             check(chunk is None, f"{name}: the guard chunks the Jacobian")
 
 
@@ -2363,7 +2432,7 @@ def engine_dtype_phase(dev, mesh, cfg, scene, I, J, card: str) -> dict:
             lambda: got.append(jac(p.x0))))
         jacs[name] = (got.pop(), launch_counts(), peak, jac)
     J64, n, peak, jac64 = jacs["kernels"]
-    expect_launches("the float64 Jacobian", n, K1=1, K2=1)
+    expect_launches("the float64 Jacobian", n, K1=1, K2=1, epilogue=2)
     expect_launches("the pure float64 plain Jacobian", jacs["pure"][1])
     check(J64.dtype == f64 and bool(torch.isfinite(J64).all()),
           "the float64 Jacobian is not finite float64")
@@ -2384,9 +2453,12 @@ def engine_dtype_phase(dev, mesh, cfg, scene, I, J, card: str) -> dict:
           f"{jacs['cast'][2][0]:.2f} GB")
     check(jerr <= K2_REL, "the float64 Jacobian disagrees with the "
                           "float32-cast plain engine's")
-    check(GUARD_RATIO[0] <= counted_b / grown <= GUARD_RATIO[1],
+    check(peak[2] == "fused", f"the float64 Jacobian's epilogue took the "
+                              f"{peak[2]} route, not the fused one")
+    check(FUSED_GUARD_RATIO[0] <= counted_b / grown <= FUSED_GUARD_RATIO[1],
           f"the guard counts {counted_b / grown:.3f} x the float64 "
-          f"Jacobian's increase, outside {GUARD_RATIO}")
+          f"Jacobian's increase, outside {FUSED_GUARD_RATIO} (fused "
+          f"epilogue)")
 
     # (d) The CLI retrieve in float64: K1 and K2 as in float32.
     with tempfile.TemporaryDirectory() as tmp:
@@ -3170,6 +3242,89 @@ def profiler_misses(makers: list, rounds: int) -> None:
           f"rounds: {json.dumps(out)}")
 
 
+def epilogue_bytes(R, NL, P, n_seg, n_t, rows, itemsize, tangent) -> float:
+    """The fused epilogue's least bytes: the depths' ``rows`` (1 in LTE, 2
+    in non-LTE) of [R, NL, P], T_air and the grid read once; a tangent
+    call also reads each column's depth tangents and T_air tangent and
+    writes [n_t, R, P], a primal call writes [R, P]."""
+    prim = rows * R * NL * P + R * NL + P
+    if not tangent:
+        return float(prim + R * P) * itemsize
+    return float(prim + n_t * (rows * R * NL * P + R * NL + R * P)) * itemsize
+
+
+def epilogue_cases():
+    """tests/epilogue_cases.py: the cells' ray sets in K2's layout."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import epilogue_cases as cases
+    return cases
+
+
+def epilogue_phase(dev, card: str) -> dict:
+    """Phase 4d: the fused RT epilogue at the cells' shapes, float32,
+    against the composed epilogue.  Returns the "port_kernels" row of
+    mars43_nlte_fov's tangent (the kernel's largest call in the benchmark;
+    its launches are the main path's, set in phase 6)."""
+    from spectrobot_tpu_torch.ops import cuda_epilogue as ce
+
+    cases = epilogue_cases()
+    for name, (R, NL, P, n_t, nlte, grid) in cases.CELLS.items():
+        prim, tan, _ = cases.case(dev, torch.float32, R, NL, P, n_t, nlte,
+                                  grid)
+        before = ce.LAUNCHES
+        I = ce.radiance(*prim)
+        dI = ce.radiance_tangent(*prim, *tan)
+        torch.cuda.synchronize()
+        check(ce.LAUNCHES == before + 2,
+              f"4d {name}: {ce.LAUNCHES - before} epilogue launches, not 2")
+        composed = ce.composed_tangent(*prim, *tan)
+        errs = {"primal": rel_max(I, ce.composed_radiance(*prim)),
+                "tangent": rel_max(dI, composed)}
+        max_abs_err = float((dI - composed).abs().max())
+        del composed
+        for what, err in errs.items():
+            check(err <= EPILOGUE_REL[what], f"4d {name}: {what} error "
+                  f"{err:.3e} > {EPILOGUE_REL[what]:g} (vs the composed "
+                  f"epilogue)")
+        reps = 10
+        ms = {"tangent": cuda_ms(lambda: [ce.radiance_tangent(*prim, *tan)
+                                          for _ in range(reps)]) / reps,
+              "primal": cuda_ms(lambda: [ce.radiance(*prim)
+                                         for _ in range(reps)]) / reps}
+        gc.collect()
+        torch.cuda.empty_cache()
+        ms["composed tangent"] = cuda_ms(
+            lambda: ce.composed_tangent(*prim, *tan))
+        rows = 2 if nlte else 1
+        n_seg = int(prim[4].shape[0])
+        bound = {k: epilogue_bytes(R, NL, P, n_seg, n_t, rows, 4,
+                                   k == "tangent") / HBM_BYTES_S * 1e3
+                 for k in ("tangent", "primal")}
+        print(f"4d fused epilogue, {name} [{card}]: R = {R}, NL = {NL}, "
+              f"P = {P}, n_t = {n_t}, {'non-LTE' if nlte else 'LTE'}; "
+              f"tangent {ms['tangent']:.4f} ms vs bound "
+              f"{bound['tangent']:.4f} ms (bytes; "
+              f"{100 * bound['tangent'] / ms['tangent']:.1f} %), composed "
+              f"{ms['composed tangent']:.3f} ms; primal {ms['primal']:.4f} "
+              f"ms vs {bound['primal']:.4f} ms "
+              f"({100 * bound['primal'] / ms['primal']:.1f} %); errors vs "
+              f"the composed epilogue "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+        row = {"name": "rt_epilogue", "route": "cuda",
+               "source": PORT_KERNELS["rt_epilogue"][0],
+               "replaces": PORT_KERNELS["rt_epilogue"][1],
+               "launches": None, "max_abs_err": max_abs_err,
+               "ms": ms["tangent"], "plain_ms": ms["composed tangent"],
+               "bound_ms": bound["tangent"], "bound_by": "bytes",
+               "library_ms": None}
+        del prim, tan, I, dI
+        gc.collect()
+        torch.cuda.empty_cache()
+    return row
+
+
 def cuda_ms(fn, n: int = 5) -> float:
     """Median device time of ``fn`` over n runs after one warm-up [ms]."""
     fn()
@@ -3196,7 +3351,7 @@ def build_kernels() -> None:
         path, log = build.build(name)
         return name, path, log, time.time() - t0
 
-    names = [*KERNELS, *MEASUREMENT_KERNELS]
+    names = [*KERNELS, *MEASUREMENT_KERNELS, *PORT_KERNELS]
     with ThreadPoolExecutor(len(names)) as pool:
         for name, path, log, secs in pool.map(one, names):
             print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s")
@@ -3223,6 +3378,7 @@ def main(argv=None) -> int:
     from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
     from spectrobot_tpu_torch.ops import cuda_dma as cd
+    from spectrobot_tpu_torch.ops import cuda_epilogue as ce
     from spectrobot_tpu_torch.ops import cuda_fma
     from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
@@ -3250,6 +3406,7 @@ def main(argv=None) -> int:
     peer.library()
     cd._library()
     cuda_fma._library()
+    ce._library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -3320,17 +3477,26 @@ def main(argv=None) -> int:
     check(all(v > 0 for v in tiers3.values()),
           f"not every Voigt tier was exercised by K3: {tiers3}")
 
+    # Phase 4d: the fused RT epilogue at the benchmark cells' shapes.
+    epilogue = epilogue_phase(dev, card)
+
     # Phase 5: the main path, forward, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
+        routes = epilogue_counts()
         cli.main(["forward", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
-        fwd_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
+        fwd_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES, ce.LAUNCHES)
+        fwd_route = epilogue_route(routes)
         with np.load(os.path.join(tmp, "forward.npz")) as out:
             I, chans = out["values"], out["nu"]
     print(f"forward launches: K1 {fwd_launches[0]}, K2 {fwd_launches[1]}, "
-          f"K5 {fwd_launches[2]}")
+          f"K5 {fwd_launches[2]}, epilogue {fwd_launches[3]} "
+          f"({fwd_route} route)")
     check(fwd_launches[0] > 0, "the CLI forward never launched K1")
+    check(fwd_route == "fused" and fwd_launches[3] == fwd_launches[0],
+          f"the CLI forward's epilogue took the {fwd_route} route with "
+          f"{fwd_launches[3]} launches, not one fused launch a K1")
     check(I.shape == (20, 96), f"radiance shape {I.shape} != (20, 96)")
     check(bool(np.isfinite(I).all() and (I >= 0).all()),
           "radiances not finite and non-negative")
@@ -3351,12 +3517,14 @@ def main(argv=None) -> int:
     # Phase 6: the main path, retrieve, through the CLI.
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
+        routes = epilogue_counts()
         t0 = time.perf_counter()
         cli.main(["retrieve", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
         torch.cuda.synchronize()
         ret_wall = time.perf_counter() - t0
-        ret_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
+        ret_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES, ce.LAUNCHES)
+        ret_route = epilogue_route(routes)
         with np.load(os.path.join(tmp, "retrieval.npz")) as out:
             res = {k: out[k] for k in out.files}
         with open(os.path.join(tmp, "run.jsonl")) as f:
@@ -3365,7 +3533,8 @@ def main(argv=None) -> int:
     iters = [r for r in log if "chi2" in r]
     n_y = int(res["y_obs"].size)
     print(f"retrieve launches: K1 {ret_launches[0]}, K2 {ret_launches[1]}, "
-          f"K5 {ret_launches[2]} ({n_iter} LM iterations)")
+          f"K5 {ret_launches[2]}, epilogue {ret_launches[3]} ({ret_route} "
+          f"route; {n_iter} LM iterations)")
     print(f"retrieve: converged {bool(res['converged'])} "
           f"({res['stop_reason']}), chi2 {iters[0]['chi2']:.6g} at the "
           f"prior -> {chi2:.6g} over {n_y} measurements, "
@@ -3373,6 +3542,13 @@ def main(argv=None) -> int:
     check(ret_launches[0] > 0, "the CLI retrieve never launched K1")
     check(ret_launches[1] == n_iter + 1,
           f"K2 launched {ret_launches[1]} times for {n_iter + 1} Jacobians")
+    # One fused launch a forward (a K1 each) and two a Jacobian.
+    check(ret_route == "fused"
+          and ret_launches[3] == ret_launches[0] + n_iter + 1,
+          f"the CLI retrieve's epilogue took the {ret_route} route with "
+          f"{ret_launches[3]} launches, not {ret_launches[0] + n_iter + 1} "
+          f"fused ones")
+    epilogue["launches"] = ret_launches[3]
     check(bool(res["converged"]), "the retrieval did not converge")
     check(chi2 < iters[0]["chi2"], "chi2 did not fall")
     check(all(bool(np.isfinite(v).all()) for v in res.values()
@@ -3386,8 +3562,14 @@ def main(argv=None) -> int:
                                    dev)
            for name, p in prob.items()}
     x0 = prob["kernels"].x0
+    reset_launches()
     jac_peak = peak_memory(lambda: jac["kernels"](x0))
     J = jac["kernels"](x0)
+    n = launch_counts()
+    check(jac_peak[2] == "fused" and n["epilogue"] == 2 * n["K2"] == 4,
+          f"the Jacobian at the prior (eager and captured, then replayed) "
+          f"took the {jac_peak[2]} epilogue route with launches "
+          f"{json.dumps(n)}, not two fused launches a Jacobian")
     J_plain = jac["plain"](x0)
     jac_err = float((J - J_plain).abs().max())
     jac_max = float(J_plain.abs().max())
@@ -3844,7 +4026,8 @@ def main(argv=None) -> int:
              "max_abs_err": tools["fma"]["max_abs_err"],
              "ms": tools["fma"]["ms"], "plain_ms": tools["fma"]["plain_ms"],
              "bound_ms": tools["fma"]["bound"][0],
-             "bound_by": tools["fma"]["bound"][1], "library_ms": None}]}))
+             "bound_by": tools["fma"]["bound"][1], "library_ms": None}],
+        "port_kernels": [epilogue]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -636,7 +636,13 @@ def _check_obs_consistency(cfg, obs, chans, n_chan):
 # scene (CIA, a FOV over 40 rays) 15.40; the float64 Weideman slice 13.33;
 # config 5 13.25 at n_x = 50 and 13.10 at 114; the float64 slice through
 # the float32 kernels 13.33, as Weideman's (their float32 copies are freed
-# before the epilogue's peak).
+# before the epilogue's peak).  Those are the composed epilogue's counts.
+# Where the epilogue is the fused kernel (``forward.limb.fused_epilogue``:
+# the kernels' engine on the card, forward mode, a limb or a black
+# surface), which keeps no temporary of a tangent's size, the same
+# Jacobians hold 4.1-4.2 (the composed scene, whose CIA adds to both
+# depths, 6.2), so the count is about 2.3-3.4 times theirs there: the
+# guard chunks and releases graphs early on that route, never late.
 JAC_LIVE_TANGENTS = 14.0
 # The CPU's limit: the reference's 8 GB, half of the 16 GB of the v5e it
 # was set on (spectrobot_tpu/cli.py:560-564).

@@ -12,7 +12,9 @@ in local thermodynamic equilibrium both weights are 1; with a non-LTE state
 temperature, and the emission depth differs from the absorption depth.  The
 source assembly forms S_nu = B_nu(T_air) k_em / k_abs.  A collision-induced
 continuum (``cia``, ``ops.cia.DeviceCIA``) is added to both depths before
-it.
+it.  The source assembly and the path RT run either as composed PyTorch
+ops or, for a forward-mode forward on the kernels' engine on the card, in
+one kernel launch (``ops.cuda_epilogue``; :func:`fused_epilogue`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from spectrobot_tpu_torch.data.nlte import DeviceNLTE, layer_weights
 from spectrobot_tpu_torch.forward.geometry import PathCG
 from spectrobot_tpu_torch.forward.rt import layer_path_radiance
+from spectrobot_tpu_torch.ops import cuda_epilogue
 from spectrobot_tpu_torch.ops.cuda_basis import KERNELS
 from spectrobot_tpu_torch.ops.chi import CHI_MAX_CUTOFF
 from spectrobot_tpu_torch.ops.cia import cia_dtau
@@ -33,6 +36,14 @@ from spectrobot_tpu_torch.ops.opacity import (
 from spectrobot_tpu_torch.ops.planck import planck_nu
 from spectrobot_tpu_torch.ops.strengths import DeviceLines
 from spectrobot_tpu_torch.utils.profiling import annotate
+
+
+# Host-issued calls of the RT epilogue (:func:`tau_radiance_epilogue`) over
+# the process, by route: "fused" through ``ops.cuda_epilogue``'s kernel,
+# "composed" through the PyTorch ops.  Eager calls and graph captures count
+# once each; a graph's replays issue none.  The benchmark's
+# ``epilogue_fused_pct`` reads them.
+EPILOGUE_COUNTS = {"fused": 0, "composed": 0}
 
 
 class LayerOptics(NamedTuple):
@@ -152,17 +163,51 @@ def downwelling_radiance(optics: LayerOptics, cg: PathCG) -> torch.Tensor:
                                torch.flip(cg.seg_layer, dims=(0,)), None)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def fused_epilogue(engine: Optional[Engine], analytic_jvp, dtau,
+                   is_limb: bool = True, emissivity: float = 1.0) -> bool:
+    """Whether :func:`tau_radiance_epilogue` takes the fused kernel
+    (``ops.cuda_epilogue.RadianceEpilogue``): the kernels' engine, depths
+    on the card, analytic forward mode, and a limb or a nadir path over a
+    black surface (a grey one needs the downwelling pass).  Everything
+    else (the plain engines, the CPU, reverse mode and plain autograd, the
+    table runtime and the mesh bodies, which pass no engine) takes the
+    composed ops.  A ray set the kernel does not take raises there."""
+    return (engine is KERNELS and _on_card(dtau)
+            and ad_mode(analytic_jvp) == "fwd"
+            and (is_limb or emissivity == 1.0))
+
+
 def tau_radiance_epilogue(nu_grid, cg: PathCG, dtau, dtau_em, cia=None,
                           I_background: Optional[torch.Tensor] = None,
                           is_limb: bool = True,
-                          emissivity: float = 1.0) -> torch.Tensor:
+                          emissivity: float = 1.0, *,
+                          engine: Optional[Engine] = None,
+                          analytic_jvp=True,
+                          lte: bool = False) -> torch.Tensor:
     """Radiance from line-sum depths [R, NL, P]: add the collision-induced
     continuum ``cia`` (``ops.cia.DeviceCIA``, on the same grid) to both
     depths, assemble sources, and for a nadir path over a grey surface
     (``is_limb=False``, ``I_background`` = eps B(T_s)) add the Lambertian
     reflected downwelling.  Pointwise in (ray, nu): the single-device tails
-    and the mesh bodies share it."""
+    and the mesh bodies share it.
+
+    Where :func:`fused_epilogue` holds for ``engine`` and ``analytic_jvp``
+    (the line sum's), the sources and the path RT run in one kernel launch
+    and a ``torch.func.jacfwd`` takes every tangent column in one more;
+    ``lte`` (both amplitude rows equal, so both depths) lets the kernel
+    read the absorption depth alone.  Each call counts in
+    ``EPILOGUE_COUNTS``."""
     dtau, dtau_em = add_cia(cia, cg, dtau, dtau_em)
+    if fused_epilogue(engine, analytic_jvp, dtau, is_limb, emissivity):
+        EPILOGUE_COUNTS["fused"] += 1
+        return cuda_epilogue.RadianceEpilogue.apply(
+            nu_grid, cg.T_air, dtau, None if lte else dtau_em, cg.seg_layer,
+            I_background)
+    EPILOGUE_COUNTS["composed"] += 1
     optics = optics_from_tau(nu_grid, cg, dtau, dtau_em)
     if not is_limb and emissivity < 1.0:
         I_background = I_background + (1.0 - emissivity) * \
@@ -181,19 +226,20 @@ def add_cia(cia, cg: PathCG, dtau, dtau_em):
 
 def radiance_from_tau(nu_grid, cg: PathCG, dtau, dtau_em, cia=None,
                       T_surface=None, emissivity: float = 1.0,
-                      I_background: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      I_background: Optional[torch.Tensor] = None,
+                      **route) -> torch.Tensor:
     """RT epilogue: limb when ``T_surface`` is None (deep space or
     ``I_background`` behind), nadir over a grey surface otherwise; ``cia``
-    as :func:`tau_radiance_epilogue` takes it."""
+    and ``route`` (``engine``, ``analytic_jvp``, ``lte``) as
+    :func:`tau_radiance_epilogue` takes them."""
     if T_surface is None:
         return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em, cia=cia,
-                                     I_background=I_background)
+                                     I_background=I_background, **route)
     I_bg = emissivity * planck_nu(nu_grid, T_surface)
     I_bg = torch.broadcast_to(I_bg, (dtau.shape[0], nu_grid.shape[0]))
     return tau_radiance_epilogue(nu_grid, cg, dtau, dtau_em, cia=cia,
                                  I_background=I_bg, is_limb=False,
-                                 emissivity=emissivity)
+                                 emissivity=emissivity, **route)
 
 
 def _depths(nu_grid, lines: DeviceLines, cg: PathCG, *,

@@ -86,7 +86,8 @@ COUNTERS = {("cuda_opacity", "LAUNCHES"): "opacity_batch_kernel",
             ("cuda_basis_single", "LAUNCHES"): "basis_single_kernel",
             ("cuda_fma", "LAUNCHES"): "fma_chain_kernel",
             ("cuda_dma", "RING_LAUNCHES"): "dma_ring_kernel",
-            ("cuda_dma", "HALO_LAUNCHES"): "dma_halo_kernel"}
+            ("cuda_dma", "HALO_LAUNCHES"): "dma_halo_kernel",
+            ("cuda_epilogue", "LAUNCHES"): "rt_epilogue_kernel"}
 # The wrappers' per-stream caches of arrival counters, {(device, raw
 # stream handle): tensor}, as (module, attribute).
 STREAM_CACHES = (("cuda_single", "_COUNTERS"), ("cuda_transpose", "_COUNTERS"),

@@ -196,7 +196,10 @@ def build_forward(
     the spans (``utils.profiling.annotate``) ``spectrobot.forward.path``,
     ``.prologue`` (with ``nlte`` the layer weights in ``.nlte`` inside
     it), ``.line_sum``, ``.epilogue`` (with ``fov_V`` the smear in
-    ``.fov`` inside it) and ``.ils``.
+    ``.fov`` inside it) and ``.ils``.  The epilogue's sources and path RT
+    take ``forward.limb.fused_epilogue``'s route: on the card with
+    ``KERNELS`` in forward mode one kernel launch a call, and one for every
+    tangent column of a ``torch.func.jacfwd`` (``ops.cuda_epilogue``).
     """
     if nu_off is None:
         nu_off = torch.as_tensor(
@@ -226,7 +229,9 @@ def build_forward(
         with annotate("spectrobot.forward.epilogue"):
             I = radiance_from_tau(nu_grid.to(dtau.dtype), cg, dtau, dtau_em,
                                   cia=cia, T_surface=ts,
-                                  emissivity=emissivity)
+                                  emissivity=emissivity, engine=engine,
+                                  analytic_jvp=analytic_jvp,
+                                  lte=nlte is None)
             if fov_V is not None:
                 with annotate("spectrobot.forward.fov"):
                     I = apply_fov(I, fov_V)
