@@ -29,7 +29,6 @@ times.  An ablated build computes wrong results by construction: only
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import re
@@ -83,20 +82,6 @@ def build_variant(name: str, src: str, kernel: str) -> tuple:
         raise RuntimeError(f"nvcc failed for {name}/{kernel}:\n"
                            f"{proc.stderr[-3000:]}")
     return name, kernel, lib, proc.stdout + proc.stderr
-
-
-def bind(kernel: str, path: str) -> ctypes.CDLL:
-    """The library with the argument types its wrapper sets."""
-    lib = ctypes.CDLL(path)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    n_int = 4 if kernel == "basis_batch" else 6
-    launch = getattr(lib, f"{kernel}_launch")
-    launch.argtypes = [ptr] * 13 + [i32] * n_int + [ctypes.c_float, ptr]
-    launch.restype = i32
-    err = getattr(lib, f"{kernel}_error_string")
-    err.argtypes = [i32]
-    err.restype = ctypes.c_char_p
-    return lib
 
 
 def cases(dev) -> dict:
@@ -159,8 +144,9 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda j: build_variant(*j), jobs))
     libs, rows = {}, {v: {"variant": v, "card": card} for v in sources}
+    wrappers = {"basis_batch": cb, "basis_single": cbs}
     for v, kernel, path, log in built:
-        libs[v, kernel] = bind(kernel, path)
+        libs[v, kernel] = wrappers[kernel].KERNEL.bind(path)
         rows[v][f"{kernel} registers"] = [
             int(r) for r in re.findall(r"Used (\d+) registers", log)]
         rows[v][f"{kernel} spill bytes"] = max(
@@ -169,11 +155,7 @@ def main(argv=None) -> int:
     order = list(sources) + list(sources)[::-1]
     for name, (kernel, call) in cases(torch.device("cuda")).items():
         for v in order:
-            lib = libs[v, kernel]
-            if kernel == "basis_batch":
-                cb._LIB = lib
-            else:
-                cbs._LIB = lib
+            wrappers[kernel].KERNEL.bound = libs[v, kernel]
             rows[v].setdefault(f"{name} ms", []).append(
                 cs.cuda_ms(lambda: call(cb, cbs), 10))
     for row in rows.values():

@@ -258,6 +258,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.roofline import (
     HBM_BYTES_S, REGION_FLOPS, REGION_FLOPS_GRAD, REGIONS, basis_batch_bytes,
     basis_bound_ms, bound_ms, line_sum_inputs, region_counts)
@@ -320,29 +321,26 @@ CONFIG1 = dict(T_layer=215.0, p_layer_pa=500.0, column_m2=2.0e27,
 ORACLE_RTOL, ORACLE_ATOL_REL = 5e-3, 1e-4
 
 
+# The labels this script prints for the kernels' launch counts, by
+# __global__ name (``kernels.launch.KERNELS``; a kernel not named here goes
+# by its own name).
+LABELS = {"opacity_batch_kernel": "K1", "basis_batch_kernel": "K2",
+          "basis_transpose_kernel": "K5", "opacity_single_kernel": "K3",
+          "basis_single_kernel": "K4", "dma_ring_kernel": "dma_ring",
+          "dma_halo_kernel": "dma_halo", "fma_chain_kernel": "fma_peak",
+          "rt_epilogue_kernel": "epilogue"}
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_dma, cuda_epilogue, cuda_fma,
-        cuda_opacity, cuda_single, cuda_transpose)
-    for m in (cuda_opacity, cuda_basis, cuda_transpose, cuda_single,
-              cuda_basis_single, cuda_fma, cuda_epilogue):
-        m.LAUNCHES = 0
-    cuda_dma.RING_LAUNCHES = cuda_dma.HALO_LAUNCHES = 0
+    launch.LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches since the last :func:`reset_launches`."""
-    from spectrobot_tpu_torch.ops import (
-        cuda_basis, cuda_basis_single, cuda_dma, cuda_epilogue, cuda_fma,
-        cuda_opacity, cuda_single, cuda_transpose)
-    return {"K1": cuda_opacity.LAUNCHES, "K2": cuda_basis.LAUNCHES,
-            "K5": cuda_transpose.LAUNCHES, "K3": cuda_single.LAUNCHES,
-            "K4": cuda_basis_single.LAUNCHES,
-            "dma_ring": cuda_dma.RING_LAUNCHES,
-            "dma_halo": cuda_dma.HALO_LAUNCHES,
-            "fma_peak": cuda_fma.LAUNCHES,
-            "epilogue": cuda_epilogue.LAUNCHES}
+    """Each kernel's launches since the last :func:`reset_launches`, by
+    its label."""
+    return {LABELS.get(k, k): launch.LAUNCHES[k]
+            for k in launch.KERNELS.values()}
 
 
 def expect_launches(what: str, n: dict, **want) -> None:
@@ -825,10 +823,10 @@ def graph_phase(mesh, halo_fn, halo_in: tuple, card: str) -> None:
                 # The first replay traced: its kernels as the device ran
                 # them, against the counts the replay added.
                 traced, got = ho.traced_launches(lambda: calls[i](f), dev)
-                check(traced == graphed.launch_counts(),
+                check(traced == launch.LAUNCHES,
                       f"{name}: a replay's trace launched "
                       f"{json.dumps(traced)}, its counts say "
-                      f"{json.dumps(graphed.launch_counts())}")
+                      f"{json.dumps(launch.LAUNCHES)}")
             else:
                 got = calls[i](f)
             torch.cuda.synchronize()
@@ -905,8 +903,8 @@ def capture_ring_check(mesh, lines_loc, card: str) -> None:
     read back from the card after each.  Prints, on a line of its own, the
     NCCL runtime, the route and the capture rings' settings as read
     back."""
-    from spectrobot_tpu_torch.ops import cuda_dma
     from spectrobot_tpu_torch.parallel import collectives as C
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel.peer import Ring
     from spectrobot_tpu_torch.parallel.sharded import _line_messages
 
@@ -1587,9 +1585,9 @@ def config3_phase(dev, mesh) -> dict:
         lambda: oe.forward_flat(flatten_state(empty)[0]), dev)
     I_r = I_r.reshape(I_single.shape)
     n_r = launch_counts()
-    check(traced == graphed.launch_counts(),
+    check(traced == launch.LAUNCHES,
           f"the composed mesh forward's replay traced {json.dumps(traced)}, "
-          f"its counts say {json.dumps(graphed.launch_counts())}")
+          f"its counts say {json.dumps(launch.LAUNCHES)}")
     print(f"composed mesh forward replayed: bit-equal to its first (eager) "
           f"call {bool(torch.equal(I_r, I_m))}; graph pool "
           f"{pool / 1e6:.2f} MB; launches {json.dumps(n_r)}, as its trace "
@@ -2589,9 +2587,9 @@ def engine_dtype_phase(dev, mesh, cfg, scene, I, J, card: str) -> dict:
         reset_launches()
         traced, I_r = ho.traced_launches(lambda: oe.forward_flat(x_e), dev)
         n_r = launch_counts()
-        check(traced == graphed.launch_counts(),
+        check(traced == launch.LAUNCHES,
               f"the float64 {tier} replay traced {json.dumps(traced)}, its "
-              f"counts say {json.dumps(graphed.launch_counts())}")
+              f"counts say {json.dumps(launch.LAUNCHES)}")
         expect_launches(f"the float64 {tier} mesh forward", n, K1=1)
         expect_launches(f"the float64 {tier} mesh replay", n_r, K1=1)
         err = rel_max(I_m.reshape(I_one.shape), I_one)
@@ -2941,8 +2939,8 @@ def dma_phase(dev, bench: K3Case, bench_nu0: torch.Tensor, dense: K3Case, *,
     import types
 
     from spectrobot_tpu_torch import dma_halo
-    from spectrobot_tpu_torch.ops import cuda_dma as cd
     from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel import cuda_dma as cd
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
 
@@ -3273,12 +3271,12 @@ def epilogue_phase(dev, card: str) -> dict:
     for name, (R, NL, P, n_t, nlte, grid) in cases.CELLS.items():
         prim, tan, _ = cases.case(dev, torch.float32, R, NL, P, n_t, nlte,
                                   grid)
-        before = ce.LAUNCHES
+        before = launch_counts()["epilogue"]
         I = ce.radiance(*prim)
         dI = ce.radiance_tangent(*prim, *tan)
         torch.cuda.synchronize()
-        check(ce.LAUNCHES == before + 2,
-              f"4d {name}: {ce.LAUNCHES - before} epilogue launches, not 2")
+        n = launch_counts()["epilogue"] - before
+        check(n == 2, f"4d {name}: {n} epilogue launches, not 2")
         composed = ce.composed_tangent(*prim, *tan)
         errs = {"primal": rel_max(I, ce.composed_radiance(*prim)),
                 "tangent": rel_max(dI, composed)}
@@ -3342,8 +3340,9 @@ def cuda_ms(fn, n: int = 5) -> float:
 
 
 def build_kernels() -> None:
-    """The kernels from the checkout's sources, one nvcc each, in
-    parallel; prints each build's time and ptxas report."""
+    """Every kernel (``kernels.launch.KERNELS``) from the checkout's
+    sources, one nvcc each, in parallel; prints each build's time and
+    ptxas report."""
     from spectrobot_tpu_torch.kernels import build
 
     def one(name):
@@ -3351,7 +3350,7 @@ def build_kernels() -> None:
         path, log = build.build(name)
         return name, path, log, time.time() - t0
 
-    names = [*KERNELS, *MEASUREMENT_KERNELS, *PORT_KERNELS]
+    names = list(launch.KERNELS)
     with ThreadPoolExecutor(len(names)) as pool:
         for name, path, log, secs in pool.map(one, names):
             print(f"build: {os.path.relpath(path, REPO)} in {secs:.2f} s")
@@ -3377,12 +3376,12 @@ def main(argv=None) -> int:
     from spectrobot_tpu_torch import adjoint, cli
     from spectrobot_tpu_torch.ops import cuda_basis as cb
     from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
-    from spectrobot_tpu_torch.ops import cuda_dma as cd
     from spectrobot_tpu_torch.ops import cuda_epilogue as ce
     from spectrobot_tpu_torch.ops import cuda_fma
     from spectrobot_tpu_torch.ops import cuda_opacity as co
     from spectrobot_tpu_torch.ops import cuda_single as cs
     from spectrobot_tpu_torch.ops import cuda_transpose as ctr
+    from spectrobot_tpu_torch.parallel import cuda_dma as cd
     from spectrobot_tpu_torch.parallel import peer
     from spectrobot_tpu_torch.parallel.mesh import finalize_multihost
 
@@ -3398,15 +3397,8 @@ def main(argv=None) -> int:
 
     # Phase 2: build from the checkout's sources.
     build_kernels()
-    co._library()
-    cb._library()
-    ctr._library()
-    cs._library()
-    cbs._library()
-    peer.library()
-    cd._library()
-    cuda_fma._library()
-    ce._library()
+    for wrapper in (co, cb, ctr, cs, cbs, peer, cd, cuda_fma, ce):
+        wrapper.KERNEL.library()
 
     # Phase 3: K1 against the plain version, and the tiers it exercised.
     tiers = {name: 0 for name in co.TIERS}
@@ -3486,7 +3478,8 @@ def main(argv=None) -> int:
         routes = epilogue_counts()
         cli.main(["forward", SCENE, "-o", f"run.output_dir={tmp}",
                   "--device", "cuda"])
-        fwd_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES, ce.LAUNCHES)
+        n = launch_counts()
+        fwd_launches = (n["K1"], n["K2"], n["K5"], n["epilogue"])
         fwd_route = epilogue_route(routes)
         with np.load(os.path.join(tmp, "forward.npz")) as out:
             I, chans = out["values"], out["nu"]
@@ -3523,7 +3516,8 @@ def main(argv=None) -> int:
                   "--device", "cuda"])
         torch.cuda.synchronize()
         ret_wall = time.perf_counter() - t0
-        ret_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES, ce.LAUNCHES)
+        n = launch_counts()
+        ret_launches = (n["K1"], n["K2"], n["K5"], n["epilogue"])
         ret_route = epilogue_route(routes)
         with np.load(os.path.join(tmp, "retrieval.npz")) as out:
             res = {k: out[k] for k in out.files}
@@ -3627,7 +3621,8 @@ def main(argv=None) -> int:
     reset_launches()
     g_rev = cost_grad(rev["kernels"])
     torch.cuda.synchronize()
-    grad_launches = (co.LAUNCHES, cb.LAUNCHES, ctr.LAUNCHES)
+    n = launch_counts()
+    grad_launches = (n["K1"], n["K2"], n["K5"])
     g_plain = cost_grad(rev["plain"])
     y0 = prob["kernels"].fwd_flat(x0)
     g_jac = J.T @ ((y0 - y_obs) / sigma ** 2)

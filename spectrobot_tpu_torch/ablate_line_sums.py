@@ -57,6 +57,9 @@ archive <commit> spectrobot_tpu_torch | tar -x -C DIR``) as the variants
 full K1, K3 and fused kernel with the checkout's on every case (K1 and K3
 bit for bit; the fused sums, whose segments moved, by the largest
 difference against K1's budget) and its K5 by the largest difference.
+The parent's wrappers must have the checkout's module layout (each
+kernel's ``KERNEL`` a ``kernels.launch.Kernel``, the fused halo kernel's in
+``parallel/cuda_dma.py``).
 
 Cases: chip_smoke.py's K1 inputs (the limb, nadir + chi, bench and bench +
 chi cases; the limb's live states alone, which takes the dead-state blocks
@@ -105,16 +108,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# kernel -> (module that loads its library, name of its loader).
-KERNELS = {"opacity_batch": ("ops.cuda_opacity", "_library"),
-           "basis_transpose": ("ops.cuda_transpose", "_library"),
-           "opacity_single": ("ops.cuda_single", "_library"),
-           "dma_ring": ("parallel.peer", "library"),
-           "dma_halo": ("ops.cuda_dma", "_library")}
+# kernel -> the module whose ``KERNEL`` (a ``kernels.launch.Kernel``)
+# launches it.
+KERNELS = {"opacity_batch": "ops.cuda_opacity",
+           "basis_transpose": "ops.cuda_transpose",
+           "opacity_single": "ops.cuda_single",
+           "dma_ring": "parallel.peer",
+           "dma_halo": "parallel.cuda_dma"}
 # The wrapper modules a parent set loads from its own sources, in import
 # order (each later one imports the earlier ones).
 PARENT_MODULES = ("ops.cuda_opacity", "ops.cuda_single",
-                  "ops.cuda_transpose", "parallel.peer", "ops.cuda_dma",
+                  "ops.cuda_transpose", "parallel.peer", "parallel.cuda_dma",
                   "dma_halo")
 SASS_KERNELS = ("opacity_batch", "opacity_single")
 
@@ -230,20 +234,6 @@ def build_variant(src: str, edits: list, kernel: str) -> tuple:
         raise RuntimeError(f"nvcc failed for {kernel} from {src}:\n"
                            f"{proc.stderr[-3000:]}")
     return lib, proc.stdout + proc.stderr
-
-
-def bind(mod, loader: str, path: str):
-    """Load ``path`` as the library of module ``mod`` (the module's own
-    binding code, its function ``loader``, sets the argument types)."""
-    from spectrobot_tpu_torch.kernels import build
-
-    load = build.load
-    build.load = lambda name: ctypes.CDLL(path)
-    try:
-        mod._LIB = None
-        return getattr(mod, loader)()
-    finally:
-        build.load = load
 
 
 def checkout_modules() -> dict:
@@ -431,11 +421,10 @@ def ring_host_split(ring, x, n: int = 1000) -> dict:
     yardstick, torch.roll of the same blocks."""
     import time
 
-    from spectrobot_tpu_torch.ops import cuda_dma
-    from spectrobot_tpu_torch.parallel import peer
+    from spectrobot_tpu_torch.parallel import cuda_dma, peer
 
     dev = x.device
-    lib = peer.library()
+    lib = peer.KERNEL.library()
 
     def context():
         with torch.cuda.device(dev):
@@ -480,21 +469,21 @@ def fused_host_split(ring, a: tuple, kw: dict, n: int = 1000) -> dict:
     import time
 
     from spectrobot_tpu_torch import dma_halo
-    from spectrobot_tpu_torch.ops import cuda_dma
-    from spectrobot_tpu_torch.ops.cuda_single import current_stream
+    from spectrobot_tpu_torch.kernels import launch
     from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel.halo import pack_lines
 
     n_sh, nu, skl = a
     nu_k = nu.reshape(n_sh, -1)
     packed = pack_lines(KernelLines(*skl[:4])).contiguous()
-    lib = cuda_dma._library()
+    lib = cuda_dma.KERNEL.library()
     seen = []
-    launch = lib.dma_halo_launch
-    lib.dma_halo_launch = lambda *args: seen.append(args) or launch(*args)
+    real = lib.dma_halo_launch
+    lib.dma_halo_launch = lambda *args: seen.append(args) or real(*args)
     entry = dma_halo.fused_halo_accumulate_fn(ring, **kw)
     keep = entry(nu, skl)                 # the buffers the relaunch writes
-    lib.dma_halo_launch = launch
+    lib.dma_halo_launch = real
     dev = nu.device
     parts = {
         "entry point": lambda: entry(nu, skl),
@@ -503,9 +492,9 @@ def fused_host_split(ring, a: tuple, kw: dict, n: int = 1000) -> dict:
         "torch.empty": lambda: torch.empty((2, 4096), device=dev),
         "workspace and epoch": lambda: (ring.workspace_for(1),
                                         ring.begin_call()),
-        "stream and counters": lambda: cuda_dma.arrival_counters(
-            cuda_dma._COUNTERS, dev, current_stream(dev.index), 1),
-        "launch alone": lambda: launch(*seen[-1]),
+        "stream and counters": lambda: launch.arrival_counters(
+            "dma_halo", dev, launch.stream(dev.index), 1),
+        "launch alone": lambda: real(*seen[-1]),
     }
     out = {}
     for name, fn in parts.items():
@@ -530,7 +519,7 @@ def wrapper_call(kernel: str, mods: dict, rings: dict, a: tuple, kw: dict):
 
         n, nu, skl = a
         packed = pack_lines(KernelLines(*skl[:4])).contiguous()
-        fn = mods["ops.cuda_dma"].fused_halo_accumulate_cuda
+        fn = mods["parallel.cuda_dma"].fused_halo_accumulate_cuda
         args = (_ring_of(mods, rings, n, nu.device), nu.reshape(n, -1),
                 packed)
     elif kernel == "opacity_batch":
@@ -541,7 +530,7 @@ def wrapper_call(kernel: str, mods: dict, rings: dict, a: tuple, kw: dict):
         fn, args = mods["ops.cuda_single"].accumulate_single, a
     else:
         n, x = a
-        fn, args = mods["ops.cuda_dma"].ring_exchange_cuda, (
+        fn, args = mods["parallel.cuda_dma"].ring_exchange_cuda, (
             _ring_of(mods, rings, n, x.device), x, 1)
     return lambda: fn(*args, **kw)
 
@@ -560,8 +549,9 @@ def entry_parts(a: tuple, kw: dict) -> dict:
     """Device time [ms, CUDA events] of the two tensor operations around
     the fused wrapper in its entry point: the packing of the lines and
     the loopback's layout of the result."""
-    from spectrobot_tpu_torch.ops.cuda_dma import fused_halo_accumulate_plain
     from spectrobot_tpu_torch.ops.opacity import KernelLines
+    from spectrobot_tpu_torch.parallel.cuda_dma import (
+        fused_halo_accumulate_plain)
     from spectrobot_tpu_torch.parallel.halo import pack_lines
 
     import chip_smoke as cs
@@ -633,8 +623,7 @@ def main(argv=None) -> int:
                 print(f"sass {v}: {json.dumps(loop)}")
     bound = {}
     for (v, kernel), (prefix, path) in libs.items():
-        rel, loader = KERNELS[kernel]
-        bound[v, kernel] = bind(sets[prefix][2][rel], loader, path)
+        bound[v, kernel] = sets[prefix][2][KERNELS[kernel]].KERNEL.bind(path)
     rings = {prefix: {} for prefix in sets}
     all_cases = cases(torch.device("cuda"), kernels)
     for name, (kernel, a, kw) in all_cases.items():
@@ -645,8 +634,7 @@ def main(argv=None) -> int:
         for v in variants + variants[::-1]:
             prefix = libs[v, kernel][0]
             mods = sets[prefix][2]
-            rel, _ = KERNELS[kernel]
-            mods[rel]._LIB = bound[v, kernel]
+            mods[KERNELS[kernel]].KERNEL.bound = bound[v, kernel]
             call = wrapper_call(kernel, mods, rings[prefix], a, kw)
             row = rows[v]
             row.setdefault(f"{name} ms", []).append(cs.cuda_ms(call,

@@ -69,8 +69,8 @@ from spectrobot_tpu_torch.data.atmosphere import MARS, mars_standard_atmosphere
 from spectrobot_tpu_torch.data.synth import co2_15um_band, random_lines
 from spectrobot_tpu_torch.forward.geometry import limb_path_cg
 from spectrobot_tpu_torch.forward.limb import limb_radiance
-from spectrobot_tpu_torch.ops import (
-    cuda_basis, cuda_fma, cuda_opacity, cuda_single)
+from spectrobot_tpu_torch.kernels import launch
+from spectrobot_tpu_torch.ops import cuda_fma, cuda_single
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.ils import ils_matrix
 from spectrobot_tpu_torch.ops.opacity import line_kernel_inputs
@@ -183,20 +183,19 @@ def chained_ms(fn: Callable, x0, perturb: Optional[Callable], n_iter: int,
     return Timing(min(times), busy)
 
 
-def launches() -> dict:
-    """The line-sum kernels' launch counts in this process so far."""
-    return {"K1": cuda_opacity.LAUNCHES, "K2": cuda_basis.LAUNCHES,
-            "K3": cuda_single.LAUNCHES}
+# The line-sum kernels whose launches a scene reports, by their labels.
+LINE_SUMS = {"K1": "opacity_batch_kernel", "K2": "basis_batch_kernel",
+             "K3": "opacity_single_kernel"}
 
 
 def launches_of(fn: Callable, x) -> dict:
-    """The kernel launches of one call ``fn(x)``."""
-    before = launches()
+    """The line-sum kernels' launches in one call ``fn(x)``."""
+    before = launch.LAUNCHES.copy()
     out = fn(x)
     for t in _tensors(out):
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
-    return {k: v - before[k] for k, v in launches().items()}
+    return {k: launch.LAUNCHES[g] - before[g] for k, g in LINE_SUMS.items()}
 
 
 def _emit(record: dict) -> dict:

@@ -5,8 +5,8 @@ against the nu-halo tier of ``parallel/sharded.py`` (ppermute, here
 ``parallel.collectives.ring_shift``) and kept the module for the tests of
 its semaphore protocol, the one place of the repo where races are
 possible.  The port does the same: nothing in the CLI reaches it.  Its
-kernels (``ops/cuda_dma.py``) store into the neighbours' memory from inside
-the kernel, over the peer workspace of ``parallel/peer.py``.
+kernels (``parallel/cuda_dma.py``) store into the neighbours' memory from
+inside the kernel, over the peer workspace of ``parallel/peer.py``.
 
 Each function takes a ring: a :class:`~spectrobot_tpu_torch.parallel.mesh.
 Mesh` over ``nu`` (:func:`nu_ring_mesh`; every rank calls, with its own
@@ -43,10 +43,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from spectrobot_tpu_torch.ops import cuda_dma
-from spectrobot_tpu_torch.ops.cuda_dma import (
-    fused_halo_accumulate_lines, ring_exchange_cuda)
 from spectrobot_tpu_torch.ops.opacity import KernelLines
+from spectrobot_tpu_torch.parallel import cuda_dma
+from spectrobot_tpu_torch.parallel.cuda_dma import (
+    fused_halo_accumulate_lines, ring_exchange_cuda)
 from spectrobot_tpu_torch.parallel.halo import (
     ShardedKernelLines, pack_lines, unpack_lines)
 from spectrobot_tpu_torch.parallel.mesh import (
@@ -115,12 +115,12 @@ def ring_halo_lines(ring, skl):
 
 def fused_halo_accumulate_fn(ring, *, cutoff_cm1: Optional[float] = 25.0):
     """f(nu_grid, skl) -> [n_out, P]: the fused halo, one launch per call
-    (``ops.cuda_dma.fused_halo_accumulate_lines``: on the card the kernel
-    reads the line rows where they are and writes the grid's layout).  On
-    the loopback ``nu_grid`` is the whole grid and ``skl`` the
-    ``ShardedKernelLines`` of every shard; on a mesh ``nu_grid`` is this
-    rank's chunk, ``skl`` its ``KernelLines``, and the result its [n_out,
-    P_loc] block."""
+    (``parallel.cuda_dma.fused_halo_accumulate_lines``: on the card the
+    kernel reads the line rows where they are and writes the grid's
+    layout).  On the loopback ``nu_grid`` is the whole grid and ``skl``
+    the ``ShardedKernelLines`` of every shard; on a mesh ``nu_grid`` is
+    this rank's chunk, ``skl`` its ``KernelLines``, and the result its
+    [n_out, P_loc] block."""
     r = _ring(ring)
 
     def apply(nu_grid: torch.Tensor, skl) -> torch.Tensor:
@@ -229,8 +229,8 @@ def run(device, *, n_lines=20480, n_points=16384, block_mb=64.0) -> dict:
     ring = mesh_ring(mesh)
     n, k = mesh.shape["nu"], mesh.coord["nu"]
     if device.type == "cuda":       # build before any rank waits on a peer
-        peer.library()
-        cuda_dma._library()
+        peer.KERNEL.library()
+        cuda_dma.KERNEL.library()
         ring.sync_once("dma_ring")
         ring.sync_once("dma_halo")
     nu_host, kl, skl, nu_loc, mine = dense_case(

@@ -85,10 +85,10 @@ from spectrobot_tpu_torch.data.atmosphere import MARS, mars_standard_atmosphere
 from spectrobot_tpu_torch.data.synth import co2_15um_band, co_fundamental
 from spectrobot_tpu_torch.forward.geometry import limb_path_cg
 from spectrobot_tpu_torch.forward.limb import limb_radiance
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
 from spectrobot_tpu_torch.ops.strengths import device_lines_from_linelist
-from spectrobot_tpu_torch.parallel.graphed import (
-    REPLAY_RANGE, kernel_launches)
+from spectrobot_tpu_torch.parallel.graphed import REPLAY_RANGE
 from spectrobot_tpu_torch.parallel.mesh import (
     _TORCHRUN_ENV, finalize_multihost, initialize_multihost, make_mesh)
 from spectrobot_tpu_torch.parallel.sharded import (
@@ -367,10 +367,10 @@ def trace_forwards(fn: Callable, device: torch.device, n: int) -> list:
 def traced_launches(fn: Callable, device: torch.device) -> tuple:
     """(launches, out): one call of ``fn`` traced (:func:`trace_forwards`),
     the launches of each counted kernel read from its device events
-    (``graphed.kernel_launches``), and what the call returned."""
+    (``kernels.launch.kernel_launches``), and what the call returned."""
     outs = []
     ((work, _, _),) = trace_forwards(lambda: outs.append(fn()), device, 1)
-    return kernel_launches([name for name, *_ in work]), outs[0]
+    return launch.kernel_launches([name for name, *_ in work]), outs[0]
 
 
 def measure(fn: Callable, device: torch.device, n_forwards: int = N_FORWARDS,

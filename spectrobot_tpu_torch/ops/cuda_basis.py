@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, _round_up,
     accumulate_batch, accumulate_batch_plain, check_windows, pad_lines)
@@ -61,9 +62,12 @@ from spectrobot_tpu_torch.ops.opacity import (
 # row group (:func:`row_spans`).
 MAX_ROWS = 223
 
-# Kernel launches made by basis_contract_batch in this process.
-LAUNCHES = 0
-_LIB = None
+# The kernel, bound at its first launch (``kernels.launch``).
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = launch.Kernel(
+    "basis_batch", [_ptr] * 13 + [_i32] * 4 + [ctypes.c_float, _ptr],
+    {"basis_batch_tile_p": TILE_P, "basis_batch_block_l": BLOCK_L,
+     "basis_batch_sub_l": SUB_L, "basis_batch_max_rows": MAX_ROWS})
 
 
 def basis_contract_batch_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
@@ -164,28 +168,6 @@ def contract_row_groups(C, out: torch.Tensor, contract) -> torch.Tensor:
     return out
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("basis_batch")
-        geometry = (lib.basis_batch_tile_p(), lib.basis_batch_block_l(),
-                    lib.basis_batch_sub_l(), lib.basis_batch_max_rows())
-        if geometry != (TILE_P, BLOCK_L, SUB_L, MAX_ROWS):
-            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{(TILE_P, BLOCK_L, SUB_L, MAX_ROWS)}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.basis_batch_launch.argtypes = [ptr] * 13 + [
-            i32, i32, i32, i32, ctypes.c_float, ptr]
-        lib.basis_batch_launch.restype = i32
-        lib.basis_batch_error_string.argtypes = [i32]
-        lib.basis_batch_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
                          nu_c: torch.Tensor, sx: torch.Tensor, y: torch.Tensor,
                          C1: torch.Tensor, C2: torch.Tensor,
@@ -226,8 +208,6 @@ def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
     P = nu_grid.shape[0]
     check_windows(nu_grid, windows, L, cutoff_cm1)
     win = windows
-    lib = _library()
-
     dev = nu_grid.device
     Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
     nuc_d = pad_lines(nu_c, Lp, win.far)
@@ -239,29 +219,22 @@ def basis_contract_batch(nu_grid: torch.Tensor, windows: Windows,
     out = torch.empty((B, R, Pp), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
 
-    def launch(Cg, out_g):
-        global LAUNCHES
+    def contract(Cg, out_g):
         G = Cg[0].shape[1]
         C_d = [aligned(pad_lines(c, Lp, 0.0)) for c in Cg]
         dst = (out_g if out_g.is_contiguous() else
                torch.empty((B, G, Pp), dtype=torch.float32, device=dev))
-        rc = lib.basis_batch_launch(
-            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
-            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
-            *(c.data_ptr() for c in C_d), win.starts.data_ptr(),
-            win.counts.data_ptr(), active.data_ptr(), dst.data_ptr(), B, G,
-            Pp, Lp, cut, stream)
-        LAUNCHES += 1
-        if rc != 0:
-            msg = lib.basis_batch_error_string(rc).decode()
-            raise RuntimeError(f"basis_batch kernel launch failed: CUDA "
-                               f"error {rc} ({msg})")
+        KERNEL(win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
+               y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
+               *(c.data_ptr() for c in C_d), win.starts.data_ptr(),
+               win.counts.data_ptr(), active.data_ptr(), dst.data_ptr(), B, G,
+               Pp, Lp, cut, stream)
         if dst is not out_g:
             out_g.copy_(dst)
 
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        contract_row_groups(C, out, launch)
+        stream = launch.stream(dev.index)
+        contract_row_groups(C, out, contract)
     return out[:, :, :P]
 
 

@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, Windows, _round_up, check_tensors, check_windows,
     pad_lines)
@@ -49,9 +50,12 @@ from spectrobot_tpu_torch.ops.opacity import _basis
 # A call takes any number: its rows are split into groups of at most this.
 MAX_ROWS = 223
 
-# Kernel launches made by basis_contract_single in this process.
-LAUNCHES = 0
-_LIB = None
+# The kernel, bound at its first launch (``kernels.launch``).
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = launch.Kernel(
+    "basis_single", [_ptr] * 13 + [_i32] * 6 + [ctypes.c_float, _ptr],
+    {"basis_single_tile_p": TILE_P, "basis_single_block_l": BLOCK_L,
+     "basis_single_sub_l": SUB_L, "basis_single_max_rows": MAX_ROWS})
 
 
 def basis_contract_single_plain(nu_grid, nu_c, sx, y, C1, C2, C3, C4, *,
@@ -112,28 +116,6 @@ def _check(nu_grid, nu_c, sx, y, C, chi_b, *, kernel: bool) -> None:
     check_tensors(nu_grid, want, kernel=kernel)
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("basis_single")
-        geometry = (lib.basis_single_tile_p(), lib.basis_single_block_l(),
-                    lib.basis_single_sub_l(), lib.basis_single_max_rows())
-        if geometry != (TILE_P, BLOCK_L, SUB_L, MAX_ROWS):
-            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{(TILE_P, BLOCK_L, SUB_L, MAX_ROWS)}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.basis_single_launch.argtypes = [ptr] * 13 + [
-            i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
-        lib.basis_single_launch.restype = i32
-        lib.basis_single_error_string.argtypes = [i32]
-        lib.basis_single_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def basis_contract_single(nu_grid: torch.Tensor, windows: Windows,
                           nu_c: torch.Tensor, sx: torch.Tensor,
                           y: torch.Tensor, C1: torch.Tensor, C2: torch.Tensor,
@@ -152,7 +134,6 @@ def basis_contract_single(nu_grid: torch.Tensor, windows: Windows,
     centers (``line_windows``), as K3 takes them (the plain version needs
     none).
     """
-    global LAUNCHES
     C = (C1, C2, C3, C4)
     on_cpu = nu_grid.device.type == "cpu"
     _check(nu_grid, nu_c, sx, y, C, chi_b, kernel=not on_cpu)
@@ -164,8 +145,6 @@ def basis_contract_single(nu_grid: torch.Tensor, windows: Windows,
     L, R, P = nu_c.shape[0], C1.shape[0], nu_grid.shape[0]
     check_windows(nu_grid, windows, L, cutoff_cm1)
     win = windows
-    lib = _library()
-
     dev = nu_grid.device
     Pp, Lp = win.nu_pad.shape[0], _round_up(max(L, BLOCK_L), BLOCK_L)
     nuc_d = pad_lines(nu_c, Lp, win.far)
@@ -179,16 +158,10 @@ def basis_contract_single(nu_grid: torch.Tensor, windows: Windows,
     out = torch.empty((R, Pp), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.basis_single_launch(
-            win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
-            y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
-            *(c.data_ptr() for c in C_d), win.starts.data_ptr(),
-            win.counts.data_ptr(), None if part is None else part.data_ptr(),
-            out.data_ptr(), R, G, Pp, Lp, n_seg, seg_blocks, cut, stream)
-        LAUNCHES += 1
-    if rc != 0:
-        msg = lib.basis_single_error_string(rc).decode()
-        raise RuntimeError(f"basis_single kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+        KERNEL(win.nu_pad.data_ptr(), nuc_d.data_ptr(), sx_d.data_ptr(),
+               y_d.data_ptr(), None if chi_d is None else chi_d.data_ptr(),
+               *(c.data_ptr() for c in C_d), win.starts.data_ptr(),
+               win.counts.data_ptr(),
+               None if part is None else part.data_ptr(), out.data_ptr(), R,
+               G, Pp, Lp, n_seg, seg_blocks, cut, launch.stream(dev.index))
     return out[:, :P]

@@ -42,7 +42,7 @@ import torch
 
 from spectrobot_tpu_torch.constants import C1B, C2
 from spectrobot_tpu_torch.forward.rt import layer_path_radiance
-from spectrobot_tpu_torch.ops.cuda_single import current_stream
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.opacity import _map_batch
 
 # The kernel's geometry (csrc/rt_epilogue.cu, checked when it is loaded):
@@ -55,10 +55,13 @@ SHARED_MAX = 232448
 TYPES = {(torch.float32, torch.float32): 0, (torch.float64, torch.float64): 1,
          (torch.float32, torch.float64): 2}
 
-# Kernel launches made by radiance and radiance_tangent in this process (a
-# graph's capture and replays as ``parallel.graphed`` counts them).
-LAUNCHES = 0
-_LIB = None
+# The kernel, bound at its first launch (``kernels.launch``).
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+KERNEL = launch.Kernel(
+    "rt_epilogue", [_i32, _i32, _i32, _ptr, _ptr, _ptr, ctypes.c_double,
+                    ctypes.c_double, _ptr],
+    {"rt_epilogue_tile_p": TILE_P, "rt_epilogue_col_groups": COL_GROUPS,
+     "rt_epilogue_shared_max": SHARED_MAX})
 # A zero of each (device, dtype), broadcast in place of an absent tangent
 # or background.
 _ZEROS: dict = {}
@@ -134,29 +137,6 @@ def _columns(*tangents) -> int:
     return next((t.shape[0] for t in tangents if t is not None), 1)
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("rt_epilogue")
-        geometry = (lib.rt_epilogue_tile_p(), lib.rt_epilogue_col_groups(),
-                    lib.rt_epilogue_shared_max())
-        if geometry != (TILE_P, COL_GROUPS, SHARED_MAX):
-            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{(TILE_P, COL_GROUPS, SHARED_MAX)}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rt_epilogue_launch.argtypes = [i32, i32, i32, ptr, ptr, ptr,
-                                           ctypes.c_double, ctypes.c_double,
-                                           ptr]
-        lib.rt_epilogue_launch.restype = i32
-        lib.rt_epilogue_error_string.argtypes = [i32]
-        lib.rt_epilogue_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def _zero(dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A zero of ``dtype`` on ``dev``, made once and kept."""
     key = (dev, dtype)
@@ -207,7 +187,6 @@ def _launch(out, nu, T_air, dtau, dtau_em, seg_layer, I_bg,
     """One kernel launch writing ``out`` (in the source dtype): the primal,
     or with ``tangents`` (dT, d_tau, d_em, d_bg; None broadcasts a zero)
     every column.  Raises where the ray set does not fit a block."""
-    global LAUNCHES
     R, NL, P = dtau.shape
     ts = out.dtype
     if not takes(NL, seg_layer.shape[0], ts):
@@ -244,16 +223,9 @@ def _launch(out, nu, T_air, dtau, dtau_em, seg_layer, I_bg,
     for t, rank in zip(args[:4] + args[5:10], (1, 2, 3, 3, 2, 3, 4, 4, 3)):
         strides += [0] * rank if t is None else list(t.stride())
     dims = (ctypes.c_longlong * 5)(R, NL, P, seg_layer.shape[0], n_t)
-    lib = _library()
-    rc = lib.rt_epilogue_launch(
-        dev.index, TYPES[(dtau.dtype, ts)], int(tangent), ptrs, dims,
-        (ctypes.c_longlong * 25)(*strides), C1B, C2,
-        current_stream(dev.index))
-    LAUNCHES += 1
-    if rc != 0:
-        msg = lib.rt_epilogue_error_string(rc).decode()
-        raise RuntimeError(f"rt_epilogue kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+    KERNEL(dev.index, TYPES[(dtau.dtype, ts)], int(tangent), ptrs, dims,
+           (ctypes.c_longlong * 25)(*strides), C1B, C2,
+           launch.stream(dev.index))
     return out
 
 

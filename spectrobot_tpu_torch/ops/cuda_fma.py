@@ -21,14 +21,16 @@ import math
 
 import torch
 
-from spectrobot_tpu_torch.ops.cuda_single import current_stream
+from spectrobot_tpu_torch.kernels import launch
 
 # The chain depths the kernel is built for (csrc/fma_peak.cu).
 DEPTHS = (8, 64, 256)
 
-# Kernel launches made by fma_chain in this process.
-LAUNCHES = 0
-_LIB = None
+# The kernel, bound at its first launch (``kernels.launch``).
+KERNEL = launch.Kernel(
+    "fma_peak", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
+                 ctypes.c_int, ctypes.c_void_p])
 
 
 def _fmaf(x: torch.Tensor, a: float, b: float) -> torch.Tensor:
@@ -66,30 +68,12 @@ def _f32(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.float32))
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("fma_peak")
-        ptr, f32 = ctypes.c_void_p, ctypes.c_float
-        lib.fma_peak_launch.argtypes = [ctypes.c_int, ptr, ptr, f32, f32,
-                                        ctypes.c_longlong, ctypes.c_int, ptr]
-        lib.fma_peak_launch.restype = ctypes.c_int
-        lib.fma_peak_error_string.argtypes = [ctypes.c_int]
-        lib.fma_peak_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def fma_chain(x: torch.Tensor, a: float, b: float,
               depth: int) -> torch.Tensor:
     """``depth`` chained FMAs x <- x * a + b on every element of ``x``
     (2 depth flops an element), into a new tensor.  CUDA tensors must be
     contiguous float32 with a multiple of 4 elements, 16-byte aligned;
     ``depth`` one of ``DEPTHS``."""
-    global LAUNCHES
     if depth not in DEPTHS:
         raise ValueError(f"depth must be one of {DEPTHS}, got {depth}")
     if x.device.type == "cpu":
@@ -101,14 +85,8 @@ def fma_chain(x: torch.Tensor, a: float, b: float,
         raise ValueError("the FMA kernel takes a contiguous, 16-byte aligned "
                          "float32 tensor of a positive multiple of 4 "
                          f"elements; got {x.dtype} {tuple(x.shape)}")
-    lib = _library()
     out = torch.empty_like(x)
     dev = x.device
-    rc = lib.fma_peak_launch(dev.index, x.data_ptr(), out.data_ptr(), a, b,
-                             x.numel(), depth, current_stream(dev.index))
-    LAUNCHES += 1
-    if rc != 0:
-        msg = lib.fma_peak_error_string(rc).decode()
-        raise RuntimeError(f"fma_peak kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+    KERNEL(dev.index, x.data_ptr(), out.data_ptr(), a, b, x.numel(), depth,
+           launch.stream(dev.index))
     return out

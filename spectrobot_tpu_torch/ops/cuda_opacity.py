@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
 
 # Kernel geometry; must equal the constants of csrc/opacity_batch.cu
@@ -52,9 +53,12 @@ TIERS = ("far", "mid", "near3", "near4")
 # cover any pressure shift (the reference's default shift margin).
 SHIFT_MARGIN_CM1 = 1.0
 
-# Kernel launches made by accumulate_batch in this process.
-LAUNCHES = 0
-_LIB = None
+# The kernel, bound at its first launch (``kernels.launch``).
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = launch.Kernel(
+    "opacity_batch", [_ptr] * 9 + [_i32] * 4 + [_f32, _f32, _ptr],
+    {"opacity_batch_tile_p": TILE_P, "opacity_batch_block_l": BLOCK_L,
+     "opacity_batch_sub_l": SUB_L})
 
 # Elements per (state, line, point) slab of the plain version (bounds its
 # intermediates to ~128 MB each in float32).
@@ -371,29 +375,6 @@ def _check(nu_grid, nu_c, scale_x, y, amps, chi_b, *, kernel: bool) -> None:
                   note=" (the kernel sums exactly two depths)")
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("opacity_batch")
-        geometry = (lib.opacity_batch_tile_p(), lib.opacity_batch_block_l(),
-                    lib.opacity_batch_sub_l())
-        if geometry != (TILE_P, BLOCK_L, SUB_L):
-            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{(TILE_P, BLOCK_L, SUB_L)}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        f32 = ctypes.c_float
-        lib.opacity_batch_launch.argtypes = [ptr] * 9 + [
-            i32, i32, i32, i32, f32, f32, ptr]
-        lib.opacity_batch_launch.restype = i32
-        lib.opacity_batch_error_string.argtypes = [i32]
-        lib.opacity_batch_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def accumulate_batch(nu_grid: torch.Tensor, windows: Windows,
                      nu_c: torch.Tensor,
                      scale_x: torch.Tensor, y: torch.Tensor,
@@ -411,7 +392,6 @@ def accumulate_batch(nu_grid: torch.Tensor, windows: Windows,
     cover any pressure shift; the per-pair |dnu| <= cutoff mask keeps the
     result exact).  The plain version needs none.
     """
-    global LAUNCHES
     on_cpu = nu_grid.device.type == "cpu"
     _check(nu_grid, nu_c, scale_x, y, amps, chi_b, kernel=not on_cpu)
     if on_cpu:
@@ -423,22 +403,13 @@ def accumulate_batch(nu_grid: torch.Tensor, windows: Windows,
     P = nu_grid.shape[0]
     check_windows(nu_grid, windows, L, cutoff_cm1)
     win = windows
-    lib = _library()
-
     dev = nu_grid.device
     out = torch.empty((B, 2, P), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.opacity_batch_launch(
-            win.nu_pad.data_ptr(), nu_c.data_ptr(), scale_x.data_ptr(),
-            y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),
-            amps.data_ptr(), win.starts.data_ptr(), win.counts.data_ptr(),
-            out.data_ptr(), B, P, win.nu_pad.shape[0], L, win.far, cut,
-            stream)
-        LAUNCHES += 1
-    if rc != 0:
-        msg = lib.opacity_batch_error_string(rc).decode()
-        raise RuntimeError(f"opacity_batch kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+        KERNEL(win.nu_pad.data_ptr(), nu_c.data_ptr(), scale_x.data_ptr(),
+               y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),
+               amps.data_ptr(), win.starts.data_ptr(), win.counts.data_ptr(),
+               out.data_ptr(), B, P, win.nu_pad.shape[0], L, win.far, cut,
+               launch.stream(dev.index))
     return out

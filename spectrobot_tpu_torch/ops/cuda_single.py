@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, TILE_P, Windows, check_tensors, check_windows)
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
@@ -44,12 +45,14 @@ MAX_OUT = 8
 # window table (the longest tile window over the number of segments).
 TARGET_BLOCKS = 2048
 
-# Kernel launches made by accumulate_single in this process.
-LAUNCHES = 0
-_LIB = None
-# Per (device, stream): the kernel's arrival counters, one per tile, zero
-# between calls (each launch leaves them zero).
-_COUNTERS: dict = {}
+# The kernel, bound at its first launch (``kernels.launch``); its arrival
+# counters, one per tile, are ``launch.arrival_counters``.
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = launch.Kernel(
+    "opacity_single", [_i32] + [_ptr] * 11 + [_i32] * 4 + [_f32, _i32, _i32,
+                                                         _f32, _ptr],
+    {"opacity_single_tile_p": TILE_P, "opacity_single_block_l": BLOCK_L,
+     "opacity_single_max_out": MAX_OUT})
 
 
 def accumulate_single_plain(nu_grid, nu_c, scale_x, y, amps, *,
@@ -74,27 +77,6 @@ def split_blocks(n_items: int, n_blocks: int,
     n_seg = max(1, min(n_blocks, -(-target // n_items)))
     seg_blocks = -(-n_blocks // n_seg)
     return -(-n_blocks // seg_blocks), seg_blocks
-
-
-def current_stream(index: int) -> int:
-    """The raw handle of PyTorch's current stream on card ``index`` (what
-    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
-    a Stream object: the kernel wrappers' host time is a part of their
-    call's)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-def arrival_counters(cache: dict, dev: torch.device, stream: int,
-                     n: int) -> torch.Tensor:
-    """At least ``n`` zero int32 arrival counters for a kernel's launches on
-    ``stream``, kept in ``cache`` (each launch leaves them zero, so no call
-    runs a fill kernel)."""
-    key = (dev, stream)
-    have = cache.get(key)
-    if have is None or have.numel() < n:
-        have = cache[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                        device=dev)
-    return have
 
 
 def segments(windows: Windows) -> tuple:
@@ -125,29 +107,6 @@ def _check(nu_grid, nu_c, scale_x, y, amps, chi_b, *, kernel: bool) -> None:
     check_tensors(nu_grid, want, kernel=kernel)
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("opacity_single")
-        geometry = (lib.opacity_single_tile_p(), lib.opacity_single_block_l(),
-                    lib.opacity_single_max_out())
-        if geometry != (TILE_P, BLOCK_L, MAX_OUT):
-            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{(TILE_P, BLOCK_L, MAX_OUT)}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        f32 = ctypes.c_float
-        lib.opacity_single_launch.argtypes = [i32] + [ptr] * 11 + [
-            i32, i32, i32, i32, f32, i32, i32, f32, ptr]
-        lib.opacity_single_launch.restype = i32
-        lib.opacity_single_error_string.argtypes = [i32]
-        lib.opacity_single_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def accumulate_single(nu_grid: torch.Tensor, windows: Windows,
                       nu_c: torch.Tensor, scale_x: torch.Tensor,
                       y: torch.Tensor, amps: torch.Tensor, *,
@@ -165,7 +124,6 @@ def accumulate_single(nu_grid: torch.Tensor, windows: Windows,
     margin; the per-pair cutoff mask keeps the result exact).  The plain
     version needs none.
     """
-    global LAUNCHES
     on_cpu = nu_grid.device.type == "cpu"
     _check(nu_grid, nu_c, scale_x, y, amps, chi_b, kernel=not on_cpu)
     if on_cpu:
@@ -176,8 +134,6 @@ def accumulate_single(nu_grid: torch.Tensor, windows: Windows,
     L, n_out, P = nu_c.shape[0], amps.shape[0], nu_grid.shape[0]
     check_windows(nu_grid, windows, L, cutoff_cm1)
     win = windows
-    lib = _library()
-
     dev = nu_grid.device
     Pp = win.nu_pad.shape[0]
     n_seg, seg_blocks = segments(win)
@@ -185,20 +141,14 @@ def accumulate_single(nu_grid: torch.Tensor, windows: Windows,
             torch.empty((n_seg, n_out, Pp), dtype=torch.float32, device=dev))
     out = torch.empty((n_out, P), dtype=torch.float32, device=dev)
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
-    stream = current_stream(dev.index)
-    counters = (None if n_seg == 1 else
-                arrival_counters(_COUNTERS, dev, stream, Pp // TILE_P))
-    rc = lib.opacity_single_launch(
-        dev.index, win.nu_pad.data_ptr(), nu_c.data_ptr(),
-        scale_x.data_ptr(), y.data_ptr(),
-        None if chi_b is None else chi_b.data_ptr(), amps.data_ptr(),
-        win.starts.data_ptr(), win.counts.data_ptr(),
-        None if part is None else part.data_ptr(),
-        None if counters is None else counters.data_ptr(), out.data_ptr(),
-        n_out, P, Pp, L, win.far, n_seg, seg_blocks, cut, stream)
-    LAUNCHES += 1
-    if rc != 0:
-        msg = lib.opacity_single_error_string(rc).decode()
-        raise RuntimeError(f"opacity_single kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+    stream = launch.stream(dev.index)
+    counters = (None if n_seg == 1 else launch.arrival_counters(
+        "opacity_single", dev, stream, Pp // TILE_P))
+    KERNEL(dev.index, win.nu_pad.data_ptr(), nu_c.data_ptr(),
+           scale_x.data_ptr(), y.data_ptr(),
+           None if chi_b is None else chi_b.data_ptr(), amps.data_ptr(),
+           win.starts.data_ptr(), win.counts.data_ptr(),
+           None if part is None else part.data_ptr(),
+           None if counters is None else counters.data_ptr(), out.data_ptr(),
+           n_out, P, Pp, L, win.far, n_seg, seg_blocks, cut, stream)
     return out

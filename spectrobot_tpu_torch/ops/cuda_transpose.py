@@ -41,9 +41,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.cuda_opacity import (
     BLOCK_L, SUB_L, TILE_P, _PLAIN_SLAB, Windows, check_windows)
-from spectrobot_tpu_torch.ops.cuda_single import arrival_counters, split_blocks
+from spectrobot_tpu_torch.ops.cuda_single import split_blocks
 from spectrobot_tpu_torch.ops.opacity import tangent_transpose_plain
 
 # The most cotangent rows one kernel call takes (csrc/basis_transpose.cu
@@ -60,12 +61,14 @@ CHUNK_ROWS = 8
 # many times one in its wing) evens out.
 TARGET_BLOCKS = 4096
 
-# Kernel launches made by basis_transpose_batch in this process.
-LAUNCHES = 0
-_LIB = None
-# Per (device, stream): the kernel's arrival counters, zero between calls
-# (each launch leaves them zero), so that no call runs a fill kernel.
-_COUNTERS: dict = {}
+# The kernel, bound at its first launch (``kernels.launch``).
+_ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = launch.Kernel(
+    "basis_transpose", [_ptr] * 14 + [_i32] * 8 + [_f32, _f32, _ptr],
+    {"basis_transpose_tile_p": TILE_P, "basis_transpose_block_l": BLOCK_L,
+     "basis_transpose_sub_l": SUB_L, "basis_transpose_reg_rows": REG_ROWS,
+     "basis_transpose_chunk_rows": CHUNK_ROWS,
+     "basis_transpose_max_rows": MAX_ROWS})
 
 Projections = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -148,34 +151,6 @@ def _check(nu_grid, nu_c, sx, y, ct, chi_b, *, kernel: bool) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-def _library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("basis_transpose")
-        geometry = (lib.basis_transpose_tile_p(),
-                    lib.basis_transpose_block_l(),
-                    lib.basis_transpose_sub_l(),
-                    lib.basis_transpose_reg_rows(),
-                    lib.basis_transpose_chunk_rows(),
-                    lib.basis_transpose_max_rows())
-        want = (TILE_P, BLOCK_L, SUB_L, REG_ROWS, CHUNK_ROWS, MAX_ROWS)
-        if geometry != want:
-            raise RuntimeError(f"kernel geometry {geometry} != wrapper "
-                               f"{want}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        f32 = ctypes.c_float
-        lib.basis_transpose_launch.argtypes = [ptr] * 14 + [
-            i32] * 8 + [f32, f32, ptr]
-        lib.basis_transpose_launch.restype = i32
-        lib.basis_transpose_error_string.argtypes = [i32]
-        lib.basis_transpose_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
 def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
                           nu_c: torch.Tensor, sx: torch.Tensor,
                           y: torch.Tensor, ct: torch.Tensor, *,
@@ -194,7 +169,6 @@ def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
     whose cotangent rows are all zero; a zero-amplitude state is not
     skipped, since its amplitude cotangent is not zero.
     """
-    global LAUNCHES
     on_cpu = nu_grid.device.type == "cpu"
     _check(nu_grid, nu_c, sx, y, ct, chi_b, kernel=not on_cpu)
     if on_cpu:
@@ -206,8 +180,6 @@ def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
     R, P = ct.shape[1], nu_grid.shape[0]
     check_windows(nu_grid, windows, L, cutoff_cm1)
     win = windows
-    lib = _library()
-
     dev = nu_grid.device
     n_lblk = win.starts_T.shape[0]
     n_seg, seg_tiles = segments(win, B, R)
@@ -219,21 +191,15 @@ def basis_transpose_batch(nu_grid: torch.Tensor, windows: Windows,
         (n_seg, B, 4 * R, n_lblk * BLOCK_L), dtype=torch.float32, device=dev))
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = launch.stream(dev.index)
         counters = (None if n_seg == 1 else
-                    arrival_counters(_COUNTERS, dev, stream,
-                                     B * n_lblk * row_chunks(R)))
-        rc = lib.basis_transpose_launch(
-            win.nu_pad.data_ptr(), nu_c.data_ptr(), sx.data_ptr(),
-            y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),
-            ct.data_ptr(), win.starts_T.data_ptr(), win.counts_T.data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(),
-            *(o.data_ptr() for o in outs), B, R, P, win.nu_pad.shape[0], L,
-            n_lblk, n_seg, seg_tiles, win.far, cut, stream)
-        LAUNCHES += 1
-    if rc != 0:
-        msg = lib.basis_transpose_error_string(rc).decode()
-        raise RuntimeError(f"basis_transpose kernel launch failed: CUDA "
-                           f"error {rc} ({msg})")
+                    launch.arrival_counters("basis_transpose", dev, stream,
+                                            B * n_lblk * row_chunks(R)))
+        KERNEL(win.nu_pad.data_ptr(), nu_c.data_ptr(), sx.data_ptr(),
+               y.data_ptr(), None if chi_b is None else chi_b.data_ptr(),
+               ct.data_ptr(), win.starts_T.data_ptr(), win.counts_T.data_ptr(),
+               None if part is None else part.data_ptr(),
+               None if counters is None else counters.data_ptr(),
+               *(o.data_ptr() for o in outs), B, R, P, win.nu_pad.shape[0], L,
+               n_lblk, n_seg, seg_tiles, win.far, cut, stream)
     return tuple(outs)

@@ -28,7 +28,7 @@ graph's capture (``parallel.graphed``) the exchange is issued from a
 stream of its own, so that it is a branch of the graph beside the
 caller's work, and it leaves NCCL: :func:`capture_exchange` sends every
 hop's messages by one launch of the port's ring kernel
-(``ops.cuda_dma.ring_exchange_hops``, ``csrc/dma_ring.cu``) over the
+(``parallel.cuda_dma.ring_exchange_hops``, ``csrc/dma_ring.cu``) over the
 mesh's capture ring (``Mesh.capture_ring``: the ranks of the ``nu``
 group, peer memory, epochs counted on the card).  NCCL offers no
 per-communicator switch for its support of graphs mixed with eager
@@ -326,7 +326,8 @@ def capture_exchange(sends: Sequence[torch.Tensor], ring,
     a capture does it).  Received messages as ``ring_exchange_start``
     gives them, views of the launch's output.  On the CPU the ring's plain
     version (``ring_shift`` over the ``nu`` group) moves the row."""
-    from spectrobot_tpu_torch.ops.cuda_dma import ring_exchange_hops
+    # Imported here: parallel.cuda_dma imports this module.
+    from spectrobot_tpu_torch.parallel.cuda_dma import ring_exchange_hops
 
     shifts = tuple(int(s) for s in shifts)
     x = pack_messages(sends)

@@ -44,9 +44,9 @@ from typing import Optional
 
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.cuda_opacity import BLOCK_L, TILE_P
-from spectrobot_tpu_torch.ops.cuda_single import (
-    MAX_OUT, arrival_counters, current_stream, split_blocks)
+from spectrobot_tpu_torch.ops.cuda_single import MAX_OUT, split_blocks
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
 from spectrobot_tpu_torch.parallel import peer
 from spectrobot_tpu_torch.parallel.collectives import ring_shift
@@ -61,45 +61,20 @@ from spectrobot_tpu_torch.parallel.peer import (
 # takes over.
 HALO_ITEMS = 4096
 
-# Kernel launches made by the wrappers in this process.
-RING_LAUNCHES = 0
-HALO_LAUNCHES = 0
-_LIB = None
-# Per (device, stream): the fused kernel's arrival counters, one per
-# (shard, tile), and its work counter, zero between calls (each launch
-# leaves them zero); and its scratch (the block ranges and the partial
-# sums), which only the launch of the call reads and writes.
-_COUNTERS: dict = {}
-_SCRATCH: dict = {}
-
-
-def _library() -> ctypes.CDLL:
-    """The fused kernel's library, built and bound on first use (the ring
-    kernel's is ``parallel.peer.library``).  Its tile, block and row limit
-    are K3's: both kernels include ``csrc/line_sum_item.cuh``."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("dma_halo")
-        ptr, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_ulonglong)
-        f32 = ctypes.c_float
-        lib.dma_halo_launch.argtypes = (
-            [i32] + [ptr] * 6 + [i64] * 3 + [ptr, i64, i64, ptr, ptr, i64]
-            + [i32] * 6 + [f32, i32, u64, f32, i32, ptr])
-        lib.dma_halo_launch.restype = i32
-        lib.dma_halo_error_string.argtypes = [i32]
-        lib.dma_halo_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
-
-
-def _raise_on(lib, name: str, rc: int) -> None:
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+# The fused kernel, bound at its first launch (``kernels.launch``; the
+# ring kernel's is ``parallel.peer.KERNEL``).  Its tile, block and row
+# limit are K3's: both kernels include ``csrc/line_sum_item.cuh``.  Per
+# (card, stream) it has arrival counters, one per (shard, tile), and a
+# work counter, zero between calls (each launch leaves them zero), and
+# scratch (the block ranges and the partial sums), which only the launch
+# of the call reads and writes (``launch.arrival_counters``,
+# ``launch.scratch``).
+_ptr, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+KERNEL = launch.Kernel(
+    "dma_halo", [_i32] + [_ptr] * 6 + [_i64] * 3 + [_ptr, _i64, _i64, _ptr,
+                                                    _ptr, _i64]
+    + [_i32] * 6 + [_f32, _i32, ctypes.c_ulonglong, _f32, _i32, _ptr])
 
 
 def _direction_index(direction: int) -> int:
@@ -180,7 +155,6 @@ def ring_exchange_hops(ring: Ring, x: torch.Tensor,
     launch counts its epoch on the card, so that a CUDA graph may capture
     it: inside a capture the ring must be reserved for the block
     (``Ring.reserve``) beforehand."""
-    global RING_LAUNCHES
     d, n_dirs = _directions(directions)
     _check_ring_tensor(ring, x, "x", 2)
     n_floats = x.numel() // ring.n if ring.loopback else x.numel()
@@ -191,7 +165,6 @@ def ring_exchange_hops(ring: Ring, x: torch.Tensor,
     _check_kernel_tensor(ring, x, "x")
     if n_floats == 0:
         raise ValueError("the ring exchange takes a non-empty block")
-    lib = peer.library()
     if torch.cuda.is_current_stream_capturing():
         if not (ring.on_device and ring.reserved(n_floats)):
             raise RuntimeError(
@@ -204,10 +177,8 @@ def ring_exchange_hops(ring: Ring, x: torch.Tensor,
     args.n, args.d, args.n_dirs = n_floats, d, n_dirs
     args.chunk = ring_chunk(n_floats, args.n_loc * n_dirs)
     args.epoch = 0 if ring.on_device else ring.begin_call()
-    args.stream = current_stream(args.device)
-    rc = lib.dma_ring_launch(ctypes.byref(args))
-    RING_LAUNCHES += 1
-    _raise_on(lib, "dma_ring", rc)
+    args.stream = launch.stream(args.device)
+    peer.KERNEL(ctypes.byref(args))
     return out
 
 
@@ -328,16 +299,6 @@ def blocks_visited(nu: torch.Tensor, packed: torch.Tensor,
     return int(within.sum()), within.numel()
 
 
-def _scratch(dev: torch.device, stream: int, n: int) -> int:
-    """The address of at least ``n`` floats of the fused kernel's scratch
-    for launches on ``stream`` (kept in ``_SCRATCH``, grown on demand)."""
-    have = _SCRATCH.get((dev, stream))
-    if have is None or have.numel() < n:
-        have = _SCRATCH[dev, stream] = torch.empty(
-            max(n, 1 << 16), dtype=torch.float32, device=dev)
-    return have.data_ptr()
-
-
 def _launch_fused(ring: Ring, nu: torch.Tensor, rows: tuple, strides: tuple,
                   n_out: int, L: int, out: torch.Tensor, out_strides: tuple,
                   cutoff_cm1: Optional[float]) -> None:
@@ -346,12 +307,10 @@ def _launch_fused(ring: Ring, nu: torch.Tensor, rows: tuple, strides: tuple,
     ``strides`` in floats (between the shards' nu_c, scale_x and y;
     between their amps; between the rows of a shard's amps) into ``out``
     with ``out_strides`` (between shards, between rows)."""
-    global HALO_LAUNCHES
     if ring.on_device:
         raise ValueError("the fused halo kernel takes its epoch from the "
                          "host: it does not run on a ring on the device's "
                          "epoch")
-    lib = _library()
     ring.sync_once("dma_halo")
     ws = ring.workspace_for(workspace_floats(n_out, L))
     epoch = ring.begin_call()
@@ -363,18 +322,16 @@ def _launch_fused(ring: Ring, nu: torch.Tensor, rows: tuple, strides: tuple,
     n_seg = halo_segments(n_loc * (1 + n_dirs) * n_tiles, nb)
     n_parts = (1 + n_dirs) * n_seg
     parts = n_parts * n_out * n_tiles * TILE_P if n_parts > 1 else 0
-    stream = current_stream(dev.index)
-    scratch = _scratch(dev, stream, n_loc * (2 * nb + parts))
-    counters = arrival_counters(_COUNTERS, dev, stream,
-                                n_loc * n_tiles + 1).data_ptr()
+    stream = launch.stream(dev.index)
+    scratch = launch.scratch("dma_halo", dev, stream,
+                             n_loc * (2 * nb + parts)).data_ptr()
+    counters = launch.arrival_counters("dma_halo", dev, stream,
+                                       n_loc * n_tiles + 1).data_ptr()
     cut = math.inf if cutoff_cm1 is None else float(cutoff_cm1)
-    rc = lib.dma_halo_launch(
-        dev.index, ws.table.data_ptr(), nu.data_ptr(), *rows, *strides,
-        out.data_ptr(), *out_strides, scratch, counters,
-        ws.cap_floats, n_loc, n_out, P, L, n_dirs, n_seg, cut, CHUNK_FLOATS,
-        epoch, TIMEOUT_S, int(ring.loopback), stream)
-    HALO_LAUNCHES += 1
-    _raise_on(lib, "dma_halo", rc)
+    KERNEL(dev.index, ws.table.data_ptr(), nu.data_ptr(), *rows, *strides,
+           out.data_ptr(), *out_strides, scratch, counters, ws.cap_floats,
+           n_loc, n_out, P, L, n_dirs, n_seg, cut, CHUNK_FLOATS, epoch,
+           TIMEOUT_S, int(ring.loopback), stream)
 
 
 def _check_n_out(n_out: int) -> None:

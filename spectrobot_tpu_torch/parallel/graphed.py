@@ -38,15 +38,15 @@ Jacobian under ``torch.func.jacfwd``, autograd, the CPU and gloo) runs the
 body eagerly.  A capture or replay error raises.  Every rank must capture
 at the same call: the mesh's callers run the forward in lockstep.
 
-The kernels' launch counts move at capture but no kernel runs then: the
-capture's increments are taken back and added again at every replay, so a
-count says how many launches the device ran; :func:`kernel_launches` reads
-the same counts from a profiler trace, which is how the tools check them.
-Replays of one graph run in stream order and never overlap: K3's arrival
-counters, which its wrapper caches per stream, are allocated and zeroed
-inside the capture, and the graph takes them out of that cache
-(:func:`take_stream_caches`), so that no other graph or call on a recycled
-stream handle shares them.
+The kernels' launch counts (``kernels.launch.LAUNCHES``) move at capture
+but no kernel runs then: the capture's increments are taken back and added
+again at every replay, so a count says how many launches the device ran;
+``launch.kernel_launches`` reads the same counts from a profiler trace,
+which is how the tools check them.  Replays of one graph run in stream
+order and never overlap: K3's arrival counters, cached per stream
+(``launch.arrival_counters``), are allocated and zeroed inside the
+capture, and the graph takes them out of that cache (``launch.take``), so
+that no other graph or call on a recycled stream handle shares them.
 
 The capture ring's launches are counted on the card (each replay's ring
 kernel runs the next epoch of its ring), so every rank must replay the
@@ -71,68 +71,13 @@ from typing import Callable, Dict, List, Sequence
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.parallel.collectives import is_constant
 from spectrobot_tpu_torch.utils.profiling import (
     annotate, capturing_spans, replayed_spans)
 
 # The profiler range around a replay (``halo_overlap``'s host marks).
 REPLAY_RANGE = "mesh_graph_replay"
-# Every kernel wrapper's launch count, as (module, attribute), and the
-# __global__ whose launches it counts (a trace's kernels are named so).
-COUNTERS = {("cuda_opacity", "LAUNCHES"): "opacity_batch_kernel",
-            ("cuda_basis", "LAUNCHES"): "basis_batch_kernel",
-            ("cuda_transpose", "LAUNCHES"): "basis_transpose_kernel",
-            ("cuda_single", "LAUNCHES"): "opacity_single_kernel",
-            ("cuda_basis_single", "LAUNCHES"): "basis_single_kernel",
-            ("cuda_fma", "LAUNCHES"): "fma_chain_kernel",
-            ("cuda_dma", "RING_LAUNCHES"): "dma_ring_kernel",
-            ("cuda_dma", "HALO_LAUNCHES"): "dma_halo_kernel",
-            ("cuda_epilogue", "LAUNCHES"): "rt_epilogue_kernel"}
-# The wrappers' per-stream caches of arrival counters, {(device, raw
-# stream handle): tensor}, as (module, attribute).
-STREAM_CACHES = (("cuda_single", "_COUNTERS"), ("cuda_transpose", "_COUNTERS"),
-                 ("cuda_dma", "_COUNTERS"))
-
-
-def _counter_modules() -> list:
-    """(module, attribute) of every launch count (imported here, not at
-    module import: ``ops.cuda_dma`` imports ``parallel.halo``)."""
-    import importlib
-    return [(importlib.import_module(f"spectrobot_tpu_torch.ops.{m}"), a)
-            for m, a in COUNTERS]
-
-
-def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by ``module.attribute``."""
-    return {f"{m.__name__.rsplit('.', 1)[1]}.{a}": getattr(m, a)
-            for m, a in _counter_modules()}
-
-
-def kernel_launches(names: Sequence[str]) -> Dict[str, int]:
-    """The launches of each counted kernel among the device events named
-    ``names`` (a profiler trace), by :func:`launch_counts`' names."""
-    return {f"{m}.{a}": sum(kernel in n for n in names)
-            for (m, a), kernel in COUNTERS.items()}
-
-
-def take_stream_caches(streams: Sequence[torch.cuda.Stream]) -> list:
-    """Take the arrival counters the wrappers cache for ``streams`` out of
-    their caches (``STREAM_CACHES``) and return them."""
-    import importlib
-    handles = {s.cuda_stream for s in streams}
-    taken = []
-    for m, a in STREAM_CACHES:
-        cache = getattr(importlib.import_module(
-            f"spectrobot_tpu_torch.ops.{m}"), a)
-        taken += [cache.pop(k) for k in list(cache) if k[1] in handles]
-    return taken
-
-
-def add_launches(delta: Dict[str, int]) -> None:
-    """Add ``delta`` (as :func:`launch_counts` names them) to the counts."""
-    for m, a in _counter_modules():
-        k = f"{m.__name__.rsplit('.', 1)[1]}.{a}"
-        setattr(m, a, getattr(m, a) + delta.get(k, 0))
 
 
 def constant_call(tensors: Sequence[torch.Tensor]) -> bool:
@@ -168,12 +113,12 @@ class _Graph:
         args, kwargs = tree_unflatten(static, spec)
         self.graph = torch.cuda.CUDAGraph()
         stream, side = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
-        before = launch_counts()
+        before = launch.LAUNCHES.copy()
         # The capture empties the allocator's cache first; so does this, so
         # that the growth of the reserved memory is the graph's own pool.
         torch.cuda.synchronize(dev)
         # Counters cached for a recycled stream handle are not this graph's.
-        take_stream_caches((stream, side))
+        launch.take((stream, side))
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         with contextlib.ExitStack() as stack:
@@ -184,17 +129,16 @@ class _Graph:
             self.out = body(*args, **kwargs, side=side)
         # The counters the capture allocated (and zeroes at every replay)
         # are the graph's own: no later call on these handles may share them.
-        self.counters = take_stream_caches((stream, side))
-        after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
-        add_launches({k: -n for k, n in self.launches.items()})
+        self.counters = launch.take((stream, side))
+        self.launches = launch.LAUNCHES - before
+        launch.LAUNCHES.subtract(self.launches)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
     def replay(self, tensors: List[torch.Tensor]):
         with annotate(REPLAY_RANGE):
             torch._foreach_copy_(self.inputs, tensors)
             self.graph.replay()
-            add_launches(self.launches)
+            launch.LAUNCHES.update(self.launches)
             replayed_spans(self.spans)
             return tree_map(torch.clone, self.out)
 

@@ -1,5 +1,5 @@
 """The peer workspace of a 1-D ``nu`` ring: what the remote-copy tier
-(``ops/cuda_dma.py``, ``dma_halo.py``) needs in place of the remote refs
+(``parallel/cuda_dma.py``, ``dma_halo.py``) needs in place of the remote refs
 and DMA semaphores that Pallas gives the reference's TPU kernels
 (``benchmarks/dma_halo.py``).
 
@@ -48,6 +48,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from spectrobot_tpu_torch.kernels import launch
+
 # Floats per copy item of the kernels: at most CHUNK_FLOATS (32 KB), at
 # least MIN_CHUNK_FLOATS (4 KB: one 16-byte load for each of a block's 256
 # threads; csrc/peer_ring.cuh MIN_CHUNK, checked when the library is
@@ -67,7 +69,6 @@ RING_ITEMS = 264
 # waiting kernel and loses its process's CUDA context.
 TIMEOUT_S = 5.0
 
-_LIB = None
 _MESH_RINGS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 # The rings whose workspace is open, in the order they opened.
 _OPEN: list = []
@@ -89,36 +90,20 @@ class RingArgs(ctypes.Structure):
                 ("n_dirs", ctypes.c_int)]
 
 
-def library() -> ctypes.CDLL:
-    """The library of ``csrc/dma_ring.cu`` (the ring kernel and the
-    workspace's functions), built and bound on first use."""
-    global _LIB
-    if _LIB is None:
-        from spectrobot_tpu_torch.kernels import build
-
-        lib = build.load("dma_ring")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name, args in (("dma_ws_alloc", [i32, i64, ptr]),
-                           ("dma_ws_free", [i32, ptr]),
-                           ("dma_ipc_get", [i32, ptr, ptr]),
-                           ("dma_ipc_open", [i32, ptr, ptr]),
-                           ("dma_ipc_close", [i32, ptr]),
-                           ("dma_ring_launch", [ctypes.POINTER(RingArgs)]),
-                           ("dma_ws_calls", [i32, ptr,
-                                             ctypes.POINTER(
-                                                 ctypes.c_ulonglong)])):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, i32
-        lib.dma_ws_bytes.argtypes, lib.dma_ws_bytes.restype = [i64], i64
-        lib.dma_ring_error_string.argtypes = [i32]
-        lib.dma_ring_error_string.restype = ctypes.c_char_p
-        layout = (lib.dma_ring_args_bytes(), lib.dma_min_chunk())
-        if layout != (ctypes.sizeof(RingArgs), MIN_CHUNK_FLOATS):
-            raise RuntimeError(f"ring kernel's argument bytes and least "
-                               f"chunk {layout} != the host's "
-                               f"{(ctypes.sizeof(RingArgs), MIN_CHUNK_FLOATS)}")
-        _LIB = lib
-    return _LIB
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The ring kernel and the workspace's functions (``csrc/dma_ring.cu``),
+# bound at their first use (``kernels.launch``).
+KERNEL = launch.Kernel(
+    "dma_ring", [ctypes.POINTER(RingArgs)],
+    {"dma_ring_args_bytes": ctypes.sizeof(RingArgs),
+     "dma_min_chunk": MIN_CHUNK_FLOATS},
+    {"dma_ws_alloc": ([_i32, _i64, _ptr], _i32),
+     "dma_ws_free": ([_i32, _ptr], _i32),
+     "dma_ipc_get": ([_i32, _ptr, _ptr], _i32),
+     "dma_ipc_open": ([_i32, _ptr, _ptr], _i32),
+     "dma_ipc_close": ([_i32, _ptr], _i32),
+     "dma_ws_calls": ([_i32, _ptr, ctypes.POINTER(ctypes.c_ulonglong)], _i32),
+     "dma_ws_bytes": ([_i64], _i64)})
 
 
 def ring_chunk(n_floats: int, n_loc: int) -> int:
@@ -139,11 +124,7 @@ def workspace_cap(n_floats: int) -> int:
 
 
 def _call(name: str, *args) -> None:
-    lib = library()
-    rc = getattr(lib, name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {rc} "
-                           f"({lib.dma_ring_error_string(rc).decode()})")
+    KERNEL.check(getattr(KERNEL.library(), name)(*args), name)
 
 
 def check_peer_access(devices: Sequence[int]) -> None:
@@ -201,7 +182,7 @@ class PeerWorkspace:
 
 def _alloc(idx: int, cap_floats: int) -> int:
     p = ctypes.c_void_p()
-    _call("dma_ws_alloc", idx, library().dma_ws_bytes(cap_floats),
+    _call("dma_ws_alloc", idx, KERNEL.library().dma_ws_bytes(cap_floats),
           ctypes.byref(p))
     return int(p.value)
 
@@ -229,10 +210,10 @@ def _open_ranks(mesh, device: torch.device,
     devices = [None] * n
     dist.all_gather_object(devices, idx, group=group)
     check_peer_access(devices)
-    lib = library()
     with torch.cuda.device(device):
         own = _alloc(idx, cap_floats)
-        handle = ctypes.create_string_buffer(lib.dma_ipc_handle_bytes())
+        handle = ctypes.create_string_buffer(
+            KERNEL.library().dma_ipc_handle_bytes())
         _call("dma_ipc_get", idx, ctypes.c_void_p(own),
               ctypes.cast(handle, ctypes.c_void_p))
         handles = [None] * n
@@ -345,7 +326,7 @@ class Ring:
         CPU."""
         if self.device.type != "cuda":
             return
-        library()
+        KERNEL.library()
         self.sync_once("dma_ring")
         ws = self.workspace
         if self.on_device and ws is not None and ws.cap_floats < n_floats:

@@ -15,6 +15,7 @@ from spectrobot_tpu.data.synth import random_lines
 from spectrobot_tpu.ops import opacity as jop
 from spectrobot_tpu.ops.pallas_opacity import basis_contract_pallas_batch_jit
 from spectrobot_tpu.ops.strengths import device_lines_from_linelist as j_stage
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_basis as cb
 
 torch.set_num_threads(1)
@@ -85,10 +86,10 @@ def test_row_groups_match_the_reference_at_228_rows():
         *(jnp.asarray(c) for c in C), cutoff_cm1=25.0, interpret=True))
     t = torch.as_tensor
     Ct = [t(c) for c in C]
-    before = cb.LAUNCHES
+    before = launch.LAUNCHES["basis_batch_kernel"]
     got = cb.contract_row_groups(
         Ct, torch.empty(ref.shape, dtype=torch.float32),
         lambda Cg, out_g: out_g.copy_(cb.basis_contract_batch_plain(
             t(nu), t(nc), t(sx), t(y), *Cg)))
-    assert cb.LAUNCHES == before
+    assert launch.LAUNCHES["basis_batch_kernel"] == before
     assert np.max(np.abs(got.numpy() - ref)) <= 1e-5 * np.abs(ref).max()

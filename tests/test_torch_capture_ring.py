@@ -24,8 +24,8 @@ import pytest
 import torch
 
 import torch_mesh_cases as cases
-from spectrobot_tpu_torch.ops import cuda_dma
 from spectrobot_tpu_torch.parallel import collectives as C
+from spectrobot_tpu_torch.parallel import cuda_dma
 from spectrobot_tpu_torch.parallel import peer
 
 torch.set_num_threads(1)

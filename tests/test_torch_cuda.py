@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_basis as cb
 from spectrobot_tpu_torch.ops import cuda_opacity as co
 from spectrobot_tpu_torch.ops.cuda_single import segments
@@ -49,12 +50,12 @@ def _inputs(device, n_states=6, n_lines=300, n_points=1000, seed=0):
 def test_kernel_matches_plain(cuda, with_chi, cutoff):
     nu, nu0, nc, sx, y, amps, chi = _inputs(cuda)
     chi = chi if with_chi else None
-    before = co.LAUNCHES
+    before = launch.LAUNCHES["opacity_batch_kernel"]
     win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
     got = co.accumulate_batch(nu, win, nc, sx, y, amps, cutoff_cm1=cutoff,
                               chi_b=chi)
     torch.cuda.synchronize()
-    assert co.LAUNCHES == before + 1
+    assert launch.LAUNCHES["opacity_batch_kernel"] == before + 1
     ref = co.accumulate_batch_plain(nu, nc, sx, y, amps, cutoff_cm1=cutoff,
                                     chi_b=chi)
     assert torch.all(got[2] == 0)
@@ -119,9 +120,9 @@ def test_kernel_takes_rows_of_any_length(cuda, n_lines, n_points):
     for chi_b in (None, chi):
         call = lambda: co.accumulate_batch(nu, win, nc, sx, y, amps,
                                            chi_b=chi_b)
-        before = co.LAUNCHES
+        before = launch.LAUNCHES["opacity_batch_kernel"]
         assert _tensor_ops(call) == ["aten.empty.memory_format"]
-        assert co.LAUNCHES == before + 2
+        assert launch.LAUNCHES["opacity_batch_kernel"] == before + 2
         got = call()
         ref = co.accumulate_batch_plain(nu, nc, sx, y, amps, chi_b=chi_b)
         assert got.shape == (nc.shape[0], 2, n_points) and got.is_contiguous()
@@ -184,12 +185,12 @@ BASIS_ROWS = [1, 2, 10, 66, 68, 223]
 def test_basis_kernel_matches_plain(cuda, n_rows, with_chi, cutoff):
     nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda, n_rows=n_rows)
     chi = chi if with_chi else None
-    before = cb.LAUNCHES
+    before = launch.LAUNCHES["basis_batch_kernel"]
     win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
     got = cb.basis_contract_batch(nu, win, nc, sx, y, *C, cutoff_cm1=cutoff,
                                   chi_b=chi)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES == before + 1
+    assert launch.LAUNCHES["basis_batch_kernel"] == before + 1
     ref = cb.basis_contract_batch_plain(nu, nc, sx, y, *C, cutoff_cm1=cutoff,
                                         chi_b=chi)
     assert got.shape == ref.shape == (nc.shape[0], n_rows, nu.shape[0])
@@ -232,11 +233,12 @@ def test_basis_kernel_rejects_what_it_does_not_take(cuda):
     # One row past a launch's limit: two launches (112 + 112 rows), each
     # row the same as at the limit in one launch.
     for R, n in ((cb.MAX_ROWS, 1), (cb.MAX_ROWS + 1, 2)):
-        before = cb.LAUNCHES
+        before = launch.LAUNCHES["basis_batch_kernel"]
         rows = [c[:, :1].expand(-1, R, -1).contiguous() for c in C]
         out = cb.basis_contract_batch(nu, win, nc, sx, y, *rows)
         torch.cuda.synchronize()
-        assert cb.LAUNCHES == before + n and out.shape[1] == R
+        assert launch.LAUNCHES["basis_batch_kernel"] == before + n
+        assert out.shape[1] == R
         assert torch.equal(out[:, 0], out[:, -1])
 
 
@@ -246,11 +248,12 @@ def test_basis_kernel_takes_any_number_of_rows(cuda, n_rows):
     three of 150), each writing its rows of one output: against the
     plain version within K2's budget."""
     nu, nu0, nc, sx, y, C, chi = _basis_inputs(cuda, n_rows=n_rows)
-    before = cb.LAUNCHES
+    before = launch.LAUNCHES["basis_batch_kernel"]
     got = cb.basis_contract_batch(nu, co.line_windows(nu, nu0), nc, sx, y,
                                   *C, chi_b=chi)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES == before + len(cb.row_spans(n_rows))
+    assert (launch.LAUNCHES["basis_batch_kernel"]
+            == before + len(cb.row_spans(n_rows)))
     ref = cb.basis_contract_batch_plain(nu, nc, sx, y, *C, chi_b=chi)
     assert got.shape == ref.shape == (nc.shape[0], n_rows, nu.shape[0])
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
@@ -293,10 +296,11 @@ def test_jacobian_through_the_kernels_matches_plain(cuda):
     jac = {}
     for engine in (cb.KERNELS, cb.PLAIN):
         fwd = cli.scene_forward(cfg, scene, atm, engine)
-        k1, k2 = co.LAUNCHES, cb.LAUNCHES
+        before = launch.LAUNCHES.copy()
         jac[engine.name] = torch.func.jacfwd(lambda x: fwd(unravel(x)))(x0)
         torch.cuda.synchronize()
-        launched = (co.LAUNCHES - k1, cb.LAUNCHES - k2)
+        got = launch.LAUNCHES - before
+        launched = (got["opacity_batch_kernel"], got["basis_batch_kernel"])
         assert launched == ((1, 1) if engine is cb.KERNELS else (0, 0))
     J, J_plain = jac["kernels"], jac["plain"]
     assert J.shape == (3 * 32, 9) and bool(torch.isfinite(J).all())
@@ -329,12 +333,12 @@ def test_transpose_kernel_matches_plain(cuda, n_rows, with_chi, cutoff):
 
     nu, nu0, nc, sx, y, _, chi, ct = _transpose_inputs(cuda, n_rows)
     chi = chi if with_chi else None
-    before = ctr.LAUNCHES
+    before = launch.LAUNCHES["basis_transpose_kernel"]
     win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
     got = ctr.basis_transpose_batch(nu, win, nc, sx, y, ct,
                                     cutoff_cm1=cutoff, chi_b=chi)
     torch.cuda.synchronize()
-    assert ctr.LAUNCHES == before + 1
+    assert launch.LAUNCHES["basis_transpose_kernel"] == before + 1
     ref = ctr.basis_transpose_batch_plain(nu, nc, sx, y, ct,
                                           cutoff_cm1=cutoff, chi_b=chi)
     for g, r in zip(got, ref):
@@ -367,10 +371,10 @@ def test_transpose_kernel_over_segments(cuda, monkeypatch, target, with_chi):
     assert (n_seg == 1) == (target == 1) and (target == 1 or seg_tiles == 1)
     call = lambda: ctr.basis_transpose_batch(nu, win, nc, sx, y, ct,
                                              chi_b=chi)
-    before = ctr.LAUNCHES
+    before = launch.LAUNCHES["basis_transpose_kernel"]
     ops = _tensor_ops(call)
     assert ops == ["aten.empty.memory_format"] * (4 if n_seg == 1 else 5)
-    assert ctr.LAUNCHES == before + 2
+    assert launch.LAUNCHES["basis_transpose_kernel"] == before + 2
     got = call()
     ref = ctr.basis_transpose_batch_plain(nu, nc, sx, y, ct, chi_b=chi)
     for g, r in zip(got, ref):
@@ -471,10 +475,12 @@ def test_jacrev_through_the_kernels_matches_jacfwd(cuda):
         ils_W=scene.W, n_sub=2, nu_off=scene.nu_off, windows=scene.windows,
         analytic_jvp=mode) for mode in (True, "rev")}
     J = torch.func.jacfwd(lambda x: fwd[True](unravel(x)))(x0)
-    k1, k5 = co.LAUNCHES, ctr.LAUNCHES
+    before = launch.LAUNCHES.copy()
     Jr = torch.func.jacrev(lambda x: fwd["rev"](unravel(x)))(x0)
     torch.cuda.synchronize()
-    assert (co.LAUNCHES - k1, ctr.LAUNCHES - k5) == (1, 1)
+    got = launch.LAUNCHES - before
+    assert (got["opacity_batch_kernel"], got["basis_transpose_kernel"]) \
+        == (1, 1)
     assert Jr.shape == J.shape == (2 * 16, 9)
     assert float((Jr - J).abs().max()) <= 1e-5 * float(J.abs().max())
 
@@ -506,12 +512,12 @@ def test_single_kernel_matches_plain(cuda, n_out, cutoff):
     from spectrobot_tpu_torch.ops import cuda_single as cs
     nu, nu0, nc, sx, y, amps, chi = _single_inputs(cuda, n_out)
     for chi_b in (None, chi):
-        before = cs.LAUNCHES
+        before = launch.LAUNCHES["opacity_single_kernel"]
         win = co.line_windows(nu, nu0, cutoff_cm1=cutoff)
         got = cs.accumulate_single(nu, win, nc, sx, y, amps,
                                    cutoff_cm1=cutoff, chi_b=chi_b)
         torch.cuda.synchronize()
-        assert cs.LAUNCHES == before + 1
+        assert launch.LAUNCHES["opacity_single_kernel"] == before + 1
         assert cs.segments(win)[0] > 1
         ref = cs.accumulate_single_plain(nu, nc, sx, y, amps,
                                          cutoff_cm1=cutoff, chi_b=chi_b)
@@ -537,9 +543,9 @@ def test_single_kernel_takes_rows_of_any_length(cuda, n_out, cutoff):
     for chi_b in (None, chi):
         call = lambda: cs.accumulate_single(nu, win, nc, sx, y, amps,
                                             cutoff_cm1=cutoff, chi_b=chi_b)
-        before = cs.LAUNCHES
+        before = launch.LAUNCHES["opacity_single_kernel"]
         assert _tensor_ops(call) == ["aten.empty.memory_format"] * 2
-        assert cs.LAUNCHES == before + 2
+        assert launch.LAUNCHES["opacity_single_kernel"] == before + 2
         got = call()
         ref = cs.accumulate_single_plain(nu, nc, sx, y, amps,
                                          cutoff_cm1=cutoff, chi_b=chi_b)
@@ -617,11 +623,11 @@ def test_single_basis_kernel_matches_plain(cuda, n_rows, cutoff):
     assert segments(win)[0] > 1
     assert cbs.row_groups(n_rows)[0] == (2 if n_rows > cbs.MAX_ROWS else 1)
     for chi_b in (None, chi):
-        before = cbs.LAUNCHES
+        before = launch.LAUNCHES["basis_single_kernel"]
         got = cbs.basis_contract_single(nu, win, nc, sx, y, *C,
                                         cutoff_cm1=cutoff, chi_b=chi_b)
         torch.cuda.synchronize()
-        assert cbs.LAUNCHES == before + 1
+        assert launch.LAUNCHES["basis_single_kernel"] == before + 1
         ref = cbs.basis_contract_single_plain(nu, nc, sx, y, *C,
                                               cutoff_cm1=cutoff, chi_b=chi_b)
         assert got.shape == ref.shape == (n_rows, nu.shape[0])
@@ -695,17 +701,18 @@ SMALL_SLICE = {"grid.nu_min": "660.0", "grid.nu_max": "674.0",
                "instrument.n_channels": "32"}
 
 
+# The line-sum kernels' labels, by __global__ name.
+LABELS = {"opacity_batch_kernel": "K1", "basis_batch_kernel": "K2",
+          "basis_transpose_kernel": "K5", "opacity_single_kernel": "K3",
+          "basis_single_kernel": "K4"}
+
+
 def _launched(fn):
     """(fn(), the launches of K1, K2, K5, K3 and K4 it made)."""
-    from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
-    from spectrobot_tpu_torch.ops import cuda_single as cs
-    from spectrobot_tpu_torch.ops import cuda_transpose as ctr
-    mods = (co, cb, ctr, cs, cbs)
-    before = [m.LAUNCHES for m in mods]
+    before = launch.LAUNCHES.copy()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(zip(("K1", "K2", "K5", "K3", "K4"),
-                         (m.LAUNCHES - b for m, b in zip(mods, before))))
+    return out, {k: launch.LAUNCHES[g] - before[g] for g, k in LABELS.items()}
 
 
 def test_float64_slice_through_the_kernels(cuda):
@@ -995,13 +1002,13 @@ def test_graph_replay_launches_each_kernel_once_a_source(graph_runs):
         for name, rec in out.items():
             if name == "K3 halo":
                 hops = len(_hops(n))
-                want = {"cuda_single.LAUNCHES": 1 + hops}
+                want = {"opacity_single_kernel": 1 + hops}
             else:
                 tier, shape = name.split(" ", 1)
                 n_nu = int(shape.strip("()").split(",")[2])
                 hops = len(_hops(n_nu)) if tier == "nu-halo" else 0
-                want = {"cuda_opacity.LAUNCHES": 1 + hops}
-            replay = {**want, **({"cuda_dma.RING_LAUNCHES": 1} if hops
+                want = {"opacity_batch_kernel": 1 + hops}
+            replay = {**want, **({"dma_ring_kernel": 1} if hops
                                  else {})}
             assert [c[1] for c in rec["calls"]] == [want] + [replay] * 4, \
                 name
@@ -1036,17 +1043,17 @@ def test_dma_ring_matches_roll(cuda, n, direction):
     and a ragged last chunk, across a regrowth of the workspace (the last
     block), twice in a row (the epoch protocol across calls); one launch
     per call."""
-    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
     ring = loopback_ring(n, cuda)
     g = torch.Generator(device=cuda).manual_seed(n)
     for shape in ((8, 128), (3, 333), (5, 3001), (64, 4096)):
         x = torch.randn((n,) + shape, generator=g, device=cuda)
         for _ in range(2):
-            before = cuda_dma.RING_LAUNCHES
+            before = launch.LAUNCHES["dma_ring_kernel"]
             got = cuda_dma.ring_exchange_cuda(ring, x, direction)
             torch.cuda.synchronize()
-            assert cuda_dma.RING_LAUNCHES == before + 1
+            assert launch.LAUNCHES["dma_ring_kernel"] == before + 1
             assert torch.equal(got, torch.roll(x, direction, 0))
     ring.close()
 
@@ -1057,7 +1064,7 @@ def test_dma_ring_back_to_back(cuda, n):
     directions in turns, at blocks of 1001 floats (not a multiple of 4 or
     of a chunk): each call waits for its own epoch's flags, and every
     result is the roll."""
-    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
     ring = loopback_ring(n, cuda)
     g = torch.Generator(device=cuda).manual_seed(10 + n)
@@ -1081,17 +1088,17 @@ def test_captured_ring_exchange_counts_its_epoch_on_the_card(cuda, n):
     blocks (15005 floats: 4-byte copies, several chunks); the count of
     calls read back from the card moves by one a launch (not at the
     capture), and the host counts none."""
-    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel.peer import Ring
     ring = Ring(n, cuda, on_device=True)
     g = torch.Generator(device=cuda).manual_seed(30 + n)
     x = torch.randn((n, 5, 3001), generator=g, device=cuda)
     ring.reserve(x.numel() // n)
     rolls = lambda v: torch.stack([torch.roll(v, 1, 0), torch.roll(v, -1, 0)])
-    before = cuda_dma.RING_LAUNCHES
+    before = launch.LAUNCHES["dma_ring_kernel"]
     got = cuda_dma.ring_exchange_hops(ring, x, (1, -1))
     torch.cuda.synchronize()
-    assert cuda_dma.RING_LAUNCHES == before + 1
+    assert launch.LAUNCHES["dma_ring_kernel"] == before + 1
     assert torch.equal(got, rolls(x)) and ring.device_calls() == 1
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1156,7 +1163,7 @@ def test_dma_halo_matches_plain(cuda, n, cutoff, variant):
     per call, bit-equal from call to call, the entry point equal to the
     wrapper on the packed rows."""
     from spectrobot_tpu_torch import dma_halo
-    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
     nu, skl = _dma_scene(cuda, n, cutoff, variant)
@@ -1164,10 +1171,10 @@ def test_dma_halo_matches_plain(cuda, n, cutoff, variant):
     f = dma_halo.fused_halo_accumulate_fn(ring, cutoff_cm1=cutoff)
     outs = []
     for _ in range(2):
-        before = cuda_dma.HALO_LAUNCHES
+        before = launch.LAUNCHES["dma_halo_kernel"]
         outs.append(f(nu, skl))
         torch.cuda.synchronize()
-        assert cuda_dma.HALO_LAUNCHES == before + 1
+        assert launch.LAUNCHES["dma_halo_kernel"] == before + 1
     assert torch.equal(outs[0], outs[1])
     packed = halo.pack_lines(halo.KernelLines(*skl))
     n_out = packed.shape[1] - 3
@@ -1187,7 +1194,7 @@ def test_dma_halo_wrapper_only_allocates(cuda):
     apart) allocate the output and launch the kernel once, with no other
     tensor operation: no pads, no slice, no layout pass (the scratch and
     the counters are kept per stream); the counters are left zero."""
-    from spectrobot_tpu_torch.ops import cuda_dma
+    from spectrobot_tpu_torch.parallel import cuda_dma
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel.peer import loopback_ring
     nu, skl = _dma_scene(cuda, 4, 10.0, "ragged")
@@ -1199,12 +1206,14 @@ def test_dma_halo_wrapper_only_allocates(cuda):
                      ring, nu4, packed, cutoff_cm1=10.0),
                  lambda: cuda_dma.fused_halo_accumulate_lines(
                      ring, nu4, lines, cutoff_cm1=10.0)):
-        before = cuda_dma.HALO_LAUNCHES
+        before = launch.LAUNCHES["dma_halo_kernel"]
         assert _tensor_ops(call) == ["aten.empty.memory_format"]
-        assert cuda_dma.HALO_LAUNCHES == before + 2
+        assert launch.LAUNCHES["dma_halo_kernel"] == before + 2
     torch.cuda.synchronize()
-    assert all(int(c.abs().sum()) == 0
-               for c in cuda_dma._COUNTERS.values())
+    dev = nu.device
+    counters = launch.arrival_counters("dma_halo", dev,
+                                       launch.stream(dev.index), 1)
+    assert int(counters.abs().sum()) == 0
     ring.close()
 
 
@@ -1282,10 +1291,10 @@ def test_lut_build_runs_k1(cuda, tier):
     if tier == "nlte":
         ov.update({"nlte.enabled": "true", "nlte.t_vib": "demo:co2_pump"})
     cfg = cli.load_config(None, ov)
-    before = co.LAUNCHES
+    before = launch.LAUNCHES["opacity_batch_kernel"]
     scene = cli.build_scene(cfg, cuda)
     torch.cuda.synchronize()
-    assert co.LAUNCHES == before + 1
+    assert launch.LAUNCHES["opacity_batch_kernel"] == before + 1
     build = lut.build_nlte_lut if tier == "nlte" else lut.build_lut
     plain = build(scene.nu, scene.lines, 2, engine=cb.PLAIN,
                   **cli.lut_lattice(cfg, scene.atm, scene.species_names,
@@ -1300,10 +1309,11 @@ def test_lut_build_runs_k1(cuda, tier):
     atm = scene.atm.to(torch.float32)
     x0, unravel = flatten_state(make_state(atm, []))
     fwd = cli.scene_forward(cfg, scene, atm)
-    k1, k2 = co.LAUNCHES, cb.LAUNCHES
+    before = launch.LAUNCHES.copy()
     J = torch.func.jacfwd(lambda x: fwd(unravel(x)))(x0)
     torch.cuda.synchronize()
-    assert (co.LAUNCHES, cb.LAUNCHES) == (k1, k2)
+    got = launch.LAUNCHES - before
+    assert (got["opacity_batch_kernel"], got["basis_batch_kernel"]) == (0, 0)
     assert bool(torch.isfinite(J).all()) and float(J.abs().max()) > 0.0
 
 
@@ -1316,10 +1326,10 @@ def test_fma_peak_runs(cuda):
 
     x = torch.rand(1 << 16, device=cuda) + 0.5
     for depth in cuda_fma.DEPTHS:
-        before = cuda_fma.LAUNCHES
+        before = launch.LAUNCHES["fma_chain_kernel"]
         got = cuda_fma.fma_chain(x, bench.FMA_A, bench.FMA_B, depth)
         torch.cuda.synchronize()
-        assert cuda_fma.LAUNCHES == before + 1
+        assert launch.LAUNCHES["fma_chain_kernel"] == before + 1
         ref = cuda_fma.fma_chain_plain(x, bench.FMA_A, bench.FMA_B, depth)
         assert torch.equal(got, ref)
     peak, rates, n = bench.fma_ceiling(cuda, n_rep=1)

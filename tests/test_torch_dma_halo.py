@@ -1,5 +1,5 @@
 """The remote-copy halo tier of the port (spectrobot_tpu_torch/dma_halo.py,
-ops/cuda_dma.py and parallel/peer.py; their plain versions on the CPU)
+parallel/cuda_dma.py and parallel/peer.py; their plain versions on the CPU)
 against the reference's retired tier (benchmarks/dma_halo.py, Pallas in
 interpret mode on the emulated mesh, as tests/test_dma_halo.py runs it):
 the ring roll, ring_halo_lines and the fused halo sum, each on the
@@ -22,9 +22,9 @@ from spectrobot_tpu.ops.opacity import line_kernel_inputs
 from spectrobot_tpu.ops.strengths import device_lines_from_linelist
 from spectrobot_tpu.parallel import halo as jhalo
 from spectrobot_tpu_torch import dma_halo
-from spectrobot_tpu_torch.ops import cuda_dma
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
-from spectrobot_tpu_torch.parallel import halo, peer
+from spectrobot_tpu_torch.parallel import cuda_dma, halo, peer
 from spectrobot_tpu_torch.parallel.halo import ShardedKernelLines
 
 import torch_mesh_cases as cases
@@ -126,10 +126,10 @@ def _fused_tol(ref):
 @pytest.mark.parametrize("direction", [1, -1])
 def test_ring_loopback_matches_jax(jax_refs, n, direction):
     ring = peer.loopback_ring(n, "cpu")
-    before = cuda_dma.RING_LAUNCHES
+    before = launch.LAUNCHES["dma_ring_kernel"]
     got = dma_halo.ring_exchange(ring, "nu", direction)(
         torch.as_tensor(_ring_x(n)))
-    assert cuda_dma.RING_LAUNCHES == before     # a CPU tensor: plain
+    assert launch.LAUNCHES["dma_ring_kernel"] == before   # CPU tensor: plain
     ref = jax_refs["ring"][n, direction]
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(ref, np.roll(_ring_x(n).reshape(
@@ -197,10 +197,10 @@ def test_ring_halo_lines_gloo_matches_jax(jax_refs, gloo):
 def test_fused_loopback_matches_jax(jax_refs, n):
     nu, skl, ref = jax_refs["fused"][n]
     ring = peer.loopback_ring(n, "cpu")
-    before = cuda_dma.HALO_LAUNCHES
+    before = launch.LAUNCHES["dma_halo_kernel"]
     got = dma_halo.fused_halo_accumulate_fn(ring, cutoff_cm1=CUTOFF)(
         torch.as_tensor(nu), _torch_skl(skl))
-    assert cuda_dma.HALO_LAUNCHES == before
+    assert launch.LAUNCHES["dma_halo_kernel"] == before
     assert got.shape == ref.shape == (2, len(nu))
     np.testing.assert_allclose(got.numpy(), ref, **_fused_tol(ref))
 
@@ -374,13 +374,13 @@ def test_fused_lines_route_is_the_packed_route(jax_refs, n):
     ring = peer.loopback_ring(n, "cpu")
     nu_t = torch.as_tensor(nu).reshape(n, -1)
     lines = KernelLines(*_torch_skl(skl))
-    before = cuda_dma.HALO_LAUNCHES
+    before = launch.LAUNCHES["dma_halo_kernel"]
     got = cuda_dma.fused_halo_accumulate_lines(ring, nu_t, lines,
                                                cutoff_cm1=CUTOFF)
     want = cuda_dma.fused_halo_accumulate_cuda(ring, nu_t,
                                                halo.pack_lines(lines),
                                                cutoff_cm1=CUTOFF)
-    assert cuda_dma.HALO_LAUNCHES == before and ring.epoch == 2
+    assert launch.LAUNCHES["dma_halo_kernel"] == before and ring.epoch == 2
     assert torch.equal(got, want.transpose(0, 1).reshape(2, -1))
     with pytest.raises(ValueError, match="scale_x must be"):
         cuda_dma.fused_halo_accumulate_lines(

@@ -28,6 +28,7 @@ from epilogue_cases import CELLS
 from epilogue_cases import case as cell_case
 from epilogue_cases import coefficients, contract
 from spectrobot_tpu_torch.forward import limb
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_epilogue as ce
 
 pytestmark = pytest.mark.cuda
@@ -69,11 +70,11 @@ def _case(dev, dtype, cell):
 @pytest.mark.parametrize("cell", [*CELLS, "nadir"])
 def test_kernel_matches_the_composed_epilogue(cuda, cell, dtype):
     prim, tan, _ = _case(cuda, dtype, cell)
-    before = ce.LAUNCHES
+    before = launch.LAUNCHES["rt_epilogue_kernel"]
     I = ce.radiance(*prim)
     dI = ce.radiance_tangent(*prim, *tan)
     torch.cuda.synchronize()
-    assert ce.LAUNCHES == before + 2
+    assert launch.LAUNCHES["rt_epilogue_kernel"] == before + 2
     I_ref = ce.composed_radiance(*prim)
     dI_ref = ce.composed_tangent(*prim, *tan)
     assert I.shape == I_ref.shape and dI.shape == dI_ref.shape
@@ -117,10 +118,11 @@ def test_the_cli_forward_takes_the_kernel(cuda, monkeypatch):
     cfg = cli.load_config(None, SLICE)
     scene = cli.build_scene(cfg, cuda)
     engine = cli.select_engine(cfg, cuda)
-    before, launches = dict(limb.EPILOGUE_COUNTS), ce.LAUNCHES
+    before = dict(limb.EPILOGUE_COUNTS)
+    launches = launch.LAUNCHES["rt_epilogue_kernel"]
     I = cli.run_forward(cfg, scene, engine)
     torch.cuda.synchronize()
-    assert ce.LAUNCHES == launches + 1
+    assert launch.LAUNCHES["rt_epilogue_kernel"] == launches + 1
     assert limb.EPILOGUE_COUNTS == {"fused": before["fused"] + 1,
                                     "composed": before["composed"]}
     monkeypatch.setattr(limb, "_on_card", lambda t: False)
@@ -203,16 +205,17 @@ def test_the_retrieval_jacobian_takes_one_launch(cuda, monkeypatch):
         return tangent(*a)
 
     monkeypatch.setattr(ce, "radiance_tangent", record)
-    before = ce.LAUNCHES
+    before = launch.LAUNCHES["rt_epilogue_kernel"]
     J = torch.func.jacfwd(prob.fwd_flat)(prob.x0)
     torch.cuda.synchronize()
-    assert ce.LAUNCHES == before + 2          # the primal and the tangent
+    # The primal and the tangent.
+    assert launch.LAUNCHES["rt_epilogue_kernel"] == before + 2
     n_x = int(prob.x0.shape[0])
     assert len(seen) == 1 and seen[0][0][0] == n_x and not seen[0][2]
     assert seen[0][1][-1] == 1
     monkeypatch.setattr(limb, "_on_card", lambda t: False)
     J_ref = torch.func.jacfwd(prob.fwd_flat)(prob.x0)
-    assert ce.LAUNCHES == before + 2
+    assert launch.LAUNCHES["rt_epilogue_kernel"] == before + 2
     assert rel_err(J, J_ref) <= TANGENT_REL[torch.float32]
 
 
@@ -225,11 +228,11 @@ def test_graph_replays_bit_equal(cuda):
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        before = ce.LAUNCHES
+        before = launch.LAUNCHES["rt_epilogue_kernel"]
         with torch.cuda.graph(graph, stream=stream):
             out = (ce.radiance(*prim), ce.radiance_tangent(*prim, *tan))
     torch.cuda.current_stream().wait_stream(stream)
-    assert ce.LAUNCHES == before + 2
+    assert launch.LAUNCHES["rt_epilogue_kernel"] == before + 2
     graph.replay()
     torch.cuda.synchronize()
     assert all(torch.equal(o, e) for o, e in zip(out, eager))

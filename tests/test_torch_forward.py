@@ -20,6 +20,7 @@ from spectrobot_tpu_torch.data.atmosphere import MARS
 from spectrobot_tpu_torch.forward import geometry as tgeo
 from spectrobot_tpu_torch.forward import limb as tlimb
 from spectrobot_tpu_torch.forward import rt as trt
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_opacity as co
 
 CPU = torch.device("cpu")
@@ -111,12 +112,12 @@ def test_layer_tau_kernel_matches_pallas_interpret():
                                  interpret=True)
     tl = interop.device_lines_from_numpy(_numpy(dl), device=CPU)
     tcg = interop.path_cg_from_numpy(_numpy(cg), device=CPU)
-    before = co.LAUNCHES
+    before = launch.LAUNCHES["opacity_batch_kernel"]
     t_nu_off = torch.tensor(np.asarray(nu_off))
     got = tlimb.layer_tau_kernel(t_nu_off, tl, tcg,
                                  co.line_windows(t_nu_off, tl.nu0),
                                  cutoff_cm1=25.0)
-    assert co.LAUNCHES == before
+    assert launch.LAUNCHES["opacity_batch_kernel"] == before
     for r, g in zip(ref, got):
         r = np.asarray(r)
         assert g.dtype == torch.float32 and g.shape == r.shape

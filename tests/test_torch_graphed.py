@@ -10,8 +10,8 @@ graphed.py) on the CPU, where no graph is made:
   capture anew, non-constant calls run the body;
 - the launch counts a replay adds, and their reading from a profiler
   trace's kernel names;
-- a capture takes its streams' arrival counters out of the wrappers'
-  caches;
+- a capture takes its streams' arrival counters and scratch out of the
+  launches' per-stream cache (kernels/launch.py);
 - on 2 gloo ranks, the nu-halo (limb and nadir), psum and K3 halo bodies
   of a non-LTE scene with the continuum read no tensor value on the host
   (which would stop their capture on the card), and through GraphedBody
@@ -22,10 +22,12 @@ The graphs themselves run on the card (tests/test_torch_cuda.py,
 chip_smoke.py phase 6c)."""
 
 import os
+from collections import Counter
 
 import pytest
 import torch
 
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.parallel import graphed
 
 import torch_mesh_cases as cases
@@ -121,20 +123,21 @@ def test_graphed_body_captures_once_a_key(monkeypatch):
 
 
 def test_launch_counts_add_and_take_back():
-    before = graphed.launch_counts()
-    assert set(before) == {f"{m}.{a}" for m, a in graphed.COUNTERS}
-    delta = {k: i + 1 for i, k in enumerate(before)}
-    graphed.add_launches(delta)
+    """A capture's increments taken back and added again, as
+    ``graphed._Graph`` does with ``launch.LAUNCHES``, over every kernel."""
+    before = launch.LAUNCHES.copy()
+    delta = Counter({k: i + 1 for i, k in enumerate(launch.KERNELS.values())})
+    launch.LAUNCHES.update(delta)
     try:
-        assert graphed.launch_counts() == {k: before[k] + delta[k]
-                                           for k in before}
+        assert launch.LAUNCHES == before + delta
+        assert launch.LAUNCHES - before == delta
     finally:
-        graphed.add_launches({k: -n for k, n in delta.items()})
-    assert graphed.launch_counts() == before
+        launch.LAUNCHES.subtract(delta)
+    assert launch.LAUNCHES == before
 
 
 def test_kernel_launches_read_from_trace_names():
-    """A trace's kernels counted by their wrappers' launch counts: two K1
+    """A trace's kernels counted by their __global__ names: two K1
     launches, one K3, none of a kernel whose name is a near miss."""
     names = ["opacity_batch_kernel(float const*, float*)",
              "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)",
@@ -142,10 +145,10 @@ def test_kernel_launches_read_from_trace_names():
              "void at::native::vectorized_elementwise_kernel<4>",
              "opacity_batch_kernel(float const*, float*)",
              "sum_segments_kernel(float const*, float*)"]
-    got = graphed.kernel_launches(names)
-    assert set(got) == set(graphed.launch_counts())
-    assert got == {k: {"cuda_opacity.LAUNCHES": 2,
-                       "cuda_single.LAUNCHES": 1}.get(k, 0) for k in got}
+    got = launch.kernel_launches(names)
+    assert set(got) == set(launch.KERNELS.values())
+    assert got == {k: {"opacity_batch_kernel": 2,
+                       "opacity_single_kernel": 1}.get(k, 0) for k in got}
 
 
 def test_traced_launches_on_the_cpu():
@@ -155,7 +158,7 @@ def test_traced_launches_on_the_cpu():
     x = torch.arange(4.0)
     got, out = ho.traced_launches(lambda: x * 2.0, torch.device("cpu"))
     assert torch.equal(out, x * 2.0)
-    assert got == dict.fromkeys(graphed.launch_counts(), 0)
+    assert got == dict.fromkeys(launch.KERNELS.values(), 0)
 
 
 class _Stream:
@@ -164,25 +167,25 @@ class _Stream:
 
 
 def test_capture_takes_its_streams_counters():
-    """The arrival counters cached for a capture's streams leave every
-    wrapper's cache; those of other streams stay."""
-    from spectrobot_tpu_torch.ops import cuda_dma, cuda_single
+    """The arrival counters and scratch cached for a capture's streams
+    leave the cache, whichever kernel owns them; those of other streams
+    stay."""
     dev = torch.device("cpu")
-    mine, other = torch.zeros(4), torch.zeros(4)
-    saved = dict(cuda_single._COUNTERS), dict(cuda_dma._COUNTERS)
+    saved = dict(launch._PER_STREAM)
     try:
-        cuda_single._COUNTERS.update({(dev, 11): mine, (dev, 12): other})
-        cuda_dma._COUNTERS[(dev, 13)] = mine
-        taken = graphed.take_stream_caches([_Stream(11), _Stream(13)])
-        assert len(taken) == 2 and all(t is mine for t in taken)
-        assert (dev, 11) not in cuda_single._COUNTERS
-        assert (dev, 13) not in cuda_dma._COUNTERS
-        assert cuda_single._COUNTERS[(dev, 12)] is other
+        mine = launch.arrival_counters("opacity_single", dev, 11, 4)
+        other = launch.arrival_counters("opacity_single", dev, 12, 4)
+        also_mine = launch.scratch("dma_halo", dev, 13, 4)
+        taken = launch.take([_Stream(11), _Stream(13)])
+        assert len(taken) == 2
+        assert {id(t) for t in taken} == {id(mine), id(also_mine)}
+        assert launch.arrival_counters("opacity_single", dev, 11, 4) \
+            is not mine
+        assert launch.arrival_counters("opacity_single", dev, 12, 4) \
+            is other
     finally:
-        for cache, old in zip((cuda_single._COUNTERS, cuda_dma._COUNTERS),
-                              saved):
-            cache.clear()
-            cache.update(old)
+        launch._PER_STREAM.clear()
+        launch._PER_STREAM.update(saved)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from spectrobot_tpu.ops.pallas_opacity import accumulate_pallas
 from spectrobot_tpu.ops.strengths import device_lines_from_linelist
 from spectrobot_tpu.parallel import halo as jhalo
 from spectrobot_tpu.parallel.mesh import make_mesh
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_opacity as co
 from spectrobot_tpu_torch.ops import cuda_single as cs
 from spectrobot_tpu_torch.ops.opacity import KernelLines
@@ -166,11 +167,12 @@ def test_accumulate_single_matches_jax_kernel(n_out, cutoff):
                                        block_l=128, cutoff_cm1=cutoff,
                                        interpret=True))
     t = _torch_kl(kl, torch.float32)
-    before = cs.LAUNCHES
+    before = launch.LAUNCHES["opacity_single_kernel"]
     win = co.line_windows(nu, t.nu_c.numpy(), cutoff_cm1=cutoff)
     got = cs.accumulate_single(torch.as_tensor(nu), win, *t[:4],
                                cutoff_cm1=cutoff)
-    assert cs.LAUNCHES == before          # a CPU tensor: the plain version
+    # A CPU tensor: the plain version.
+    assert launch.LAUNCHES["opacity_single_kernel"] == before
     assert got.shape == (n_out, len(nu))
     np.testing.assert_allclose(got.numpy(), ref, rtol=5e-5,
                                atol=np.abs(ref).max() * 1e-6)

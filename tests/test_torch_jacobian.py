@@ -20,6 +20,7 @@ from spectrobot_tpu.ops.strengths import device_lines_from_linelist as j_stage
 from spectrobot_tpu.retrieval import state as jstate
 from spectrobot_tpu_torch import interop
 from spectrobot_tpu_torch.data.atmosphere import MARS
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_basis as cb
 from spectrobot_tpu_torch.ops import opacity as top
 from spectrobot_tpu_torch.ops.cuda_opacity import line_windows
@@ -61,11 +62,12 @@ def test_basis_contract_plain_matches_pallas_interpret(basis_case):
         jnp.asarray(nu), jnp.asarray(nc), jnp.asarray(sx), jnp.asarray(y),
         *(jnp.asarray(c) for c in C), cutoff_cm1=25.0, interpret=True))
     t = torch.as_tensor
-    before = cb.LAUNCHES
+    before = launch.LAUNCHES["basis_batch_kernel"]
     got = cb.basis_contract_batch(
         t(nu), line_windows(t(nu), nu0), t(nc), t(sx), t(y),
         *(t(c) for c in C))
-    assert cb.LAUNCHES == before        # CPU tensors never launch
+    # CPU tensors never launch.
+    assert launch.LAUNCHES["basis_batch_kernel"] == before
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert np.max(np.abs(got.numpy() - ref)) <= 1e-5 * np.abs(ref).max()
 

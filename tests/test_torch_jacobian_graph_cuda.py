@@ -69,7 +69,7 @@ def _traced(fn):
     """(fn(), the launches of K1 and K2 its profiler trace shows)."""
     from spectrobot_tpu_torch.halo_overlap import traced_launches
     seen, out = traced_launches(fn, torch.device("cuda"))
-    return out, (seen["cuda_opacity.LAUNCHES"], seen["cuda_basis.LAUNCHES"])
+    return out, (seen["opacity_batch_kernel"], seen["basis_batch_kernel"])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

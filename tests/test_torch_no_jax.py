@@ -1,7 +1,7 @@
 """The port runs where JAX and the JAX package are not installed: every
 module of spectrobot_tpu_torch (the mesh's parallel/, K3's
 ops/cuda_single.py, K4's ops/cuda_basis_single.py and the remote-copy
-tier's dma_halo.py, ops/cuda_dma.py and parallel/peer.py, the table
+tier's dma_halo.py, parallel/cuda_dma.py and parallel/peer.py, the table
 tier's ops/lut.py and parallel/sharded_lut.py, and the Weideman
 evaluator's ops/voigt.py, the Spectrum family's spectra.py, forward/rt.py,
 ops/planck.py and utils/profiling.py and utils/debug.py, and the
@@ -34,7 +34,7 @@ for m in pkgutil.walk_packages(spectrobot_tpu_torch.__path__,
 for name in ("parallel.mesh", "parallel.collectives", "parallel.halo",
              "parallel.sharded", "parallel.retrieval", "parallel.oe",
              "ops.cuda_single", "ops.cuda_basis_single", "ops.chi",
-             "forward.model", "dma_halo", "ops.cuda_dma", "parallel.peer",
+             "forward.model", "dma_halo", "parallel.cuda_dma", "parallel.peer",
              "ops.lut", "parallel.sharded_lut", "ops.voigt", "ops.planck",
              "forward.rt", "spectra", "utils.profiling", "utils.debug",
              "halo_overlap"):

@@ -12,6 +12,7 @@ from spectrobot_tpu.ops import pallas_opacity as jpo
 from spectrobot_tpu.ops.opacity import accumulate_jnp
 from spectrobot_tpu.ops.opacity import line_kernel_inputs as j_kernel_inputs
 from spectrobot_tpu.ops.strengths import device_lines_from_linelist as j_stage
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_opacity as co
 from spectrobot_tpu_torch.ops.opacity import KernelLines, accumulate_plain
 
@@ -92,13 +93,14 @@ def test_accumulate_batch_cpu_matches_pallas_interpret(with_chi):
         jnp.asarray(nu), nu0, jnp.asarray(nc), jnp.asarray(sx),
         jnp.asarray(y), jnp.asarray(amps), cutoff_cm1=25.0, interpret=True,
         chi_b=None if chi is None else jnp.asarray(chi)))
-    before = co.LAUNCHES
+    before = launch.LAUNCHES["opacity_batch_kernel"]
     t = torch.as_tensor
     got = co.accumulate_batch(
         t(nu), co.line_windows(t(nu), nu0), t(nc), t(sx), t(y), t(amps),
         cutoff_cm1=25.0,
         chi_b=None if chi is None else t(chi))
-    assert co.LAUNCHES == before        # CPU tensors never launch
+    # CPU tensors never launch.
+    assert launch.LAUNCHES["opacity_batch_kernel"] == before
     assert got.dtype == torch.float32 and got.shape == ref.shape
     got = got.numpy()
     assert np.all(got[3] == 0.0)

@@ -15,6 +15,7 @@ from spectrobot_tpu.data.synth import random_lines
 from spectrobot_tpu.ops import opacity as jop
 from spectrobot_tpu.ops.pallas_opacity import basis_contract_pallas_jit
 from spectrobot_tpu.ops.strengths import device_lines_from_linelist as j_stage
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_basis as cb
 from spectrobot_tpu_torch.ops import cuda_basis_single as cbs
 from spectrobot_tpu_torch.ops import opacity as top
@@ -76,11 +77,12 @@ def test_basis_plain_matches_pallas_interpret(fixture):
         *(jnp.asarray(c) for c in C), tile_p=128, block_l=128,
         cutoff_cm1=25.0, interpret=True))
     t = torch.as_tensor
-    before = cbs.LAUNCHES
+    before = launch.LAUNCHES["basis_single_kernel"]
     got = cbs.basis_contract_single(
         t(fx["nu"]), line_windows(t(fx["nu"]), fx["nu0"]),
         *(t(fx[k]) for k in ("nc", "sx", "y")), *(t(c) for c in C))
-    assert cbs.LAUNCHES == before          # CPU tensors never launch
+    # CPU tensors never launch.
+    assert launch.LAUNCHES["basis_single_kernel"] == before
     assert got.dtype == torch.float32 and got.shape == ref.shape
     assert np.max(np.abs(got.numpy() - ref)) <= BASIS_REL * np.abs(ref).max()
 

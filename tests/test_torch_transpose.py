@@ -16,6 +16,7 @@ from spectrobot_tpu.ops import opacity as jop
 from spectrobot_tpu.ops import pallas_opacity as jpo
 from spectrobot_tpu.ops.strengths import device_lines_from_linelist as j_stage
 from spectrobot_tpu_torch import interop
+from spectrobot_tpu_torch.kernels import launch
 from spectrobot_tpu_torch.ops import cuda_basis as cb
 from spectrobot_tpu_torch.ops import cuda_opacity as co
 from spectrobot_tpu_torch.ops import opacity as top
@@ -241,10 +242,10 @@ def test_cpu_transpose_never_launches():
     nu, nu0, nc, sx, y, _, _ = _states(2)
     ct = np.random.default_rng(1).normal(size=(2, 2, nu.shape[0]))
     t = torch.as_tensor
-    before = ctr.LAUNCHES
+    before = launch.LAUNCHES["basis_transpose_kernel"]
     got = basis_transpose_batch(t(nu), co.line_windows(t(nu), nu0), t(nc),
                                 t(sx), t(y), t(ct.astype(np.float32)))
-    assert ctr.LAUNCHES == before
+    assert launch.LAUNCHES["basis_transpose_kernel"] == before
     ref = basis_transpose_batch_plain(t(nu), t(nc), t(sx), t(y),
                                       t(ct.astype(np.float32)))
     for g, r in zip(got, ref):

@@ -802,10 +802,10 @@ def graph_card_case(rank, world, tmp, shapes):
     import numpy as np
 
     from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.kernels.launch import LAUNCHES
     from spectrobot_tpu_torch.ops.opacity import KernelLines
     from spectrobot_tpu_torch.parallel import halo
     from spectrobot_tpu_torch.parallel import sharded as sh
-    from spectrobot_tpu_torch.parallel.graphed import launch_counts
     from spectrobot_tpu_torch.parallel.mesh import (
         finalize_multihost, make_mesh)
 
@@ -820,14 +820,14 @@ def graph_card_case(rank, world, tmp, shapes):
         the launches the first replay's profiler trace shows."""
         rec = []
         for j, i in enumerate((0, 1, 0, 1, 0)):
-            before = launch_counts()
+            before = LAUNCHES.copy()
             if j == 1:
                 seen, got = ho.traced_launches(lambda: calls[i](f), dev)
                 traced = {k: n for k, n in seen.items() if n}
             else:
                 got = calls[i](f)
             torch.cuda.synchronize()
-            after = launch_counts()
+            after = LAUNCHES.copy()
             rec.append((bool(torch.equal(got, calls[i](f.body))),
                         {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}))
@@ -927,6 +927,7 @@ def capture_ring_case(rank, world, msgs, shapes):
     import numpy as np
 
     from spectrobot_tpu_torch import halo_overlap as ho
+    from spectrobot_tpu_torch.kernels.launch import LAUNCHES
     from spectrobot_tpu_torch.ops.opacity import KernelLines
     from spectrobot_tpu_torch.parallel import collectives as C
     from spectrobot_tpu_torch.parallel import halo
